@@ -6,21 +6,30 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--epochs 40] [--pn_epochs 4]
 
 Phases, in order; any failure ends the run with a non-zero exit:
-1. build: compile ``csrc/siren.cu`` with nvcc (sm_90a) and print the time
-   and the compiler's register/spill report;
-2. kernel parity: K1 ``siren_loss_grads``, K2 ``siren_fused_bwd`` (dx and
-   dW) and K3 ``siren_forward`` against their plain PyTorch versions on the
-   card at the flagship shapes (P = 70,000 rows, 256 -> 512x4 -> 1), K3
-   also at the inference chunk (262,144 rows) and its ragged tails (71,424
-   and 17,856 rows), and a small end-to-end patient on the card's kernels against the plain path on
-   the CPU;
-3. main path: ``pipelines.superres3d.run`` on a seeded (128, 128, 28)
-   synthetic patient with 75 cross-b combinations at the ``reference``
-   preset's full width (hidden 512, 3 hidden layers, 128 mappings, PN 128,
-   ROI 40:90 -> 25x25x28x4 = 70,000 LR rows), epochs cut to ``--epochs``;
-   checks the CSV and timings.json, finite and clamped outputs, a falling
-   loss, and that K1, K2 and K3 each launched during this run;
-4. times: each kernel at the main path's shapes with CUDA events, beside
+1. build: compile ``csrc/siren.cu`` and ``csrc/wire.cu`` with nvcc (sm_90a),
+   one process each, started together, and print the times and the
+   compiler's register/spill report;
+2. kernel parity against the plain PyTorch versions on the card: K1
+   ``siren_loss_grads``, K2 ``siren_fused_bwd`` (dx and dW) and K3
+   ``siren_forward`` at the SIREN flagship (P = 70,000 rows, 256 -> 512x4
+   -> 1), K3 also at the inference chunk (262,144 rows) and its ragged tails
+   (71,424 and 17,856 rows); K5 ``wire_forward`` and K4 ``wire_loss_grads``
+   at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
+   chunk and its tails (K5) and with 1234 masked rows (K4); then a small
+   SIREN and a small WIRE patient on the card's kernels against the plain
+   path on the CPU;
+3. main paths: ``pipelines.superres3d.run`` on a seeded (128, 128, 28)
+   synthetic patient with 75 cross-b combinations, ROI 40:90 -> 25x25x28x4
+   = 70,000 LR rows, once at the ``reference`` preset (SIREN 512x3, 128
+   mappings, PN 128) and once with ``inr_model="wire"`` at the JAX package's
+   WIRE defaults (256x2, omega = sigma = 10, raw coordinates), each with the
+   epochs cut to ``--epochs`` and ``--pn_epochs``; checks the
+   CSV and timings.json, finite and clamped outputs, a falling loss, and,
+   with every launch count set to 0 just before each run, that each kernel
+   of the path launched exactly as often as the schedule says (K1 and K4 on
+   every mean step, K3 on every inference chunk and PN step, K5 on every
+   inference chunk) and no other kernel did;
+4. times: each kernel at its main path's shapes with CUDA events, beside
    its plain version, the eager-autograd library equivalent and its bound.
 
 The last three lines are the ``{"kernels": ...}`` record, the card's name
@@ -41,8 +50,11 @@ import time
 PEAK_F32_FLOPS = 67e12  # float32 FMA outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
+SOURCES = ("siren", "wire")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
+K5_TOL = 1e-4  # WIRE forward, as K3
+K4_TOL = 1e-3  # WIRE loss and every dW, as K1
 E2E_ATOL = 1e-3  # small patient: card kernels vs plain path on the CPU
 INFER_CHUNK = 262_144  # rows per inference chunk (fit/engine.py:infer_dense_grid)
 
@@ -100,12 +112,71 @@ def phase_build() -> None:
     from mri_super_resolution_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(("siren",))
-    print(f"[build] csrc/siren.cu built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.BUILD_SECONDS['siren']:.1f} s)")
-    for line in _build.BUILD_LOG.get("siren", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    _build.build(SOURCES)  # one nvcc per source, all started together
+    print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu built in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          + ", ".join(f"{s} {_build.BUILD_SECONDS[s]:.1f} s" for s in SOURCES) + ")")
+    for name in SOURCES:
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def _wire_inputs(P: int, H: int, n_hidden: int, seed: int):
+    """A seeded ``Wire`` at its init (omega = sigma = 10) on the card, raw
+    4-D coordinates in [-1, 1] and a target in [0, 1]."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.models import Wire
+
+    gen = torch.Generator().manual_seed(seed)
+    model = Wire(4, H, n_hidden, generator=gen).cuda()
+    model.requires_grad_(False)
+    x = (torch.rand(P, 4, generator=gen) * 2.0 - 1.0).cuda()
+    target = torch.rand(P, 1, generator=gen).cuda()
+    return model, x, target
+
+
+def _worst_rel(pairs) -> tuple[float, float]:
+    """(max abs error, worst relative error) over (kernel, plain) pairs,
+    each relative to its plain tensor's largest magnitude."""
+    errs = [_rel(a, b) for a, b in pairs]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def phase_wire_parity(P: int) -> dict:
+    """K5 and K4 against their plain versions on the card: at the main
+    path's 4 -> 256x2 -> 1 on P rows (K4 also with masked rows), K5 at the
+    inference chunk and the ragged tails of the main path, and both at the
+    512x2 width; returns max abs errors by kernel."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+
+    errs = {"wire_forward": 0.0, "wire_loss_grads": 0.0}
+    for H in (256, 512):
+        model, x, target = _wire_inputs(P, H, 2, seed=H)
+        ws, _, oms = wk.split_params(model.params(), 2)
+        gen = torch.Generator().manual_seed(H + 1)
+        for n in (P, INFER_CHUNK, 1_120_000 % INFER_CHUNK, 280_000 % INFER_CHUNK):
+            xn = x if n == P else (torch.rand(n, 4, generator=gen) * 2.0 - 1.0).cuda()
+            e, r = _rel(wk.wire_forward(xn, ws, oms), wk.wire_forward_ref(xn, ws, oms))
+            print(f"[parity] K5 wire_forward H={H} P={n}: max abs {e:.3e}, rel {r:.3e} "
+                  f"(tol rel {K5_TOL:g})")
+            _require(r <= K5_TOL, f"K5 disagrees with its plain version (H={H}, P={n})")
+            errs["wire_forward"] = max(errs["wire_forward"], e)
+        for n_rows in (P, P - 1234):
+            loss, grads = wk.wire_loss_grads(x, ws, oms, target, n_rows=n_rows)
+            loss_r, grads_r = wk.wire_loss_grads_ref(x, ws, oms, target, n_rows=n_rows)
+            torch.cuda.synchronize()
+            e, r = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
+            print(f"[parity] K4 wire_loss_grads H={H} n_rows={n_rows}: loss "
+                  f"{float(loss):.6e} vs {float(loss_r):.6e}; worst over loss/dW max "
+                  f"abs {e:.3e}, rel {r:.3e} (tol rel {K4_TOL:g})")
+            _require(r <= K4_TOL, f"K4 disagrees with its plain version (H={H})")
+            errs["wire_loss_grads"] = max(errs["wire_loss_grads"], e)
+        del model, x, target
+    return errs
 
 
 def phase_parity(P: int, dims) -> dict:
@@ -181,7 +252,7 @@ def phase_parity(P: int, dims) -> dict:
     return errs
 
 
-def phase_small_patient() -> None:
+def phase_small_patient(inr_model: str) -> None:
     """A tiny patient through the card's kernels vs the plain CPU path."""
     import numpy as np
 
@@ -195,23 +266,43 @@ def phase_small_patient() -> None:
     bv = np.asarray([0.0, 150.0, 1000.0, 1500.0])
     cfg = SupperresDWIConfig(number_of_epochs=30, perturbation_epochs=4,
                              hidden_dim=32, num_layers=1, pn_dim=16, roi_start=4,
-                             roi_end=20, mapping_size=16)
+                             roi_end=20, mapping_size=16, inr_model=inr_model,
+                             wire_hidden=32, wire_layers=2)
     gpu = superres3d.run_patient(hybrid, bv, cfg, seed=0, device="cuda")
     cpu = superres3d.run_patient(hybrid, bv, cfg, seed=0, device="cpu")
     err = float(np.abs(gpu.recon_2x - cpu.recon_2x).max())
     loss_err = float(np.abs(gpu.losses - cpu.losses).max())
-    print(f"[parity] small patient, card kernels vs CPU plain: recon max abs "
-          f"{err:.3e}, loss trace max abs {loss_err:.3e} (tol {E2E_ATOL:g})")
-    _require(err <= E2E_ATOL and loss_err <= E2E_ATOL, "small patient disagrees")
+    print(f"[parity] small {inr_model} patient, card kernels vs CPU plain: recon "
+          f"max abs {err:.3e}, loss trace max abs {loss_err:.3e} (tol {E2E_ATOL:g})")
+    _require(err <= E2E_ATOL and loss_err <= E2E_ATOL,
+             f"small {inr_model} patient disagrees")
 
 
-def phase_main_path(epochs: int, pn_epochs: int, out_dir: str):
+def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
+    """Launches of each kernel of the path in one patient: every mean step
+    (the first epochs - pn_epochs and the odd alternating epochs) is one
+    K1/K4; each even alternating epoch is one PN step per combination (75),
+    a K3 forward and a K2 backward on the SIREN path; inference is 5 + 2
+    chunks (1,120,000 and 280,000 rows at 262,144 a chunk)."""
+    n1 = epochs - pn_epochs
+    odd = sum(e % 2 for e in range(n1, epochs))
+    pn_steps = 75 * (pn_epochs - odd)
+    if inr_model == "wire":
+        return {"wire_loss_grads": n1 + odd, "wire_forward": 7}
+    return {"siren_loss_grads": n1 + odd, "siren_fused_bwd": pn_steps,
+            "siren_forward": pn_steps + 7}
+
+
+def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
+    """The pipeline's run() on a full-width synthetic patient; returns the
+    launches of this path's kernels, counted from 0 over this run only."""
     import numpy as np
     import torch
 
     from mri_super_resolution_tpu_torch.config import SupperresDWIConfig
     from mri_super_resolution_tpu_torch.data import synthetic
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
     from mri_super_resolution_tpu_torch.pipelines import superres3d
 
     rng = np.random.default_rng(7)
@@ -222,9 +313,10 @@ def phase_main_path(epochs: int, pn_epochs: int, out_dir: str):
     t0 = time.perf_counter()
     hybrid = synthetic.hybrid_from_b0(b0, acq_counts=(1, 3, 5, 5), seed=7)
     bv = np.asarray([0.0, 150.0, 1000.0, 1500.0])
-    print(f"[main] synthetic patient (128, 128, 28), acq (1, 3, 5, 5) in "
-          f"{time.perf_counter() - t0:.1f} s")
-    cfg = SupperresDWIConfig(number_of_epochs=epochs, perturbation_epochs=pn_epochs)
+    print(f"[main {inr_model}] synthetic patient (128, 128, 28), acq (1, 3, 5, 5) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    cfg = SupperresDWIConfig(number_of_epochs=epochs, perturbation_epochs=pn_epochs,
+                             inr_model=inr_model)
 
     results = []
     run_patient = superres3d.run_patient
@@ -237,11 +329,12 @@ def phase_main_path(epochs: int, pn_epochs: int, out_dir: str):
     superres3d.run_patient = recording  # keep the result for the checks below
     try:
         sk.reset_launches()
+        wk.reset_launches()
         t0 = time.perf_counter()
         superres3d.run([(0, hybrid, bv)], cfg, out_dir, seed=0, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(sk.LAUNCHES)
+        launches = {**sk.LAUNCHES, **wk.LAUNCHES}
     finally:
         superres3d.run_patient = run_patient
 
@@ -264,15 +357,103 @@ def phase_main_path(epochs: int, pn_epochs: int, out_dir: str):
     n1 = epochs - pn_epochs
     _require(np.isfinite(res.losses).all() and res.losses[n1 - 1] < res.losses[0],
              f"mean-fit loss did not fall: {res.losses[0]} -> {res.losses[n1 - 1]}")
+    want = _expected_launches(inr_model, epochs, pn_epochs)
     for name, n in launches.items():
-        _require(n > 0, f"kernel {name} was not launched on the main path")
+        _require(n == want.get(name, 0),
+                 f"{name} launched {n} times on the {inr_model} path, expected "
+                 f"{want.get(name, 0)}")
+    for name in want:
+        _require(launches[name] > 0, f"kernel {name} was not launched on the main path")
     timings = json.load(open(timings_path))
     _require(timings["platform"] == "cuda", "timings.json platform")
-    print(f"[main] run() {wall:.1f} s; launches {launches}; loss "
+    print(f"[main {inr_model}] run() {wall:.1f} s; launches {launches}; loss "
           f"{res.losses[0]:.4e} -> {res.losses[n1 - 1]:.4e}; mean SSIM spline "
           f"{ssim[:, 0].mean():.4f}, SR {ssim[:, 1].mean():.4f}")
-    print(f"[main] phases {json.dumps(timings['patients'][0])}")
-    return launches
+    print(f"[main {inr_model}] phases {json.dumps(timings['patients'][0])}")
+    return {name: launches[name] for name in want}
+
+
+def _time_row(name, source, replaces, kern, plain, lib, flops, nbytes, P, errs,
+              launches, reps=10) -> dict:
+    """One entry of the kernels line: the kernel, its plain version and the
+    library call timed with CUDA events, beside the bound of the work."""
+    ms = _time_ms(kern, reps)
+    plain_ms = _time_ms(plain, reps)
+    lib_ms = _time_ms(lib, reps)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    print(f"[times] {name} P={P}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"library {lib_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
+          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
+          f"{flops / ms / 1e9:.2f} TFLOP/s")
+    return {
+        "name": name, "route": "cuda",
+        "source": f"mri_super_resolution_tpu_torch/csrc/{source}.cu",
+        "replaces": f"mri_super_resolution_tpu/ops/pallas/{replaces}",
+        "launches": launches[name], "max_abs_err": errs[name],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib_ms,
+    }
+
+
+def _wire_macs(d: int, H: int, nh: int) -> tuple[int, int, int]:
+    """Multiply-adds per row of the WIRE products: forward (first layer
+    [W; Wo], nh block GEMMs of 2H x 4H, final 2H), the weight gradients
+    (the same shapes) and the upstream gradients (nh block GEMMs and the
+    final layer's 2H; none for the coordinates)."""
+    fwd = 2 * H * d + nh * 8 * H * H + 2 * H
+    return fwd, fwd, nh * 8 * H * H + 2 * H
+
+
+def phase_wire_times(P: int, errs: dict, launches: dict) -> list[dict]:
+    """K4 at the main path's P rows and K5 at its 262,144-row inference
+    chunk (4 -> 256x2 -> 1), beside eager autograd of the Wire module; K4
+    at 512x2 and K5 at P rows printed for the record."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+
+    rows = []
+    for H, record in ((256, True), (512, False)):
+        model, x, target = _wire_inputs(P, H, 2, seed=H)
+        ws, _, oms = wk.split_params(model.params(), 2)
+        fwd, dw, dh = _wire_macs(4, H, 2)
+        wbytes = 4 * sum(w.numel() for w in ws) + 4 * oms.numel()
+        for w in ws:
+            w.requires_grad_(True)
+
+        def lib_loss_grads():
+            loss = torch.mean((model(x) - target) ** 2)
+            torch.autograd.grad(loss, ws)
+
+        row = _time_row(
+            "wire_loss_grads", "wire", "wire_kernel.py:302",
+            lambda: wk.wire_loss_grads(x, ws, oms, target),
+            lambda: wk.wire_loss_grads_ref(x, ws, oms, target), lib_loss_grads,
+            2 * P * (fwd + dw + dh), 4 * x.numel() + 4 * P + 2 * wbytes + 4, P, errs,
+            launches)
+        gen = torch.Generator().manual_seed(H + 2)
+        xc = (torch.rand(INFER_CHUNK, 4, generator=gen) * 2.0 - 1.0).cuda()
+        for n, xn in ((P, x), (INFER_CHUNK, xc)):
+            @torch.no_grad()
+            def plain_forward(xn=xn):
+                wk.wire_forward_ref(xn, ws, oms)
+
+            @torch.no_grad()
+            def lib_forward(xn=xn):
+                model(xn)
+
+            frow = _time_row(
+                "wire_forward", "wire", "wire_kernel.py:146",
+                lambda xn=xn: wk.wire_forward(xn, ws, oms), plain_forward, lib_forward,
+                2 * n * fwd, 4 * xn.numel() + wbytes + 4 * n, n, errs, launches)
+        if record:
+            rows += [row, frow]  # K5 at the inference chunk, as the path runs it
+        print(f"[times] the rows above: width {H}x2")
+        del model, x, target, ws, xc
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
@@ -323,26 +504,9 @@ def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
          2 * P * (sum(macs[:-1]) + chain + macs[0]),
          2 * in_bytes + weight_bytes + 4 * P),
     ]
-    rows = []
-    for name, line, kern, plain, lib, flops, nbytes in specs:
-        ms = _time_ms(kern, 10)
-        plain_ms = _time_ms(plain, 10)
-        lib_ms = _time_ms(lib, 10)
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "mri_super_resolution_tpu_torch/csrc/siren.cu",
-            "replaces": f"mri_super_resolution_tpu/ops/pallas/siren_kernel.py{line}",
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
-        })
-        print(f"[times] {name} P={P}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"library {lib_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
-              f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
-              f"{flops / ms / 1e9:.2f} TFLOP/s")
+    rows = [_time_row(name, "siren", f"siren_kernel.py{line}", kern, plain, lib, flops,
+                      nbytes, P, errs, launches)
+            for name, line, kern, plain, lib, flops, nbytes in specs]
     xc, wsc, _, _ = _flagship_inputs(INFER_CHUNK, dims, seed=2)
     ms_chunk = _time_ms(lambda: sk.siren_forward(xc, wsc), 5)
     print(f"[times] siren_forward at the inference chunk P={INFER_CHUNK}: "
@@ -371,10 +535,15 @@ def main(argv=None) -> int:
     P, dims = 70_000, (256, 512, 512, 512, 512, 1)
     phase_build()
     errs = phase_parity(P, dims)
-    phase_small_patient()
-    with tempfile.TemporaryDirectory() as out_dir:
-        launches = phase_main_path(args.epochs, args.pn_epochs, out_dir)
-    rows = phase_times(P, dims, errs, launches)
+    errs.update(phase_wire_parity(P))
+    for inr_model in ("siren", "wire"):
+        phase_small_patient(inr_model)
+    launches = {}
+    for inr_model in ("siren", "wire"):
+        with tempfile.TemporaryDirectory() as out_dir:
+            launches.update(phase_main_path(inr_model, args.epochs, args.pn_epochs,
+                                            out_dir))
+    rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -5,9 +5,10 @@ Run as ``python -m mri_super_resolution_tpu_torch.cli.superres_dwi``. Same
 flags as the JAX package's ``cli/superres_dwi.py`` plus ``--device``
 (default ``cuda``; raises when no card is present). Loads master.mat files
 when given, else synthesizes hybrid acquisitions from the mean-b0 volumes
-under ``$MRI_SR_DATA_DIR`` (default ``anon_data``). Runs
-``--inr_model siren``; the grid and wire models and ``--export_artifact``
-are not ported yet and raise.
+under ``$MRI_SR_DATA_DIR`` (default ``anon_data``). Runs ``--inr_model
+siren`` (the reference) and ``--inr_model wire`` (the complex-Gabor INR on
+the raw coordinates, ``--wire_*`` flags); the grid model and
+``--export_artifact`` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ def main(argv=None):
     p.add_argument("--inr_restart_every", type=int, default=0,
                    help="Adam moment restarts every N INR steps (0 = flat Adam)")
     p.add_argument("--inr_model", choices=("siren", "grid", "wire"), default="siren",
-                   help="volume INR family ('grid' and 'wire' are not ported yet)")
+                   help="volume INR family: 'siren' (reference FF-SIREN), 'wire' "
+                   "(complex Gabor on raw coordinates); 'grid' is not ported yet")
     p.add_argument("--wire_hidden", type=int, default=256)
     p.add_argument("--wire_layers", type=int, default=2)
     p.add_argument("--wire_lr", type=float, default=1e-3)

@@ -2,9 +2,9 @@
 
 Counterpart of ``mri_super_resolution_tpu/config.py`` (``SupperresDWIConfig``,
 ``PRESETS``, ``add_preset_arg``), copied so the port imports nothing of the
-JAX package. The config accepts ``inr_model="grid"``/``"wire"`` and their
-knobs; the port's pipeline runs only ``"siren"`` so far and raises
-``NotImplementedError`` for the others.
+JAX package. The config accepts ``inr_model="grid"`` and its knobs; the
+port's pipeline runs ``"siren"`` and ``"wire"`` and raises
+``NotImplementedError`` for ``"grid"``.
 """
 from __future__ import annotations
 
@@ -29,8 +29,8 @@ class SupperresDWIConfig:
     pn_lr: float = 1e-6
     pn_eps: float = 1.0 / 128.0
     te_index: int = 1  # TE=70ms column used for rescaling outputs
-    # True: the INR steps, PN steps and inference run the SIREN kernels
-    # (K1/K2/K3 on a CUDA device; their plain versions on the CPU).
+    # True: the INR steps, PN steps and inference run the kernels (SIREN
+    # K1/K2/K3, WIRE K4/K5 on a CUDA device; their plain versions on the CPU).
     # False: eager PyTorch autograd over torch.matmul.
     use_pallas: bool = True
     # >0 switches the INR optimizer to Adam with moment restarts every N steps

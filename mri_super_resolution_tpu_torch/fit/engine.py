@@ -70,7 +70,7 @@ def fit_alternating_pn(
     pn_apply: Callable,
     inr_opt: Adam,
     pn_opt: Adam,
-    ff_coords: torch.Tensor,  # (P, 2m) Fourier-encoded LR grid
+    ff_coords: torch.Tensor,  # (P, 2m) Fourier-encoded LR grid (raw for WIRE)
     mean_target: torch.Tensor,  # (P, 1) LR mean image
     acq_pixels: torch.Tensor,  # (A, P, 1) per-acquisition targets
     B: torch.Tensor,  # Fourier matrix, for the double mapping of PN output
@@ -79,6 +79,7 @@ def fit_alternating_pn(
     pn_eps: float = 1.0 / 128.0,
     inr_value_and_grad: Callable | None = None,
     phase2_start: int | None = None,
+    pn_encode: Callable | None = None,
 ) -> AlternatingResult:
     """superresDWI.py:132-156: ``num_epochs - pn_epochs`` INR-on-mean steps,
     then ``pn_epochs`` alternating steps at absolute epoch indices from
@@ -88,8 +89,10 @@ def fit_alternating_pn(
 
     Quirk kept: the PN reads the *encoded* coords and its output is
     Fourier-encoded again before the INR, so the INR sees
-    gamma(PN(gamma(x))). The kernels mask ragged rows themselves, so there
-    are no padded copies of ``ff_coords`` or ``mean_target``."""
+    gamma(PN(gamma(x))). ``pn_encode`` maps the PN output to the INR's input
+    instead; models that take raw coordinates (WIRE) pass identity. The
+    kernels mask ragged rows themselves, so there are no padded copies of
+    ``ff_coords`` or ``mean_target``."""
     inr_params, pn_params = inr_opt.params, pn_opt.params
     losses = torch.empty(num_epochs, dtype=torch.float32, device=ff_coords.device)
 
@@ -118,7 +121,8 @@ def fit_alternating_pn(
             with torch.enable_grad():
                 leaves = [p.detach().requires_grad_() for p in pn_params]
                 perturbed = pn_apply(leaves, ff_coords, float(a), pn_eps)
-                enc = fourier_encode(perturbed, B)
+                enc = (fourier_encode(perturbed, B) if pn_encode is None
+                       else pn_encode(perturbed))
                 loss = mse(inr_apply(inr_frozen, enc), acq_pixels[a])
                 grads = torch.autograd.grad(loss, leaves)
             pn_opt.step(grads)

@@ -1,13 +1,17 @@
 """Build and load the hand-written CUDA kernels of ``csrc/`` at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-into ``build/lib<name>-<hash>.so`` (the hash covers the source and the flags,
-so an edited source rebuilds), then loaded with ``ctypes``. Nothing is built
-or loaded when a module is imported; the first wrapper that launches a kernel
-on a CUDA tensor calls :func:`library`.
+into ``build/lib<name>-<hash>.so`` (the hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source rebuilds), then
+loaded with ``ctypes``. Nothing is built or loaded when a module is
+imported; the first wrapper that launches a kernel on a CUDA tensor calls
+:func:`library`.
 
 The build directory is ``build/`` at the repository root, or
 ``$MRI_SR_TORCH_BUILD_DIR`` when set.
+
+Also here: what every wrapper does around a launch (:func:`check_tensors`,
+:func:`ptr_array`, :func:`stream_ptr`, :func:`raise_on`).
 """
 from __future__ import annotations
 
@@ -19,13 +23,18 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the shared GEMM (csrc/common.cuh) puts 128-row tiles on gridDim.y (at most 65535)
+MAX_ROWS = 65535 * 128
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -53,6 +62,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 
@@ -92,3 +102,41 @@ def library(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             declare(lib)
             _LIBS[name] = lib
         return lib
+
+
+def check_tensors(kind: str, x: torch.Tensor, tensors: Sequence[torch.Tensor]) -> str:
+    """Validate what the ``kind`` kernels take: float32, all on ``x``'s
+    device, contiguous, at most :data:`MAX_ROWS` rows; returns the device
+    type (``"cpu"`` selects the plain version)."""
+    dev = x.device
+    for t in (x, *tensors):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kind} kernels take float32; got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"all tensors must be on {dev}; got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kind} kernels take contiguous tensors")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"{x.shape[0]} rows exceed the kernel grid's {MAX_ROWS}")
+    return dev.type
+
+
+def ptr_array(tensors) -> ctypes.c_void_p:
+    """A C array of the tensors' device pointers (NULL for None), as one
+    pointer argument; the result keeps the array alive."""
+    arr = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    return ctypes.cast(arr, ctypes.c_void_p)
+
+
+def stream_ptr() -> int:
+    """PyTorch's current CUDA stream, where every launch goes."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def raise_on(rc: int, what: str) -> None:
+    """Raise for a non-zero cudaError returned by an entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

@@ -34,8 +34,6 @@ from mri_super_resolution_tpu_torch.ops import _build
 LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_fused_bwd": 0}
 
-# the GEMM grid puts 128-row tiles on gridDim.y (at most 65535)
-MAX_ROWS = 65535 * 128
 
 
 def reset_launches() -> None:
@@ -77,21 +75,7 @@ def _omegas(omega: float | Sequence[float], n_sine: int) -> list[float]:
 
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
-    """Validate dtype/device/contiguity; returns the device type."""
-    tensors = [x, *weights, *[t for t in others if t is not None]]
-    dev = x.device
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"SIREN kernels take float32; got {t.dtype}")
-        if t.device != dev:
-            raise ValueError(f"all tensors must be on {dev}; got one on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("SIREN kernels take contiguous tensors")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    if x.shape[0] > MAX_ROWS:
-        raise ValueError(f"{x.shape[0]} rows exceed the kernel grid's {MAX_ROWS}")
-    return dev.type
+    return _build.check_tensors("SIREN", x, [*weights, *others])
 
 
 # --------------------------------------------------------------------------
@@ -189,21 +173,6 @@ def _lib() -> ctypes.CDLL:
     return _build.library("siren", _declare)
 
 
-def _stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _ptrs(tensors) -> ctypes.c_void_p:
-    arr = (ctypes.c_void_p * len(tensors))(
-        *[None if t is None else t.data_ptr() for t in tensors])
-    return arr
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
-
-
 class _Args:
     """ctypes views of the shared arguments; keeps the arrays alive."""
 
@@ -211,8 +180,8 @@ class _Args:
         self.dims_list = _layer_dims(x, weights)
         self.n_layers = len(weights) // 2
         self.dims = (ctypes.c_int * len(self.dims_list))(*self.dims_list)
-        self.W = _ptrs(weights[0::2])
-        self.b = _ptrs(weights[1::2])
+        self.W = _build.ptr_array(weights[0::2])
+        self.b = _build.ptr_array(weights[1::2])
         omegas = _omegas(omega, self.n_layers - 1)
         self.omegas = (ctypes.c_float * len(omegas))(*omegas)
         self.P = int(x.shape[0])
@@ -241,10 +210,10 @@ def _launch_forward(lib, x, weights, omega, stream) -> torch.Tensor:
     buf1 = torch.empty_like(buf0)
     rc = lib.siren_forward_f32(
         x.data_ptr(), a.P, ctypes.cast(a.dims, ctypes.c_void_p), a.n_layers,
-        ctypes.cast(a.W, ctypes.c_void_p), ctypes.cast(a.b, ctypes.c_void_p),
+        a.W, a.b,
         ctypes.cast(a.omegas, ctypes.c_void_p), out.data_ptr(), buf0.data_ptr(),
         buf1.data_ptr(), stream)
-    _raise_on(rc, "siren_forward")
+    _build.raise_on(rc, "siren_forward")
     return out
 
 
@@ -257,14 +226,14 @@ def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream):
     loss = torch.empty((), dtype=x.dtype, device=x.device)
     rc = lib.siren_loss_grads_f32(
         x.data_ptr(), a.P, int(n_rows), ctypes.cast(a.dims, ctypes.c_void_p),
-        a.n_layers, ctypes.cast(a.W, ctypes.c_void_p),
-        ctypes.cast(a.b, ctypes.c_void_p), ctypes.cast(a.omegas, ctypes.c_void_p),
-        target.data_ptr(), inv_n, ctypes.cast(_ptrs(acts), ctypes.c_void_p),
-        ctypes.cast(_ptrs(facts), ctypes.c_void_p), delta0.data_ptr(),
+        a.n_layers, a.W,
+        a.b, ctypes.cast(a.omegas, ctypes.c_void_p),
+        target.data_ptr(), inv_n, _build.ptr_array(acts),
+        _build.ptr_array(facts), delta0.data_ptr(),
         delta1.data_ptr(), partial.data_ptr(),
-        ctypes.cast(_ptrs(grads[0::2]), ctypes.c_void_p),
-        ctypes.cast(_ptrs(grads[1::2]), ctypes.c_void_p), loss.data_ptr(), stream)
-    _raise_on(rc, "siren_loss_grads")
+        _build.ptr_array(grads[0::2]),
+        _build.ptr_array(grads[1::2]), loss.data_ptr(), stream)
+    _build.raise_on(rc, "siren_loss_grads")
     return loss, grads
 
 
@@ -274,17 +243,17 @@ def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream):
     partial = _partial(lib, a, x)
     grads = [torch.empty_like(w) for w in weights] if need_dw else None
     dx = torch.empty_like(x) if need_dx else None
-    dW = ctypes.cast(_ptrs(grads[0::2]), ctypes.c_void_p) if need_dw else None
-    db = ctypes.cast(_ptrs(grads[1::2]), ctypes.c_void_p) if need_dw else None
+    dW = _build.ptr_array(grads[0::2]) if need_dw else None
+    db = _build.ptr_array(grads[1::2]) if need_dw else None
     rc = lib.siren_fused_bwd_f32(
         x.data_ptr(), a.P, ctypes.cast(a.dims, ctypes.c_void_p), a.n_layers,
-        ctypes.cast(a.W, ctypes.c_void_p), ctypes.cast(a.b, ctypes.c_void_p),
+        a.W, a.b,
         ctypes.cast(a.omegas, ctypes.c_void_p), g.data_ptr(),
-        ctypes.cast(_ptrs(acts), ctypes.c_void_p),
-        ctypes.cast(_ptrs(facts), ctypes.c_void_p), delta0.data_ptr(),
+        _build.ptr_array(acts),
+        _build.ptr_array(facts), delta0.data_ptr(),
         delta1.data_ptr(), partial.data_ptr(), dW, db,
         None if dx is None else dx.data_ptr(), stream)
-    _raise_on(rc, "siren_fused_bwd")
+    _build.raise_on(rc, "siren_fused_bwd")
     return dx, grads
 
 
@@ -301,7 +270,7 @@ def siren_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if _check(x, weights) == "cpu":
         return siren_forward_ref(x, weights, omega)
     out = _launch_forward(_lib(), x, [w.detach() for w in weights], omega,
-                          _stream_ptr())
+                          _build.stream_ptr())
     LAUNCHES["siren_forward"] += 1
     return out
 
@@ -321,7 +290,7 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if _check(x, weights, target) == "cpu":
         return siren_loss_grads_ref(x, weights, target, omega, n_rows)
     out = _launch_loss_grads(_lib(), x, [w.detach() for w in weights], target, omega,
-                             n_rows, _stream_ptr())
+                             n_rows, _build.stream_ptr())
     LAUNCHES["siren_loss_grads"] += 1
     return out
 
@@ -338,7 +307,7 @@ def siren_fused_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if _check(x, weights, g) == "cpu":
         return siren_fused_bwd_ref(x, weights, g, omega, need_dw, need_dx)
     out = _launch_fused_bwd(_lib(), x, [w.detach() for w in weights], g, omega,
-                            need_dw, need_dx, _stream_ptr())
+                            need_dw, need_dx, _build.stream_ptr())
     LAUNCHES["siren_fused_bwd"] += 1
     return out
 

@@ -1,5 +1,5 @@
-"""3-D volume FF-SIREN + PerturbNet super-resolution (the superresDWI
-pipeline), SIREN path.
+"""3-D volume INR + PerturbNet super-resolution (the superresDWI pipeline),
+SIREN and WIRE paths.
 
 Counterpart of ``mri_super_resolution_tpu/pipelines/superres3d.py``. Per
 patient: per-(b, TE) max normalisation -> combination mean and the cross-b
@@ -8,11 +8,22 @@ the LR mean, then alternate INR and PerturbNet epochs -> dense-grid
 inference at 2x and on the HR grid -> masked-SSIM-vs-spline rows, ADC maps
 and PNG panels.
 
-On a CUDA device the INR steps run K1 (``siren_loss_grads``), the
-PerturbNet steps K2 (the backward of ``siren_fused``) and every forward K3
-(``siren_forward``). On the CPU the same calls run the kernels' plain
-PyTorch versions. ``cfg.use_pallas=False`` (the JAX package's XLA route) has
-no counterpart on the card and is refused there.
+``inr_model="siren"`` (the reference): on a CUDA device the INR steps run K1
+(``siren_loss_grads``), the PerturbNet steps K2 (the backward of
+``siren_fused``) and every forward K3 (``siren_forward``).
+
+``inr_model="wire"``: the INR reads the raw 4-D coordinates (no Fourier
+encoding; the PerturbNet output goes to it as it is), the mean steps run K4
+(``wire_loss_grads``) and inference K5 (``wire_forward``). The PerturbNet
+steps differentiate through the plain :func:`wire_apply` with autograd, as
+the JAX package differentiates through ``Wire.apply`` (the fused Gabor
+forward has no backward for the input). With ``wire_trainable`` the mean
+steps take autograd over the same module, so that omega/sigma get their
+gradients; K5 still serves inference, reading them from the params.
+
+On the CPU the same calls run the kernels' plain PyTorch versions.
+``cfg.use_pallas=False`` (the JAX package's XLA route) has no counterpart on
+the card and is refused there. ``inr_model="grid"`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +32,7 @@ import functools
 import json
 import os
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -49,10 +60,20 @@ from mri_super_resolution_tpu_torch.fit.engine import (
     infer_dense_grid,
 )
 from mri_super_resolution_tpu_torch.fit.optim import Adam, restart_adam
-from mri_super_resolution_tpu_torch.models import PerturbNet, Siren, perturbnet_apply
+from mri_super_resolution_tpu_torch.models import (
+    PerturbNet,
+    Siren,
+    Wire,
+    perturbnet_apply,
+    wire_apply,
+)
 from mri_super_resolution_tpu_torch.ops.siren_kernel import (
     siren_fused,
     siren_loss_grads,
+)
+from mri_super_resolution_tpu_torch.ops.wire_kernel import (
+    make_wire_fused_apply,
+    make_wire_value_and_grad,
 )
 
 
@@ -64,7 +85,7 @@ class SR3DResult:
     maxes: np.ndarray  # (4, 4) per-(b, TE) normalisation maxes
     bvalues: np.ndarray
     ssim_rows: list[tuple]
-    inr: Siren  # fitted INR (its parameters are the fit's result)
+    inr: Siren | Wire  # fitted INR (its parameters are the fit's result)
     pn: PerturbNet
     B: np.ndarray
     losses: np.ndarray  # per-epoch loss trace
@@ -132,17 +153,64 @@ def _kernel_value_and_grad(omegas, params, x, target):
     return siren_loss_grads(x, params, target, omegas)
 
 
+def _identity(x):
+    """pn_encode of the raw-coordinate INR (WIRE): no Fourier re-mapping."""
+    return x
+
+
+def _inr_model(cfg: SupperresDWIConfig, dim: int, gen: torch.Generator,
+               dev: torch.device) -> Siren | Wire:
+    """The INR of ``cfg.inr_model``: WIRE reads the raw ``dim``-D coordinates
+    (the Gabor layer is its own frequency lift), SIREN their ``2 m``-wide
+    Fourier encoding."""
+    if cfg.inr_model == "wire":
+        return Wire(dim, cfg.wire_hidden, cfg.wire_layers,
+                    omega_0=cfg.wire_omega, sigma_0=cfg.wire_sigma,
+                    trainable=cfg.wire_trainable, generator=gen, device=dev)
+    return Siren(in_features=2 * cfg.mapping_size, hidden_features=cfg.hidden_dim,
+                 hidden_layers=cfg.num_layers, generator=gen, device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Route:
+    """How the pipeline fits and samples one INR."""
+    params: list[torch.Tensor]
+    apply: Callable  # differentiable in its input (the PerturbNet steps)
+    value_and_grad: Callable | None  # one-pass kernel of the mean steps; None: autograd
+    infer_apply: Callable  # the inference forward
+    lr: float
+    fourier_B: torch.Tensor | None  # encodes the INR's input; None: raw coordinates
+    pn_encode: Callable | None  # PerturbNet output -> INR input; None: re-encode with B
+
+
+def _route(cfg: SupperresDWIConfig, inr: Siren | Wire, B: torch.Tensor) -> _Route:
+    if isinstance(inr, Wire):
+        nh = inr.hidden_layers
+        return _Route(
+            params=inr.params(),
+            apply=functools.partial(wire_apply, n_hidden=nh, trainable=inr.trainable),
+            value_and_grad=None if inr.trainable else make_wire_value_and_grad(nh),
+            infer_apply=make_wire_fused_apply(nh), lr=cfg.wire_lr, fourier_B=None,
+            pn_encode=_identity)
+    apply = functools.partial(_kernel_apply, inr.omegas)
+    return _Route(
+        params=inr.weights(), apply=apply,
+        value_and_grad=functools.partial(_kernel_value_and_grad, inr.omegas),
+        infer_apply=apply, lr=cfg.inr_lr, fourier_B=B, pn_encode=None)
+
+
 def _check_model(cfg: SupperresDWIConfig, device: str | torch.device) -> None:
-    if cfg.inr_model in ("grid", "wire"):
+    if cfg.inr_model == "grid":
         raise NotImplementedError(
-            f"inr_model={cfg.inr_model!r} is not ported to PyTorch yet (ROADMAP "
-            "Queue 1, items 14-15); the port runs inr_model='siren'")
-    if cfg.inr_model != "siren":
+            "inr_model='grid' is not ported to PyTorch yet (ROADMAP Queue 1, item "
+            "15); the port runs inr_model='siren' and 'wire'")
+    if cfg.inr_model not in ("siren", "wire"):
         raise ValueError(f"unknown inr_model {cfg.inr_model!r}")
     if not cfg.use_pallas and torch.device(device).type == "cuda":
         raise ValueError(
-            "use_pallas=False: the port has no plain route on the card; its "
-            "SIREN steps and inference always run the kernels K1-K3 there")
+            "use_pallas=False: the port has no plain route on the card; its INR "
+            "steps and inference always run the kernels there (K1-K3 for SIREN, "
+            "K4-K5 for WIRE)")
 
 
 def _sync(device: torch.device) -> None:
@@ -178,8 +246,10 @@ def run_patient(
     """Fit one patient volume and compute the evaluation protocol.
 
     ``init`` optionally fixes the fit's starting point: ``{"B": (m, 4) numpy
-    Fourier matrix, "inr": Siren state_dict, "pn": PerturbNet state_dict}``
-    (``convert.py`` makes the last two from the JAX package's params).
+    Fourier matrix, "inr": Siren or Wire state_dict, "pn": PerturbNet
+    state_dict}`` (``convert.py`` makes the last two from the JAX package's
+    params). B is drawn for WIRE too, as the JAX pipeline draws it, and
+    unused there.
     Without it, B and the initial weights are drawn from a generator seeded
     with ``seed``."""
     _check_model(cfg, device)
@@ -205,43 +275,43 @@ def run_patient(
         B = torch.as_tensor(np.array(init["B"], dtype=np.float32), device=dev)
     else:
         B = fourier_matrix(gen, cfg.mapping_size, dim, scale=cfg.ff_scale, device=dev)
-    ff = fourier_encode(mgrid(lr_mean.shape, device=dev), B)
+    lr_coords = mgrid(lr_mean.shape, device=dev)
     mean_target = torch.as_tensor(np.ascontiguousarray(lr_mean.reshape(-1, 1)),
                                   device=dev)
     acq_pixels = lr_acqs.reshape(-1, num_comb).T.contiguous()[..., None]  # (N, P, 1)
     _sync(dev)
     t_prep = time.perf_counter()
 
-    inr = Siren(in_features=2 * cfg.mapping_size, hidden_features=cfg.hidden_dim,
-                hidden_layers=cfg.num_layers, generator=gen, device=dev)
-    pn = PerturbNet(in_features=2 * cfg.mapping_size, hidden_features=cfg.pn_dim,
-                    dimension=dim, generator=gen, device=dev)
+    inr = _inr_model(cfg, dim, gen, dev)
     if init is not None:
         inr.load_state_dict(init["inr"])
-        pn.load_state_dict(init["pn"])
     inr.requires_grad_(False)
+    route = _route(cfg, inr, B)
+    ff = fourier_encode(lr_coords, route.fourier_B)  # the INR's input
+    pn = PerturbNet(in_features=ff.shape[1], hidden_features=cfg.pn_dim,
+                    dimension=dim, generator=gen, device=dev)
+    if init is not None:
+        pn.load_state_dict(init["pn"])
     pn.requires_grad_(False)
-    inr_apply = functools.partial(_kernel_apply, inr.omegas)
-    inr_vag = functools.partial(_kernel_value_and_grad, inr.omegas)
-    inr_opt = restart_adam(inr.weights(), cfg.inr_lr, cfg.inr_restart_every)
+    inr_opt = restart_adam(route.params, route.lr, cfg.inr_restart_every)
     pn_opt = Adam(pn.weights(), cfg.pn_lr)
     t_setup = time.perf_counter()
 
     res = fit_alternating_pn(
-        inr_apply, perturbnet_apply, inr_opt, pn_opt, ff, mean_target, acq_pixels,
+        route.apply, perturbnet_apply, inr_opt, pn_opt, ff, mean_target, acq_pixels,
         B, num_epochs=cfg.number_of_epochs, pn_epochs=cfg.perturbation_epochs,
-        pn_eps=cfg.pn_eps, inr_value_and_grad=inr_vag,
+        pn_eps=cfg.pn_eps, inr_value_and_grad=route.value_and_grad,
+        pn_encode=route.pn_encode,
     )
     _sync(dev)
     t_fit = time.perf_counter()
 
     hr_shape = hr_mean.shape
     test_shape = (hr_shape[0] * 2, hr_shape[1] * 2, hr_shape[2], hr_shape[3])
-    params = inr.weights()
-    recon = infer_dense_grid(inr_apply, params, test_shape, clamp_min=0.0,
-                             fourier_B=B).reshape(test_shape)
-    sr_hr = infer_dense_grid(inr_apply, params, hr_shape, clamp_min=0.0,
-                             fourier_B=B).reshape(hr_shape)
+    recon = infer_dense_grid(route.infer_apply, route.params, test_shape,
+                             clamp_min=0.0, fourier_B=route.fourier_B).reshape(test_shape)
+    sr_hr = infer_dense_grid(route.infer_apply, route.params, hr_shape, clamp_min=0.0,
+                             fourier_B=route.fourier_B).reshape(hr_shape)
     t_infer = time.perf_counter()
 
     ssim_sp, ssim_sr = _ssim_table(hr_mean, sr_hr, dev)
@@ -304,14 +374,15 @@ def adc_maps(result: SR3DResult, cfg: SupperresDWIConfig, _slice: int):
 def coronal_recon(result: SR3DResult, cfg: SupperresDWIConfig,
                   transverse_length: int = 100) -> np.ndarray:
     """Coronal dense-grid pass (superresDWI.py:217-241): the INR on a
-    (2sx, 2sy, transverse_length, 1) grid."""
-    params = result.inr.weights()
-    _check_model(cfg, params[0].device)
+    (2sx, 2sy, transverse_length, 1) grid (Fourier-encoded for SIREN, raw
+    coordinates for WIRE)."""
+    dev = next(result.inr.parameters()).device
+    _check_model(cfg, dev)
+    route = _route(cfg, result.inr, torch.as_tensor(result.B, device=dev))
     ts = result.recon_2x.shape
     coronal_shape = (ts[0], ts[1], transverse_length, 1)
-    B = torch.as_tensor(result.B, device=params[0].device)
-    apply = functools.partial(_kernel_apply, result.inr.omegas)
-    rec = infer_dense_grid(apply, params, coronal_shape, fourier_B=B)
+    rec = infer_dense_grid(route.infer_apply, route.params, coronal_shape,
+                           fourier_B=route.fourier_B)
     return rec.reshape(coronal_shape)
 
 
@@ -388,6 +459,9 @@ def run(
                     "layers": cfg.num_layers,
                     "mapping_size": cfg.mapping_size,
                     "use_pallas": cfg.use_pallas,
+                    "inr_model": cfg.inr_model,
+                    "wire_hidden": cfg.wire_hidden,
+                    "wire_layers": cfg.wire_layers,
                 },
                 "patients": [dict(r.timings, pt_id=str(p[0]))
                              for r, p in zip(results, patients)],

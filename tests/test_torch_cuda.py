@@ -8,7 +8,9 @@ import numpy as np
 import pytest
 import torch
 
+from mri_super_resolution_tpu_torch.models import Wire
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
+from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
 
 @pytest.fixture
@@ -73,3 +75,51 @@ def test_wrappers_refuse_mixed_devices(card):
     x, ws, target, _ = _problem(card, P=10)
     with pytest.raises(ValueError):
         tk.siren_loss_grads(x, ws, target.cpu())
+
+
+def _wire(card, P, H, nh, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = Wire(4, H, nh, omega_0=10.0, sigma_0=5.0, generator=gen).to(card)
+    model.requires_grad_(False)
+    x = (torch.rand(P, 4, generator=gen) * 2 - 1).to(card)
+    return model, x, torch.rand(P, 1, generator=gen).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,H,nh,n_rows", [(1000, 96, 2, 900), (777, 130, 1, 777),
+                                           (33, 16, 0, 20)])
+def test_wire_kernels_launch_and_match_plain(card, P, H, nh, n_rows):
+    """K5 and K4 launch once each (the counts move) and agree with their
+    plain versions: ragged rows, widths off the 128 tile, 0-2 hidden
+    layers, masked rows."""
+    model, x, target = _wire(card, P, H, nh)
+    ws, _, oms = wk.split_params(model.params(), nh)
+    wk.reset_launches()
+    out = wk.wire_forward(x, ws, oms)
+    ref = wk.wire_forward_ref(x, ws, oms)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-6 * float(ref.abs().max()))
+    loss, grads = wk.wire_loss_grads(x, ws, oms, target, n_rows=n_rows)
+    loss_r, grads_r = wk.wire_loss_grads_ref(x, ws, oms, target, n_rows=n_rows)
+    torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
+    for a, b in zip(grads, grads_r):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5 * float(b.abs().max()))
+    assert wk.LAUNCHES == {"wire_forward": 1, "wire_loss_grads": 1}
+
+
+@pytest.mark.cuda
+def test_wire_engine_adapters_on_card(card):
+    """The engine's adapters launch the kernels and read omega/sigma from
+    the params on the device (a moved omega changes the output)."""
+    model, x, target = _wire(card, 500, 64, 2)
+    params = model.params()
+    apply = wk.make_wire_fused_apply(2)
+    wk.reset_launches()
+    base = apply(params, x)
+    with torch.no_grad():
+        params[-2] += 0.25
+    moved = apply(params, x)
+    assert not torch.allclose(base, moved)
+    torch.testing.assert_close(moved, model(x), rtol=1e-4, atol=1e-6)
+    loss, grads = wk.make_wire_value_and_grad(2)(params, x, target)
+    assert len(grads) == len(params) and all(float(g) == 0 for g in grads[-6:])
+    assert wk.LAUNCHES == {"wire_forward": 2, "wire_loss_grads": 1}

@@ -19,16 +19,18 @@ from mri_super_resolution_tpu.fit import engine as jeng
 from mri_super_resolution_tpu.fit.optim import restart_adam as jrestart
 from mri_super_resolution_tpu.models import PerturbNet as JPerturbNet
 from mri_super_resolution_tpu.models import Siren as JSiren
+from mri_super_resolution_tpu.models import Wire as JWire
 from mri_super_resolution_tpu_torch import convert
-from mri_super_resolution_tpu_torch.core.coords import mgrid
+from mri_super_resolution_tpu_torch.core.coords import fourier_encode, mgrid
 from mri_super_resolution_tpu_torch.fit import engine as teng
 from mri_super_resolution_tpu_torch.fit.optim import Adam, restart_adam
-from mri_super_resolution_tpu_torch.models import perturbnet_apply
+from mri_super_resolution_tpu_torch.models import Wire, perturbnet_apply, wire_apply
 from mri_super_resolution_tpu_torch.ops.siren_kernel import (
     siren_forward_ref,
     siren_fused,
     siren_loss_grads,
 )
+from mri_super_resolution_tpu_torch.ops.wire_kernel import make_wire_value_and_grad
 
 torch.set_num_threads(2)
 
@@ -144,6 +146,81 @@ def test_fit_alternating_pn_losses(problem):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
     # the PN really moved: its gradient reached it through the INR's input
     for a, b in zip(res.pn_params, _pn_weights(problem["pn_params"])):
+        assert not torch.equal(a, b)
+
+
+def test_pn_encode_default_reapplies_fourier(problem):
+    """Without ``pn_encode`` the PN output is Fourier-encoded with B again
+    (the SIREN path's double mapping): the same run as passing that mapping
+    explicitly, and a different one from passing identity."""
+    B = torch.as_tensor(problem["B"])
+
+    def run(**kw):
+        inr_w = _siren_weights(problem["inr_params"])
+        pn_w = _pn_weights(problem["pn_params"])
+        return teng.fit_alternating_pn(
+            _plain_apply, perturbnet_apply, Adam(inr_w, 1e-4), Adam(pn_w, 1e-3),
+            torch.as_tensor(problem["ff"]), torch.as_tensor(problem["target"]),
+            torch.as_tensor(problem["acq"]), B, num_epochs=4, pn_epochs=2, **kw)
+
+    default = run()
+    explicit = run(pn_encode=lambda p: fourier_encode(p, B))
+    torch.testing.assert_close(default.losses, explicit.losses, rtol=0, atol=0)
+    for a, b in zip(default.pn_params, explicit.pn_params):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # identity feeds the 4-d PN output itself: a 4-input SIREN takes it
+    inr4 = JSiren(hidden_features=16, hidden_layers=1).init(
+        jax.random.key(5), jnp.zeros((8, 4)))
+    pn_w = _pn_weights(problem["pn_params"])
+    seen = []
+
+    def apply4(params, x):
+        seen.append(x.shape[-1])
+        return siren_forward_ref(x, params)
+
+    teng.fit_alternating_pn(
+        apply4, perturbnet_apply, Adam(_siren_weights(inr4), 1e-4), Adam(pn_w, 1e-3),
+        torch.as_tensor(problem["ff"]), torch.as_tensor(problem["target"]),
+        torch.as_tensor(problem["acq"]), B, num_epochs=2, pn_epochs=2,
+        inr_value_and_grad=lambda p, x, t: (torch.zeros(()), [torch.zeros_like(w) for w in p]),
+        pn_encode=lambda p: p)
+    assert seen and set(seen) == {4}
+
+
+def test_fit_alternating_pn_wire_matches_jax():
+    """The WIRE route of the alternating fit: raw coordinates, identity
+    pn_encode, K4 (plain on the CPU) for the INR steps, autograd through the
+    plain Wire for the PN steps; against the JAX fit with pn_encode identity
+    and autodiff. 8 epochs, the last 4 alternating."""
+    rng = np.random.default_rng(4)
+    coords = np.array(jmgrid(SHAPE))
+    P = coords.shape[0]
+    target = rng.uniform(0, 1, size=(P, 1)).astype(np.float32)
+    acq = rng.uniform(0, 1, size=(3, P, 1)).astype(np.float32)
+    inr = JWire(hidden_features=24, hidden_layers=1)
+    inr_params = inr.init(jax.random.key(1), jnp.asarray(coords[:8]))
+    pn = JPerturbNet(hidden_features=16, dimension=4)
+    pn_params = pn.init(jax.random.key(2), jnp.asarray(coords[:8]), 0, 0.0)
+    ident = lambda p: p
+    ref = jeng.fit_alternating_pn(
+        inr.apply, pn.apply, optax.adam(1e-3), optax.adam(1e-3),
+        jax.tree.map(jnp.copy, inr_params), jax.tree.map(jnp.copy, pn_params),
+        jnp.asarray(coords), jnp.asarray(target), jnp.asarray(acq),
+        jnp.zeros((8, 4)), num_epochs=8, pn_epochs=4, pn_encode=ident)
+    tm = Wire(4, 24, 1)
+    tm.load_state_dict(convert.wire_state_dict(_np(inr_params)))
+    params = [p.detach().clone() for p in tm.params()]
+    pn_w = _pn_weights(pn_params)
+    res = teng.fit_alternating_pn(
+        lambda p, x: wire_apply(p, x, 1), perturbnet_apply, Adam(params, 1e-3),
+        Adam(pn_w, 1e-3), torch.as_tensor(coords), torch.as_tensor(target),
+        torch.as_tensor(acq), torch.zeros(8, 4), num_epochs=8, pn_epochs=4,
+        inr_value_and_grad=make_wire_value_and_grad(1), pn_encode=ident)
+    np.testing.assert_allclose(res.losses.numpy(), np.asarray(ref.losses), rtol=1e-4)
+    ref_pn = list(convert.perturbnet_state_dict(_np(ref.pn_params)).values())
+    for a, b in zip(res.pn_params, ref_pn):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+    for a, b in zip(res.pn_params, _pn_weights(pn_params)):
         assert not torch.equal(a, b)
 
 

@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package: every module of it
-imports, and a short CPU fit runs, in a process where both are blocked."""
+imports, and short CPU fits of the SIREN and WIRE paths run, in a process
+where both are blocked."""
 import os
 import subprocess
 import sys
@@ -31,6 +32,15 @@ res = fit_simple(None, Adam(inr.weights(), 1e-3), x, t, 2,
                  value_and_grad_fn=lambda p, xx, tt: siren_loss_grads(xx, p, tt))
 assert res.losses.shape == (2,) and bool(torch.isfinite(res.losses).all())
 assert sum(LAUNCHES.values()) == 0
+from mri_super_resolution_tpu_torch.models import Wire
+from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+w = Wire(4, 16, 1, generator=g)
+w.requires_grad_(False)
+res = fit_simple(None, Adam(w.params(), 1e-3), mgrid((3, 2, 2, 4)), torch.rand(48, 1, generator=g),
+                 2, value_and_grad_fn=wk.make_wire_value_and_grad(1))
+assert bool(torch.isfinite(res.losses).all())
+assert wk.make_wire_fused_apply(1)(w.params(), mgrid((2, 2, 2, 2))).shape == (16, 1)
+assert sum(wk.LAUNCHES.values()) == 0
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "mri_super_resolution_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("OK", len(mods))
