@@ -6,18 +6,20 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--epochs 40] [--pn_epochs 4]
 
 Phases, in order; any failure ends the run with a non-zero exit:
-1. build: compile ``csrc/siren.cu`` and ``csrc/wire.cu`` with nvcc (sm_90a),
-   one process each, started together, and print the times and the
-   compiler's register/spill report;
+1. build: compile ``csrc/siren.cu``, ``csrc/wire.cu`` and ``csrc/conv3d.cu``
+   with nvcc (sm_90a), one process each, started together, and print the
+   times and the compiler's register/spill report;
 2. kernel parity against the plain PyTorch versions on the card: K1
    ``siren_loss_grads``, K2 ``siren_fused_bwd`` (dx and dW) and K3
    ``siren_forward`` at the SIREN flagship (P = 70,000 rows, 256 -> 512x4
    -> 1), K3 also at the inference chunk (262,144 rows) and its ragged tails
    (71,424 and 17,856 rows); K5 ``wire_forward`` and K4 ``wire_loss_grads``
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
-   chunk and its tails (K5) and with 1234 masked rows (K4); then a small
-   SIREN and a small WIRE patient on the card's kernels against the plain
-   path on the CPU;
+   chunk and its tails (K5) and with 1234 masked rows (K4); K6
+   ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
+   and on ragged shapes; then a small SIREN and a small WIRE patient and a
+   small RAMS forward on the card's kernels against the plain path on the
+   CPU;
 3. main paths: ``pipelines.superres3d.run`` on a seeded (128, 128, 28)
    synthetic patient with 75 cross-b combinations, ROI 40:90 -> 25x25x28x4
    = 70,000 LR rows, once at the ``reference`` preset (SIREN 512x3, 128
@@ -28,9 +30,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with every launch count set to 0 just before each run, that each kernel
    of the path launched exactly as often as the schedule says (K1 and K4 on
    every mean step, K3 on every inference chunk and PN step, K5 on every
-   inference chunk) and no other kernel did;
+   inference chunk) and no other kernel did; then ``pipelines.misr.run`` on
+   two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
+   draws) with the committed RAMS checkpoint at full width in bf16 with
+   ``conv_kernel=True``: DICOMs, timings.json, finite (384, 384) outputs in
+   [0, 65536], and exactly 34 K6 launches per case and no other kernel;
+   the same cases on the library route and in float32 bound the route gap;
 4. times: each kernel at its main path's shapes with CUDA events, beside
-   its plain version, the eager-autograd library equivalent and its bound.
+   its plain version, the library equivalent (eager autograd; ``F.conv3d``
+   for K6) and its bound; the 25-draw RAMS forward on both routes.
 
 The last three lines are the ``{"kernels": ...}`` record, the card's name
 and power limit, and ``{"ok": true, "device": ...}``. Exits non-zero,
@@ -48,14 +56,34 @@ import time
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12  # float32 FMA outside the tensor cores
+PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "wire")  # csrc/<name>.cu
+SOURCES = ("siren", "wire", "conv3d")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
 K5_TOL = 1e-4  # WIRE forward, as K3
 K4_TOL = 1e-3  # WIRE loss and every dW, as K1
 E2E_ATOL = 1e-3  # small patient: card kernels vs plain path on the CPU
+# K6 float32: max |kernel - plain| / max |plain|; the two sum 27 C products
+# in other orders (the K1 class)
+K6_F32_TOL = 1e-5
+# K6 bf16: one bf16 ulp of each output (the float32 sums may round apart),
+# plus the float32 order term above
+K6_BF16_ULPS = 1
+# the MISR path's K6 shapes: (input shape, padding, launches per forward);
+# 25 draws of a 128 x 128 slice, reflect-padded to 130, then 132 before
+# each temporal step (T 9 -> 7 -> 5 -> 3)
+K6_SHAPES = (
+    ((25, 130, 130, 9, 32), "SAME", 25),
+    ((25, 132, 132, 9, 32), "SAME", 2),
+    ((25, 132, 132, 7, 32), "SAME", 2),
+    ((25, 132, 132, 5, 32), "SAME", 2),
+    ((25, 132, 132, 9, 32), "VALID", 1),
+    ((25, 132, 132, 7, 32), "VALID", 1),
+    ((25, 132, 132, 5, 32), "VALID", 1),
+)
+K6_PER_FORWARD = sum(n for _, _, n in K6_SHAPES)  # 2 N + 1 + 3 (T // 3) = 34
 INFER_CHUNK = 262_144  # rows per inference chunk (fit/engine.py:infer_dense_grid)
 
 
@@ -278,6 +306,287 @@ def phase_small_patient(inr_model: str) -> None:
              f"small {inr_model} patient disagrees")
 
 
+def _k6_inputs(shape, dtype, seed: int):
+    """Seeded activations and a kernel at the scale of the committed RAMS's
+    folded weights (|w| about 0.05), bias in float32, on the card."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    C = shape[-1]
+    x = torch.randn(shape, generator=gen).to("cuda", dtype)
+    w = (torch.randn((3, 3, 3, C, C), generator=gen) * 0.05).cuda()
+    b = (torch.randn((C,), generator=gen) * 0.1).cuda()
+    return x, w, b
+
+
+def _k6_check(out, ref, what: str) -> float:
+    """Hold K6 against its plain version: float32 within K6_F32_TOL of the
+    largest output; bf16 within K6_BF16_ULPS bf16 ulps of each output plus
+    the float32 order term. Returns the max abs error."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    err = float(diff.max())
+    if out.dtype == torch.float32:
+        ok = err <= K6_F32_TOL * scale
+        tol = f"rel {K6_F32_TOL:g}"
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+        ok = bool((diff <= K6_BF16_ULPS * ulp + K6_F32_TOL * scale).all())
+        tol = f"{K6_BF16_ULPS} bf16 ulp"
+    print(f"[parity] K6 conv3d_rfab {what}: max abs {err:.3e}, max |plain| {scale:.3e} "
+          f"(tol {tol})")
+    _require(ok, f"K6 disagrees with its plain version ({what})")
+    return err
+
+
+def phase_k6_parity() -> float:
+    """K6 against its plain version at the seven MISR path shapes in bf16
+    and float32, and on ragged shapes (B 1, H != W, odd sizes, C 8 and 16,
+    SAME and VALID); returns the max abs error over the path's bf16 calls."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+
+    err = 0.0
+    with torch.no_grad():
+        for i, (shape, pad, _) in enumerate(K6_SHAPES):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, w, b = _k6_inputs(shape, dtype, seed=i)
+                e = _k6_check(ck.conv3d_rfab(x, w, b, pad), ck.conv3d_rfab_ref(x, w, b, pad),
+                              f"{shape} {pad} {str(dtype)[6:]}")
+                if dtype == torch.bfloat16:
+                    err = max(err, e)
+                del x
+        for shape, pad in (((1, 37, 21, 5, 8), "SAME"), ((1, 19, 45, 7, 16), "VALID"),
+                           ((1, 3, 5, 3, 16), "VALID")):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, w, b = _k6_inputs(shape, dtype, seed=sum(shape))
+                _k6_check(ck.conv3d_rfab(x, w, b, pad), ck.conv3d_rfab_ref(x, w, b, pad),
+                          f"{shape} {pad} {str(dtype)[6:]}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def _misr_case(seed: int, side: int = 128, slices: int = 24):
+    """A seeded synthetic case: b0 (side, side, slices) at DWI magnitudes
+    (a smooth blob of about 100 on a floor of 90: after the b = 900 decay
+    and x256 the slice's mean lands near the PROBA-V mean of 7433), 27
+    acquisitions (9, 9, 9) from ``acquisitions_from_b0``, cancer slice 12."""
+    import numpy as np
+
+    from mri_super_resolution_tpu_torch.data import Case, synthetic
+
+    rng = np.random.default_rng(seed)
+    x, y, z = np.meshgrid(np.linspace(-1, 1, side), np.linspace(-1, 1, side),
+                          np.linspace(-1, 1, slices), indexing="ij")
+    b0 = (100.0 * np.exp(-(x ** 2 / 0.5 + y ** 2 / 0.3 + z ** 2)) + 90.0
+          + 5.0 * rng.random((side, side, slices))).astype(np.float32)
+    dwi = synthetic.acquisitions_from_b0(b0, num_acq=27, b=900.0, seed=seed)
+    return Case(pt_id=f"synth-{seed:02d}", b=900.0, cancer_loc=(side // 2, side // 2),
+                contralateral_loc=(side // 4, side // 2), noise=(2, 2), cancer_slice=12,
+                acquisitions=(9, 9, 9), dwi=dwi, b0=b0, erd=np.ones_like(b0),
+                accept=np.ones(dwi.shape, dtype=np.int32), synthetic_dwi=True)
+
+
+def phase_small_misr() -> None:
+    """A small float32 RAMS (filters 8, N 1) with conv_kernel: the 25-draw
+    stack of a small case through K6 on the card against the plain path on
+    the CPU, within the RAMS class of the JAX package (rtol 2e-5, atol
+    2e-2)."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.config import RAMSConfig
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+    from mri_super_resolution_tpu_torch.pipelines import misr
+
+    cfg = RAMSConfig(filters=8, N=1, compute_dtype="float32", conv_kernel=True)
+    model = misr.build_rams(cfg, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    case = _misr_case(seed=1, side=24, slices=13)
+    lor = case.dwi[:, :, 12, :9].astype(np.float32) * 256.0
+    x = torch.as_tensor(np.stack([lor, lor[..., ::-1]]))
+    with torch.inference_mode():
+        cpu = model(x)
+        ck.reset_launches()
+        gpu = model.cuda()(x.cuda()).cpu()
+    err = float((gpu - cpu).abs().max())
+    print(f"[parity] small RAMS (8, 1) forward, card K6 vs CPU plain: max abs {err:.3e} "
+          f"of {float(cpu.abs().max()):.1f} (tol rtol 2e-5, atol 2e-2); K6 launches "
+          f"{ck.LAUNCHES['conv3d_rfab']}")
+    _require(bool(torch.allclose(gpu, cpu, rtol=2e-5, atol=2e-2)),
+             "small RAMS disagrees between the card and the CPU")
+    _require(ck.LAUNCHES["conv3d_rfab"] == 2 * 1 + 1 + 3 * 3, "small RAMS K6 launches")
+
+
+def _run_misr(cases, cfg, state_dict, out_dir: str):
+    """misr.run() with each case's outputs and K6 launches recorded; every
+    launch count is set to 0 just before the run and read just after."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+    from mri_super_resolution_tpu_torch.pipelines import misr
+
+    per_case = []
+    predict_case = misr.predict_case
+
+    def recording(*args, **kwargs):
+        before = ck.LAUNCHES["conv3d_rfab"]
+        out = predict_case(*args, **kwargs)
+        per_case.append((out, ck.LAUNCHES["conv3d_rfab"] - before))
+        return out
+
+    misr.predict_case = recording
+    try:
+        for mod in (sk, wk, ck):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        misr.run(cases, cfg, state_dict, out_dir, exp_name="smoke", sample_size=25, seed=0,
+                 device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**sk.LAUNCHES, **wk.LAUNCHES, **ck.LAUNCHES}
+    finally:
+        misr.predict_case = predict_case
+    return per_case, launches, wall
+
+
+def phase_misr_main(out_dir: str) -> dict:
+    """The MISR serving path: misr.run() on two full-width synthetic cases
+    with the committed checkpoint, bf16, conv_kernel=True, 25 draws. Then
+    the same cases on the library route (cuDNN everywhere) and in float32:
+    the two bf16 routes may differ by at most twice the library route's own
+    bf16-vs-float32 gap (on the CPU, tests/test_torch_rams.py: 0.61 of it,
+    73.5 vs 121, for the committed RAMS on a (2, 16, 16, 9) input). Returns
+    the path's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from mri_super_resolution_tpu_torch import convert
+    from mri_super_resolution_tpu_torch.config import RAMSConfig
+
+    t0 = time.perf_counter()
+    cases = [_misr_case(seed) for seed in (11, 12)]
+    print(f"[main misr] two synthetic cases, b0 (128, 128, 24), 27 acquisitions, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sd = convert.rams_state_dict(convert.load_params_npz(convert.RAMS_PARAMS_NPZ))
+    cfg = RAMSConfig(conv_kernel=True)
+    per_case, launches, wall = _run_misr(cases, cfg, sd, out_dir)
+    for case, ((mean_pred, adc), n) in zip(cases, per_case):
+        base = os.path.join(out_dir, "smoke", case.pt_no)
+        _require(all(os.path.isfile(os.path.join(base, k, "mean.dcm")) for k in ("DWI", "ADC")),
+                 f"no DICOMs for case {case.pt_no}")
+        _require(mean_pred.shape == adc.shape == (384, 384), "MISR output shape")
+        _require(bool(np.isfinite(mean_pred).all() and mean_pred.min() >= 0
+                      and mean_pred.max() <= 65536), "mean_pred finite and in [0, 65536]")
+        _require(bool(np.isfinite(adc).all()), "ADC finite")
+        _require(n == K6_PER_FORWARD, f"K6 launched {n} times for case {case.pt_no}, "
+                 f"expected {K6_PER_FORWARD}")
+    for name, n in launches.items():
+        want = K6_PER_FORWARD * len(cases) if name == "conv3d_rfab" else 0
+        _require(n == want, f"{name} launched {n} times on the MISR path, expected {want}")
+    timings = json.load(open(os.path.join(out_dir, "smoke", "timings.json")))
+    _require(timings["platform"] == "cuda", "timings.json platform")
+    predict_s = [c["predict_s"] for c in timings["cases"]]
+    print(f"[main misr] run() {wall:.2f} s; launches {launches}; predict_s "
+          f"{', '.join(f'{t:.3f}' for t in predict_s)}; mean_pred range "
+          f"[{per_case[1][0][0].min():.0f}, {per_case[1][0][0].max():.0f}]")
+
+    route = {}
+    for name, c in (("library", dataclasses.replace(cfg, conv_kernel=False)),
+                    ("float32", dataclasses.replace(cfg, conv_kernel=False,
+                                                    compute_dtype="float32"))):
+        pc, _, _ = _run_misr(cases, c, sd, os.path.join(out_dir, name))
+        route[name] = [out[0] for out, _ in pc]
+    k6 = [out[0] for out, _ in per_case]
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(k6, route["library"]))
+    own = max(float(np.abs(a - b).max()) for a, b in zip(route["library"], route["float32"]))
+    print(f"[main misr] mean_pred, K6 route vs library route: max abs {gap:.2f}; library "
+          f"bf16 vs float32: {own:.2f} (tol: route gap <= 2x that)")
+    _require(gap <= 2 * own, "the K6 and library routes differ beyond the bf16 bound")
+    return {"conv3d_rfab": launches["conv3d_rfab"]}
+
+
+def phase_k6_times(err: float, launches: dict) -> dict:
+    """K6 in bf16 at each MISR path shape: the kernel, its plain version and
+    ``F.conv3d`` on the same channels-last tensors (bias in bf16), with CUDA
+    events, beside the bound; the kernels-line row is the SAME shape that
+    runs 25 of the 34 launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+
+    row = None
+    per_forward = {"kernel": 0.0, "library": 0.0}
+    with torch.no_grad():
+        for i, (shape, pad, n) in enumerate(K6_SHAPES):
+            x, w, b = _k6_inputs(shape, torch.bfloat16, seed=i)
+            wb, bb = w.bfloat16(), b.bfloat16()
+            xt = x.permute(0, 4, 1, 2, 3)  # channels-last 3-D, no copy
+            wt = wb.permute(4, 3, 0, 1, 2).contiguous()
+            B, Ho, Wo, To = ck.out_shape(shape, pad)
+            C = shape[-1]
+            flops = 2 * B * Ho * Wo * To * C * 27 * C
+            nbytes = 2 * x.numel() + 2 * wb.numel() + 4 * b.numel() + 2 * B * Ho * Wo * To * C
+            r = _time_row("conv3d_rfab", "conv3d", "conv3d_kernel.py:109",
+                          lambda: ck.conv3d_rfab(x, w, b, pad),
+                          lambda: ck.conv3d_rfab_ref(x, w, b, pad),
+                          lambda: F.conv3d(xt, wt, bb, padding=pad.lower()),
+                          flops, nbytes, f"{shape} {pad}", {"conv3d_rfab": err}, launches,
+                          peak=PEAK_BF16_TC, reps=5)
+            per_forward["kernel"] += n * r["ms"]
+            per_forward["library"] += n * r["library_ms"]
+            if row is None:
+                row = r
+            del x, xt
+        torch.cuda.empty_cache()
+    print(f"[times] K6 per RAMS forward (34 launches): kernel {per_forward['kernel']:.2f} ms, "
+          f"F.conv3d {per_forward['library']:.2f} ms")
+    return row
+
+
+def phase_rams_forward_times() -> None:
+    """The 25-draw RAMS forward at full width on a (25, 128, 128, 9) stack,
+    bf16, with conv_kernel on and off (host clock around the synchronised
+    forward, best of 3)."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch import convert
+    from mri_super_resolution_tpu_torch.config import RAMSConfig
+    from mri_super_resolution_tpu_torch.models.rams import fold_weight_norm
+    from mri_super_resolution_tpu_torch.pipelines import misr
+
+    sd = fold_weight_norm(convert.rams_state_dict(
+        convert.load_params_npz(convert.RAMS_PARAMS_NPZ)))
+    case = _misr_case(seed=11)
+    lor = case.dwi[:, :, 12, :9].astype(np.float32) * 256.0
+    x = torch.as_tensor(np.repeat(lor[None], 25, axis=0)).cuda()
+    models = {}
+    for conv_kernel in (True, False):
+        models[conv_kernel] = misr.build_rams(RAMSConfig(conv_kernel=conv_kernel),
+                                              device="cuda")
+        models[conv_kernel].load_state_dict(sd)
+        models[conv_kernel].requires_grad_(False)
+    for conv_kernel in (True, False, True, False):
+        model = models[conv_kernel]
+        best = float("inf")
+        with torch.inference_mode():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+        print(f"[times] RAMS 25-draw forward, conv_kernel={conv_kernel}: {1e3 * best:.1f} ms")
+
+
 def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
     """Launches of each kernel of the path in one patient: every mean step
     (the first epochs - pn_epochs and the odd alternating epochs) is one
@@ -301,6 +610,7 @@ def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
 
     from mri_super_resolution_tpu_torch.config import SupperresDWIConfig
     from mri_super_resolution_tpu_torch.data import synthetic
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
     from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
     from mri_super_resolution_tpu_torch.pipelines import superres3d
@@ -328,13 +638,13 @@ def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
 
     superres3d.run_patient = recording  # keep the result for the checks below
     try:
-        sk.reset_launches()
-        wk.reset_launches()
+        for mod in (sk, wk, ck):
+            mod.reset_launches()
         t0 = time.perf_counter()
         superres3d.run([(0, hybrid, bv)], cfg, out_dir, seed=0, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**sk.LAUNCHES, **wk.LAUNCHES}
+        launches = {**sk.LAUNCHES, **wk.LAUNCHES, **ck.LAUNCHES}
     finally:
         superres3d.run_patient = run_patient
 
@@ -373,16 +683,17 @@ def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
     return {name: launches[name] for name in want}
 
 
-def _time_row(name, source, replaces, kern, plain, lib, flops, nbytes, P, errs,
-              launches, reps=10) -> dict:
+def _time_row(name, source, replaces, kern, plain, lib, flops, nbytes, at, errs,
+              launches, peak=PEAK_F32_FLOPS, reps=10) -> dict:
     """One entry of the kernels line: the kernel, its plain version and the
-    library call timed with CUDA events, beside the bound of the work."""
+    library call timed with CUDA events, beside the bound of the work at
+    ``peak`` operations per second."""
     ms = _time_ms(kern, reps)
     plain_ms = _time_ms(plain, reps)
     lib_ms = _time_ms(lib, reps)
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    print(f"[times] {name} P={P}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    print(f"[times] {name} {at}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"library {lib_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
           f"{flops / ms / 1e9:.2f} TFLOP/s")
@@ -431,7 +742,7 @@ def phase_wire_times(P: int, errs: dict, launches: dict) -> list[dict]:
             "wire_loss_grads", "wire", "wire_kernel.py:302",
             lambda: wk.wire_loss_grads(x, ws, oms, target),
             lambda: wk.wire_loss_grads_ref(x, ws, oms, target), lib_loss_grads,
-            2 * P * (fwd + dw + dh), 4 * x.numel() + 4 * P + 2 * wbytes + 4, P, errs,
+            2 * P * (fwd + dw + dh), 4 * x.numel() + 4 * P + 2 * wbytes + 4, f"P={P}", errs,
             launches)
         gen = torch.Generator().manual_seed(H + 2)
         xc = (torch.rand(INFER_CHUNK, 4, generator=gen) * 2.0 - 1.0).cuda()
@@ -447,7 +758,7 @@ def phase_wire_times(P: int, errs: dict, launches: dict) -> list[dict]:
             frow = _time_row(
                 "wire_forward", "wire", "wire_kernel.py:146",
                 lambda xn=xn: wk.wire_forward(xn, ws, oms), plain_forward, lib_forward,
-                2 * n * fwd, 4 * xn.numel() + wbytes + 4 * n, n, errs, launches)
+                2 * n * fwd, 4 * xn.numel() + wbytes + 4 * n, f"P={n}", errs, launches)
         if record:
             rows += [row, frow]  # K5 at the inference chunk, as the path runs it
         print(f"[times] the rows above: width {H}x2")
@@ -505,7 +816,7 @@ def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
          2 * in_bytes + weight_bytes + 4 * P),
     ]
     rows = [_time_row(name, "siren", f"siren_kernel.py{line}", kern, plain, lib, flops,
-                      nbytes, P, errs, launches)
+                      nbytes, f"P={P}", errs, launches)
             for name, line, kern, plain, lib, flops, nbytes in specs]
     xc, wsc, _, _ = _flagship_inputs(INFER_CHUNK, dims, seed=2)
     ms_chunk = _time_ms(lambda: sk.siren_forward(xc, wsc), 5)
@@ -536,14 +847,20 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_parity(P, dims)
     errs.update(phase_wire_parity(P))
+    k6_err = phase_k6_parity()
     for inr_model in ("siren", "wire"):
         phase_small_patient(inr_model)
+    phase_small_misr()
     launches = {}
     for inr_model in ("siren", "wire"):
         with tempfile.TemporaryDirectory() as out_dir:
             launches.update(phase_main_path(inr_model, args.epochs, args.pn_epochs,
                                             out_dir))
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches.update(phase_misr_main(out_dir))
     rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
+    rows.append(phase_k6_times(k6_err, launches))
+    phase_rams_forward_times()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -18,20 +18,13 @@ import os
 import numpy as np
 
 from mri_super_resolution_tpu_torch.config import SupperresDWIConfig, add_preset_arg
-from mri_super_resolution_tpu_torch.data import load_mat, synthetic
+from mri_super_resolution_tpu_torch.data import (
+    available_patients,
+    default_data_dir,
+    load_mat,
+    synthetic,
+)
 from mri_super_resolution_tpu_torch.pipelines import superres3d
-
-# patient ids of the anonymised cohort (the JAX package's data/cases.py table)
-PATIENT_IDS = ("18-1681-07", "18-1681-08", "18-1681-09", "18-1681-30",
-               "18-1681-37", "17-1694-82", "18-1681-41", "18-1694-76",
-               "18-1681-45", "18-1694-78")
-
-
-def available_patients(data_dir: str) -> list[str]:
-    """Patient numbers whose ``pat<no>_mean_b0.mat`` exists under ``data_dir``."""
-    nos = [pid.split("-")[-1] for pid in PATIENT_IDS]
-    return [no for no in nos
-            if os.path.exists(os.path.join(data_dir, f"pat{no}_mean_b0.mat"))]
 
 
 def main(argv=None):
@@ -110,9 +103,10 @@ def main(argv=None):
             hybrid, b = superres3d.load_hybrid(path)
             patients.append((pt_id, hybrid, b))
     else:
-        data_dir = os.environ.get("MRI_SR_DATA_DIR", "anon_data")
+        data_dir = default_data_dir()
         b_values = (0.0, 150.0, 1000.0, 1500.0)
-        for pt_no in available_patients(data_dir)[: args.limit_patients]:
+        rows = available_patients(data_dir)[: args.limit_patients]
+        for pt_no in (row["pt_id"].split("-")[-1] for row in rows):
             b0 = np.asarray(
                 load_mat(os.path.join(data_dir, f"pat{pt_no}_mean_b0.mat"),
                          "data_mean_b0"),

@@ -1,9 +1,9 @@
-"""Configuration of the 3-D volume pipeline.
+"""Configuration of the 3-D volume pipeline and of the RAMS network.
 
 Counterpart of ``mri_super_resolution_tpu/config.py`` (``SupperresDWIConfig``,
-``PRESETS``, ``add_preset_arg``), copied so the port imports nothing of the
-JAX package. The config accepts ``inr_model="grid"`` and its knobs; the
-port's pipeline runs ``"siren"`` and ``"wire"`` and raises
+``PRESETS``, ``add_preset_arg``, ``RAMSConfig``), copied so the port imports
+nothing of the JAX package. The config accepts ``inr_model="grid"`` and its
+knobs; the port's pipeline runs ``"siren"`` and ``"wire"`` and raises
 ``NotImplementedError`` for ``"grid"``.
 """
 from __future__ import annotations
@@ -48,6 +48,37 @@ class SupperresDWIConfig:
     grid_hidden: int = 64
     grid_lr: float = 5e-3
     grid_z_divisor: int = 1
+
+
+@dataclasses.dataclass
+class RAMSConfig:
+    """RAMS network hyperparameters (multi-image-super-resolution/
+    master.py:20-27 and utils/network.py:91-155)."""
+
+    scale: int = 3
+    filters: int = 32
+    kernel_size: int = 3
+    channels: int = 9  # T temporal acquisitions
+    r: int = 8  # attention compression
+    N: int = 12  # number of RFABs
+    mean: float = 7433.6436  # PROBA-V normalisation (network.py:18-19)
+    std: float = 2353.0723
+    # activation type; parameters, the attention gates and the output sum
+    # stay float32
+    compute_dtype: str = "bfloat16"
+    # True: the 3x3x3 convs with channel counts divisible by 8 run K6
+    # (conv3d_rfab) on a CUDA device, its plain version on the CPU
+    conv_kernel: bool = False
+    # (B, H, W, T, C) activations; the committed checkpoint and K6 use it
+    layout: str = "nhwtc"
+
+    def __post_init__(self):
+        if self.layout == "nthwc":
+            raise NotImplementedError(
+                "layout='nthwc' is not ported to PyTorch yet (ROADMAP Queue 1, item 17); "
+                "the port runs layout='nhwtc'")
+        if self.layout != "nhwtc":
+            raise ValueError(f"unknown layout {self.layout!r}")
 
 
 # "reference": exact reference behavior (FF-SIREN, flat Adam, 2500 epochs).

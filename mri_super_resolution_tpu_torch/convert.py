@@ -8,11 +8,24 @@ the port's :class:`~mri_super_resolution_tpu_torch.models.Siren`,
 ``Dense.kernel`` is (in, out); torch ``Linear.weight`` is (out, in). The
 SIREN trunk order is ``SineLayer_0..n`` then ``Dense_0``
 (``ops/pallas/siren_kernel.py:606-625`` of the JAX package).
+
+RAMS params cross as a numpy ``.npz`` (:func:`save_params_npz`,
+:func:`load_params_npz`): one array per leaf under its flat path
+(``params/RFAB_0/WNConv_0/v``), read back as the same nested dict, which
+:func:`rams_state_dict` maps to the port's :class:`RAMS`. The committed
+checkpoint at the reference architecture is :data:`RAMS_PARAMS_NPZ`.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+# the RAMS serving checkpoint (filters 32, N 12, T 9, scale 3), converted
+# from the JAX package's orbax checkpoint artifacts/rams_dwi_params
+RAMS_PARAMS_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "artifacts", "rams_dwi_params.npz")
 
 
 def _numbered(p: dict, prefix: str) -> list[str]:
@@ -99,3 +112,66 @@ def wire_weights(params: dict) -> tuple[list[torch.Tensor], torch.Tensor]:
     oms = torch.stack([torch.cat([sd[f"layers.{i}.omega_0"], sd[f"layers.{i}.sigma_0"]])
                        for i in range(n_layers)])
     return flat, oms
+
+
+def save_params_npz(tree: dict, path: str) -> None:
+    """Write a nested dict of arrays as one ``.npz`` entry per leaf, keyed by
+    its ``/``-joined path."""
+    flat = {}
+
+    def walk(d, prefix):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = np.asarray(v)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def load_params_npz(path: str) -> dict:
+    """The nested dict of numpy arrays that :func:`save_params_npz` wrote."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree
+
+
+def _wn(sd: dict, prefix: str, d: dict) -> None:
+    for name in ("v", "g", "bias"):
+        sd[f"{prefix}.{name}"] = _tensor(d[name])
+
+
+def _attention_block(sd: dict, prefix: str, d: dict) -> None:
+    """RFAB / RTAB: ``WNConv_0..3`` are conv0, conv1, att0, att1."""
+    for i, name in enumerate(("conv0", "conv1", "att0", "att1")):
+        _wn(sd, f"{prefix}.{name}", d[f"WNConv_{i}"])
+
+
+def rams_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``RAMS`` params -> ``RAMS.state_dict()`` keys. flax numbers the
+    blocks in call order: ``WNConv_0`` (head), ``RFAB_0..N-1``, ``WNConv_1``
+    (body conv), then per temporal step ``RFAB_{N+i}`` and ``WNConv_{2+i}``,
+    ``WNConv_{2+k}`` (to scale^2), ``RTAB_0``, ``WNConv_{3+k}`` (global
+    conv), with k = T // 3 steps."""
+    p = params["params"]
+    k = len(_numbered(p, "WNConv_")) - 4
+    n = len(_numbered(p, "RFAB_")) - k
+    sd: dict[str, torch.Tensor] = {}
+    _wn(sd, "head", p["WNConv_0"])
+    for i in range(n):
+        _attention_block(sd, f"rfabs.{i}", p[f"RFAB_{i}"])
+    _wn(sd, "body_conv", p["WNConv_1"])
+    for i in range(k):
+        _attention_block(sd, f"reduce_rfabs.{i}", p[f"RFAB_{n + i}"])
+        _wn(sd, f"reduce_convs.{i}", p[f"WNConv_{2 + i}"])
+    _wn(sd, "to_scale", p[f"WNConv_{2 + k}"])
+    _attention_block(sd, "rtab", p["RTAB_0"])
+    _wn(sd, "global_conv", p[f"WNConv_{3 + k}"])
+    return sd

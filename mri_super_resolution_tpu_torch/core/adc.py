@@ -1,10 +1,17 @@
 """ADC maps. Counterpart of ``mri_super_resolution_tpu/core/adc.py``
-(``adc_polyfit`` :32-54)."""
+(``adc_log_ratio`` :22-29, ``adc_polyfit`` :32-54)."""
 from __future__ import annotations
 
 import torch
 
 EPS = 1e-7
+
+
+def adc_log_ratio(dwi: torch.Tensor, b0: torch.Tensor, b: float,
+                  mag: float = 1000.0) -> torch.Tensor:
+    """Two-point ADC ``-log(dwi / (b0 + eps) + eps) / b * mag``; the MISR
+    pipeline passes ``mag=1e6`` (multi-image-super-resolution/master.py:55-56)."""
+    return -torch.log(dwi / (b0 + EPS) + EPS) / b * mag
 
 
 def adc_polyfit(bvalues, signal: torch.Tensor, min_adc: float = -10.0,

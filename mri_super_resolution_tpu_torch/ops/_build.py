@@ -104,14 +104,16 @@ def library(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         return lib
 
 
-def check_tensors(kind: str, x: torch.Tensor, tensors: Sequence[torch.Tensor]) -> str:
-    """Validate what the ``kind`` kernels take: float32, all on ``x``'s
-    device, contiguous, at most :data:`MAX_ROWS` rows; returns the device
-    type (``"cpu"`` selects the plain version)."""
+def check_tensors(kind: str, x: torch.Tensor, tensors: Sequence[torch.Tensor],
+                  dtypes: Sequence[torch.dtype]) -> str:
+    """Validate what the ``kind`` kernels take: every tensor of one of
+    ``dtypes``, all on ``x``'s device, contiguous, at most :data:`MAX_ROWS`
+    rows; returns the device type (``"cpu"`` selects the plain version)."""
     dev = x.device
     for t in (x, *tensors):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kind} kernels take float32; got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{kind} kernels take {' or '.join(map(str, dtypes))}; "
+                            f"got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"all tensors must be on {dev}; got one on {t.device}")
         if not t.is_contiguous():

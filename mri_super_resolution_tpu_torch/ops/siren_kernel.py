@@ -75,7 +75,7 @@ def _omegas(omega: float | Sequence[float], n_sine: int) -> list[float]:
 
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
-    return _build.check_tensors("SIREN", x, [*weights, *others])
+    return _build.check_tensors("SIREN", x, [*weights, *others], (torch.float32,))
 
 
 # --------------------------------------------------------------------------

@@ -69,7 +69,7 @@ def _shapes(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
-    return _build.check_tensors("WIRE", x, [*weights, *others])
+    return _build.check_tensors("WIRE", x, [*weights, *others], (torch.float32,))
 
 
 # --------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""End-to-end pipelines (the 3-D volume SIREN pipeline so far)."""
+"""End-to-end pipelines: the 3-D volume INR pipeline (SIREN and WIRE) and
+MISR inference with RAMS."""

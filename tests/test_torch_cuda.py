@@ -8,7 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from mri_super_resolution_tpu_torch.models import Wire
+from mri_super_resolution_tpu_torch import set_float32_precision
+from mri_super_resolution_tpu_torch.models import RAMS, Wire
+from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
@@ -17,7 +19,7 @@ from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_float32_precision()  # no TF32 in matmuls or cuDNN convs
     return torch.device("cuda")
 
 
@@ -123,3 +125,55 @@ def test_wire_engine_adapters_on_card(card):
     loss, grads = wk.make_wire_value_and_grad(2)(params, x, target)
     assert len(grads) == len(params) and all(float(g) == 0 for g in grads[-6:])
     assert wk.LAUNCHES == {"wire_forward": 2, "wire_loss_grads": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,padding", [
+    ((2, 19, 35, 5, 16), 40, "SAME"), ((1, 3, 4, 3, 8), 8, "VALID"),
+    ((3, 33, 17, 9, 32), 32, "VALID")])
+def test_conv3d_launches_and_matches_plain(card, shape, cout, padding, dtype):
+    """K6 launches once per call and agrees with its plain version: float32
+    within 1e-5 of the largest output, bf16 within one bf16 ulp of each
+    output (the float32 sums' order may round apart)."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen).to(card, dtype)
+    k = (torch.randn((3, 3, 3, shape[-1], cout), generator=gen) * 0.1).to(card)
+    b = torch.randn((cout,), generator=gen).to(card)
+    ck.reset_launches()
+    with torch.no_grad():
+        out = ck.conv3d_rfab(x, k, b, padding)
+    ref = ck.conv3d_rfab_ref(x, k, b, padding)
+    assert ck.LAUNCHES == {"conv3d_rfab": 1} and out.dtype == dtype
+    diff = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * scale
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+        assert bool((diff <= ulp + 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_rams_on_k6_matches_cpu(card):
+    """A small float32 RAMS with conv_kernel: 2 N + 1 + 3 (T // 3) K6
+    launches on the card, the output within the RAMS class of the CPU's."""
+    gen = torch.Generator().manual_seed(0)
+    model = RAMS(filters=8, N=2, r=4, conv_kernel=True, generator=gen)
+    x = torch.rand((2, 10, 12, 9), generator=gen) * 3000 + 6000
+    with torch.inference_mode():
+        cpu = model(x)
+        ck.reset_launches()
+        gpu = model.to(card)(x.to(card))
+    assert ck.LAUNCHES == {"conv3d_rfab": 2 * 2 + 1 + 3 * 3}
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=2e-5, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_conv3d_refuses_gradients_on_card(card):
+    x = torch.zeros(1, 4, 4, 3, 8, device=card, requires_grad=True)
+    k, b = torch.zeros(3, 3, 3, 8, 8, device=card), torch.zeros(8, device=card)
+    with pytest.raises(NotImplementedError, match="K7"):
+        ck.conv3d_rfab(x, k, b)
+    with pytest.raises(ValueError):
+        ck.conv3d_rfab(x.detach(), k, b.cpu())

@@ -1,5 +1,5 @@
-"""The CUDA sources of K1-K3 (``csrc/siren.cu``) and K4-K5
-(``csrc/wire.cu``) run on the CPU under an
+"""The CUDA sources of K1-K3 (``csrc/siren.cu``), K4-K5 (``csrc/wire.cu``)
+and K6 (``csrc/conv3d.cu``) run on the CPU under an
 emulation of the CUDA execution model (``tests/cuda_emulation``: one
 std::thread per CUDA thread, block barriers, warp shuffles), through the
 same ctypes launch code the wrappers use on the card, against the plain
@@ -11,7 +11,9 @@ Shapes are tiny but cover ragged row tiles (P not a multiple of 128),
 widths that are not multiples of the 128-wide tiles, several dW splits, a
 masked row count and a single sine layer; for WIRE also the 4-wide first
 layer (depth below the GEMM's 8-deep stage), 0-2 hidden layers and
-per-layer omega/sigma read from the device array.
+per-layer omega/sigma read from the device array; for K6 SAME and VALID,
+both types, outputs off the 16 x 32 tile, more than one channel chunk and
+more than one 32-channel output block.
 """
 import ctypes
 import os
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from mri_super_resolution_tpu_torch.ops import _build
+from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
@@ -57,6 +60,11 @@ def emulated_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def emulated_wire(tmp_path_factory):
     return _emulated(tmp_path_factory, "wire", wk._declare)
+
+
+@pytest.fixture(scope="module")
+def emulated_conv3d(tmp_path_factory):
+    return _emulated(tmp_path_factory, "conv3d", ck._declare)
 
 
 def _problem(dims, P, seed):
@@ -158,3 +166,35 @@ def test_emulated_wire_workspace_is_enough(emulated_wire):
     assert n >= 3 * 2048 * 1024 + 8 * 512 * 512 + 4 * 512 + 70_000
     assert emulated_wire.wire_pack_floats(4, 256, 2) == (
         2 * 256 * 4 + 2 * 256 + 2 * (8 * 256 * 256 + 4 * 256) + 2 * 256)
+
+
+CONV_CASES = [
+    ((1, 5, 7, 4, 8), 8, "SAME"),  # one chunk, one group of 8 outputs, B 1
+    ((2, 19, 35, 3, 16), 40, "VALID"),  # two row and two column tiles, two output blocks
+    ((1, 17, 6, 5, 24), 16, "SAME"),  # three channel chunks, H over one tile
+    ((1, 3, 3, 3, 8), 32, "VALID"),  # the smallest VALID input: one output voxel
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,padding", CONV_CASES)
+def test_emulated_conv3d_matches_plain(emulated_conv3d, shape, cout, padding, dtype):
+    """float32: the sums' order differs, within 1e-5 of the largest output.
+    bfloat16: bf16 operands, float32 sums, one rounding to nearest, so each
+    output is within half a bf16 ulp of the float32 sum of the same operands
+    (plus the sums' order)."""
+    rng = np.random.default_rng(sum(shape) + cout)
+    x = torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    k = torch.as_tensor((rng.normal(size=(3, 3, 3, shape[-1], cout)) * 0.1)
+                        .astype(np.float32)).to(dtype)
+    b = torch.as_tensor(rng.normal(size=(cout,)).astype(np.float32))
+    out = ck._launch(emulated_conv3d, x, k, b, padding, 0)
+    ref = ck.conv3d_rfab_ref(x, k, b, padding)
+    assert out.shape == ref.shape and out.dtype == dtype
+    sums = ck.conv3d_rfab_ref(x.float(), k.float(), b, padding)  # float32, unrounded
+    scale = float(sums.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * scale)
+    else:
+        half_ulp = 2.0 ** (torch.floor(torch.log2(sums.abs().clamp_min(1e-30))) - 8)
+        assert bool(((out.float() - sums).abs() <= half_ulp + 1e-5 * scale).all())

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: every module of it
-imports, and short CPU fits of the SIREN and WIRE paths run, in a process
-where both are blocked."""
+imports, and short CPU fits of the SIREN and WIRE paths and a tiny MISR run
+(the K6 route, its plain version on the CPU) run, in a process where both
+are blocked."""
 import os
 import subprocess
 import sys
@@ -41,6 +42,24 @@ res = fit_simple(None, Adam(w.params(), 1e-3), mgrid((3, 2, 2, 4)), torch.rand(4
 assert bool(torch.isfinite(res.losses).all())
 assert wk.make_wire_fused_apply(1)(w.params(), mgrid((2, 2, 2, 2))).shape == (16, 1)
 assert sum(wk.LAUNCHES.values()) == 0
+import os, tempfile
+import numpy as np
+from mri_super_resolution_tpu_torch.config import RAMSConfig
+from mri_super_resolution_tpu_torch.data import Case
+from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+from mri_super_resolution_tpu_torch.pipelines import misr
+rng = np.random.default_rng(0)
+case = Case(pt_id="pat-1", b=900.0, cancer_loc=(2, 2), contralateral_loc=(3, 3),
+            noise=(1, 1), cancer_slice=0, acquisitions=(9,),
+            dwi=rng.uniform(20, 40, (8, 8, 1, 9)).astype(np.float32),
+            b0=rng.uniform(30, 50, (8, 8, 1)).astype(np.float32),
+            erd=np.ones((8, 8, 1), np.float32), accept=np.ones((8, 8, 1, 9), np.int32))
+cfg = RAMSConfig(filters=8, N=1, conv_kernel=True)
+with tempfile.TemporaryDirectory() as out:
+    misr.run([case], cfg, misr.build_rams(cfg, generator=g).state_dict(), out,
+             exp_name="e", sample_size=2, device="cpu")
+    assert os.path.isfile(os.path.join(out, "e", "1", "DWI", "mean.dcm"))
+assert ck.LAUNCHES["conv3d_rfab"] == 0
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "mri_super_resolution_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("OK", len(mods))
