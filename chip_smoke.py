@@ -17,9 +17,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
    chunk and its tails (K5) and with 1234 masked rows (K4); K6
    ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
-   and on ragged shapes; then a small SIREN and a small WIRE patient and a
-   small RAMS forward on the card's kernels against the plain path on the
-   CPU;
+   and on ragged shapes; K7 ``conv3d_rfab_bwd`` (dx, dW, db) at the seven
+   shapes of the training path in bf16 and float32 and on ragged shapes;
+   then a small SIREN and a small WIRE patient, a small RAMS forward and
+   three training steps of a small RAMS on the card's kernels against the
+   plain path on the CPU;
 3. main paths: ``pipelines.superres3d.run`` on a seeded (128, 128, 28)
    synthetic patient with 75 cross-b combinations, ROI 40:90 -> 25x25x28x4
    = 70,000 LR rows, once at the ``reference`` preset (SIREN 512x3, 128
@@ -36,13 +38,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``conv_kernel=True``: DICOMs, timings.json, finite (384, 384) outputs in
    [0, 65536], and exactly 34 K6 launches per case and no other kernel;
    the same cases on the library route and in float32 bound the route gap;
+   then the MISR trainer, ``cli/train_misr.main`` at full width (filters 32,
+   N 12, bf16, ``--conv_kernel``, batch 32, hr 96) on three seeded
+   synthetic mean-b0 volumes (128, 128, 24) written with scipy: 4 optimizer
+   steps and 3 validation passes, a finite loss and cPSNR, moved params, a
+   restorable checkpoint, the CSV log, and exactly 34 K6 + 34 K7 launches
+   per step, 34 K6 and no K7 per validation batch, no K1-K5;
 4. times: each kernel at its main path's shapes with CUDA events, beside
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
-   for K6) and its bound; the 25-draw RAMS forward on both routes.
+   for K6, ``torch.autograd.grad`` through it for K7) and its bound; the
+   25-draw RAMS forward on both routes; one full training step at batch 32
+   on both routes, whose losses over the same three steps from the same
+   init differ by at most twice the cuDNN route's own bf16-vs-float32 gap.
 
-The last three lines are the ``{"kernels": ...}`` record, the card's name
-and power limit, and ``{"ok": true, "device": ...}``. Exits non-zero,
-printing no result, when no CUDA device is present.
+The last three lines are the ``{"kernels": ...}`` record (K1-K7), the
+card's name and power limit, and ``{"ok": true, "device": ...}``. Exits
+non-zero, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -84,6 +95,24 @@ K6_SHAPES = (
     ((25, 132, 132, 5, 32), "VALID", 1),
 )
 K6_PER_FORWARD = sum(n for _, _, n in K6_SHAPES)  # 2 N + 1 + 3 (T // 3) = 34
+# K7 dW and db: max |kernel - plain| / max |plain|. Float32 sums over every
+# output pixel (up to 3.7e5 rows at the training shapes) in other orders:
+# the K1 class would be 1e-3; measured at most 1.53e-6 on an H100 over the
+# seven training shapes and four ragged ones, both types, so 1e-5
+K7_DW_TOL = 1e-5
+# the training path's K6/K7 shapes: batch 32 of 32 x 32 LR patches (hr 96),
+# reflect-padded to 34, then 36 before each temporal step
+TRAIN_SHAPES = (
+    ((32, 34, 34, 9, 32), "SAME", 25),
+    ((32, 36, 36, 9, 32), "SAME", 2),
+    ((32, 36, 36, 7, 32), "SAME", 2),
+    ((32, 36, 36, 5, 32), "SAME", 2),
+    ((32, 36, 36, 9, 32), "VALID", 1),
+    ((32, 36, 36, 7, 32), "VALID", 1),
+    ((32, 36, 36, 5, 32), "VALID", 1),
+)
+TRAIN_BATCH = 32  # TrainerConfig.batch_size
+TRAIN_STEPS, TRAIN_VAL_PASSES = 4, 3  # 2 epochs of 2 steps; val at steps 2, 4 and at the end
 INFER_CHUNK = 262_144  # rows per inference chunk (fit/engine.py:infer_dense_grid)
 
 
@@ -319,10 +348,10 @@ def _k6_inputs(shape, dtype, seed: int):
     return x, w, b
 
 
-def _k6_check(out, ref, what: str) -> float:
-    """Hold K6 against its plain version: float32 within K6_F32_TOL of the
-    largest output; bf16 within K6_BF16_ULPS bf16 ulps of each output plus
-    the float32 order term. Returns the max abs error."""
+def _k6_check(out, ref, what: str, kernel: str = "K6 conv3d_rfab") -> float:
+    """Hold K6 (or K7's dx) against its plain version: float32 within
+    K6_F32_TOL of the largest output; bf16 within K6_BF16_ULPS bf16 ulps of
+    each output plus the float32 order term. Returns the max abs error."""
     import torch
 
     diff = (out.float() - ref.float()).abs()
@@ -335,9 +364,9 @@ def _k6_check(out, ref, what: str) -> float:
         ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
         ok = bool((diff <= K6_BF16_ULPS * ulp + K6_F32_TOL * scale).all())
         tol = f"{K6_BF16_ULPS} bf16 ulp"
-    print(f"[parity] K6 conv3d_rfab {what}: max abs {err:.3e}, max |plain| {scale:.3e} "
+    print(f"[parity] {kernel} {what}: max abs {err:.3e}, max |plain| {scale:.3e} "
           f"(tol {tol})")
-    _require(ok, f"K6 disagrees with its plain version ({what})")
+    _require(ok, f"{kernel} disagrees with its plain version ({what})")
     return err
 
 
@@ -369,6 +398,18 @@ def phase_k6_parity() -> float:
     return err
 
 
+def _b0_blob(seed: int, side: int = 128, slices: int = 24):
+    """A seeded smooth blob of about 100 on a floor of 90, (side, side,
+    slices) float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x, y, z = np.meshgrid(np.linspace(-1, 1, side), np.linspace(-1, 1, side),
+                          np.linspace(-1, 1, slices), indexing="ij")
+    return (100.0 * np.exp(-(x ** 2 / 0.5 + y ** 2 / 0.3 + z ** 2)) + 90.0
+            + 5.0 * rng.random((side, side, slices))).astype(np.float32)
+
+
 def _misr_case(seed: int, side: int = 128, slices: int = 24):
     """A seeded synthetic case: b0 (side, side, slices) at DWI magnitudes
     (a smooth blob of about 100 on a floor of 90: after the b = 900 decay
@@ -378,11 +419,7 @@ def _misr_case(seed: int, side: int = 128, slices: int = 24):
 
     from mri_super_resolution_tpu_torch.data import Case, synthetic
 
-    rng = np.random.default_rng(seed)
-    x, y, z = np.meshgrid(np.linspace(-1, 1, side), np.linspace(-1, 1, side),
-                          np.linspace(-1, 1, slices), indexing="ij")
-    b0 = (100.0 * np.exp(-(x ** 2 / 0.5 + y ** 2 / 0.3 + z ** 2)) + 90.0
-          + 5.0 * rng.random((side, side, slices))).astype(np.float32)
+    b0 = _b0_blob(seed, side, slices)
     dwi = synthetic.acquisitions_from_b0(b0, num_acq=27, b=900.0, seed=seed)
     return Case(pt_id=f"synth-{seed:02d}", b=900.0, cancer_loc=(side // 2, side // 2),
                 contralateral_loc=(side // 4, side // 2), noise=(2, 2), cancer_slice=12,
@@ -585,6 +622,325 @@ def phase_rams_forward_times() -> None:
                 torch.cuda.synchronize()
                 best = min(best, time.perf_counter() - t0)
         print(f"[times] RAMS 25-draw forward, conv_kernel={conv_kernel}: {1e3 * best:.1f} ms")
+
+
+def _k7_inputs(shape, padding, dtype, seed: int):
+    """K6's inputs plus a cotangent of the output's shape, on the card."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+
+    x, w, _ = _k6_inputs(shape, dtype, seed)
+    gen = torch.Generator().manual_seed(seed + 1000)
+    g = torch.randn((*ck.out_shape(shape, padding), shape[-1]), generator=gen)
+    return x, w, g.to("cuda", dtype)
+
+
+def _k7_check(got, ref, what: str) -> float:
+    """Hold K7 against its plain version: dx as K6's output (_k6_check's
+    tolerances), dW and db within K7_DW_TOL of their largest entry. Returns
+    the max abs error over the three."""
+    errs = [_k6_check(got[0], ref[0], f"{what} dx", kernel="K7 conv3d_rfab_bwd")]
+    for a, b, name in ((got[1], ref[1], "dW"), (got[2], ref[2], "db")):
+        e, r = _rel(a, b)
+        print(f"[parity] K7 conv3d_rfab_bwd {what} {name}: max abs {e:.3e}, rel {r:.3e} "
+              f"(tol rel {K7_DW_TOL:g})")
+        _require(r <= K7_DW_TOL, f"K7 {name} disagrees with its plain version ({what})")
+        errs.append(e)
+    return max(errs)
+
+
+def phase_k7_parity() -> float:
+    """K7 against its plain version at the seven training path shapes in
+    bf16 and float32, and on ragged shapes (B 1, H != W, odd sizes, C 8 and
+    16, SAME and VALID); returns the max abs error over the path's bf16
+    calls."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+
+    err = 0.0
+    for i, (shape, pad, _) in enumerate(TRAIN_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, g = _k7_inputs(shape, pad, dtype, seed=100 + i)
+            e = _k7_check(ck.conv3d_rfab_bwd(x, w, g, pad), ck.conv3d_rfab_bwd_ref(x, w, g, pad),
+                          f"{shape} {pad} {str(dtype)[6:]}")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+            del x, g
+    for shape, pad in (((1, 37, 21, 5, 8), "SAME"), ((1, 19, 45, 7, 16), "VALID"),
+                       ((1, 3, 5, 3, 16), "VALID"), ((3, 17, 33, 4, 16), "SAME")):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, g = _k7_inputs(shape, pad, dtype, seed=sum(shape))
+            _k7_check(ck.conv3d_rfab_bwd(x, w, g, pad), ck.conv3d_rfab_bwd_ref(x, w, g, pad),
+                      f"{shape} {pad} {str(dtype)[6:]}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def _tiny_train_data(n: int, lr_side: int, seed: int):
+    """Seeded LR stacks in the uint16 range and HR targets (3x) with a
+    mask, as float32 numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(6000, 9000, (n, lr_side, lr_side, 9)).astype(np.float32)
+    y = rng.uniform(6000, 9000, (n, 3 * lr_side, 3 * lr_side, 1)).astype(np.float32)
+    return x, y, np.ones_like(y)
+
+
+def phase_small_train(out_dir: str) -> None:
+    """A small float32 RAMS (filters 8, N 1, r 4) with conv_kernel: three
+    optimizer steps of the port's Trainer on the card's K6 and K7 against
+    the same steps on the plain path on the CPU, from the same init on the
+    same batches. The loss trace within rtol 1e-4 (float32 sums in other
+    orders); the final params within 2 lr a step (Adam's update is about lr
+    sign(g), and a gradient near 0 may take the other sign)."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.config import RAMSConfig, TrainerConfig
+    from mri_super_resolution_tpu_torch.fit.trainer import Trainer
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+    from mri_super_resolution_tpu_torch.pipelines import misr
+
+    x, y, m = _tiny_train_data(8, 12, seed=5)
+    cfg = RAMSConfig(filters=8, N=1, r=4, compute_dtype="float32", conv_kernel=True)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = misr.build_rams(cfg, generator=torch.Generator().manual_seed(3))
+        tr = Trainer(model, TrainerConfig(batch_size=4, hr_size=36, checkpoint_dir=os.path.join(
+            out_dir, device)), device=device)
+        tr.init()
+        ck.reset_launches()
+        losses = [float(tr.train_step([tr._batch(np.arange(i, i + 4) % 8, x, y, m)])[0])
+                  for i in (0, 4, 2)]
+        runs[device] = (np.asarray(losses), {k: v.detach().cpu() for k, v in
+                                             tr.model.named_parameters()},
+                        dict(ck.LAUNCHES))
+    (lg, pg, launches), (lc, pc, _) = runs["cuda"], runs["cpu"]
+    perr = max(float((pg[k] - pc[k]).abs().max()) for k in pg)
+    lr = TrainerConfig().learning_rate
+    print(f"[parity] small RAMS (8, 1) 3 train steps, card K6/K7 vs CPU plain: loss trace "
+          f"{np.array2string(lg, precision=4)} vs {np.array2string(lc, precision=4)}, max rel "
+          f"{float(np.abs(lg / lc - 1).max()):.3e} (tol 1e-4); params max abs {perr:.3e} "
+          f"(tol {6 * lr:g}); launches {launches}")
+    _require(bool(np.allclose(lg, lc, rtol=1e-4, atol=0)), "small RAMS loss trace disagrees")
+    _require(perr <= 2 * lr * 3, "small RAMS params disagree after 3 steps")
+    _require(launches == {"conv3d_rfab": 3 * 12, "conv3d_rfab_bwd": 3 * 12},
+             f"small RAMS training launches {launches}")
+
+
+def _write_b0_volumes(data_dir: str) -> None:
+    """Three seeded synthetic mean-b0 volumes (128, 128, 24) at DWI
+    magnitudes (the serving phase's blob), as ``patNN_mean_b0.mat`` under
+    the first three CASE_TABLE patient numbers."""
+    import scipy.io as sio
+
+    from mri_super_resolution_tpu_torch.data import CASE_TABLE
+
+    os.makedirs(data_dir, exist_ok=True)
+    for seed, row in zip((21, 22, 23), CASE_TABLE[:3]):
+        sio.savemat(os.path.join(data_dir, f"pat{row['pt_id'].split('-')[-1]}_mean_b0.mat"),
+                    {"data_mean_b0": _b0_blob(seed)})
+
+
+def phase_train_main(out_dir: str):
+    """The MISR training path: ``train_misr.main`` at full width with
+    ``--conv_kernel`` on three synthetic volumes; every launch count is set
+    to 0 just before the run and read just after, each step's and each
+    validation pass's launches recorded. Returns the launches and the
+    training arrays."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli import train_misr
+    from mri_super_resolution_tpu_torch.config import RAMSConfig
+    from mri_super_resolution_tpu_torch.fit.trainer import Trainer
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+    from mri_super_resolution_tpu_torch.pipelines import misr
+    from mri_super_resolution_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                                 unwrap_trainer_params)
+
+    data_dir = os.path.join(out_dir, "data")
+    _write_b0_volumes(data_dir)
+    counts = lambda: {**sk.LAUNCHES, **wk.LAUNCHES, **ck.LAUNCHES}
+    steps, vals = [], []
+    train_step, evaluate = Trainer.train_step, Trainer.evaluate
+
+    def rec_step(self, micro):
+        before = counts()
+        out = train_step(self, micro)
+        steps.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    def rec_evaluate(self, x_val, *args, **kwargs):
+        before = counts()
+        out = evaluate(self, x_val, *args, **kwargs)
+        n_batches = -(-len(x_val) // self.cfg.batch_size)
+        vals.append(({k: v - before[k] for k, v in counts().items()}, n_batches))
+        return out
+
+    env = os.environ.get("MRI_SR_DATA_DIR")
+    os.environ["MRI_SR_DATA_DIR"] = data_dir
+    Trainer.train_step, Trainer.evaluate = rec_step, rec_evaluate
+    ckpt, logs = os.path.join(out_dir, "ckpt"), os.path.join(out_dir, "logs")
+    try:
+        for mod in (sk, wk, ck):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_misr.main([
+            "--conv_kernel", "--batch_size", str(TRAIN_BATCH), "--hr_size", "96",
+            "--epochs", "2", "--evaluate_every", "2", "--ckpt_dir", ckpt, "--log_dir", logs,
+            "--device", "cuda", "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        X, Y, M, pids = train_misr.build_dataset(hr_size=96)
+        (Xt, Yt, Mt), _ = train_misr.split_dataset(X, Y, M, pids)
+    finally:
+        Trainer.train_step, Trainer.evaluate = train_step, evaluate
+        if env is None:
+            os.environ.pop("MRI_SR_DATA_DIR", None)
+        else:
+            os.environ["MRI_SR_DATA_DIR"] = env
+
+    _require(trainer.state.step == TRAIN_STEPS and len(steps) == TRAIN_STEPS,
+             f"{len(steps)} optimizer steps, expected {TRAIN_STEPS}")
+    for i, d in enumerate(steps):
+        for name, n in d.items():
+            want = K6_PER_FORWARD if name in ("conv3d_rfab", "conv3d_rfab_bwd") else 0
+            _require(n == want, f"step {i + 1}: {name} launched {n} times, expected {want}")
+    _require(len(vals) == TRAIN_VAL_PASSES, f"{len(vals)} validation passes")
+    val_batches = sum(nb for _, nb in vals)
+    for d, nb in vals:
+        for name, n in d.items():
+            want = K6_PER_FORWARD * nb if name == "conv3d_rfab" else 0
+            _require(n == want, f"validation: {name} launched {n} times, expected {want}")
+    for name, n in launches.items():
+        want = {"conv3d_rfab": K6_PER_FORWARD * (TRAIN_STEPS + val_batches),
+                "conv3d_rfab_bwd": K6_PER_FORWARD * TRAIN_STEPS}.get(name, 0)
+        _require(n == want, f"{name} launched {n} times on the training path, expected {want}")
+    rows = np.loadtxt(os.path.join(logs, "RAMS_scalars.csv"), delimiter=",", skiprows=1,
+                      ndmin=2)
+    _require(rows.shape == (2, 4) and bool(np.isfinite(rows).all()),
+             f"the scalar CSV: {rows.tolist()}")
+    cfg = RAMSConfig(conv_kernel=True)
+    init = misr.build_rams(cfg, generator=torch.Generator().manual_seed(0))
+    moved = max(float((p.detach().cpu() - init.state_dict()[k]).abs().max())
+                for k, p in trainer.model.named_parameters())
+    _require(moved > 0, "the params did not move")
+    tree = CheckpointManager(ckpt).restore()
+    _require(tree is not None and tree["step"] in (2, 4), "no checkpoint written")
+    restored = misr.build_rams(cfg)
+    restored.load_state_dict(unwrap_trainer_params(tree))
+    val = float(rows[-1, 3])
+    print(f"[main train] train_misr.main() {wall:.1f} s: {len(Xt)} train patches, "
+          f"{TRAIN_STEPS} steps, {TRAIN_VAL_PASSES} validation passes ({val_batches} "
+          f"batches); launches {launches}; CSV rows {rows.tolist()}; params moved by up to "
+          f"{moved:.3e}; checkpoint at step {tree['step']} restored; val cPSNR {val:.2f}")
+    return ({"conv3d_rfab_bwd": launches["conv3d_rfab_bwd"]}, (Xt, Yt, Mt))
+
+
+def phase_train_step_times(data, out_dir: str) -> None:
+    """One full step at batch 32 (forward, shift-L1, backward, Adam) with
+    ``conv_kernel`` on and on the cuDNN route, bf16, from the same init;
+    the same three steps also on the cuDNN route in float32: the two bf16
+    routes' losses may differ by at most twice the cuDNN route's own
+    bf16-vs-float32 gap (phase misr_main's bound). Steps timed on the host
+    clock around a synchronised step, best of 3, routes in turns."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.config import RAMSConfig, TrainerConfig
+    from mri_super_resolution_tpu_torch.fit.trainer import Trainer
+    from mri_super_resolution_tpu_torch.pipelines import misr
+
+    X, Y, M = data
+    routes = {"conv_kernel": dict(conv_kernel=True), "cuDNN": {},
+              "cuDNN float32": dict(compute_dtype="float32")}
+    trainers, losses = {}, {}
+    for name, kw in routes.items():
+        model = misr.build_rams(RAMSConfig(**kw), generator=torch.Generator().manual_seed(0))
+        trainers[name] = Trainer(model, TrainerConfig(batch_size=TRAIN_BATCH, hr_size=96,
+                                                      checkpoint_dir=os.path.join(out_dir, name)),
+                                 device="cuda")
+        trainers[name].init()
+        tr = trainers[name]
+        losses[name] = np.asarray([float(tr.train_step([tr._batch(
+            np.arange(i, i + TRAIN_BATCH) % len(X), X, Y, M)])[0]) for i in (0, 32, 16)])
+    gap = float(np.abs(losses["conv_kernel"] - losses["cuDNN"]).max())
+    own = float(np.abs(losses["cuDNN"] - losses["cuDNN float32"]).max())
+    print(f"[train] loss over 3 steps: " + "; ".join(
+        f"{k} {np.array2string(v, precision=3)}" for k, v in losses.items())
+        + f"; routes differ by {gap:.4f}, cuDNN bf16 vs float32 by {own:.4f} "
+          f"(tol: route gap <= 2x that)")
+    _require(gap <= 2 * own, "the K6/K7 and cuDNN training routes differ beyond the bf16 bound")
+    best = {}
+    for name in ("conv_kernel", "cuDNN", "conv_kernel", "cuDNN"):
+        tr = trainers[name]
+        batch = tr._batch(np.arange(TRAIN_BATCH), X, Y, M)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step([batch])
+            torch.cuda.synchronize()
+            best[name] = min(best.get(name, float("inf")), time.perf_counter() - t0)
+    print(f"[times] train step, batch {TRAIN_BATCH}, bf16 (forward, shift-L1, backward, "
+          f"Adam): conv_kernel {1e3 * best['conv_kernel']:.1f} ms, cuDNN "
+          f"{1e3 * best['cuDNN']:.1f} ms")
+
+
+def phase_k7_times(err: float, launches: dict) -> dict:
+    """K7 in bf16 at each training path shape: the kernel, its plain version
+    and ``torch.autograd.grad`` through ``F.conv3d`` on the same channels-
+    last bf16 tensors (dx, dW, db; the forward's graph kept), with CUDA
+    events, beside the bound; K6 and ``F.conv3d`` forward at the same
+    shapes for the step's share. The kernels-line row is the SAME shape
+    that runs 25 of the 34 launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+
+    row = None
+    per_step = {"K7": 0.0, "cuDNN bwd": 0.0, "K6": 0.0, "cuDNN fwd": 0.0}
+    for i, (shape, pad, n) in enumerate(TRAIN_SHAPES):
+        x, w, g = _k7_inputs(shape, pad, torch.bfloat16, seed=100 + i)
+        B, Ho, Wo, To = ck.out_shape(shape, pad)
+        C = shape[-1]
+        xl = x.permute(0, 4, 1, 2, 3).detach().requires_grad_()  # channels-last, no copy
+        wl = w.bfloat16().permute(4, 3, 0, 1, 2).contiguous().requires_grad_()
+        bl = torch.zeros(C, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+        out = F.conv3d(xl, wl, bl, padding=pad.lower())
+        gl = g.permute(0, 4, 1, 2, 3)
+        flops = 4 * B * Ho * Wo * To * 27 * C * C
+        nbytes = 2 * (2 * x.numel() + g.numel() + w.numel()) + 4 * (w.numel() + C)
+        r = _time_row("conv3d_rfab_bwd", "conv3d", "conv3d_kernel.py:234",
+                      lambda: ck.conv3d_rfab_bwd(x, w, g, pad),
+                      lambda: ck.conv3d_rfab_bwd_ref(x, w, g, pad),
+                      lambda: torch.autograd.grad(out, (xl, wl, bl), gl, retain_graph=True),
+                      flops, nbytes, f"{shape} {pad}", {"conv3d_rfab_bwd": err}, launches,
+                      peak=PEAK_BF16_TC, reps=5)
+        b = torch.zeros(C, device="cuda")
+        with torch.no_grad():
+            k6_ms = _time_ms(lambda: ck.conv3d_rfab(x, w, b, pad), 5)
+            lib_ms = _time_ms(lambda: F.conv3d(xl, wl, bl, padding=pad.lower()), 5)
+        print(f"[times] conv3d_rfab {shape} {pad}: kernel {k6_ms:.3f} ms, F.conv3d "
+              f"{lib_ms:.3f} ms (K7's dx runs this kernel on g)")
+        per_step["K6"] += n * k6_ms
+        per_step["cuDNN fwd"] += n * lib_ms
+        per_step["K7"] += n * r["ms"]
+        per_step["cuDNN bwd"] += n * r["library_ms"]
+        if row is None:
+            row = r
+        del x, g, xl, out, gl
+    torch.cuda.empty_cache()
+    print("[times] per train step (34 launches each): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in per_step.items()))
+    return row
 
 
 def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
@@ -848,9 +1204,12 @@ def main(argv=None) -> int:
     errs = phase_parity(P, dims)
     errs.update(phase_wire_parity(P))
     k6_err = phase_k6_parity()
+    k7_err = phase_k7_parity()
     for inr_model in ("siren", "wire"):
         phase_small_patient(inr_model)
     phase_small_misr()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_small_train(out_dir)
     launches = {}
     for inr_model in ("siren", "wire"):
         with tempfile.TemporaryDirectory() as out_dir:
@@ -858,9 +1217,14 @@ def main(argv=None) -> int:
                                             out_dir))
     with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_misr_main(out_dir))
-    rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
-    rows.append(phase_k6_times(k6_err, launches))
-    phase_rams_forward_times()
+    with tempfile.TemporaryDirectory() as out_dir:
+        train_launches, train_data = phase_train_main(out_dir)
+        launches.update(train_launches)
+        rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
+        rows.append(phase_k6_times(k6_err, launches))
+        rows.append(phase_k7_times(k7_err, launches))
+        phase_rams_forward_times()
+        phase_train_step_times(train_data, out_dir)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

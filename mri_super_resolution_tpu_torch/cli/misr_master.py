@@ -5,7 +5,10 @@ Run as ``python -m mri_super_resolution_tpu_torch.cli.misr_master``. Same
 flags as the JAX package's ``cli/misr_master.py`` plus ``--device`` (default
 ``cuda``; raises when no card is present) and ``--conv_kernel`` (the 3x3x3
 32-channel convs on K6). ``--ckpt`` takes a ``.npz`` of RAMS params
-(``convert.save_params_npz``); at the reference architecture (32, 12) the
+(``convert.save_params_npz``) or a checkpoint directory written by the
+port's ``Trainer`` (``cli/train_misr.py``; its EMA params when it kept
+them, as ``utils/checkpoint.unwrap_trainer_params`` picks); at the
+reference architecture (32, 12) the
 committed checkpoint is the default, and ``--allow_untrained`` runs with
 fresh weights drawn from ``--seed``. Cases come from ``$MRI_SR_DATA_DIR``
 (default ``anon_data``).
@@ -21,6 +24,8 @@ from mri_super_resolution_tpu_torch import convert
 from mri_super_resolution_tpu_torch.config import RAMSConfig
 from mri_super_resolution_tpu_torch.data import load_cases
 from mri_super_resolution_tpu_torch.pipelines import misr
+from mri_super_resolution_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                             unwrap_trainer_params)
 
 
 def main(argv=None):
@@ -28,7 +33,8 @@ def main(argv=None):
                                 "Multi-image SR")
     p.add_argument("--out_img_folder", default="output_images.mi/")
     p.add_argument("--exp_name", default="sr2")
-    p.add_argument("--ckpt", default=None, help=".npz of RAMS params")
+    p.add_argument("--ckpt", default=None,
+                   help=".npz of RAMS params, or a Trainer checkpoint directory")
     p.add_argument("--allow_untrained", action="store_true")
     p.add_argument("--sample_size", type=int, default=25)
     p.add_argument("--limit_cases", type=int, default=None)
@@ -46,7 +52,13 @@ def main(argv=None):
         if (args.filters, args.N) == (32, 12) and os.path.isfile(convert.RAMS_PARAMS_NPZ):
             args.ckpt = convert.RAMS_PARAMS_NPZ
             print(f"restoring committed pretrained params: {args.ckpt}")
-    if args.ckpt:
+    if args.ckpt and os.path.isdir(args.ckpt):
+        tree = CheckpointManager(args.ckpt).restore()
+        if tree is None:
+            p.error(f"no checkpoint under {args.ckpt}")
+        state_dict = unwrap_trainer_params(tree)
+        print(f"restoring trainer checkpoint at step {tree['step']}: {args.ckpt}")
+    elif args.ckpt:
         state_dict = convert.rams_state_dict(convert.load_params_npz(args.ckpt))
     elif args.allow_untrained:
         gen = torch.Generator().manual_seed(args.seed)

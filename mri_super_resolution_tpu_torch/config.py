@@ -1,7 +1,7 @@
 """Configuration of the 3-D volume pipeline and of the RAMS network.
 
 Counterpart of ``mri_super_resolution_tpu/config.py`` (``SupperresDWIConfig``,
-``PRESETS``, ``add_preset_arg``, ``RAMSConfig``), copied so the port imports
+``PRESETS``, ``add_preset_arg``, ``RAMSConfig``, ``TrainerConfig``), copied so the port imports
 nothing of the JAX package. The config accepts ``inr_model="grid"`` and its
 knobs; the port's pipeline runs ``"siren"`` and ``"wire"`` and raises
 ``NotImplementedError`` for ``"grid"``.
@@ -79,6 +79,39 @@ class RAMSConfig:
                 "the port runs layout='nhwtc'")
         if self.layout != "nhwtc":
             raise ValueError(f"unknown layout {self.layout!r}")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """MISR Trainer knobs (utils/training.py:108-120), the JAX package's
+    fields and defaults."""
+
+    batch_size: int = 32
+    buffer_size: int = 512
+    epochs: int = 100
+    evaluate_every: int = 100
+    val_steps: int = 100
+    hr_size: int = 96
+    learning_rate: float = 1e-4
+    # "constant" (the reference recipe) or "cosine": learning_rate decays to
+    # 0 over decay_steps applied updates (optax cosine_decay_schedule, alpha 0)
+    lr_schedule: str = "constant"
+    decay_steps: int = 0
+    # exponential moving average of the weights (0 = off, the reference
+    # behaviour). When > 0 the trainer keeps ema = d ema + (1 - d) params
+    # after every step; validation, best-checkpoint gating and serving
+    # (utils/checkpoint.unwrap_trainer_params) use the averaged weights
+    ema_decay: float = 0.0
+    # gradient accumulation: an optimizer step sees batch_size * grad_accum
+    # samples; weighted-sum accumulation makes k micro-batches one big-batch
+    # step (ragged tails included)
+    grad_accum: int = 1
+    checkpoint_dir: str = "ckpt"
+    log_dir: str = "logs"
+    max_to_keep: int = 3
+    save_best_only: bool = True
+    data_aug: bool = False
+    tensorboard: bool = False  # also emit tfevents (training.py:128-129)
 
 
 # "reference": exact reference behavior (FF-SIREN, flat Adam, 2500 epochs).

@@ -19,10 +19,12 @@ shape ``(kh, kw, kt, Cin, Cout)`` (2-D: ``(kh, kw, Cin, Cout)``), so
 the final sum stay float32.
 
 Convolutions: with ``conv_kernel=True`` a 3x3x3 SAME or VALID conv whose
-channel counts are multiples of 8 runs K6 (``ops/conv3d_kernel.py``: float32
-sums, the float32 bias added, one rounding); every other conv goes to
-``F.conv3d`` / ``F.conv2d`` in the compute type with the bias added in that
-type, as the JAX package's XLA route does.
+channel counts are multiples of 8 runs K6 forward and K7 backward
+(``ops/conv3d_kernel.py:conv3d_rfab_trainable``: float32 sums, the float32
+bias added, one rounding); every other conv goes to ``F.conv3d`` /
+``F.conv2d`` in the compute type with the bias added in that type, as the
+JAX package's XLA route does. The weight norm has the JAX package's
+closed-form backward (``models/rams.py:60-89`` there).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mri_super_resolution_tpu_torch.ops.conv3d_kernel import conv3d_rfab
+from mri_super_resolution_tpu_torch.ops.conv3d_kernel import conv3d_rfab_trainable
 
 MEAN = 7433.6436  # PROBA-V dataset statistics (network.py:18-19)
 STD = 2353.0723
@@ -68,12 +70,32 @@ def reflect_pad_hw(x: torch.Tensor, pad: int = 1, axes: Sequence[int] = (1, 2)) 
     return x
 
 
+class _WeightNorm(torch.autograd.Function):
+    """``g * v / ||v||`` on the flattened ``(K, F)`` view, with the closed-form
+    backward ``dg = sum(dw * v_hat)``, ``dv = (g / n) (dw - v_hat dg)``."""
+
+    @staticmethod
+    def forward(ctx, v, g):
+        v2 = v.reshape(-1, v.shape[-1])
+        n = torch.sqrt((v2 * v2).sum(0) + 1e-12)
+        ctx.save_for_backward(v2, g, n)
+        ctx.vshape = v.shape
+        return (v2 * (g / n)).reshape(v.shape)
+
+    @staticmethod
+    def backward(ctx, dw):
+        v2, g, n = ctx.saved_tensors
+        dw2 = dw.reshape(v2.shape)
+        vhat = v2 / n
+        dg = (dw2 * vhat).sum(0)
+        dv2 = (g / n) * (dw2 - vhat * dg)
+        return dv2.reshape(ctx.vshape), dg
+
+
 def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Effective kernel ``g * v / ||v||``, the norm over all but the output
     axis."""
-    v2 = v.reshape(-1, v.shape[-1])
-    n = torch.sqrt((v2 * v2).sum(0) + 1e-12)
-    return (v2 * (g / n)).reshape(v.shape)
+    return _WeightNorm.apply(v, g)
 
 
 def _library_conv(x: torch.Tensor, kernel: torch.Tensor, padding: str) -> torch.Tensor:
@@ -119,7 +141,7 @@ class WNConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernel = weight_norm_kernel(self.v, self.g)
         if self.use_k6:
-            return conv3d_rfab(x, kernel, self.bias, self.padding)
+            return conv3d_rfab_trainable(x, kernel, self.bias, self.padding)
         return _library_conv(x, kernel.to(x.dtype), self.padding) + self.bias.to(x.dtype)
 
 

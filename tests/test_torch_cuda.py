@@ -144,7 +144,8 @@ def test_conv3d_launches_and_matches_plain(card, shape, cout, padding, dtype):
     with torch.no_grad():
         out = ck.conv3d_rfab(x, k, b, padding)
     ref = ck.conv3d_rfab_ref(x, k, b, padding)
-    assert ck.LAUNCHES == {"conv3d_rfab": 1} and out.dtype == dtype
+    assert ck.LAUNCHES == {"conv3d_rfab": 1, "conv3d_rfab_bwd": 0}
+    assert out.dtype == dtype
     diff = (out.float() - ref.float()).abs()
     scale = float(ref.float().abs().max())
     if dtype == torch.float32:
@@ -165,15 +166,104 @@ def test_rams_on_k6_matches_cpu(card):
         cpu = model(x)
         ck.reset_launches()
         gpu = model.to(card)(x.to(card))
-    assert ck.LAUNCHES == {"conv3d_rfab": 2 * 2 + 1 + 3 * 3}
+    assert ck.LAUNCHES == {"conv3d_rfab": 2 * 2 + 1 + 3 * 3, "conv3d_rfab_bwd": 0}
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=2e-5, atol=2e-2)
 
 
 @pytest.mark.cuda
 def test_conv3d_refuses_gradients_on_card(card):
+    """What the kernels do not take is refused on the card; an input that
+    needs a gradient is no longer refused: it runs K6, and K7 backward."""
     x = torch.zeros(1, 4, 4, 3, 8, device=card, requires_grad=True)
     k, b = torch.zeros(3, 3, 3, 8, 8, device=card), torch.zeros(8, device=card)
-    with pytest.raises(NotImplementedError, match="K7"):
-        ck.conv3d_rfab(x, k, b)
     with pytest.raises(ValueError):
         ck.conv3d_rfab(x.detach(), k, b.cpu())
+    with pytest.raises(ValueError, match="g must be"):
+        ck.conv3d_rfab_bwd(x.detach(), k, torch.zeros(1, 4, 4, 2, 8, device=card))
+    ck.reset_launches()
+    ck.conv3d_rfab(x, k, b).sum().backward()
+    assert ck.LAUNCHES == {"conv3d_rfab": 1, "conv3d_rfab_bwd": 1}
+    assert x.grad is not None and x.grad.shape == x.shape
+
+
+def _bwd_problem(card, shape, cout, padding, dtype):
+    gen = torch.Generator().manual_seed(sum(shape) + cout)
+    x = torch.randn(shape, generator=gen).to(card, dtype)
+    k = (torch.randn((3, 3, 3, shape[-1], cout), generator=gen) * 0.1).to(card)
+    g = torch.randn((*ck.out_shape(shape, padding), cout), generator=gen).to(card, dtype)
+    return x, k, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,padding", [
+    ((2, 19, 35, 5, 16), 40, "SAME"), ((1, 3, 4, 3, 8), 8, "VALID"),
+    ((3, 33, 17, 9, 32), 32, "VALID"), ((4, 34, 34, 9, 32), 32, "SAME")])
+def test_conv3d_bwd_launches_and_matches_plain(card, shape, cout, padding, dtype):
+    """K7 launches once per call and agrees with its plain version: dW and
+    db within 1e-4 of their largest entry (float32 sums over every output
+    pixel in another order), dx as K6's output (float32 within 1e-5 of the
+    largest, bf16 within one bf16 ulp)."""
+    x, k, g = _bwd_problem(card, shape, cout, padding, dtype)
+    ck.reset_launches()
+    dx, dw, db = ck.conv3d_rfab_bwd(x, k, g, padding)
+    dx_r, dw_r, db_r = ck.conv3d_rfab_bwd_ref(x, k, g, padding)
+    assert ck.LAUNCHES["conv3d_rfab_bwd"] == 1 and dx.dtype == dtype
+    for a, b in ((dw, dw_r), (db, db_r)):
+        assert a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    diff = (dx.float() - dx_r.float()).abs()
+    scale = float(dx_r.float().abs().max())
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * scale
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(dx_r.float().abs().clamp_min(1e-30))) - 7)
+        assert bool((diff <= ulp + 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+def test_trainable_conv_on_card_matches_plain_autograd(card, padding):
+    """The autograd Function (K6 forward, K7 backward) gives the gradients
+    of autograd through the plain K6, float32."""
+    x, k, g = _bwd_problem(card, (2, 9, 11, 5, 16), 16, padding, torch.float32)
+    b = torch.randn(16, device=card)
+    leaves = [t.clone().requires_grad_() for t in (x, k, b)]
+    ck.reset_launches()
+    got = torch.autograd.grad(ck.conv3d_rfab_trainable(*leaves, padding), leaves, g)
+    assert ck.LAUNCHES == {"conv3d_rfab": 1, "conv3d_rfab_bwd": 1}
+    ref_leaves = [t.clone().requires_grad_() for t in (x, k, b)]
+    want = torch.autograd.grad(ck.conv3d_rfab_ref(*ref_leaves, padding), ref_leaves, g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_card_matches_cpu(card, tmp_path):
+    """One Trainer step of a small float32 RAMS with conv_kernel on the
+    card (12 K6 + 12 K7 launches) against the same step on the CPU (plain
+    versions): the loss and every gradient leaf within 1e-4 of its
+    largest entry."""
+    from mri_super_resolution_tpu_torch.config import TrainerConfig
+    from mri_super_resolution_tpu_torch.fit.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(6000, 9000, (4, 10, 10, 9)).astype(np.float32)
+    y = rng.uniform(6000, 9000, (4, 30, 30, 1)).astype(np.float32)
+    m = np.ones_like(y)
+    grads, losses = {}, {}
+    for device in ("cpu", card):
+        model = RAMS(filters=8, N=1, r=4, conv_kernel=True,
+                     generator=torch.Generator().manual_seed(1))
+        tr = Trainer(model, TrainerConfig(batch_size=4, hr_size=30,
+                                          checkpoint_dir=str(tmp_path / str(device))),
+                     device=device)
+        tr.init()
+        ck.reset_launches()
+        losses[str(device)] = float(tr.train_step([tr._batch(np.arange(4), x, y, m)])[0])
+        grads[str(device)] = {k: p.grad.cpu() for k, p in tr.model.named_parameters()}
+    assert ck.LAUNCHES == {"conv3d_rfab": 12, "conv3d_rfab_bwd": 12}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k], g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()) + 1e-12, msg=k)

@@ -1,5 +1,5 @@
 """The CUDA sources of K1-K3 (``csrc/siren.cu``), K4-K5 (``csrc/wire.cu``)
-and K6 (``csrc/conv3d.cu``) run on the CPU under an
+and K6-K7 (``csrc/conv3d.cu``) run on the CPU under an
 emulation of the CUDA execution model (``tests/cuda_emulation``: one
 std::thread per CUDA thread, block barriers, warp shuffles), through the
 same ctypes launch code the wrappers use on the card, against the plain
@@ -13,7 +13,8 @@ masked row count and a single sine layer; for WIRE also the 4-wide first
 layer (depth below the GEMM's 8-deep stage), 0-2 hidden layers and
 per-layer omega/sigma read from the device array; for K6 SAME and VALID,
 both types, outputs off the 16 x 32 tile, more than one channel chunk and
-more than one 32-channel output block.
+more than one 32-channel output block; for K7 the same, plus more than one
+32-channel input block and more than one work item per workspace slot.
 """
 import ctypes
 import os
@@ -198,3 +199,59 @@ def test_emulated_conv3d_matches_plain(emulated_conv3d, shape, cout, padding, dt
     else:
         half_ulp = 2.0 ** (torch.floor(torch.log2(sums.abs().clamp_min(1e-30))) - 8)
         assert bool(((out.float() - sums).abs() <= half_ulp + 1e-5 * scale).all())
+
+
+BWD_CASES = [
+    ((1, 5, 7, 4, 8), 8, "SAME"),  # one block, one slot per work item, B 1
+    ((2, 19, 35, 3, 16), 40, "VALID"),  # ragged 8 x 16 items, two output blocks
+    ((1, 9, 18, 5, 40), 16, "SAME"),  # two input-channel blocks (32 + 8)
+    ((4, 17, 17, 12, 8), 8, "SAME"),  # 288 work items: two per workspace slot
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,padding", BWD_CASES)
+def test_emulated_conv3d_bwd_matches_plain(emulated_conv3d, shape, cout, padding, dtype):
+    """K7 against its plain version. dW and db (float32 sums of the same
+    float32 products in another order) within 1e-5 of their largest entry;
+    dx as K6's output: float32 within 1e-5 of the largest, bfloat16 within
+    half a bf16 ulp of the float32 sum of the same operands."""
+    rng = np.random.default_rng(sum(shape) + cout)
+    x = torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    k = torch.as_tensor((rng.normal(size=(3, 3, 3, shape[-1], cout)) * 0.1)
+                        .astype(np.float32)).to(dtype)
+    g = torch.as_tensor(rng.normal(size=(*ck.out_shape(shape, padding), cout))
+                        .astype(np.float32)).to(dtype)
+    dx, dw, db = ck._launch_bwd(emulated_conv3d, x, k, g, padding, 0)
+    dx_r, dw_r, db_r = ck.conv3d_rfab_bwd_ref(x, k, g, padding)
+    assert dx.shape == x.shape and dx.dtype == dtype
+    assert dw.shape == (3, 3, 3, shape[-1], cout) and db.shape == (cout,)
+    for a, b in ((dw, dw_r), (db, db_r)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    sums = ck.conv3d_rfab_bwd_ref(x.float(), k.float(), g.float(), padding)[0]
+    scale = float(sums.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, dx_r, rtol=0, atol=1e-5 * scale)
+    else:
+        half_ulp = 2.0 ** (torch.floor(torch.log2(sums.abs().clamp_min(1e-30))) - 8)
+        assert bool(((dx.float() - sums).abs() <= half_ulp + 1e-5 * scale).all())
+
+
+def test_emulated_conv3d_bwd_repeats_and_sizes_its_workspace(emulated_conv3d):
+    """Two runs give the same bits (no atomics); the slot count is at most
+    two waves of 132 blocks and refuses a workspace sized for another call."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(4, 17, 17, 12, 8)).astype(np.float32))
+    k = torch.as_tensor(rng.normal(size=(3, 3, 3, 8, 8)).astype(np.float32))
+    g = torch.as_tensor(rng.normal(size=(4, 17, 17, 12, 8)).astype(np.float32))
+    a = ck._launch_bwd(emulated_conv3d, x, k, g, "SAME", 0)
+    b = ck._launch_bwd(emulated_conv3d, x, k, g, "SAME", 0)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    # the training path's main call: 32 x 9 planes of 5 x 3 items in 255 slots
+    assert emulated_conv3d.conv3d_rfab_bwd_slots(32, 34, 34, 9, 1) == 255
+    assert emulated_conv3d.conv3d_rfab_bwd_slots(4, 17, 17, 12, 1) == 144
+    rc = emulated_conv3d.conv3d_rfab_bwd_f32(
+        x.data_ptr(), 4, 17, 17, 12, 8, k.data_ptr(), g.data_ptr(), 8, 1, x.data_ptr(),
+        k.data_ptr(), g.data_ptr(), g.data_ptr(), 7, 0)
+    assert rc == -1

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: every module of it
-imports, and short CPU fits of the SIREN and WIRE paths and a tiny MISR run
-(the K6 route, its plain version on the CPU) run, in a process where both
-are blocked."""
+imports, and short CPU fits of the SIREN and WIRE paths, a tiny MISR run
+(the K6 route, its plain version on the CPU) and a two-step tiny MISR
+training run (K6 and K7 routes, their plain versions) run, in a process
+where both are blocked."""
 import os
 import subprocess
 import sys
@@ -10,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "mri_super_resolution_tpu"):
+for name in ("jax", "flax", "optax", "orbax", "mri_super_resolution_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import torch
 torch.set_num_threads(2)
@@ -60,7 +61,21 @@ with tempfile.TemporaryDirectory() as out:
              exp_name="e", sample_size=2, device="cpu")
     assert os.path.isfile(os.path.join(out, "e", "1", "DWI", "mean.dcm"))
 assert ck.LAUNCHES["conv3d_rfab"] == 0
-assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "mri_super_resolution_tpu."))
+from mri_super_resolution_tpu_torch.config import TrainerConfig
+from mri_super_resolution_tpu_torch.fit.trainer import Trainer
+x = rng.uniform(7000, 8000, (2, 8, 8, 9)).astype(np.float32)
+y = rng.uniform(7000, 8000, (2, 24, 24, 1)).astype(np.float32)
+import contextlib, io
+with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+    tr = Trainer(misr.build_rams(cfg, generator=g),
+                 TrainerConfig(batch_size=1, epochs=1, hr_size=24, checkpoint_dir=out,
+                               log_dir=out), device="cpu")
+    tr.init()
+    assert tr.fit(x, (y, np.ones_like(y))).step == 2
+    assert tr.manager.latest_step() == 2
+assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
+assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "orbax",
+                                           "mri_super_resolution_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("OK", len(mods))
 """
@@ -72,7 +87,7 @@ def test_port_runs_without_jax():
                           text=True, timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 20  # every module was imported
+    assert int(proc.stdout.split()[1]) >= 25  # every module was imported
 
 
 def test_chip_smoke_imports_no_jax():
