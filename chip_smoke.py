@@ -3,25 +3,31 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--epochs 40] [--pn_epochs 4]
+    python3 chip_smoke.py [--epochs 40] [--pn_epochs 4] [--master_steps 300]
+        [--master_seg 30]
 
 Phases, in order; any failure ends the run with a non-zero exit:
-1. build: compile ``csrc/siren.cu``, ``csrc/wire.cu`` and ``csrc/conv3d.cu``
-   with nvcc (sm_90a), one process each, started together, and print the
-   times and the compiler's register/spill report;
+1. build: compile ``csrc/siren.cu``, ``csrc/wire.cu``, ``csrc/conv3d.cu`` and
+   ``csrc/mma_probe.cu`` with nvcc (sm_90a), one process each, started
+   together, and print the times and the compiler's register/spill report;
 2. kernel parity against the plain PyTorch versions on the card: K1
    ``siren_loss_grads``, K2 ``siren_fused_bwd`` (dx and dW) and K3
    ``siren_forward`` at the SIREN flagship (P = 70,000 rows, 256 -> 512x4
    -> 1), K3 also at the inference chunk (262,144 rows) and its ragged tails
-   (71,424 and 17,856 rows); K5 ``wire_forward`` and K4 ``wire_loss_grads``
+   (71,424 and 17,856 rows); K1's sample-weighted variant at the 2-D
+   ensemble's 3,600 rows (2 -> 64x7 -> 1) and its absmax/ReLU variant at
+   the soft-ERD fit's 16,384 rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with
+   ragged row counts and a collapsed output, and K2/K3 with the ReLU codes;
+   P1 ``mma_probe`` at one step of its full shape, int8 exact and bf16
+   within float32 rounding; K5 ``wire_forward`` and K4 ``wire_loss_grads``
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
    chunk and its tails (K5) and with 1234 masked rows (K4); K6
    ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
    and on ragged shapes; K7 ``conv3d_rfab_bwd`` (dx, dW, db) at the seven
    shapes of the training path in bf16 and float32 and on ragged shapes;
-   then a small SIREN and a small WIRE patient, a small RAMS forward and
-   three training steps of a small RAMS on the card's kernels against the
-   plain path on the CPU;
+   then a small SIREN and a small WIRE patient, a small RAMS forward, three
+   training steps of a small RAMS, a small 2-D ensemble case and a small
+   soft-ERD phase 1 on the card's kernels against the plain path on the CPU;
 3. main paths: ``pipelines.superres3d.run`` on a seeded (128, 128, 28)
    synthetic patient with 75 cross-b combinations, ROI 40:90 -> 25x25x28x4
    = 70,000 LR rows, once at the ``reference`` preset (SIREN 512x3, 128
@@ -43,17 +49,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
    synthetic mean-b0 volumes (128, 128, 24) written with scipy: 4 optimizer
    steps and 3 validation passes, a finite loss and cPSNR, moved params, a
    restorable checkpoint, the CSV log, and exactly 34 K6 + 34 K7 launches
-   per step, 34 K6 and no K7 per validation batch, no K1-K5;
+   per step, 34 K6 and no K7 per validation batch, no K1-K5; then the 2-D
+   directional ensemble, ``cli/master.main`` at full width (Siren 64x6,
+   ROI 40:100, scale 3, AutoERD mode 1) on one seeded synthetic case (b0
+   (128, 128, 24), 27 acquisitions (9, 9, 9)) with the steps cut to
+   ``--master_steps`` and ``--master_seg``: CSV, DICOMs, finite outputs and
+   exactly steps x 27 K1-weighted launches and no other kernel; then the
+   soft-ERD fit, ``cli/inr_erd.main`` at full width (SirenERD 128x3, 9
+   acquisitions, one seed) on the same kind of volume with phase 1 run to
+   the reference's 2e-5 (about 700 steps): CSV, checkpoints, and exactly one K1-absmax
+   launch per phase-1 step and no other kernel; then the P1 probe,
+   ``cli/int8_mma_probe.main`` at its full shape (T 384, H 512, REPS 8,
+   GRID 512): the JAX probe's JSON keys and 11 launches per type;
 4. times: each kernel at its main path's shapes with CUDA events, beside
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
-   for K6, ``torch.autograd.grad`` through it for K7) and its bound; the
-   25-draw RAMS forward on both routes; one full training step at batch 32
-   on both routes, whose losses over the same three steps from the same
-   init differ by at most twice the cuDNN route's own bf16-vs-float32 gap.
+   for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
+   bf16 and ``torch._int_mm`` over the same products for P1) and its bound;
+   P1 also at GRID 256, whose time must be about half; the per-update costs
+   of the two 2-D paths (a K1 call, an Adam step, ``fit_until``'s per-step
+   read-back); the 25-draw RAMS forward on both routes; one full training
+   step at batch 32 on both routes, whose losses over the same three steps
+   from the same init differ by at most twice the cuDNN route's own
+   bf16-vs-float32 gap.
 
-The last three lines are the ``{"kernels": ...}`` record (K1-K7), the
-card's name and power limit, and ``{"ok": true, "device": ...}``. Exits
-non-zero, printing no result, when no CUDA device is present.
+The last three lines are the ``{"kernels": ...}`` record (K1-K7, K1's
+weighted and absmax variants, P1 in bf16 and int8), the card's name and
+power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
+no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -68,9 +90,10 @@ import time
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12  # float32 FMA outside the tensor cores
 PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
+PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "wire", "conv3d")  # csrc/<name>.cu
+SOURCES = ("siren", "wire", "conv3d", "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
 K5_TOL = 1e-4  # WIRE forward, as K3
@@ -114,6 +137,19 @@ TRAIN_SHAPES = (
 TRAIN_BATCH = 32  # TrainerConfig.batch_size
 TRAIN_STEPS, TRAIN_VAL_PASSES = 4, 3  # 2 epochs of 2 steps; val at steps 2, 4 and at the end
 INFER_CHUNK = 262_144  # rows per inference chunk (fit/engine.py:infer_dense_grid)
+# the 2-D ensemble's K1 call: the 60 x 60 ROI, Siren 2 -> 64x7 -> 1
+MASTER_P, MASTER_HIDDEN, MASTER_LAYERS = 3600, 64, 6
+MASTER_ACQ = 27  # acquisitions (9, 9, 9): one K1-weighted launch each per step
+# the soft-ERD fit's K1 call: a 128 x 128 slice, SirenERD 2 -> 128x4 -> 128 -> 1
+ERD_SIDE, ERD_HIDDEN, ERD_LAYERS = 128, 128, 3
+ERD_THRESHOLD = 2e-5  # INRERDConfig.loss_threshold, the reference's
+K1_ABSMAX_TOL = 1e-5  # max |out|: the max is exact, the outputs it reads are float32 sums
+# P1 at the JAX probe's shape
+PROBE_T, PROBE_H, PROBE_REPS, PROBE_GRID = 384, 512, 8, 512
+PROBE_CALLS = 10  # timed calls of the probe CLI, after one untimed
+# bf16 P1 against its plain version: float32 sums of 4,096 exact products in
+# another order (and the tensor cores' own), within 1e-5 of the largest
+PROBE_BF16_TOL = 1e-5
 
 
 def _require(cond: bool, what: str) -> None:
@@ -307,6 +343,196 @@ def phase_parity(P: int, dims) -> dict:
                                   *[float((a - b).abs().max())
                                     for a, b in zip(dgr, dgr_r)])
     return errs
+
+
+def _master_inputs(seed: int):
+    """The 2-D ensemble's K1 call on the card: a seeded Siren(2 -> 64x6) at
+    its init, the 60 x 60 ROI grid, a target in Normalize(0.5, 0.5) space
+    and acceptance weights with one row in ten rejected."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.models import Siren
+
+    gen = torch.Generator().manual_seed(seed)
+    model = Siren(2, MASTER_HIDDEN, MASTER_LAYERS, generator=gen).cuda()
+    model.requires_grad_(False)
+    x = mgrid((60, 60), device="cuda")
+    target = (torch.rand(MASTER_P, 1, generator=gen) * 2 - 1).cuda()
+    sw = (torch.rand(MASTER_P, 1, generator=gen) > 0.1).float().cuda()
+    return model, x, target, sw
+
+
+def _erd_inputs(seed: int, last_bias: float | None = None):
+    """The soft-ERD fit's K1 call on the card: a seeded SirenERD(2 -> 128x3,
+    ReLU head) at its init (``last_bias`` overrides the output bias), the
+    128 x 128 grid and a target in [0, 1]."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.models import SirenERD
+
+    gen = torch.Generator().manual_seed(seed)
+    model = SirenERD(2, ERD_HIDDEN, ERD_LAYERS, perturb=True, generator=gen).cuda()
+    model.requires_grad_(False)
+    if last_bias is not None:
+        model.final.bias.fill_(last_bias)
+    x = mgrid((ERD_SIDE, ERD_SIDE), device="cuda")
+    target = torch.rand(ERD_SIDE * ERD_SIDE, 1, generator=gen).cuda()
+    return model, x, target
+
+
+def phase_k1_variant_parity() -> dict:
+    """K1's weighted variant at the 2-D ensemble's shape and its absmax/ReLU
+    variant at the soft-ERD fit's, each with all rows and a ragged count,
+    and a collapsed ReLU output (max |out| 0 and every gradient 0 exactly,
+    on the card too); K3 and K2 once with the ReLU codes. Returns max abs
+    errors by variant."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    errs = {}
+    model, x, target, sw = _master_inputs(seed=31)
+    ws, acts = model.weights(), model.acts
+    worst_all = (0.0, 0.0)
+    for n_rows in (MASTER_P, MASTER_P - 123):
+        loss, grads = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows,
+                                          sample_weights=sw)
+        loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, n_rows, acts, sw)
+        torch.cuda.synchronize()
+        worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
+        print(f"[parity] K1 weighted P={MASTER_P} n_rows={n_rows}: loss {float(loss):.6e} vs "
+              f"{float(loss_r):.6e}; worst over loss/dW max abs {worst[0]:.3e}, rel "
+              f"{worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+        _require(worst[1] <= K1_K2_TOL, "K1 weighted disagrees with its plain version")
+        worst_all = max(worst_all, worst)
+    errs["siren_loss_grads_weighted"] = worst_all[0]
+
+    worst_all = (0.0, 0.0)
+    P = ERD_SIDE * ERD_SIDE
+    for bias, n_rows in ((0.05, P), (0.05, P - 1234), (-10.0, P)):
+        model, x, target = _erd_inputs(seed=32, last_bias=bias)
+        ws, acts = model.weights(), model.acts
+        loss, am, grads = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows,
+                                              with_out_absmax=True)
+        loss_r, am_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, n_rows, acts,
+                                                        None, True)
+        torch.cuda.synchronize()
+        worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
+        am_rel = _rel(am, am_r)[1]
+        print(f"[parity] K1 absmax/ReLU P={P} n_rows={n_rows} last bias {bias:g}: loss "
+              f"{float(loss):.6e} vs {float(loss_r):.6e}; max |out| {float(am):.6e} vs "
+              f"{float(am_r):.6e} (rel {am_rel:.2e}, tol {K1_ABSMAX_TOL:g}); worst over "
+              f"loss/dW max abs {worst[0]:.3e}, rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+        if bias < 0:
+            _require(float(am) == 0.0 and all(float(g.abs().max()) == 0.0 for g in grads),
+                     "a collapsed output must give max |out| 0 and zero gradients")
+        else:
+            _require(worst[1] <= K1_K2_TOL and am_rel <= K1_ABSMAX_TOL,
+                     "K1 absmax disagrees with its plain version")
+            worst_all = max(worst_all, worst, (float((am - am_r).abs()), am_rel))
+    errs["siren_loss_grads_absmax"] = worst_all[0]
+
+    model, x, target = _erd_inputs(seed=33, last_bias=0.05)
+    ws, acts = model.weights(), model.acts
+    e, r = _rel(sk.siren_forward(x, ws, acts=acts), sk.siren_forward_ref(x, ws, acts=acts))
+    g = (target - 0.5) / P
+    dx, dws = sk.siren_fused_bwd(x, ws, g, acts=acts)
+    dx_r, dws_r = sk.siren_fused_bwd_ref(x, ws, g, acts=acts)
+    torch.cuda.synchronize()
+    worst = _worst_rel([(dx, dx_r), *zip(dws, dws_r)])
+    print(f"[parity] K3 with ReLU codes P={P}: rel {r:.3e} (tol {K3_TOL:g}); K2 with ReLU "
+          f"codes: worst over dx/dW rel {worst[1]:.3e} (tol {K1_K2_TOL:g})")
+    _require(r <= K3_TOL and worst[1] <= K1_K2_TOL, "K2/K3 with ReLU codes disagree")
+    return errs
+
+
+def _probe_operands(dtype, grid_rows: int = PROBE_REPS):
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli.int8_mma_probe import operands
+
+    a, b = operands(dtype, PROBE_T, PROBE_H, grid_rows)
+    a, b = a.cuda(), b.cuda()
+    return a, b, b.t().contiguous()
+
+
+def phase_probe_parity() -> dict:
+    """P1 against its plain version on the card at one step of its full
+    shape (T 384, H 512, REPS 8): int8 bit for bit (exact int32 step sums,
+    one rounding), bf16 within PROBE_BF16_TOL of the largest output; and at
+    3 steps (several blocks' partials added). Returns max abs errors."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import mma_probe as mp
+
+    errs = {}
+    for dtype, key in ((torch.int8, "mma_probe_int8"), (torch.bfloat16, "mma_probe_bf16")):
+        a, b, bt = _probe_operands(dtype)
+        err = 0.0
+        for grid in (1, 3):
+            out = mp.mma_probe(a, b, PROBE_REPS, grid, bt)
+            ref = mp.mma_probe_ref(a, b, PROBE_REPS, grid)
+            torch.cuda.synchronize()
+            e, r = _rel(out, ref)
+            print(f"[parity] P1 {key} GRID={grid}: max abs {e:.3e}, rel {r:.3e}, max |plain| "
+                  f"{float(ref.abs().max()):.3e} (tol: "
+                  f"{'exact' if dtype == torch.int8 else f'rel {PROBE_BF16_TOL:g}'})")
+            if dtype == torch.int8:
+                _require(torch.equal(out, ref), f"P1 int8 differs from its plain version "
+                         f"(GRID {grid})")
+            else:
+                _require(r <= PROBE_BF16_TOL, f"P1 bf16 disagrees (GRID {grid})")
+            err = max(err, e)
+        errs[key] = err
+    return errs
+
+
+def phase_small_2d() -> None:
+    """A small 2-D ensemble case (Siren 16x1, 6 steps, AutoERD) and a small
+    soft-ERD phase 1 (SirenERD 16x1, 30 steps, threshold 0) on the card's
+    K1 variants against the plain path on the CPU, from the same init."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.config import Master2DConfig
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.fit.engine import fit_until, plain_apply_init
+    from mri_super_resolution_tpu_torch.models import SirenERD
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.pipelines import master2d
+
+    cfg = Master2DConfig(total_steps=6, seg=2, hidden_layers=1, hidden_features=16,
+                         roi_begin=8, roi_end=24, scale=2, erd=1)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        case = _misr_case(seed=3, side=32, slices=4)  # 27 acquisitions (9, 9, 9)
+        case.cancer_slice = 1
+        sk.reset_launches()
+        outs[dev] = master2d.run_case(case, cfg, 0, device=dev)
+        if dev == "cuda":
+            launches = sk.LAUNCHES["siren_loss_grads_weighted"]
+    err = max(float(np.abs(outs["cuda"][d].superres - outs["cpu"][d].superres).max())
+              for d in outs["cpu"])
+    print(f"[parity] small 2-D ensemble case, card K1-weighted vs CPU plain: superres max "
+          f"abs {err:.3e} (tol {E2E_ATOL:g}); K1-weighted launches {launches}")
+    _require(err <= E2E_ATOL and launches == 6 * 27, "small 2-D ensemble case disagrees")
+
+    runs = {}
+    target = torch.rand(24 * 24, 1, generator=torch.Generator().manual_seed(4)) * 0.5 + 0.2
+    for dev in ("cuda", "cpu"):
+        model = SirenERD(2, 16, 1, perturb=True, device=dev)
+        apply_fn, init_fn = plain_apply_init(model, torch.Generator().manual_seed(5))
+        runs[dev] = fit_until(apply_fn, 3e-3, init_fn, mgrid((24, 24), device=dev),
+                              target.to(dev), 0.0, 30, sk.make_fused_value_grad_absmax(model))
+    lg, lc = np.asarray(runs["cuda"].losses), np.asarray(runs["cpu"].losses)
+    print(f"[parity] small soft-ERD phase 1 (30 steps), card K1-absmax vs CPU plain: loss "
+          f"{lc[0]:.4e} -> {lc[-1]:.4e}, max rel {float(np.abs(lg / lc - 1).max()):.3e} "
+          f"(tol 1e-4); restarts {runs['cuda'].restarts} vs {runs['cpu'].restarts}")
+    _require(bool(np.allclose(lg, lc, rtol=1e-4, atol=0))
+             and runs["cuda"].restarts == runs["cpu"].restarts,
+             "small soft-ERD phase 1 disagrees")
 
 
 def phase_small_patient(inr_model: str) -> None:
@@ -547,6 +773,294 @@ def phase_misr_main(out_dir: str) -> dict:
           f"bf16 vs float32: {own:.2f} (tol: route gap <= 2x that)")
     _require(gap <= 2 * own, "the K6 and library routes differ beyond the bf16 bound")
     return {"conv3d_rfab": launches["conv3d_rfab"]}
+
+
+def _all_counts() -> dict:
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+    from mri_super_resolution_tpu_torch.ops import mma_probe as mp
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+
+    return {**sk.LAUNCHES, **wk.LAUNCHES, **ck.LAUNCHES, **mp.LAUNCHES}
+
+
+def _reset_all_counts() -> None:
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+    from mri_super_resolution_tpu_torch.ops import mma_probe as mp
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+
+    for mod in (sk, wk, ck, mp):
+        mod.reset_launches()
+
+
+def _check_only(launches: dict, want: dict, path: str) -> None:
+    for name, n in launches.items():
+        _require(n == want.get(name, 0), f"{name} launched {n} times on the {path} path, "
+                 f"expected {want.get(name, 0)}")
+
+
+def _write_2d_volume(data_dir: str, seed: int, erd_map: bool) -> None:
+    """A seeded (128, 128, 24) mean-b0 volume (the serving phase's blob,
+    unit-scaled) as pat07_mean_b0.mat, with an ERD map when asked."""
+    import numpy as np
+    import scipy.io as sio
+
+    os.makedirs(data_dir, exist_ok=True)
+    b0 = _b0_blob(seed)
+    sio.savemat(os.path.join(data_dir, "pat07_mean_b0.mat"),
+                {"data_mean_b0": b0 / float(b0.max())})
+    if erd_map:
+        rng = np.random.default_rng(seed)
+        sio.savemat(os.path.join(data_dir, "pat07_ERD.mat"),
+                    {"ADC_alldata_mm_ERD": rng.uniform(0, 3, b0.shape).astype(np.float32)})
+
+
+def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
+    """The 2-D directional ensemble: ``cli/master.main`` at full width on
+    one synthetic registry case (acquisitions (9, 9, 9) synthesised from the
+    volume), AutoERD mode 1, the steps cut to ``steps`` and ``seg``. Every
+    launch count is set to 0 just before the run and read just after."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli import master as master_cli
+    from mri_super_resolution_tpu_torch.data import CONTRAST_HEADER
+
+    data_dir = os.path.join(out_dir, "data")
+    _write_2d_volume(data_dir, seed=41, erd_map=True)
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    csv_path = master_cli.main([
+        "--out_folder", os.path.join(out_dir, "exp"), "--out_img_folder",
+        os.path.join(out_dir, "img"), "--total_steps", str(steps), "--seg", str(seg),
+        "--erd", "1", "--limit_cases", "1", "--data_dir", data_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_counts()
+    want = {"siren_loss_grads_weighted": steps * MASTER_ACQ}
+    _check_only(launches, want, "2-D ensemble")
+    rows = [ln.split(",") for ln in open(csv_path).read().splitlines()]
+    _require(rows[0] == list(CONTRAST_HEADER) and len(rows) == 1 + 4 * 8 * 3,
+             f"the 2-D ensemble CSV has {len(rows)} lines")
+    values = np.asarray([float(r[5]) for r in rows[1:]])
+    _require(bool(np.isfinite(values).all()), "non-finite contrast metrics")
+    for sub, n in (("DWI", 4), ("ADC", 6)):
+        _require(len(os.listdir(os.path.join(out_dir, "img", "sr2", "07", sub))) == n,
+                 f"{sub} DICOMs of the 2-D ensemble")
+    superres = {r[2]: float(r[5]) for r in rows[1:] if r[3] == "superres" and r[4] == "C"}
+    updates = steps * MASTER_ACQ
+    print(f"[main master] cli.master.main() {wall:.1f} s for {steps} steps (seg {seg}) x "
+          f"{MASTER_ACQ} acquisitions = {updates} updates, {1e3 * wall / updates:.3f} ms an "
+          f"update end to end; launches {want}; superres contrast C by direction {superres}")
+    return {"siren_loss_grads_weighted": launches["siren_loss_grads_weighted"]}, wall
+
+
+def phase_erd_main(out_dir: str, threshold: float) -> dict:
+    """The soft-ERD fit: ``cli/inr_erd.main`` at full width (SirenERD
+    128x3, 9 acquisitions synthesised from the volume, one seed) with phase
+    1 stopped at ``threshold``; each case's result recorded. Every launch
+    count is set to 0 just before the run and read just after."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli import inr_erd as erd_cli
+    from mri_super_resolution_tpu_torch.data import CNR_SNR_HEADER
+    from mri_super_resolution_tpu_torch.pipelines import inr_erd
+
+    data_dir = os.path.join(out_dir, "data")
+    _write_2d_volume(data_dir, seed=42, erd_map=False)
+    results = []
+    run_case = inr_erd.run_case
+
+    def recording(*args, **kwargs):
+        res = run_case(*args, **kwargs)
+        results.append(res)
+        return res
+
+    inr_erd.run_case = recording
+    try:
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        csv_path = erd_cli.main([
+            "--seeds", "1", "--limit_cases", "1", "--num_acq", "9", "--loss_threshold",
+            str(threshold), "--out_csv", os.path.join(out_dir, "erd.csv"), "--models_dir",
+            os.path.join(out_dir, "models"), "--data_dir", data_dir, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _all_counts()
+    finally:
+        inr_erd.run_case = run_case
+    (res,) = results
+    _check_only(launches, {"siren_loss_grads_absmax": res.pretrain_steps}, "soft-ERD")
+    _require(res.pretrain_steps > 0, "phase 1 took no step")
+    _require(res.pretrain_steps < inr_erd.PRETRAIN_MAX_STEPS,
+             f"phase 1 did not reach {threshold:g} in {inr_erd.PRETRAIN_MAX_STEPS} steps")
+    _require(res.mean_recon.shape == (ERD_SIDE, ERD_SIDE)
+             and bool(np.isfinite(res.mean_recon).all()), "soft-ERD mean reconstruction")
+    lines = open(csv_path).read().splitlines()
+    _require(lines[0] == ",".join(CNR_SNR_HEADER) and len(lines) == 5,
+             f"the soft-ERD CSV has {len(lines)} lines")
+    _require(sorted(os.listdir(os.path.join(out_dir, "models"))) ==
+             ["18-1681-07.pt", "18-1681-07_0.pt"], "soft-ERD checkpoints")
+    err = float(np.abs(res.mean_recon - res.mean_orig).mean())
+    print(f"[main inr_erd] cli.inr_erd.main() {wall:.2f} s; phase 1 to loss <= "
+          f"{threshold:g} in {res.pretrain_steps} steps; launches "
+          f"{{'siren_loss_grads_absmax': {res.pretrain_steps}}}; mean |recon - mean of the "
+          f"acquisitions| {err:.4f}; CSV {lines[1:]}")
+    return {"siren_loss_grads_absmax": launches["siren_loss_grads_absmax"]}
+
+
+def phase_probe_main(out_dir: str) -> dict:
+    """The P1 probe: ``cli/int8_mma_probe.main`` at its full shape; every
+    launch count set to 0 just before the run and read just after."""
+    from mri_super_resolution_tpu_torch.cli import int8_mma_probe as probe_cli
+
+    out = os.path.join(out_dir, "int8_mma_probe.json")
+    _reset_all_counts()
+    rec = probe_cli.main(["--calls", str(PROBE_CALLS), "--out", out, "--device", "cuda"])
+    launches = _all_counts()
+    want = {"mma_probe_bf16": 1 + PROBE_CALLS, "mma_probe_int8": 1 + PROBE_CALLS}
+    _check_only(launches, want, "probe")
+    saved = json.load(open(out))
+    _require(set(saved) == {"platform", "device", "tile", "reps", "grid", "cases"}
+             and saved["tile"] == [PROBE_T, PROBE_H] and saved["grid"] == PROBE_GRID
+             and set(saved["cases"]) == {"bf16_f32acc", "int8_i32acc"},
+             "the probe's JSON lacks the JAX probe's keys")
+    print(f"[main probe] cli.int8_mma_probe.main(): {json.dumps(rec['cases'])}; launches "
+          f"{want}")
+    return {k: launches[k] for k in want}
+
+
+def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
+    """K1-weighted at the 2-D ensemble's shape and K1-absmax at the soft-ERD
+    fit's, beside their plain versions, eager autograd of the same loss and
+    their bounds; then the per-update costs of the two paths on the host
+    clock: a K1 call (its launches' host time included), an Adam step over
+    the same params, and ``fit_until``'s per-step read-back of the loss and
+    max |out| (200 steps with and without it)."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.fit.optim import Adam
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    rows = []
+    model, x, target, sw = _master_inputs(seed=51)
+    ws, acts = model.weights(), model.acts
+    dims = (2,) + (MASTER_HIDDEN,) * (MASTER_LAYERS + 1) + (1,)
+    macs = _layer_macs(dims)
+    wbytes = 4 * sum(w.numel() for w in ws)
+    lib_model = type(model)(2, MASTER_HIDDEN, MASTER_LAYERS).cuda()
+    lib_model.load_state_dict(model.state_dict())
+    lib_params = list(lib_model.parameters())
+
+    def lib_weighted():
+        loss = torch.mean(sw * (lib_model(x) - target) ** 2)
+        torch.autograd.grad(loss, lib_params)
+
+    rows.append(_time_row(
+        "siren_loss_grads_weighted", "siren", "siren_kernel.py:518",
+        lambda: sk.siren_loss_grads(x, ws, target, acts=acts, sample_weights=sw),
+        lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, sw), lib_weighted,
+        2 * MASTER_P * (2 * sum(macs) + sum(macs[1:])),
+        4 * x.numel() + 2 * wbytes + 8 * MASTER_P + 4, f"P={MASTER_P}", errs, launches))
+    opt = Adam([w.clone() for w in ws], 3e-4)
+    grads = sk.siren_loss_grads(x, ws, target, acts=acts, sample_weights=sw)[1]
+    host = {}
+    for what, fn in (("K1 call", lambda: sk.siren_loss_grads(x, ws, target, acts=acts,
+                                                              sample_weights=sw)),
+                     ("Adam step", lambda: opt.step(grads))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        torch.cuda.synchronize()
+        host[what] = 1e3 * (time.perf_counter() - t0) / 500
+    print(f"[times] 2-D ensemble update on the host clock (500 in a row): K1-weighted call "
+          f"{host['K1 call']:.3f} ms, Adam step ({len(ws)} tensors) {host['Adam step']:.3f} "
+          f"ms; kernel alone {rows[-1]['ms']:.3f} ms")
+
+    model, x, target = _erd_inputs(seed=52, last_bias=0.05)
+    ws, acts = model.weights(), model.acts
+    P = ERD_SIDE * ERD_SIDE
+    dims = (2,) + (ERD_HIDDEN,) * (ERD_LAYERS + 2) + (1,)
+    macs = _layer_macs(dims)
+    wbytes = 4 * sum(w.numel() for w in ws)
+    lib_params = [w.clone().requires_grad_() for w in ws]
+
+    def lib_absmax():
+        out = sk.siren_forward_ref(x, lib_params, 30.0, acts)
+        torch.autograd.grad(torch.mean((out - target) ** 2), lib_params)
+        out.detach().abs().max()
+
+    rows.append(_time_row(
+        "siren_loss_grads_absmax", "siren", "siren_kernel.py:518",
+        lambda: sk.siren_loss_grads(x, ws, target, acts=acts, with_out_absmax=True),
+        lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, None, True),
+        lib_absmax, 2 * P * (2 * sum(macs) + sum(macs[1:])),
+        4 * x.numel() + 2 * wbytes + 4 * P + 8, f"P={P}", errs, launches))
+    vag = sk.make_fused_value_grad_absmax(model)
+    steps = {}
+    for readback in (False, True, False, True):
+        params = [w.clone() for w in ws]
+        opt = Adam(params, 3e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            loss, am, g = vag(params, x, target)
+            opt.step(g)
+            if readback:
+                torch.stack([loss, am]).tolist()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 200
+        steps[readback] = min(steps.get(readback, float("inf")), ms)
+    print(f"[times] soft-ERD phase-1 step (K1-absmax + Adam, 200 in a row, best of 2): "
+          f"{steps[False]:.3f} ms without the per-step read-back, {steps[True]:.3f} ms with "
+          f"it: the read-back costs {steps[True] - steps[False]:.3f} ms a step")
+    return rows
+
+
+def phase_probe_times(errs: dict, launches: dict) -> list[dict]:
+    """P1 at the full shape (GRID 512) and at GRID 256 with CUDA events: the
+    time must scale with GRID (a ratio of 1.7 to 2.3). Beside it the plain
+    version and one library call over the same GRID x REPS products, (GRID
+    REPS T, H) x (H, H): ``torch.matmul`` in bf16, ``torch._int_mm`` in int8
+    (int32 out); its output traffic is GRID REPS times the probe's."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import mma_probe as mp
+
+    rows = []
+    flops = 2 * PROBE_T * PROBE_H * PROBE_H * PROBE_REPS * PROBE_GRID
+    for dtype, key, peak in ((torch.bfloat16, "mma_probe_bf16", PEAK_BF16_TC),
+                             (torch.int8, "mma_probe_int8", PEAK_INT8_TC)):
+        a, b, bt = _probe_operands(dtype)
+        half = _time_ms(lambda: mp.mma_probe(a, b, PROBE_REPS, PROBE_GRID // 2, bt), 5)
+        a_rep = a.repeat(PROBE_GRID, 1)
+        if dtype == torch.int8:
+            lib = lambda: torch._int_mm(a_rep, bt.t())
+        else:
+            lib = lambda: torch.matmul(a_rep, b)
+        nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() + 4 * PROBE_T * PROBE_H
+        row = _time_row(key, "mma_probe", "", lambda: mp.mma_probe(a, b, PROBE_REPS,
+                                                                    PROBE_GRID, bt),
+                        lambda: mp.mma_probe_ref(a, b, PROBE_REPS, PROBE_GRID), lib, flops,
+                        nbytes, f"T={PROBE_T} H={PROBE_H} REPS={PROBE_REPS} GRID={PROBE_GRID}",
+                        errs, launches, peak=peak, reps=5)
+        row["replaces"] = "scripts/int8_mxu_probe.py:57"
+        ratio = row["ms"] / half
+        print(f"[times] {key}: GRID {PROBE_GRID // 2} {half:.3f} ms, GRID {PROBE_GRID} "
+              f"{row['ms']:.3f} ms (ratio {ratio:.2f}); {flops / row['ms'] / 1e9:.1f} "
+              f"T(FL)OP/s = {100 * row['bound_ms'] / row['ms']:.1f}% of the dense peak; "
+              f"library over the same products {flops / row['library_ms'] / 1e9:.1f} T(FL)OP/s")
+        _require(1.7 <= ratio <= 2.3, f"P1's time does not scale with GRID ({ratio:.2f})")
+        rows.append(row)
+        del a_rep
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_k6_times(err: float, launches: dict) -> dict:
@@ -1185,6 +1699,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=40)
     ap.add_argument("--pn_epochs", type=int, default=4)
+    ap.add_argument("--master_steps", type=int, default=300,
+                    help="steps of the 2-D ensemble's main run (3000 in the reference)")
+    ap.add_argument("--master_seg", type=int, default=30,
+                    help="its ensemble tail (150 in the reference)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1202,6 +1720,8 @@ def main(argv=None) -> int:
     P, dims = 70_000, (256, 512, 512, 512, 512, 1)
     phase_build()
     errs = phase_parity(P, dims)
+    errs.update(phase_k1_variant_parity())
+    errs.update(phase_probe_parity())
     errs.update(phase_wire_parity(P))
     k6_err = phase_k6_parity()
     k7_err = phase_k7_parity()
@@ -1210,6 +1730,7 @@ def main(argv=None) -> int:
     phase_small_misr()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_small_train(out_dir)
+    phase_small_2d()
     launches = {}
     for inr_model in ("siren", "wire"):
         with tempfile.TemporaryDirectory() as out_dir:
@@ -1218,11 +1739,20 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_misr_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:
+        master_launches, _ = phase_master_main(out_dir, args.master_steps, args.master_seg)
+        launches.update(master_launches)
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches.update(phase_erd_main(out_dir, ERD_THRESHOLD))
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches.update(phase_probe_main(out_dir))
+    with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_data = phase_train_main(out_dir)
         launches.update(train_launches)
         rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
         rows.append(phase_k6_times(k6_err, launches))
         rows.append(phase_k7_times(k7_err, launches))
+        rows += phase_2d_times(errs, launches)
+        rows += phase_probe_times(errs, launches)
         phase_rams_forward_times()
         phase_train_step_times(train_data, out_dir)
     smi = subprocess.run(

@@ -1,8 +1,9 @@
-"""Configuration of the 3-D volume pipeline and of the RAMS network.
+"""Configuration of the pipelines and of the RAMS network.
 
-Counterpart of ``mri_super_resolution_tpu/config.py`` (``SupperresDWIConfig``,
-``PRESETS``, ``add_preset_arg``, ``RAMSConfig``, ``TrainerConfig``), copied so the port imports
-nothing of the JAX package. The config accepts ``inr_model="grid"`` and its
+Counterpart of ``mri_super_resolution_tpu/config.py`` (``Master2DConfig``,
+``SupperresDWIConfig``, ``PRESETS``, ``add_preset_arg``, ``INRERDConfig``,
+``RAMSConfig``, ``TrainerConfig``), copied so the port imports nothing of
+the JAX package. The config accepts ``inr_model="grid"`` and its
 knobs; the port's pipeline runs ``"siren"`` and ``"wire"`` and raises
 ``NotImplementedError`` for ``"grid"``.
 """
@@ -10,6 +11,45 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+
+
+@dataclasses.dataclass
+class Master2DConfig:
+    """master.py flags (lines 25-41), defaults preserved."""
+
+    out_folder: str = "experiments/"
+    out_img_folder: str = "output_images/"
+    total_steps: int = 3000
+    seg: int = 150
+    hidden_layers: int = 6
+    hidden_features: int = 64
+    roi_begin: int = 40
+    roi_end: int = 100
+    learning_rate: float = 3e-4
+    scale: int = 3
+    exp_name: str = "sr2"
+    repeat_time: int = 1
+    erd: int = 0  # 0=no ERD, 1=majority vote, 2=intensity-cognisant
+    # True: every per-acquisition update is one K1 pass (sample-weighted) on
+    # a CUDA device, its plain version on the CPU. False: eager autograd
+    # (the CPU only; refused on the card)
+    use_pallas: bool = True
+
+
+@dataclasses.dataclass
+class INRERDConfig:
+    """INR_ERD.py hard-coded hyperparameters (lines 162-273)."""
+
+    hidden_features: int = 128
+    hidden_layers: int = 3
+    pretrain_lr: float = 3e-4
+    loss_threshold: float = 2e-5
+    perturb_lr: float = 3e-4
+    net_lr: float = 1e-7
+    perturb_eps: float = 1.0 / 128.0
+    soft_erd_mul: float = 1000.0
+    soft_erd_slope: float = 20.0
+    seeds: int = 10
 
 
 @dataclasses.dataclass

@@ -3,6 +3,7 @@
 The JAX package keeps flax param trees; handed over as nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, params)``), they become ``state_dict``s of
 the port's :class:`~mri_super_resolution_tpu_torch.models.Siren`,
+:class:`~mri_super_resolution_tpu_torch.models.SirenERD`,
 :class:`~mri_super_resolution_tpu_torch.models.Wire` and
 :class:`~mri_super_resolution_tpu_torch.models.PerturbNet`. flax
 ``Dense.kernel`` is (in, out); torch ``Linear.weight`` is (out, in). The
@@ -49,6 +50,41 @@ def siren_state_dict(params: dict) -> dict[str, torch.Tensor]:
     d = p["Dense_0"]
     sd[f"net.{len(sine)}.weight"] = _tensor(d["kernel"]).T.contiguous()
     sd[f"net.{len(sine)}.bias"] = _tensor(d["bias"])
+    return sd
+
+
+def siren_stack_weights(params_stack: dict) -> list[list[torch.Tensor]]:
+    """A flax ``Siren`` params tree whose leaves carry a leading axis of D
+    models (the 2-D ensemble's vmapped direction stack) -> D kernel weight
+    lists, one per direction."""
+    def pick(tree, d):
+        return {k: pick(v, d) if isinstance(v, dict) else np.asarray(v)[d]
+                for k, v in tree.items()}
+
+    leaf = params_stack
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [siren_weights(pick(params_stack, d)) for d in range(np.asarray(leaf).shape[0])]
+
+
+def siren_erd_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``SirenERD`` params -> ``SirenERD.state_dict()`` keys: the
+    ``perturb`` branch (when present), ``SineLayer_0..n``, then ``Dense_0``
+    (the ReLU head) and ``Dense_1`` (the ReLU output)."""
+    p = params["params"]
+    sd = {}
+    if "perturb" in p:
+        for i in range(2):
+            d = p["perturb"][f"Dense_{i}"]
+            sd[f"perturb.fc{i}.weight"] = _tensor(d["kernel"]).T.contiguous()
+            sd[f"perturb.fc{i}.bias"] = _tensor(d["bias"])
+    for i, k in enumerate(_numbered(p, "SineLayer_")):
+        d = p[k]["Dense_0"]
+        sd[f"sines.{i}.linear.weight"] = _tensor(d["kernel"]).T.contiguous()
+        sd[f"sines.{i}.linear.bias"] = _tensor(d["bias"])
+    for name, k in (("head", "Dense_0"), ("final", "Dense_1")):
+        sd[f"{name}.weight"] = _tensor(p[k]["kernel"]).T.contiguous()
+        sd[f"{name}.bias"] = _tensor(p[k]["bias"])
     return sd
 
 

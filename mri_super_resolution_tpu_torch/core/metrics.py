@@ -1,10 +1,86 @@
-"""SSIM protocol. Counterpart of ``mri_super_resolution_tpu/core/metrics.py``
-(``ssim`` :118-149, ``masked_ssim_protocol`` :159-169). Leading axes are a
-batch of 2-D images."""
+"""Image-quality and contrast metrics. Counterpart of
+``mri_super_resolution_tpu/core/metrics.py``: ``minmax_normalize`` (:28),
+``contrast_cnr`` (:43-73), ``cnr_snr_log10`` (:84-107), ``ssim``
+(:118-149), ``masked_ssim_protocol`` (:159-169). The SSIM functions take a
+leading batch of 2-D images."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+EPS = 1e-7
+
+
+def minmax_normalize(img: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Affinely map ``img`` onto the min/max range of ``ref`` (master.py:46-48)."""
+    unit = (img - img.min()) / (img.max() - img.min())
+    return unit * (ref.max() - ref.min()) + ref.min()
+
+
+def _window(image: torch.Tensor, x: int, y: int, size: int) -> torch.Tensor:
+    """``image[x:x+size, y:y+size]`` with the start placed as
+    ``jax.lax.dynamic_slice`` places it: a negative start counts from the
+    end, then the window is clamped into the image."""
+    def start(i, n):
+        i = int(i) + (n if int(i) < 0 else 0)
+        return min(max(i, 0), n - size)
+
+    x, y = start(x, image.shape[0]), start(y, image.shape[1])
+    return image[x:x + size, y:y + size]
+
+
+def _std(t: torch.Tensor) -> torch.Tensor:
+    return torch.std(t, correction=0)
+
+
+class ContrastMetrics(NamedTuple):
+    C: torch.Tensor
+    CNR: torch.Tensor
+    CNR2: torch.Tensor
+
+
+def contrast_cnr(image: torch.Tensor, cancer_loc, contralateral_loc, noise_loc,
+                 scale: int = 1, focus: int = 0) -> ContrastMetrics:
+    """Cancer-vs-contralateral contrast metrics (nn_mri.py:59-85) over
+    ``2 scale`` squares at ``(loc - focus) * scale - scale``. CNR2 divides
+    by the noise area's std, as the reference does."""
+
+    def roi(loc):
+        x, y = ((c - focus) * scale for c in loc)
+        return _window(image, x - scale, y - scale, 2 * scale)
+
+    ca, co, no = roi(cancer_loc), roi(contralateral_loc), roi(noise_loc)
+    cm, bm = ca.mean(), co.mean()
+    varc, varb = _std(ca) ** 2, _std(co) ** 2
+    C = cm / (bm + EPS)
+    CNR = torch.abs(cm - bm) / torch.sqrt(varc + varb)
+    CNR2 = torch.abs(cm - bm) / _std(no)
+    return ContrastMetrics(C, CNR, CNR2)
+
+
+class CNRSNRMetrics(NamedTuple):
+    log10_SNRc: torch.Tensor
+    log10_CNR: torch.Tensor
+    Sc: torch.Tensor
+    Sb: torch.Tensor
+    CR: torch.Tensor
+
+
+def cnr_snr_log10(image: torch.Tensor, cancer_loc, contralateral_loc,
+                  noise_loc) -> CNRSNRMetrics:
+    """log10 SNR/CNR metrics of the soft-ERD study (INR_ERD.py:102-124): 3x3
+    ROIs on cancer and contralateral, 5x5 on noise."""
+    (cx, cy), (bx, by), (nx, ny) = cancer_loc, contralateral_loc, noise_loc
+    ca = _window(image, cx - 1, cy - 1, 3)
+    co = _window(image, bx - 1, by - 1, 3)
+    no = _window(image, nx - 2, ny - 2, 5)
+    Sc, Sb, N = ca.mean(), co.mean(), _std(no)
+    SNRc = Sc / (N + EPS)
+    SNRb = Sb / (N + EPS)
+    return CNRSNRMetrics(torch.log10(SNRc), torch.log10(torch.abs(SNRc - SNRb)), Sc, Sb,
+                         Sc / Sb)
 
 
 def _uniform_filter(x: torch.Tensor, win: int) -> torch.Tensor:

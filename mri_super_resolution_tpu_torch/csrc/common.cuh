@@ -1,7 +1,8 @@
 // Building blocks shared by the hand-written Hopper kernels of csrc/*.cu:
 // one tiled float32 SIMT GEMM with fused epilogues, a warp-per-row D -> 1
-// layer with an optional masked-MSE residual, split column sums, split
-// reductions and the launch plans that size them.
+// layer with an optional masked (and optionally sample-weighted) MSE
+// residual, ReLU and max |out|, split column sums, split reductions and the
+// launch plans that size them.
 //
 // Everything here is float32, row-major and contiguous; every launch goes to
 // the caller's stream; nothing allocates or synchronises. Each .cu includes
@@ -36,7 +37,7 @@ constexpr int COLSUM_MAX_SPLITS = 1024;
 constexpr int EW_THREADS = 256;         // elementwise kernels
 constexpr int EW_MAX_BLOCKS = 132 * 16;
 
-enum Epilogue { EPI_STORE = 0, EPI_SINE = 1, EPI_MUL = 2, EPI_BIAS = 3 };
+enum Epilogue { EPI_STORE = 0, EPI_SINE = 1, EPI_MUL = 2, EPI_BIAS = 3, EPI_RELU = 4 };
 
 // C[m, n] = sum_k Aop[m, k] * Bop[k, n] over k in this block's split.
 //   Aop[m, k] = TA ? A[k * lda + m] : A[m * lda + k]
@@ -46,8 +47,9 @@ enum Epilogue { EPI_STORE = 0, EPI_SINE = 1, EPI_MUL = 2, EPI_BIAS = 3 };
 // is bounds-checked, so any M, N and K >= 1 (K below the tile depth too).
 // Epilogues: EPI_STORE writes C; EPI_BIAS writes C + bias[n]; EPI_SINE
 // writes sin(omega (C + bias[n])) and, when F is given, F = omega cos(omega
-// (C + bias[n])); EPI_MUL writes C * F (F may alias nothing written by
-// another thread).
+// (C + bias[n])); EPI_RELU writes max(z, 0) with z = C + bias[n] and, when
+// F is given, F = (z > 0 ? 1 : 0) (the step is 0 at z = 0); EPI_MUL writes
+// C * F (F may alias nothing written by another thread).
 template <bool TA, bool TB, int EPI>
 __global__ void __launch_bounds__(NT, 2) gemm_kernel(
     const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
@@ -159,6 +161,10 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(
         sincosf(omega * (v + bias[n]), &s, &c);
         C[off] = s;
         if (F != nullptr) F[(long long)m * ldf + n] = omega * c;
+      } else if (EPI == EPI_RELU) {
+        const float z = v + bias[n];
+        C[off] = z > 0.f ? z : 0.f;
+        if (F != nullptr) F[(long long)m * ldf + n] = z > 0.f ? 1.f : 0.f;
       } else if (EPI == EPI_MUL) {
         C[off] = v * F[(long long)m * ldf + n];
       } else if (EPI == EPI_BIAS) {
@@ -170,19 +176,31 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(
   }
 }
 
-// Last layer (D -> 1): one warp per row. LOSS = false writes the output;
-// LOSS = true writes delta = two_inv_n * r with r = out - target on rows
-// below n_rows and 0 beyond, and one partial sum of r^2 per block.
-template <bool LOSS>
-__global__ void __launch_bounds__(ROWDOT_WARPS * 32) rowdot_kernel(
+// What the last layer (D -> 1) writes per row, z = h . w + b and
+// out = act(z) (ReLU when RELU, else z):
+//   ROW_OUT  out;
+//   ROW_LOSS delta = two_inv_n * s * r * act'(z) with r = out - target on
+//            rows below n_rows and 0 beyond, s = sw[row] when WEIGHTED else
+//            1; one partial sum of s * r^2 per block into loss_partial and,
+//            when ABSMAX, one partial max of |out| over the rows below n_rows
+//            (0 for a block without one) into absmax_partial;
+//   ROW_GRAD delta = target[row] * act'(z) (target holds dL/d out).
+enum RowdotMode { ROW_OUT = 0, ROW_LOSS = 1, ROW_GRAD = 2 };
+
+// One warp per row; the body of rowdot_kernel and rowdot_act_kernel.
+template <int MODE, bool RELU, bool WEIGHTED, bool ABSMAX>
+__device__ __forceinline__ void rowdot_rows(
     const float* __restrict__ H, int P, int D, const float* __restrict__ w,
     const float* __restrict__ b, float* __restrict__ out,
     const float* __restrict__ target, int n_rows, float two_inv_n,
-    float* __restrict__ loss_partial) {
+    float* __restrict__ loss_partial, const float* __restrict__ sw,
+    float* __restrict__ absmax_partial) {
   __shared__ float red[ROWDOT_WARPS];
+  __shared__ float red_max[ROWDOT_WARPS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float sq = 0.f;
+  float mx = 0.f;
   for (long long row = (long long)blockIdx.x * ROWDOT_WARPS + warp; row < P;
        row += (long long)gridDim.x * ROWDOT_WARPS) {
     const float* h = H + row * D;
@@ -191,25 +209,68 @@ __global__ void __launch_bounds__(ROWDOT_WARPS * 32) rowdot_kernel(
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) {
-      const float v = s + b[0];
-      if (LOSS) {
-        const float r = row < n_rows ? v - target[row] : 0.f;
-        out[row] = two_inv_n * r;
-        sq = fmaf(r, r, sq);
+      const float z = s + b[0];
+      const float v = RELU ? (z > 0.f ? z : 0.f) : z;
+      const float step = (!RELU || z > 0.f) ? 1.f : 0.f;
+      if (MODE == ROW_LOSS) {
+        const bool real = row < n_rows;
+        const float r = real ? v - target[row] : 0.f;
+        const float wr = WEIGHTED ? sw[row] * r : r;
+        out[row] = RELU ? (two_inv_n * wr) * step : two_inv_n * wr;
+        sq = fmaf(wr, r, sq);
+        if (ABSMAX && real) {
+          const float a = v < 0.f ? -v : v;
+          mx = a > mx ? a : mx;
+        }
+      } else if (MODE == ROW_GRAD) {
+        out[row] = target[row] * step;
       } else {
         out[row] = v;
       }
     }
   }
-  if (LOSS) {
-    if (lane == 0) red[warp] = sq;
+  if (MODE == ROW_LOSS) {
+    if (lane == 0) {
+      red[warp] = sq;
+      if (ABSMAX) red_max[warp] = mx;
+    }
     __syncthreads();
     if (threadIdx.x == 0) {
       float t = 0.f;
       for (int i = 0; i < ROWDOT_WARPS; ++i) t += red[i];
       loss_partial[blockIdx.x] = t;
+      if (ABSMAX) {
+        float m = 0.f;
+        for (int i = 0; i < ROWDOT_WARPS; ++i) m = red_max[i] > m ? red_max[i] : m;
+        absmax_partial[blockIdx.x] = m;
+      }
     }
   }
+}
+
+// Last layer (D -> 1), linear: LOSS = false writes the output (ROW_OUT);
+// LOSS = true writes delta = two_inv_n * r and the per-block partial sums of
+// r^2 (ROW_LOSS, unweighted).
+template <bool LOSS>
+__global__ void __launch_bounds__(ROWDOT_WARPS * 32) rowdot_kernel(
+    const float* __restrict__ H, int P, int D, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ out,
+    const float* __restrict__ target, int n_rows, float two_inv_n,
+    float* __restrict__ loss_partial) {
+  rowdot_rows<LOSS ? ROW_LOSS : ROW_OUT, false, false, false>(
+      H, P, D, w, b, out, target, n_rows, two_inv_n, loss_partial, nullptr, nullptr);
+}
+
+// Last layer (D -> 1) with the options of rowdot_rows.
+template <int MODE, bool RELU, bool WEIGHTED, bool ABSMAX>
+__global__ void __launch_bounds__(ROWDOT_WARPS * 32) rowdot_act_kernel(
+    const float* __restrict__ H, int P, int D, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ out,
+    const float* __restrict__ target, int n_rows, float two_inv_n,
+    float* __restrict__ loss_partial, const float* __restrict__ sw,
+    float* __restrict__ absmax_partial) {
+  rowdot_rows<MODE, RELU, WEIGHTED, ABSMAX>(H, P, D, w, b, out, target, n_rows, two_inv_n,
+                                            loss_partial, sw, absmax_partial);
 }
 
 // partial[z, j] = sum over rows p of split z of X[p, j] * (w ? w[p] : 1).
@@ -256,6 +317,31 @@ __global__ void __launch_bounds__(1024) sum_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (threadIdx.x == 0) out[0] = s * scale;
+  }
+}
+
+// out[0] = max(0, max(x[0..n))), one block of 1024 threads (the max is
+// exact, so the result does not depend on the order).
+__global__ void __launch_bounds__(1024) max_kernel(const float* __restrict__ x,
+                                                   long long n, float* __restrict__ out) {
+  __shared__ float red[32];
+  float m = 0.f;
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) m = x[i] > m ? x[i] : m;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v = __shfl_xor_sync(0xffffffffu, m, o);
+    m = v > m ? v : m;
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = red[threadIdx.x];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float v = __shfl_xor_sync(0xffffffffu, m, o);
+      m = v > m ? v : m;
+    }
+    if (threadIdx.x == 0) out[0] = m;
   }
 }
 

@@ -13,7 +13,13 @@ from mri_super_resolution_tpu_torch.data.combinations import (  # noqa: F401
     combination_mean,
     expand_combinations,
 )
+from mri_super_resolution_tpu_torch.data.datasets import (  # noqa: F401
+    ImageFittingSet,
+    flatten_weights,
+)
 from mri_super_resolution_tpu_torch.data.io import (  # noqa: F401
+    CNR_SNR_HEADER,
+    CONTRAST_HEADER,
     SSIM_HEADER,
     MetricsCSV,
     load_mat,

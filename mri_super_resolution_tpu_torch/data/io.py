@@ -1,8 +1,9 @@
 """File IO: MATLAB volumes in, DICOM and CSV artifacts out.
 
-Copy of the parts of ``mri_super_resolution_tpu/data/io.py`` the 3-D
-pipeline uses (numpy only): ``load_mat`` (v5 through scipy, v7.3 through
-h5py), ``save_dicom`` and ``MetricsCSV`` with ``SSIM_HEADER``. The C++
+Copy of the parts of ``mri_super_resolution_tpu/data/io.py`` the pipelines
+use (numpy only): ``load_mat`` (v5 through scipy, v7.3 through h5py),
+``save_dicom`` and ``MetricsCSV`` with ``CONTRAST_HEADER``, ``SSIM_HEADER``
+and ``CNR_SNR_HEADER`` (:299-301). The C++
 reader route (``prefer_native``) is not ported yet.
 """
 from __future__ import annotations
@@ -184,4 +185,6 @@ class MetricsCSV:
             f.write(",".join(str(x) for x in row) + "\n")
 
 
+CONTRAST_HEADER = ("seed", "patient", "direction", "image", "metric", "performance")
 SSIM_HEADER = ("Pt_id", "b-value", "slice", "SSIM-spline", "SSIM-SR")
+CNR_SNR_HEADER = ("seed", "SNR_c", "SNR_b", "S_c", "S_b", "CR", "pt", "img", "pre_post")

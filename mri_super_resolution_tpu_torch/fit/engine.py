@@ -1,11 +1,14 @@
 """INR fit loops and chunked dense-grid inference.
 
 Counterpart of ``mri_super_resolution_tpu/fit/engine.py``: ``fit_simple``
-(:57-95), ``fit_alternating_pn`` (:322-449), ``infer_grid`` (:479-524) and
-``infer_dense_grid`` (:566-616). The JAX loops are one scanned program; here
-they are Python loops over eager steps that never wait for the device: each
-step's loss is written into a preallocated device tensor, and nothing reads a
-value back inside a loop.
+(:57-95), ``fit_ensemble`` (:116-200), ``plain_apply_init`` and
+``fit_until`` (:208-291), ``fit_alternating_pn`` (:322-449), ``infer_grid``
+(:479-524) and ``infer_dense_grid`` (:566-616). The JAX loops are one
+scanned program; here they are Python loops over eager steps. All but
+``fit_until`` never wait for the device: each step's loss is written into a
+preallocated device tensor, and nothing reads a value back inside a loop.
+``fit_until``'s stopping rule needs each step's loss and max |out| on the
+host, one small copy a step.
 
 Parameters are lists of tensors (``Siren.weights()`` order); the optimizers
 of ``fit/optim.py`` hold them and update them in place. ``apply_fn(params,
@@ -14,6 +17,7 @@ grads)`` replaces autograd for the INR-on-mean steps (the one-pass kernel K1).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Sequence
 
@@ -21,14 +25,30 @@ import numpy as np
 import torch
 
 from mri_super_resolution_tpu_torch.core.coords import fourier_encode
-from mri_super_resolution_tpu_torch.fit.losses import mse
+from mri_super_resolution_tpu_torch.fit.losses import mse, weighted_mse
 from mri_super_resolution_tpu_torch.fit.optim import Adam
+from mri_super_resolution_tpu_torch.ops.siren_kernel import siren_forward_ref
 
 
 class FitResult(NamedTuple):
     params: list
     opt: Adam
     losses: torch.Tensor  # per-step loss trace, on the device
+
+
+class EnsembleResult(NamedTuple):
+    params: list
+    losses: torch.Tensor  # per-step mean loss over the real slots, on the device
+    pred_1x: torch.Tensor  # ensemble-mean prediction on the base grid
+    pred_scale: torch.Tensor  # ensemble-mean prediction on the scale-x grid
+
+
+class FitUntilResult(NamedTuple):
+    params: list
+    steps: int
+    loss: float  # the loss of the last step taken (before its update)
+    losses: list  # every step's loss, as read back
+    restarts: list  # the 1-based steps after which the params were re-initialised
 
 
 class AlternatingResult(NamedTuple):
@@ -40,11 +60,14 @@ class AlternatingResult(NamedTuple):
 
 
 def autodiff_value_and_grad(apply_fn: Callable, params: Sequence[torch.Tensor],
-                            coords: torch.Tensor, target: torch.Tensor):
-    """``(mse(apply_fn(params, coords), target), grads)`` by autograd."""
+                            coords: torch.Tensor, target: torch.Tensor,
+                            weights: torch.Tensor | None = None):
+    """``(mse(apply_fn(params, coords), target), grads)`` by autograd; with
+    ``weights``, the weighted MSE instead."""
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in params]
-        loss = mse(apply_fn(leaves, coords), target)
+        out = apply_fn(leaves, coords)
+        loss = mse(out, target) if weights is None else weighted_mse(out, target, weights)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
 
@@ -63,6 +86,119 @@ def fit_simple(apply_fn: Callable, opt: Adam, coords: torch.Tensor,
         opt.step(grads)
         losses[i] = loss
     return FitResult(opt.params, opt, losses)
+
+
+def fit_ensemble(
+    apply_fn: Callable,
+    opt: Adam,
+    coords: torch.Tensor,  # (P, d) shared grid
+    pixels: torch.Tensor,  # (A, P, 1) per-acquisition targets
+    weights: torch.Tensor,  # (A, P, 1) acceptance weights
+    eval_coords_1x: torch.Tensor,  # (P, d)
+    eval_coords_scale: torch.Tensor,  # (P s^2, d)
+    total_steps: int,
+    seg: int,
+    valid: Sequence[bool] | None = None,  # (A,) real acquisition slots
+    weighted_value_and_grad_fn: Callable | None = None,
+) -> EnsembleResult:
+    """The master.py:137-160 loop over the parameters ``opt`` holds: each
+    step does one Adam update per real acquisition slot (weighted MSE), the
+    Adam state carried across acquisitions and steps; the last ``seg`` steps
+    also evaluate ``apply_fn`` on the 1x and scale-x grids and accumulate the
+    predictions, averaged on return. A slot with ``valid`` False is skipped,
+    so it leaves the params and the Adam count untouched, as the JAX
+    package's masked slots do. A step's loss is the sum of its slots'
+    losses over the number of real slots.
+
+    ``weighted_value_and_grad_fn(params, coords, target, w) -> (loss,
+    grads)`` replaces autograd for the per-acquisition update (one K1 pass,
+    :func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_weighted_value_and_grad`)."""
+    params = opt.params
+    dev = coords.device
+    slots = [a for a in range(pixels.shape[0]) if valid is None or bool(valid[a])]
+    n_valid = max(len(slots), 1)
+    out_f = pixels.shape[-1]
+    losses = torch.empty(total_steps, dtype=torch.float32, device=dev)
+    acc1 = torch.zeros(eval_coords_1x.shape[0], out_f, dtype=torch.float32, device=dev)
+    acc2 = torch.zeros(eval_coords_scale.shape[0], out_f, dtype=torch.float32, device=dev)
+    for step in range(total_steps):
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for a in slots:
+            vag = weighted_value_and_grad_fn or functools.partial(
+                autodiff_value_and_grad, apply_fn)
+            loss, grads = vag(params, coords, pixels[a], weights[a])
+            opt.step(grads)
+            total += loss
+        losses[step] = total / n_valid
+        if step >= total_steps - seg:
+            with torch.no_grad():
+                acc1 += apply_fn(params, eval_coords_1x)
+                acc2 += apply_fn(params, eval_coords_scale)
+    return EnsembleResult(params, losses, acc1 / seg, acc2 / seg)
+
+
+def plain_apply_init(model, generator: torch.Generator | None = None):
+    """``(apply_fn, init_fn)`` of a perturbation-style model (``SirenERD``)
+    with the perturbation off, for :func:`fit_until`:
+    ``apply_fn(params, coords)`` is the trunk's plain forward over the trunk
+    weights; ``init_fn(k)`` re-initialises ``model`` in place with fresh
+    draws from ``generator`` (as ``init_fn`` of the JAX package draws from a
+    fresh key, perturbation branch included) and returns its trunk weights,
+    the tensors the fit trains. ``k`` (0 first, then each restart) is not
+    read: the draws continue along the generator."""
+    omega, acts = float(model.hidden_omega_0), tuple(model.acts)
+
+    def apply_fn(params, coords):
+        return siren_forward_ref(coords, params, omega, acts)
+
+    def init_fn(k: int):
+        fresh = type(model)(**model.config, generator=generator)
+        with torch.no_grad():
+            model.load_state_dict(fresh.state_dict())
+        return model.weights()
+
+    return apply_fn, init_fn
+
+
+def fit_until(apply_fn: Callable, lr: float, init_fn: Callable[[int], list],
+              coords: torch.Tensor, target: torch.Tensor, loss_threshold: float = 2e-5,
+              max_steps: int = 200_000,
+              value_grad_absmax_fn: Callable | None = None) -> FitUntilResult:
+    """Train until the loss is at most ``loss_threshold``, re-initialising
+    the params and a fresh Adam whenever the output collapses to all zero
+    (INR_ERD.py:201-217), at most ``max_steps`` steps. Step by step as the
+    JAX ``while_loop``: the loop goes on while the loss of the step just
+    taken (computed before its update) is above the threshold; the collapse
+    test reads that step's max |out| after its update; a restart draws
+    ``init_fn(number of restarts so far)``.
+
+    ``value_grad_absmax_fn(params, coords, target) -> (loss, out_absmax,
+    grads)`` replaces autograd with one K1 pass that also returns the
+    collapse signal (:func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_value_grad_absmax`).
+    Each step copies its loss and max |out| to the host once."""
+    params = init_fn(0)
+    opt = Adam(params, lr)
+    loss, it = float("inf"), 0
+    losses, restarts = [], []
+    while loss > loss_threshold and it < max_steps:
+        if value_grad_absmax_fn is not None:
+            loss_t, absmax_t, grads = value_grad_absmax_fn(params, coords, target)
+        else:
+            with torch.enable_grad():
+                leaves = [p.detach().requires_grad_() for p in params]
+                out = apply_fn(leaves, coords)
+                loss_t = mse(out, target)
+                grads = torch.autograd.grad(loss_t, leaves)
+            loss_t, absmax_t = loss_t.detach(), out.detach().abs().max()
+        opt.step(grads)
+        loss, absmax = torch.stack([loss_t, absmax_t]).tolist()
+        losses.append(loss)
+        it += 1
+        if absmax == 0.0:
+            restarts.append(it)
+            params = init_fn(len(restarts))
+            opt = Adam(params, lr)
+    return FitUntilResult(params, it, loss, losses, restarts)
 
 
 def fit_alternating_pn(

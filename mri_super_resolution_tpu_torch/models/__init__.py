@@ -12,7 +12,12 @@ from mri_super_resolution_tpu_torch.models.rams import (  # noqa: F401
     WNConv,
     fold_weight_norm,
 )
-from mri_super_resolution_tpu_torch.models.siren import SineLayer, Siren  # noqa: F401
+from mri_super_resolution_tpu_torch.models.siren import (  # noqa: F401
+    PerturbHead,
+    SineLayer,
+    Siren,
+    SirenERD,
+)
 from mri_super_resolution_tpu_torch.models.wire import (  # noqa: F401
     ComplexDense,
     ComplexGaborLayer,

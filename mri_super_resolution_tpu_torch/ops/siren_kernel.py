@@ -5,21 +5,30 @@ Counterpart of ``mri_super_resolution_tpu/ops/pallas/siren_kernel.py``:
 
 - :func:`siren_forward` (K3) <- ``siren_forward`` (fused MLP forward);
 - :func:`siren_loss_grads` (K1) <- ``siren_loss_grads`` (one-pass forward,
-  masked MSE and backward: loss and weight gradients);
+  masked MSE and backward: loss and weight gradients), with its
+  ``sample_weights`` (the acceptance-weighted MSE) and ``with_out_absmax``
+  (max |out| over the real rows) options;
 - :func:`siren_fused_bwd` (K2) <- the ``_bwd`` of ``siren_fused`` (recompute
   the forward, backprop an upstream gradient: dx and, when asked, dW/db);
 - :func:`siren_fused` <- ``siren_fused``: K3 forward with K2 as its backward,
-  as a ``torch.autograd.Function``.
+  as a ``torch.autograd.Function``;
+- :func:`make_fused_weighted_value_and_grad` and
+  :func:`make_fused_value_grad_absmax` <- the JAX adapters of the same names
+  (the 2-D ensemble's and the soft-ERD fit's per-step gradients).
 
 Weights are a flat list ``[W0, b0, ..., W_last, b_last]`` in torch
-``nn.Linear`` layout: ``W_l`` is (out, in). Every layer but the last is a
-sine layer ``sin(omega_l * (h W_l^T + b_l))``; the last is linear with one
-output. ``omega`` is one float for every sine layer or one per sine layer.
+``nn.Linear`` layout: ``W_l`` is (out, in); the last layer has one output.
+``acts`` names each layer's activation, as the JAX kernels' ``acts`` tuple:
+``"sine"`` (``sin(omega_l z)``), ``"relu"`` or ``"none"`` on a hidden layer,
+``"relu"`` or ``"none"`` on the last; the default is the plain Siren's, sine
+on every hidden layer and none on the last. ``omega`` is one float for every
+hidden layer or one per hidden layer (read only on sine layers).
 
 A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
-:data:`LAUNCHES`. The plain versions run on either device and are what the
-CPU tests and ``chip_smoke.py`` hold the kernels against.
+:data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
+both). The plain versions run on either device and are what the CPU tests
+and ``chip_smoke.py`` hold the kernels against.
 """
 from __future__ import annotations
 
@@ -30,15 +39,26 @@ import torch
 
 from mri_super_resolution_tpu_torch.ops import _build
 
-# one count per wrapper, bumped once per kernel launch on a CUDA tensor
+# one count per wrapper (and per K1 variant), bumped once per kernel launch
+# on a CUDA tensor
 LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
+                            "siren_loss_grads_weighted": 0,
+                            "siren_loss_grads_absmax": 0,
+                            "siren_loss_grads_weighted_absmax": 0,
                             "siren_fused_bwd": 0}
 
+ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def loss_grads_key(weighted: bool, absmax: bool) -> str:
+    """The :data:`LAUNCHES` key of a K1 variant."""
+    return ("siren_loss_grads" + ("_weighted" if weighted else "")
+            + ("_absmax" if absmax else ""))
 
 
 # --------------------------------------------------------------------------
@@ -49,7 +69,7 @@ def reset_launches() -> None:
 def _layer_dims(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> list[int]:
     if len(weights) % 2 or len(weights) < 4:
         raise ValueError("weights must be [W0, b0, ..., W_last, b_last] with at "
-                         f"least one sine layer; got {len(weights)} tensors")
+                         f"least one hidden layer; got {len(weights)} tensors")
     if x.dim() != 2:
         raise ValueError(f"x must be (P, d_in); got shape {tuple(x.shape)}")
     dims = [int(x.shape[1])]
@@ -65,13 +85,29 @@ def _layer_dims(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> list[int]:
     return dims
 
 
-def _omegas(omega: float | Sequence[float], n_sine: int) -> list[float]:
+def _omegas(omega: float | Sequence[float], n_hidden: int) -> list[float]:
     if isinstance(omega, (int, float)):
-        return [float(omega)] * n_sine
+        return [float(omega)] * n_hidden
     omegas = [float(o) for o in omega]
-    if len(omegas) != n_sine:
-        raise ValueError(f"{len(omegas)} omegas for {n_sine} sine layers")
+    if len(omegas) != n_hidden:
+        raise ValueError(f"{len(omegas)} omegas for {n_hidden} hidden layers")
     return omegas
+
+
+def _acts(acts: Sequence[str] | None, n_layers: int) -> tuple[str, ...]:
+    """Per-layer activations (default: sine on every hidden layer, none on
+    the last), checked against what the kernels take."""
+    if acts is None:
+        return ("sine",) * (n_layers - 1) + ("none",)
+    acts = tuple(acts)
+    if len(acts) != n_layers:
+        raise ValueError(f"{len(acts)} activations for {n_layers} layers")
+    for a in acts:
+        if a not in ACT_CODES:
+            raise ValueError(f"unknown activation {a!r}; take {sorted(ACT_CODES)}")
+    if acts[-1] == "sine":
+        raise ValueError("the last layer takes 'relu' or 'none', not 'sine'")
+    return acts
 
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
@@ -83,28 +119,47 @@ def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
 # --------------------------------------------------------------------------
 
 
+def _act(z: torch.Tensor, act: str, omega: float) -> torch.Tensor:
+    if act == "sine":
+        return torch.sin(omega * z)
+    if act == "relu":
+        return torch.relu(z)
+    return z
+
+
 def siren_forward_ref(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                      omega: float | Sequence[float] = 30.0) -> torch.Tensor:
+                      omega: float | Sequence[float] = 30.0,
+                      acts: Sequence[str] | None = None) -> torch.Tensor:
     """Plain K3: the MLP forward with torch ops (differentiable)."""
     n = len(weights) // 2
     omegas = _omegas(omega, n - 1)
+    acts = _acts(acts, n)
     h = x
     for l in range(n - 1):
-        h = torch.sin(omegas[l] * (h @ weights[2 * l].T + weights[2 * l + 1]))
-    return h @ weights[-2].T + weights[-1]
+        h = _act(h @ weights[2 * l].T + weights[2 * l + 1], acts[l], omegas[l])
+    return _act(h @ weights[-2].T + weights[-1], acts[-1], 1.0)
 
 
-def _stash_forward(x, weights, omegas):
-    """Forward through the sine layers, keeping each layer's input and its
-    factor omega * cos(omega z)."""
+def _stash_forward(x, weights, omegas, acts):
+    """Forward through the hidden layers, keeping each layer's input and its
+    factor act'(z): omega cos(omega z) for sine, the step z > 0 for ReLU,
+    None for none. Returns (inputs, factors, z of the last layer)."""
     inputs, factors = [x], []
     h = x
     for l in range(len(weights) // 2 - 1):
-        z = omegas[l] * (h @ weights[2 * l].T + weights[2 * l + 1])
-        h = torch.sin(z)
-        factors.append(omegas[l] * torch.cos(z))
+        z = h @ weights[2 * l].T + weights[2 * l + 1]
+        if acts[l] == "sine":
+            z = omegas[l] * z
+            h = torch.sin(z)
+            factors.append(omegas[l] * torch.cos(z))
+        elif acts[l] == "relu":
+            h = torch.relu(z)
+            factors.append((z > 0).to(z.dtype))
+        else:
+            h = z
+            factors.append(None)
         inputs.append(h)
-    return inputs, factors
+    return inputs, factors, h @ weights[-2].T + weights[-1]
 
 
 def _backprop(weights, inputs, factors, delta, need_dw: bool, need_dx: bool):
@@ -117,36 +172,54 @@ def _backprop(weights, inputs, factors, delta, need_dw: bool, need_dx: bool):
             grads[2 * l] = delta.T @ inputs[l]
             grads[2 * l + 1] = delta.sum(0)
         if l > 0:
-            delta = (delta @ weights[2 * l]) * factors[l - 1]
+            delta = delta @ weights[2 * l]
+            if factors[l - 1] is not None:
+                delta = delta * factors[l - 1]
         elif need_dx:
             dx = delta @ weights[0]
     return dx, (grads if need_dw else None)
 
 
 @torch.no_grad()
-def siren_loss_grads_ref(x, weights, target, omega=30.0, n_rows=None):
-    """Plain K1: ``(loss, grads)`` of the MSE over the first ``n_rows`` rows
-    (default all), normalised by ``n_rows * out_dim`` as the TPU kernel does;
-    rows at and beyond ``n_rows`` contribute nothing."""
+def siren_loss_grads_ref(x, weights, target, omega=30.0, n_rows=None, acts=None,
+                         sample_weights=None, with_out_absmax=False):
+    """Plain K1: ``(loss, grads)``, or ``(loss, out_absmax, grads)`` with
+    ``with_out_absmax``. The loss is the MSE over the first ``n_rows`` rows
+    (default all), each squared residual times its ``sample_weights`` row
+    when given, normalised by ``n_rows * out_dim`` as the TPU kernel does;
+    rows at and beyond ``n_rows`` contribute nothing. ``out_absmax`` is max
+    |out| over those rows, after the last activation."""
     P = x.shape[0]
+    n = len(weights) // 2
     n_rows = P if n_rows is None else int(n_rows)
     inv_n = 1.0 / (n_rows * target.shape[-1])
-    omegas = _omegas(omega, len(weights) // 2 - 1)
-    inputs, factors = _stash_forward(x, weights, omegas)
-    out = inputs[-1] @ weights[-2].T + weights[-1]
-    rows = torch.arange(P, device=x.device)[:, None]
-    r = torch.where(rows < n_rows, out - target, torch.zeros_like(out))
-    loss = (r * r).sum() * inv_n
-    _, grads = _backprop(weights, inputs, factors, (2.0 * inv_n) * r, True, False)
+    acts = _acts(acts, n)
+    inputs, factors, z = _stash_forward(x, weights, _omegas(omega, n - 1), acts)
+    out = _act(z, acts[-1], 1.0)
+    real = torch.arange(P, device=x.device)[:, None] < n_rows
+    r = torch.where(real, out - target, torch.zeros_like(out))
+    wr = r if sample_weights is None else sample_weights * r
+    loss = (wr * r).sum() * inv_n
+    delta = (2.0 * inv_n) * wr
+    if acts[-1] == "relu":
+        delta = delta * (z > 0).to(z.dtype)
+    _, grads = _backprop(weights, inputs, factors, delta, True, False)
+    if with_out_absmax:
+        absmax = torch.where(real, out.abs(), torch.zeros_like(out)).max()
+        return loss, absmax, grads
     return loss, grads
 
 
 @torch.no_grad()
-def siren_fused_bwd_ref(x, weights, g, omega=30.0, need_dw=True, need_dx=True):
+def siren_fused_bwd_ref(x, weights, g, omega=30.0, need_dw=True, need_dx=True,
+                        acts=None):
     """Plain K2: ``(dx, grads)`` for the upstream gradient ``g`` (P, 1);
     ``None`` in place of what was not asked for."""
-    omegas = _omegas(omega, len(weights) // 2 - 1)
-    inputs, factors = _stash_forward(x, weights, omegas)
+    n = len(weights) // 2
+    acts = _acts(acts, n)
+    inputs, factors, z = _stash_forward(x, weights, _omegas(omega, n - 1), acts)
+    if acts[-1] == "relu":
+        g = g * (z > 0).to(z.dtype)
     return _backprop(weights, inputs, factors, g, need_dw, need_dx)
 
 
@@ -159,13 +232,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.siren_partial_floats.argtypes = [i, p, i]
     lib.siren_partial_floats.restype = ctypes.c_longlong
-    lib.siren_forward_f32.argtypes = [p, i, p, i, p, p, p, p, p, p, p]
+    lib.siren_forward_f32.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p]
     lib.siren_forward_f32.restype = i
-    lib.siren_loss_grads_f32.argtypes = [p, i, i, p, i, p, p, p, p, f, p, p, p, p, p,
-                                         p, p, p, p]
+    lib.siren_loss_grads_f32.argtypes = [p, i, i, p, i, p, p, p, p, p, p, f, p, p, p, p,
+                                         p, p, p, p, p, p]
     lib.siren_loss_grads_f32.restype = i
     lib.siren_fused_bwd_f32.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p, p, p, p,
-                                        p]
+                                        p, p]
     lib.siren_fused_bwd_f32.restype = i
 
 
@@ -176,16 +249,21 @@ def _lib() -> ctypes.CDLL:
 class _Args:
     """ctypes views of the shared arguments; keeps the arrays alive."""
 
-    def __init__(self, x, weights, omega):
+    def __init__(self, x, weights, omega, acts):
         self.dims_list = _layer_dims(x, weights)
         self.n_layers = len(weights) // 2
         self.dims = (ctypes.c_int * len(self.dims_list))(*self.dims_list)
+        codes = [ACT_CODES[a] for a in _acts(acts, self.n_layers)]
+        self.acts = (ctypes.c_int * len(codes))(*codes)
         self.W = _build.ptr_array(weights[0::2])
         self.b = _build.ptr_array(weights[1::2])
         omegas = _omegas(omega, self.n_layers - 1)
         self.omegas = (ctypes.c_float * len(omegas))(*omegas)
         self.P = int(x.shape[0])
         self.width = max(self.dims_list[1:-1])
+
+    def ptr(self, arr) -> ctypes.c_void_p:
+        return ctypes.cast(arr, ctypes.c_void_p)
 
 
 def _stash_buffers(a: _Args, like: torch.Tensor):
@@ -199,59 +277,55 @@ def _stash_buffers(a: _Args, like: torch.Tensor):
 
 
 def _partial(lib, a: _Args, like: torch.Tensor) -> torch.Tensor:
-    n = lib.siren_partial_floats(a.P, ctypes.cast(a.dims, ctypes.c_void_p), a.n_layers)
+    n = lib.siren_partial_floats(a.P, a.ptr(a.dims), a.n_layers)
     return torch.empty(int(n), dtype=like.dtype, device=like.device)
 
 
-def _launch_forward(lib, x, weights, omega, stream) -> torch.Tensor:
-    a = _Args(x, weights, omega)
+def _launch_forward(lib, x, weights, omega, stream, acts=None) -> torch.Tensor:
+    a = _Args(x, weights, omega, acts)
     out = torch.empty(a.P, 1, dtype=x.dtype, device=x.device)
     buf0 = torch.empty(a.P, a.width, dtype=x.dtype, device=x.device)
     buf1 = torch.empty_like(buf0)
     rc = lib.siren_forward_f32(
-        x.data_ptr(), a.P, ctypes.cast(a.dims, ctypes.c_void_p), a.n_layers,
-        a.W, a.b,
-        ctypes.cast(a.omegas, ctypes.c_void_p), out.data_ptr(), buf0.data_ptr(),
-        buf1.data_ptr(), stream)
+        x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.ptr(a.acts), a.W, a.b,
+        a.ptr(a.omegas), out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), stream)
     _build.raise_on(rc, "siren_forward")
     return out
 
 
-def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream):
-    a = _Args(x, weights, omega)
+def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream, acts=None,
+                       sample_weights=None, with_out_absmax=False):
+    a = _Args(x, weights, omega, acts)
     inv_n = 1.0 / (n_rows * target.shape[-1])
-    acts, facts, delta0, delta1 = _stash_buffers(a, x)
+    stash, facts, delta0, delta1 = _stash_buffers(a, x)
     partial = _partial(lib, a, x)
     grads = [torch.empty_like(w) for w in weights]
     loss = torch.empty((), dtype=x.dtype, device=x.device)
+    absmax = torch.empty((), dtype=x.dtype, device=x.device) if with_out_absmax else None
     rc = lib.siren_loss_grads_f32(
-        x.data_ptr(), a.P, int(n_rows), ctypes.cast(a.dims, ctypes.c_void_p),
-        a.n_layers, a.W,
-        a.b, ctypes.cast(a.omegas, ctypes.c_void_p),
-        target.data_ptr(), inv_n, _build.ptr_array(acts),
-        _build.ptr_array(facts), delta0.data_ptr(),
-        delta1.data_ptr(), partial.data_ptr(),
-        _build.ptr_array(grads[0::2]),
-        _build.ptr_array(grads[1::2]), loss.data_ptr(), stream)
+        x.data_ptr(), a.P, int(n_rows), a.ptr(a.dims), a.n_layers, a.ptr(a.acts), a.W,
+        a.b, a.ptr(a.omegas), target.data_ptr(),
+        None if sample_weights is None else sample_weights.data_ptr(), inv_n,
+        _build.ptr_array(stash), _build.ptr_array(facts), delta0.data_ptr(),
+        delta1.data_ptr(), partial.data_ptr(), _build.ptr_array(grads[0::2]),
+        _build.ptr_array(grads[1::2]), loss.data_ptr(),
+        None if absmax is None else absmax.data_ptr(), stream)
     _build.raise_on(rc, "siren_loss_grads")
-    return loss, grads
+    return (loss, absmax, grads) if with_out_absmax else (loss, grads)
 
 
-def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream):
-    a = _Args(x, weights, omega)
-    acts, facts, delta0, delta1 = _stash_buffers(a, x)
+def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream, acts=None):
+    a = _Args(x, weights, omega, acts)
+    stash, facts, delta0, delta1 = _stash_buffers(a, x)
     partial = _partial(lib, a, x)
     grads = [torch.empty_like(w) for w in weights] if need_dw else None
     dx = torch.empty_like(x) if need_dx else None
     dW = _build.ptr_array(grads[0::2]) if need_dw else None
     db = _build.ptr_array(grads[1::2]) if need_dw else None
     rc = lib.siren_fused_bwd_f32(
-        x.data_ptr(), a.P, ctypes.cast(a.dims, ctypes.c_void_p), a.n_layers,
-        a.W, a.b,
-        ctypes.cast(a.omegas, ctypes.c_void_p), g.data_ptr(),
-        _build.ptr_array(acts),
-        _build.ptr_array(facts), delta0.data_ptr(),
-        delta1.data_ptr(), partial.data_ptr(), dW, db,
+        x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.ptr(a.acts), a.W, a.b,
+        a.ptr(a.omegas), g.data_ptr(), _build.ptr_array(stash), _build.ptr_array(facts),
+        delta0.data_ptr(), delta1.data_ptr(), partial.data_ptr(), dW, db,
         None if dx is None else dx.data_ptr(), stream)
     _build.raise_on(rc, "siren_fused_bwd")
     return dx, grads
@@ -263,51 +337,67 @@ def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream):
 
 
 def siren_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                  omega: float | Sequence[float] = 30.0) -> torch.Tensor:
+                  omega: float | Sequence[float] = 30.0,
+                  acts: Sequence[str] | None = None) -> torch.Tensor:
     """K3: the MLP output (P, 1)."""
     weights = list(weights)
     _layer_dims(x, weights)
+    acts = _acts(acts, len(weights) // 2)
     if _check(x, weights) == "cpu":
-        return siren_forward_ref(x, weights, omega)
+        return siren_forward_ref(x, weights, omega, acts)
     out = _launch_forward(_lib(), x, [w.detach() for w in weights], omega,
-                          _build.stream_ptr())
+                          _build.stream_ptr(), acts)
     LAUNCHES["siren_forward"] += 1
     return out
 
 
 def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
                      target: torch.Tensor, omega: float | Sequence[float] = 30.0,
-                     n_rows: int | None = None):
+                     n_rows: int | None = None, acts: Sequence[str] | None = None,
+                     sample_weights: torch.Tensor | None = None,
+                     with_out_absmax: bool = False):
     """K1: ``(loss, grads)`` of ``mean((MLP(x) - target)^2)`` over the first
-    ``n_rows`` rows (default all), with ``grads`` matching ``weights``."""
+    ``n_rows`` rows (default all), with ``grads`` matching ``weights``;
+    ``sample_weights`` (P, 1) weighs each squared residual (the mean stays
+    over ``n_rows``); ``with_out_absmax`` returns ``(loss, out_absmax,
+    grads)`` with ``out_absmax`` = max |MLP(x)| over those rows."""
     weights = list(weights)
     _layer_dims(x, weights)
+    acts = _acts(acts, len(weights) // 2)
     if target.shape != (x.shape[0], 1):
         raise ValueError(f"target must be ({x.shape[0]}, 1); got {tuple(target.shape)}")
+    if sample_weights is not None and sample_weights.shape != (x.shape[0], 1):
+        raise ValueError(f"sample_weights must be ({x.shape[0]}, 1); got "
+                         f"{tuple(sample_weights.shape)}")
     n_rows = x.shape[0] if n_rows is None else int(n_rows)
     if not 0 < n_rows <= x.shape[0]:
         raise ValueError(f"n_rows {n_rows} outside (0, {x.shape[0]}]")
-    if _check(x, weights, target) == "cpu":
-        return siren_loss_grads_ref(x, weights, target, omega, n_rows)
+    extra = [] if sample_weights is None else [sample_weights]
+    if _check(x, weights, target, *extra) == "cpu":
+        return siren_loss_grads_ref(x, weights, target, omega, n_rows, acts,
+                                    sample_weights, with_out_absmax)
     out = _launch_loss_grads(_lib(), x, [w.detach() for w in weights], target, omega,
-                             n_rows, _build.stream_ptr())
-    LAUNCHES["siren_loss_grads"] += 1
+                             n_rows, _build.stream_ptr(), acts, sample_weights,
+                             with_out_absmax)
+    LAUNCHES[loss_grads_key(sample_weights is not None, with_out_absmax)] += 1
     return out
 
 
 def siren_fused_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     g: torch.Tensor, omega: float | Sequence[float] = 30.0,
-                    need_dw: bool = True, need_dx: bool = True):
+                    need_dw: bool = True, need_dx: bool = True,
+                    acts: Sequence[str] | None = None):
     """K2: ``(dx, grads)`` for the upstream gradient ``g`` (P, 1) of the MLP
     output; ``None`` in place of what was not asked for."""
     weights = list(weights)
     _layer_dims(x, weights)
+    acts = _acts(acts, len(weights) // 2)
     if g.shape != (x.shape[0], 1):
         raise ValueError(f"g must be ({x.shape[0]}, 1); got {tuple(g.shape)}")
     if _check(x, weights, g) == "cpu":
-        return siren_fused_bwd_ref(x, weights, g, omega, need_dw, need_dx)
+        return siren_fused_bwd_ref(x, weights, g, omega, need_dw, need_dx, acts)
     out = _launch_fused_bwd(_lib(), x, [w.detach() for w in weights], g, omega,
-                            need_dw, need_dx, _build.stream_ptr())
+                            need_dw, need_dx, _build.stream_ptr(), acts)
     LAUNCHES["siren_fused_bwd"] += 1
     return out
 
@@ -317,23 +407,68 @@ class _SirenFused(torch.autograd.Function):
     weight requires grad)."""
 
     @staticmethod
-    def forward(ctx, x, omega, *weights):
-        ctx.omega = omega
+    def forward(ctx, x, omega, acts, *weights):
+        ctx.omega, ctx.acts = omega, acts
         ctx.save_for_backward(x, *weights)
-        return siren_forward(x, weights, omega)
+        return siren_forward(x, weights, omega, acts)
 
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]
-        need_dw = any(ctx.needs_input_grad[2:])
+        need_dw = any(ctx.needs_input_grad[3:])
         dx, grads = siren_fused_bwd(x, weights, g.contiguous(), ctx.omega,
-                                    need_dw=need_dw, need_dx=need_dx)
-        return (dx, None, *(grads if need_dw else [None] * len(weights)))
+                                    need_dw=need_dw, need_dx=need_dx, acts=ctx.acts)
+        return (dx, None, None, *(grads if need_dw else [None] * len(weights)))
 
 
 def siren_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                omega: float | Sequence[float] = 30.0) -> torch.Tensor:
+                omega: float | Sequence[float] = 30.0,
+                acts: Sequence[str] | None = None) -> torch.Tensor:
     """Differentiable MLP forward: K3 forward, K2 backward."""
     omega = omega if isinstance(omega, (int, float)) else tuple(omega)
-    return _SirenFused.apply(x, omega, *weights)
+    return _SirenFused.apply(x, omega, None if acts is None else tuple(acts), *weights)
+
+
+# --------------------------------------------------------------------------
+# adapters for the fit loops
+# --------------------------------------------------------------------------
+
+
+def _model_omega_acts(model) -> tuple[float, tuple[str, ...]]:
+    """One omega for every sine layer and the trunk's activations of a
+    port ``Siren`` or ``SirenERD``; raises for distinct first and hidden
+    omegas, as the JAX adapters do."""
+    first, hidden = float(model.first_omega_0), float(model.hidden_omega_0)
+    if first != hidden:
+        raise ValueError("distinct first/hidden omega is not supported here")
+    return hidden, tuple(model.acts)
+
+
+def make_fused_weighted_value_and_grad(model):
+    """``vag(params, x, target, sample_weights) -> (loss, grads)``: the
+    acceptance-weighted MSE of the 2-D directional ensemble in one K1 pass
+    (``make_fused_weighted_value_and_grad`` of the JAX package; no width
+    padding, the kernel takes any width). ``params`` in ``model.weights()``
+    order."""
+    omega, acts = _model_omega_acts(model)
+
+    def vag(params, x, target, sample_weights):
+        return siren_loss_grads(x, params, target, omega, acts=acts,
+                                sample_weights=sample_weights)
+
+    return vag
+
+
+def make_fused_value_grad_absmax(model):
+    """``vag(params, x, target) -> (loss, out_absmax, grads)``: the trunk's
+    MSE gradient and the collapse signal max |out| in one K1 pass
+    (``make_fused_value_grad_absmax`` of the JAX package). ``params`` are
+    the trunk's, in ``model.weights()`` order."""
+    omega, acts = _model_omega_acts(model)
+
+    def vag(params, x, target):
+        return siren_loss_grads(x, params, target, omega, acts=acts,
+                                with_out_absmax=True)
+
+    return vag

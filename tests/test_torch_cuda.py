@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from mri_super_resolution_tpu_torch import set_float32_precision
-from mri_super_resolution_tpu_torch.models import RAMS, Wire
+from mri_super_resolution_tpu_torch.models import RAMS, SirenERD, Wire
 from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+from mri_super_resolution_tpu_torch.ops import mma_probe as mp
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
@@ -54,7 +55,65 @@ def test_kernels_launch_and_match_plain(card):
     for a, b in zip(dws, dws_r):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-8)
     assert tk.LAUNCHES == {"siren_forward": 1, "siren_loss_grads": 1,
+                           "siren_loss_grads_weighted": 0, "siren_loss_grads_absmax": 0,
+                           "siren_loss_grads_weighted_absmax": 0, "siren_fused_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted,absmax,n_rows", [(True, False, 1000), (False, True, 937),
+                                                    (True, True, 999)])
+def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
+    """K1 with sample weights and/or max |out| on a SirenERD trunk (ReLU
+    codes) launches once under its variant's key and agrees with its plain
+    version; K3 and K2 with the same codes too."""
+    gen = torch.Generator().manual_seed(7)
+    model = SirenERD(2, 64, 2, generator=gen).to(card)
+    with torch.no_grad():
+        model.final.bias.fill_(0.05)  # an output that is not all zero
+    ws, acts = [w.detach() for w in model.weights()], model.acts
+    x = (torch.rand(1000, 2, generator=gen) * 2 - 1).to(card)
+    t = torch.rand(1000, 1, generator=gen).to(card)
+    sw = (torch.rand(1000, 1, generator=gen) * (torch.arange(1000) % 4 != 0)[:, None]).to(card)
+    tk.reset_launches()
+    got = tk.siren_loss_grads(x, ws, t, acts=acts, n_rows=n_rows,
+                              sample_weights=sw if weighted else None,
+                              with_out_absmax=absmax)
+    want = tk.siren_loss_grads_ref(x, ws, t, 30.0, n_rows, acts, sw if weighted else None,
+                                   absmax)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+    if absmax:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    for a, b in zip(got[-1], want[-1]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(tk.siren_forward(x, ws, acts=acts),
+                               tk.siren_forward_ref(x, ws, acts=acts), rtol=1e-4, atol=1e-6)
+    g = torch.randn(1000, 1, generator=gen).to(card) / 1000
+    dx, dws = tk.siren_fused_bwd(x, ws, g, acts=acts)
+    dx_r, dws_r = tk.siren_fused_bwd_ref(x, ws, g, acts=acts)
+    for a, b in zip([dx, *dws], [dx_r, *dws_r]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-7)
+    key = tk.loss_grads_key(weighted, absmax)
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, key: 1, "siren_forward": 1,
                            "siren_fused_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_mma_probe_launches_and_matches_plain(card, dtype):
+    """P1 at T 128, H 256, REPS 2, GRID 3 and GRID 1: int8 equal to the
+    plain version, bf16 within float32 rounding of 512-term sums."""
+    from mri_super_resolution_tpu_torch.cli.int8_mma_probe import operands
+
+    a, b = (u.to(card) for u in operands(dtype, 128, 256, 2, seed=1))
+    mp.reset_launches()
+    for grid in (1, 3):
+        out = mp.mma_probe(a, b, 2, grid)
+        ref = mp.mma_probe_ref(a, b, 2, grid)
+        if dtype == torch.int8:
+            assert torch.equal(out, ref)
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * grid)
+    assert mp.LAUNCHES[f"mma_probe_{mp.DTYPES[dtype]}"] == 2
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The CUDA sources of K1-K3 (``csrc/siren.cu``), K4-K5 (``csrc/wire.cu``)
-and K6-K7 (``csrc/conv3d.cu``) run on the CPU under an
+"""The CUDA sources of K1-K3 (``csrc/siren.cu``), K4-K5 (``csrc/wire.cu``),
+K6-K7 (``csrc/conv3d.cu``) and P1 (``csrc/mma_probe.cu``) run on the CPU
+under an
 emulation of the CUDA execution model (``tests/cuda_emulation``: one
 std::thread per CUDA thread, block barriers, warp shuffles), through the
 same ctypes launch code the wrappers use on the card, against the plain
@@ -14,7 +15,11 @@ layer (depth below the GEMM's 8-deep stage), 0-2 hidden layers and
 per-layer omega/sigma read from the device array; for K6 SAME and VALID,
 both types, outputs off the 16 x 32 tile, more than one channel chunk and
 more than one 32-channel output block; for K7 the same, plus more than one
-32-channel input block and more than one work item per workspace slot.
+32-channel input block and more than one work item per workspace slot; for
+K1's variants ReLU codes (the SirenERD trunk), sample weights with zeros,
+max |out| over ragged rows, and pre-activations exactly 0 (ReLU's step is 0
+there); for P1 both types, with one and with several steps per block (the
+emulation header computes each warp's mma from the posted fragments).
 """
 import ctypes
 import os
@@ -26,7 +31,9 @@ import pytest
 import torch
 
 from mri_super_resolution_tpu_torch.ops import _build
+from mri_super_resolution_tpu_torch.cli.int8_mma_probe import operands as probe_operands
 from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+from mri_super_resolution_tpu_torch.ops import mma_probe as mp
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
@@ -66,6 +73,11 @@ def emulated_wire(tmp_path_factory):
 @pytest.fixture(scope="module")
 def emulated_conv3d(tmp_path_factory):
     return _emulated(tmp_path_factory, "conv3d", ck._declare)
+
+
+@pytest.fixture(scope="module")
+def emulated_probe(tmp_path_factory):
+    return _emulated(tmp_path_factory, "mma_probe", mp._declare)
 
 
 def _problem(dims, P, seed):
@@ -116,6 +128,126 @@ def test_emulated_partial_workspace_is_enough(emulated_lib):
                                           len(dims) - 1)
     # dW of a 512 x 512 layer over 70,000 rows splits into 17 partials
     assert n >= 17 * 512 * 512
+
+
+ERD_ACTS = ("sine", "sine", "relu", "relu")
+ERD_DIMS = (2, 24, 24, 20, 1)
+
+
+def _erd_problem(P, seed):
+    """A SirenERD-like trunk (two sine layers, a ReLU layer, a ReLU output)
+    at SIREN-init scale but for the output layer, widened and shifted so
+    that its pre-activations take both signs; sample weights in [0, 1] with
+    every fifth 0."""
+    x, ws, target, g = _problem(ERD_DIMS, P, seed)
+    ws[6] = ws[6] * 30.0
+    ws[7] = torch.zeros_like(ws[7])
+    z = tk.siren_forward_ref(x, ws, 30.0, ERD_ACTS[:-1] + ("none",))
+    # about half the rows on either side, none within rounding of the step
+    zs = z.flatten().sort().values
+    assert float(zs[P // 2 + 1] - zs[P // 2]) > 1e-6
+    ws[7] = -0.5 * (zs[P // 2] + zs[P // 2 + 1]).reshape(1)
+    sw = torch.as_tensor(np.random.default_rng(seed + 1).uniform(0, 1, size=(P, 1)),
+                         dtype=torch.float32)
+    sw[::5] = 0.0
+    return x, ws, target, g, sw
+
+
+def _assert_k1(lib, x, ws, target, n_rows, sw, absmax, acts=ERD_ACTS):
+    got = tk._launch_loss_grads(lib, x, ws, target, 30.0, n_rows, 0, acts, sw, absmax)
+    want = tk.siren_loss_grads_ref(x, ws, target, 30.0, n_rows, acts, sw, absmax)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    if absmax:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    for i, (a, b) in enumerate(zip(got[-1], want[-1])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=f"grad {i}")
+    return got, want
+
+
+@pytest.mark.parametrize("weighted,absmax", [(True, False), (False, True), (True, True)])
+def test_emulated_k1_variants_match_plain(emulated_lib, weighted, absmax):
+    """Sample weights (zeros among them) and max |out| over the real rows,
+    with ReLU codes; the row holding the largest |out| moved past n_rows, so
+    a max taken over the padded rows would show, and the real maximum in a
+    row past the first block's eight, so that only the reduction over the
+    blocks' partials finds it."""
+    P = 300
+    x, ws, target, _, sw = _erd_problem(P, seed=11)
+    out = tk.siren_forward_ref(x, ws, 30.0, ERD_ACTS)
+    last = int(out.abs().argmax())
+    order = [i for i in range(P) if i != last] + [last]
+    x, target, sw = x[order].contiguous(), target[order].contiguous(), sw[order].contiguous()
+    n_rows = P - 1
+    out = out[order]
+    assert 0.2 < float((out > 0).float().mean()) < 0.8  # the output ReLU on and off
+    assert float(out[:n_rows].abs().max()) < float(out.abs().max())
+    assert int(out[:n_rows].abs().argmax()) >= 8
+    _assert_k1(emulated_lib, x, ws, target, n_rows, sw if weighted else None, absmax)
+    _assert_k1(emulated_lib, x, ws, target, P, sw if weighted else None, absmax)
+
+
+def test_emulated_k1_relu_step_is_zero_at_zero(emulated_lib):
+    """Pre-activations exactly 0: one unit of the ReLU layer with zero
+    weights and bias, and then the whole ReLU layer off (bias -100) with a
+    last bias of 0, so the output is ReLU(0) everywhere. The step is 0 at
+    z = 0, so the zero unit's and, in the second case, every gradient is
+    exactly 0; max |out| is exactly 0 there."""
+    P = 137
+    x, ws, target, g, sw = _erd_problem(P, seed=5)
+    ws = [w.clone() for w in ws]
+    ws[4][3].zero_()
+    ws[5][3] = 0.0
+    (_, _, grads), _ = _assert_k1(emulated_lib, x, ws, target, P, sw, True)
+    assert float(grads[4][3].abs().max()) == 0.0 and float(grads[5][3]) == 0.0
+    ws[5].fill_(-100.0)
+    ws[7].zero_()
+    (loss, absmax, grads), _ = _assert_k1(emulated_lib, x, ws, target, P - 7, sw, True)
+    assert float(absmax) == 0.0 and float(loss) > 0
+    assert all(float(q.abs().max()) == 0.0 for q in grads)
+    dx, dws = tk._launch_fused_bwd(emulated_lib, x, ws, g, 30.0, True, True, 0, ERD_ACTS)
+    assert float(dx.abs().max()) == 0.0 and all(float(q.abs().max()) == 0.0 for q in dws)
+
+
+@pytest.mark.parametrize("acts", [ERD_ACTS, ("sine", "none", "relu", "none"),
+                                  ("relu", "sine", "sine", "relu")])
+def test_emulated_k2_k3_take_the_codes(emulated_lib, acts):
+    P = 201
+    x, ws, _, g, _ = _erd_problem(P, seed=2)
+    torch.testing.assert_close(tk._launch_forward(emulated_lib, x, ws, 30.0, 0, acts),
+                               tk.siren_forward_ref(x, ws, 30.0, acts), rtol=1e-5, atol=1e-6)
+    dx, dws = tk._launch_fused_bwd(emulated_lib, x, ws, g, 30.0, True, True, 0, acts)
+    dx_r, dws_r = tk.siren_fused_bwd_ref(x, ws, g, 30.0, acts=acts)
+    torch.testing.assert_close(dx, dx_r, rtol=1e-4, atol=1e-5)
+    for a, b in zip(dws, dws_r):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("grid_steps,splits", [(3, None), (3, 1), (4, 3)])
+def test_emulated_mma_probe_matches_plain(emulated_probe, dtype, grid_steps, splits):
+    """P1 at T 128, H 256 (two output tiles), REPS 2: int8 equal to the plain
+    version bit for bit (exact step sums; every step adds the same float32
+    value, so any order of the GRID adds gives the same bits here), bf16
+    within float32 rounding of sums over 512 products. ``splits`` 1 runs all
+    steps in one block, 3 of 4 steps splits them unevenly."""
+    a, b = probe_operands(dtype, 128, 256, 2, seed=grid_steps)
+    out = mp._launch(emulated_probe, a, b.t().contiguous(), 2, grid_steps, 0, splits)
+    ref = mp.mma_probe_ref(a, b, 2, grid_steps)
+    assert out.shape == ref.shape == (128, 256)
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * grid_steps)
+
+
+def test_emulated_mma_probe_plan(emulated_probe):
+    """One block on each of the 132 SMs at the probe's shape (12 tiles, 11
+    splits), at most one split a step, and refusals of shapes off the tile."""
+    assert emulated_probe.mma_probe_splits(384, 512, 512) == 11
+    assert emulated_probe.mma_probe_splits(128, 128, 3) == 3
+    a = torch.zeros(2 * 96, 128, dtype=torch.int8)
+    with pytest.raises(RuntimeError):
+        mp._launch(emulated_probe, a, torch.zeros(128, 128, dtype=torch.int8), 2, 1, 0)
 
 
 def _wire_problem(d, H, nh, P, seed):

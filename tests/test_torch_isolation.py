@@ -1,8 +1,10 @@
 """The port imports neither JAX nor the JAX package: every module of it
 imports, and short CPU fits of the SIREN and WIRE paths, a tiny MISR run
-(the K6 route, its plain version on the CPU) and a two-step tiny MISR
-training run (K6 and K7 routes, their plain versions) run, in a process
-where both are blocked."""
+(the K6 route, its plain version on the CPU), a two-step tiny MISR
+training run (K6 and K7 routes, their plain versions), a two-step
+``fit_ensemble`` and ``fit_until`` (K1's weighted and absmax variants,
+their plain versions) and the P1 probe's plain version run, in a process
+where both are blocked, launching nothing."""
 import os
 import subprocess
 import sys
@@ -74,6 +76,25 @@ with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringI
     assert tr.fit(x, (y, np.ones_like(y))).step == 2
     assert tr.manager.latest_step() == 2
 assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
+from mri_super_resolution_tpu_torch.fit.engine import fit_ensemble, fit_until, plain_apply_init
+from mri_super_resolution_tpu_torch.models import SirenERD
+from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+s2 = Siren(2, 16, 1, generator=g)
+s2.requires_grad_(False)
+c = mgrid((5, 6))
+res = fit_ensemble(lambda p, xx: sk.siren_forward_ref(xx, p), Adam(s2.weights(), 1e-3), c,
+                   torch.rand(3, 30, 1, generator=g), torch.ones(3, 30, 1), c, mgrid((10, 12)),
+                   2, 1, weighted_value_and_grad_fn=sk.make_fused_weighted_value_and_grad(s2))
+assert res.pred_scale.shape == (120, 1) and bool(torch.isfinite(res.losses).all())
+erd = SirenERD(2, 16, 1, perturb=True, generator=g)
+apply_fn, init_fn = plain_apply_init(erd, g)
+fu = fit_until(apply_fn, 1e-3, init_fn, c, torch.rand(30, 1, generator=g), 0.0, 2,
+               sk.make_fused_value_grad_absmax(erd))
+assert fu.steps == 2 and len(fu.losses) == 2
+from mri_super_resolution_tpu_torch.ops import mma_probe as mp
+assert mp.mma_probe(torch.ones(4, 8, dtype=torch.int8), torch.ones(8, 8, dtype=torch.int8),
+                    2, 3).shape == (2, 8)
+assert not any(sk.LAUNCHES.values()) and not any(mp.LAUNCHES.values())
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "orbax",
                                            "mri_super_resolution_tpu."))
                for k, v in sys.modules.items() if v is not None)

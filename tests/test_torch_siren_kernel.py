@@ -118,8 +118,11 @@ def test_cpu_runs_plain_versions_without_launching(setup):
     tk.siren_forward(xt, tws)
     tk.siren_loss_grads(xt, tws, tt)
     tk.siren_fused_bwd(xt, tws, gt)
-    assert tk.LAUNCHES == {"siren_forward": 0, "siren_loss_grads": 0,
-                           "siren_fused_bwd": 0}
+    tk.siren_loss_grads(xt, tws, tt, sample_weights=tt, with_out_absmax=True)
+    assert set(tk.LAUNCHES) == {"siren_forward", "siren_loss_grads",
+                                "siren_loss_grads_weighted", "siren_loss_grads_absmax",
+                                "siren_loss_grads_weighted_absmax", "siren_fused_bwd"}
+    assert not any(tk.LAUNCHES.values())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(setup):
