@@ -65,12 +65,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
    bf16 and ``torch._int_mm`` over the same products for P1) and its bound;
-   P1 also at GRID 256, whose time must be about half; the per-update costs
-   of the two 2-D paths (a K1 call, an Adam step, ``fit_until``'s per-step
-   read-back); the 25-draw RAMS forward on both routes; one full training
-   step at batch 32 on both routes, whose losses over the same three steps
-   from the same init differ by at most twice the cuDNN route's own
-   bf16-vs-float32 gap.
+   K6 and K7 with their library calls in three alternating rounds, best of
+   each, the ratios to the library and to the bound printed at every path
+   shape; P1 also at GRID 256, whose time must be about half; the
+   per-update costs of the two 2-D paths (a K1 call, an Adam step,
+   ``fit_until``'s per-step read-back); the 25-draw RAMS forward on both
+   routes; one full training step at batch 32 on both routes, whose losses
+   over the same three steps from the same init differ by at most twice the
+   cuDNN route's own bf16-vs-float32 gap; one forward and one step per route
+   under ``torch.profiler`` for the device's busy time and idle share.
 
 The last three lines are the ``{"kernels": ...}`` record (K1-K7, K1's
 weighted and absmax variants, P1 in bf16 and int8), the card's name and
@@ -82,6 +85,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -210,9 +214,24 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           + ", ".join(f"{s} {_build.BUILD_SECONDS[s]:.1f} s" for s in SOURCES) + ")")
     for name in SOURCES:
+        kernel = "?"
         for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Function properties for" in line:
+                kernel = _demangled(line.split()[-1])
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {kernel}: {line.strip()}")
+
+
+def _demangled(symbol: str) -> str:
+    """The kernel's name from its mangled symbol (the first name past the
+    anonymous namespace), with its template arguments' mangling kept."""
+    rest = symbol
+    while (m := re.match(r"(?:_ZN|_Z)?(\d+)", rest)):
+        n = int(m.group(1))
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+        if not name.startswith("_GLOBAL"):
+            return name + (rest[:rest.index("E")] if rest.startswith("I") else "")
+    return symbol
 
 
 def _wire_inputs(P: int, H: int, n_hidden: int, seed: int):
@@ -1066,8 +1085,9 @@ def phase_probe_times(errs: dict, launches: dict) -> list[dict]:
 def phase_k6_times(err: float, launches: dict) -> dict:
     """K6 in bf16 at each MISR path shape: the kernel, its plain version and
     ``F.conv3d`` on the same channels-last tensors (bias in bf16), with CUDA
-    events, beside the bound; the kernels-line row is the SAME shape that
-    runs 25 of the 34 launches."""
+    events, beside the bound; kernel and ``F.conv3d`` in three alternating
+    rounds, best of each. The kernels-line row is the SAME shape that runs
+    25 of the 34 launches."""
     import torch
     import torch.nn.functional as F
 
@@ -1090,7 +1110,7 @@ def phase_k6_times(err: float, launches: dict) -> dict:
                           lambda: ck.conv3d_rfab_ref(x, w, b, pad),
                           lambda: F.conv3d(xt, wt, bb, padding=pad.lower()),
                           flops, nbytes, f"{shape} {pad}", {"conv3d_rfab": err}, launches,
-                          peak=PEAK_BF16_TC, reps=5)
+                          peak=PEAK_BF16_TC, reps=5, rounds=3)
             per_forward["kernel"] += n * r["ms"]
             per_forward["library"] += n * r["library_ms"]
             if row is None:
@@ -1105,7 +1125,7 @@ def phase_k6_times(err: float, launches: dict) -> dict:
 def phase_rams_forward_times() -> None:
     """The 25-draw RAMS forward at full width on a (25, 128, 128, 9) stack,
     bf16, with conv_kernel on and off (host clock around the synchronised
-    forward, best of 3)."""
+    forward, best of 3), then one forward per route under the profiler."""
     import numpy as np
     import torch
 
@@ -1136,6 +1156,10 @@ def phase_rams_forward_times() -> None:
                 torch.cuda.synchronize()
                 best = min(best, time.perf_counter() - t0)
         print(f"[times] RAMS 25-draw forward, conv_kernel={conv_kernel}: {1e3 * best:.1f} ms")
+    for conv_kernel in (True, False):
+        with torch.inference_mode():
+            _device_busy(f"RAMS 25-draw forward, conv_kernel={conv_kernel}",
+                         lambda: models[conv_kernel](x))
 
 
 def _k7_inputs(shape, padding, dtype, seed: int):
@@ -1364,7 +1388,8 @@ def phase_train_step_times(data, out_dir: str) -> None:
     the same three steps also on the cuDNN route in float32: the two bf16
     routes' losses may differ by at most twice the cuDNN route's own
     bf16-vs-float32 gap (phase misr_main's bound). Steps timed on the host
-    clock around a synchronised step, best of 3, routes in turns."""
+    clock around a synchronised step, best of 3, routes in turns; then one
+    step per route under the profiler."""
     import numpy as np
     import torch
 
@@ -1405,6 +1430,35 @@ def phase_train_step_times(data, out_dir: str) -> None:
     print(f"[times] train step, batch {TRAIN_BATCH}, bf16 (forward, shift-L1, backward, "
           f"Adam): conv_kernel {1e3 * best['conv_kernel']:.1f} ms, cuDNN "
           f"{1e3 * best['cuDNN']:.1f} ms")
+    for name in ("conv_kernel", "cuDNN"):
+        tr = trainers[name]
+        batch = tr._batch(np.arange(TRAIN_BATCH), X, Y, M)
+        _device_busy(f"train step, batch {TRAIN_BATCH}, bf16, {name}",
+                     lambda: tr.train_step([batch]))
+
+
+def _device_busy(what: str, fn) -> None:
+    """One call of ``fn`` under ``torch.profiler``: the host clock around it
+    (synchronised; the profiler's own cost included), the summed time of the
+    device's kernels and the share of the call the device had no kernel
+    running."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"[profile] {what}: no device events traced; idle share not measured")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"[profile] {what}: {wall_ms:.1f} ms on the host clock under the profiler, "
+          f"{len(kernels)} device kernels busy {busy_ms:.1f} ms, device idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
 
 
 def phase_k7_times(err: float, launches: dict) -> dict:
@@ -1412,8 +1466,9 @@ def phase_k7_times(err: float, launches: dict) -> dict:
     and ``torch.autograd.grad`` through ``F.conv3d`` on the same channels-
     last bf16 tensors (dx, dW, db; the forward's graph kept), with CUDA
     events, beside the bound; K6 and ``F.conv3d`` forward at the same
-    shapes for the step's share. The kernels-line row is the SAME shape
-    that runs 25 of the 34 launches."""
+    shapes for the step's share. Kernel and library in three alternating
+    rounds, best of each. The kernels-line row is the SAME shape that runs
+    25 of the 34 launches."""
     import torch
     import torch.nn.functional as F
 
@@ -1437,13 +1492,17 @@ def phase_k7_times(err: float, launches: dict) -> dict:
                       lambda: ck.conv3d_rfab_bwd_ref(x, w, g, pad),
                       lambda: torch.autograd.grad(out, (xl, wl, bl), gl, retain_graph=True),
                       flops, nbytes, f"{shape} {pad}", {"conv3d_rfab_bwd": err}, launches,
-                      peak=PEAK_BF16_TC, reps=5)
+                      peak=PEAK_BF16_TC, reps=5, rounds=3)
         b = torch.zeros(C, device="cuda")
         with torch.no_grad():
-            k6_ms = _time_ms(lambda: ck.conv3d_rfab(x, w, b, pad), 5)
-            lib_ms = _time_ms(lambda: F.conv3d(xl, wl, bl, padding=pad.lower()), 5)
+            k6_ms, lib_ms = _best_alternating(
+                lambda: ck.conv3d_rfab(x, w, b, pad),
+                lambda: F.conv3d(xl, wl, bl, padding=pad.lower()), 5, 3)
+        k6_bound = max(flops / 2 / PEAK_BF16_TC, (x.numel() + g.numel()) * 2 / PEAK_BYTES) * 1e3
         print(f"[times] conv3d_rfab {shape} {pad}: kernel {k6_ms:.3f} ms, F.conv3d "
-              f"{lib_ms:.3f} ms (K7's dx runs this kernel on g)")
+              f"{lib_ms:.3f} ms, bound {k6_bound:.3f} ms; kernel/library "
+              f"{k6_ms / lib_ms:.3f}, kernel/bound {k6_ms / k6_bound:.2f} "
+              f"(K7's dx runs this kernel on g)")
         per_step["K6"] += n * k6_ms
         per_step["cuDNN fwd"] += n * lib_ms
         per_step["K7"] += n * r["ms"]
@@ -1553,20 +1612,31 @@ def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
     return {name: launches[name] for name in want}
 
 
+def _best_alternating(kern, lib, reps: int, rounds: int) -> tuple[float, float]:
+    """Best of ``rounds`` timings of the kernel and the library call, taken
+    in turns (kernel, library, kernel, library, ...)."""
+    ms = lib_ms = float("inf")
+    for _ in range(rounds):
+        ms = min(ms, _time_ms(kern, reps))
+        lib_ms = min(lib_ms, _time_ms(lib, reps))
+    return ms, lib_ms
+
+
 def _time_row(name, source, replaces, kern, plain, lib, flops, nbytes, at, errs,
-              launches, peak=PEAK_F32_FLOPS, reps=10) -> dict:
+              launches, peak=PEAK_F32_FLOPS, reps=10, rounds=1) -> dict:
     """One entry of the kernels line: the kernel, its plain version and the
     library call timed with CUDA events, beside the bound of the work at
-    ``peak`` operations per second."""
-    ms = _time_ms(kern, reps)
+    ``peak`` operations per second; the kernel and the library call in
+    ``rounds`` turns, best of each."""
+    ms, lib_ms = _best_alternating(kern, lib, reps, rounds)
     plain_ms = _time_ms(plain, reps)
-    lib_ms = _time_ms(lib, reps)
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     print(f"[times] {name} {at}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"library {lib_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
-          f"{flops / ms / 1e9:.2f} TFLOP/s")
+          f"{flops / ms / 1e9:.2f} TFLOP/s; kernel/library {ms / lib_ms:.3f}, "
+          f"kernel/bound {ms / max(t_ops, t_bytes):.2f}")
     return {
         "name": name, "route": "cuda",
         "source": f"mri_super_resolution_tpu_torch/csrc/{source}.cu",

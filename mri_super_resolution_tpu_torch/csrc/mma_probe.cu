@@ -11,10 +11,9 @@
 // The product is mma.sync, warp-wide, from registers:
 //   bf16 mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 //   int8 mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
-// each in its own small __device__ function (mma_bf16, mma_s8), so that a
-// host compiler can be given a C++ body for it (tests/cuda_emulation). The
-// mma is asm volatile: every step really runs, none is hoisted out of the
-// loop or merged with another, though every step computes the same sum.
+// (mma_bf16 and mma_s8 of csrc/tensor_core.cuh). The mma is asm volatile:
+// every step really runs, none is hoisted out of the loop or merged with
+// another, though every step computes the same sum.
 //
 // What bounds it: operations. At T 384, H 512, REPS 8, GRID 512 a call is
 // 2 * 384 * 512 * 512 * 8 * 512 = 824.6 GFLOP (or int8 operations) on
@@ -41,6 +40,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -53,33 +53,6 @@ constexpr int PROBE_TARGET_BLOCKS = 132;  // one block on each SM
 struct alignas(16) Words4 {
   unsigned x, y, z, w;
 };
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         const unsigned b[2]) {
-#ifdef __CUDACC__
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-#else
-  emu_mma_bf16_m16n8k16(c, a, b);
-#endif
-}
-
-// c (16 x 8, s32) += a (16 x 32, s8, row) b (32 x 8, s8, col)
-__device__ __forceinline__ void mma_s8(int c[4], const unsigned a[4], const unsigned b[2]) {
-#ifdef __CUDACC__
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-#else
-  emu_mma_s8_m16n8k32(c, a, b);
-#endif
-}
 
 __device__ __forceinline__ void mma(float c[4], const unsigned a[4], const unsigned b[2]) {
   mma_bf16(c, a, b);

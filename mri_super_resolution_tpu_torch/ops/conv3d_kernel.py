@@ -33,6 +33,7 @@ LAUNCHES: dict[str, int] = {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
 
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_GRID_YZ = 65535  # the kernel puts t_out on gridDim.y and the batch on gridDim.z
+MAX_BF16_CHANNELS = 64  # csrc/conv3d.cu's shared-memory budget for the resident kernel
 TAPS = [(dy, dx, dz) for dy in range(3) for dx in range(3) for dz in range(3)]
 
 
@@ -134,6 +135,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.conv3d_rfab_bwd_slots.argtypes = [i, i, i, i, i]
     lib.conv3d_rfab_bwd_slots.restype = i
+    lib.conv3d_rfab_bwd_bf16_slots.argtypes = [i, i, i, i, i, i, i]
+    lib.conv3d_rfab_bwd_bf16_slots.restype = i
 
 
 def _lib() -> ctypes.CDLL:
@@ -146,11 +149,28 @@ def _aligned(*tensors: torch.Tensor) -> None:
             raise ValueError("conv3d_rfab kernels take 16-byte aligned activations")
 
 
+def _aligned_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """The kernel as the CUDA kernels read it, 16 bytes at a time: a view
+    off a 16-byte boundary is copied."""
+    return kernel if kernel.data_ptr() % 16 == 0 else kernel.clone()
+
+
+def _summed_channels_fit(x: torch.Tensor, channels: int) -> None:
+    """The bfloat16 kernels keep the whole 3x3x3 kernel in shared memory:
+    the channels a convolution sums over may be at most
+    :data:`MAX_BF16_CHANNELS`."""
+    if x.dtype == torch.bfloat16 and channels > MAX_BF16_CHANNELS:
+        raise ValueError(f"bfloat16 conv3d_rfab kernels sum over at most "
+                         f"{MAX_BF16_CHANNELS} channels; got {channels}")
+
+
 def _launch(lib, x, kernel, bias, padding, stream) -> torch.Tensor:
     B, H, W, T, C = x.shape
     Cout = kernel.shape[4]
+    _summed_channels_fit(x, C)
     out = torch.empty(*out_shape(x.shape, padding), Cout, dtype=x.dtype, device=x.device)
     _aligned(x, out)
+    kernel = _aligned_kernel(kernel)
     fn = lib.conv3d_rfab_bf16 if x.dtype == torch.bfloat16 else lib.conv3d_rfab_f32
     rc = fn(x.data_ptr(), B, H, W, T, C, kernel.data_ptr(), bias.data_ptr(), Cout,
             1 if padding == "SAME" else 0, out.data_ptr(), stream)
@@ -162,12 +182,17 @@ def _launch_bwd(lib, x, kernel, g, padding, stream):
     B, H, W, T, C = x.shape
     Cout = kernel.shape[4]
     pad = 1 if padding == "SAME" else 0
-    slots = lib.conv3d_rfab_bwd_slots(B, H, W, T, pad)
+    _summed_channels_fit(x, Cout)  # dx sums over the output channels
+    if x.dtype == torch.bfloat16:
+        slots = lib.conv3d_rfab_bwd_bf16_slots(B, H, W, T, C, Cout, pad)
+    else:
+        slots = lib.conv3d_rfab_bwd_slots(B, H, W, T, pad)
     work = torch.empty(slots * (27 * C * Cout + Cout), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw = torch.empty(3, 3, 3, C, Cout, dtype=torch.float32, device=x.device)
     db = torch.empty(Cout, dtype=torch.float32, device=x.device)
     _aligned(x, g, dx, dw, db, work)
+    kernel = _aligned_kernel(kernel)
     fn = lib.conv3d_rfab_bwd_bf16 if x.dtype == torch.bfloat16 else lib.conv3d_rfab_bwd_f32
     rc = fn(x.data_ptr(), B, H, W, T, C, kernel.data_ptr(), g.data_ptr(), Cout, pad,
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), work.data_ptr(), slots, stream)

@@ -1,25 +1,33 @@
 // CPU emulation of the CUDA subset that mri_super_resolution_tpu_torch/csrc
-// uses, so the kernels' index arithmetic can run under a host compiler:
-// every CUDA thread of a block runs on its own std::thread, blocks run one
-// after another (so __shared__ arrays can be plain statics), __syncthreads is a
-// block-wide barrier and __shfl_xor_sync exchanges through a per-warp buffer.
-// The warp-wide tensor-core products of csrc/mma_probe.cu (mma.sync bf16
-// m16n8k16 and int8 m16n8k32) exchange their fragments through a second
-// per-warp buffer: every lane posts its registers, then computes its own
-// four outputs in float32 (bf16) or exactly (int8).
-// Include the .cu after defining LAUNCH as below; see
-// tests/test_torch_cuda_emulated.py.
+// uses, so the kernels' index arithmetic can run under a host compiler.
+// Blocks run one after another, the last first (so __shared__ arrays can be
+// plain statics, and a block that writes over outputs of a block before it
+// leaves its wrong values in place);
+// within a block every CUDA thread is a fiber with its own stack, all on the
+// launching OS thread, switched by hand (a few instructions) whenever one
+// waits: __syncthreads is a block-wide barrier and __shfl_xor_sync exchanges
+// through a per-warp buffer behind a warp barrier. The warp-wide
+// instructions of the tensor-core kernels exchange through per-warp buffers
+// the same way: mma.sync bf16 m16n8k16 and int8 m16n8k32 (every lane posts
+// its fragment registers, then computes its own four outputs in float32
+// (bf16) or exactly (int8)) and ldmatrix .x4 (every lane posts a row
+// address, then reads its four words, transposed or not). cp.async is a
+// synchronous 16-byte copy with zero fill, so commit_group and wait_group
+// have nothing to wait for: the block barrier that follows them on the card
+// orders the copies here too. emu_poison_shared fills a kernel's shared
+// memory with NaN bits at the start of each block, as the card's starts
+// undefined.
+// Include the .cu after this header; see tests/cuda_emulation/emulated.py.
 #pragma once
 #include <algorithm>
-#include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <deque>
 #include <functional>
 #include <memory>
-#include <semaphore>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -40,7 +48,7 @@ struct uint3 {
 struct float4 {
   float x, y, z, w;
 };
-inline thread_local uint3 threadIdx, blockIdx;
+inline uint3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
 typedef int cudaError_t;
@@ -48,18 +56,114 @@ const int cudaSuccess = 0;
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
-inline thread_local std::barrier<>* emu_block_barrier;
-inline thread_local std::barrier<>* emu_warp_barrier;
-inline thread_local float* emu_warp_buf;
-inline thread_local unsigned* emu_warp_words;  // 32 lanes x 8 words
+namespace emu {
 
-inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+// ---- fibers ----------------------------------------------------------------
+// emu_switch(from, to) saves the callee-saved registers and the stack pointer
+// of the running fiber in *from and resumes the fiber whose stack pointer is
+// to (x86-64 System V).
+extern "C" void emu_switch(void** from, void* to);
+__asm__(
+    ".text\n"
+    ".p2align 4\n"
+    ".globl emu_switch\n"
+    ".hidden emu_switch\n"
+    ".type emu_switch,@function\n"
+    "emu_switch:\n"
+    "  pushq %rbp\n"
+    "  pushq %rbx\n"
+    "  pushq %r12\n"
+    "  pushq %r13\n"
+    "  pushq %r14\n"
+    "  pushq %r15\n"
+    "  movq %rsp, (%rdi)\n"
+    "  movq %rsi, %rsp\n"
+    "  popq %r15\n"
+    "  popq %r14\n"
+    "  popq %r13\n"
+    "  popq %r12\n"
+    "  popq %rbx\n"
+    "  popq %rbp\n"
+    "  ret\n"
+    ".size emu_switch, .-emu_switch\n");
+
+constexpr int MAX_THREADS = 1024;
+constexpr size_t STACK_BYTES = 256 << 10;
+
+struct Barrier;
+
+// The running block: its fibers' saved stack pointers, the queue of fibers
+// that may run, and the per-warp exchange buffers.
+struct Block {
+  int nt = 0, finished = 0, current = 0;
+  void* sched_sp = nullptr;
+  std::vector<void*> sp;
+  std::deque<int> ready;
+  std::function<void(int)> task;
+  std::vector<std::unique_ptr<Barrier>> warp_barriers;
+  std::unique_ptr<Barrier> block_barrier;
+  std::vector<float> warp_buf;         // 32 floats a warp (shuffles)
+  std::vector<unsigned> warp_words;    // 32 lanes x 8 words a warp (mma)
+  std::vector<const void*> warp_ptrs;  // 32 addresses a warp (ldmatrix)
+};
+inline Block* block;
+
+inline char* stack_of(int t) {
+  static std::vector<std::unique_ptr<char[]>> stacks(MAX_THREADS);
+  if (!stacks[t]) stacks[t].reset(new char[STACK_BYTES]);
+  return stacks[t].get();
+}
+
+// the running fiber waits: hand the OS thread back to the scheduler
+inline void park() { emu_switch(&block->sp[block->current], block->sched_sp); }
+
+struct Barrier {
+  int expected, count = 0;
+  std::vector<int> waiters;
+  explicit Barrier(int n) : expected(n) {}
+  void arrive_and_wait() {
+    if (++count == expected) {  // the last to arrive releases the others and goes on
+      count = 0;
+      for (int w : waiters) block->ready.push_back(w);
+      waiters.clear();
+      return;
+    }
+    waiters.push_back(block->current);
+    park();
+  }
+};
+
+[[noreturn]] inline void fiber_entry() {
+  block->task(block->current);
+  ++block->finished;
+  park();
+  std::abort();  // a finished fiber is never resumed
+}
+
+inline void* fresh_stack(int t) {
+  // six zeroed callee-saved registers, then fiber_entry as the return address;
+  // the stack pointer after emu_switch's ret is 8 mod 16, as after a call
+  auto** sp = reinterpret_cast<void**>(stack_of(t) + STACK_BYTES - 64);
+  for (int i = 0; i < 6; ++i) sp[i] = nullptr;
+  sp[6] = reinterpret_cast<void*>(&fiber_entry);
+  sp[7] = nullptr;
+  return sp;
+}
+
+}  // namespace emu
+
+inline void __syncthreads() { emu::block->block_barrier->arrive_and_wait(); }
+inline emu::Barrier* emu_warp_barrier() { return emu::block->warp_barriers[threadIdx.x / 32].get(); }
+inline float* emu_warp_buf() { return &emu::block->warp_buf[threadIdx.x / 32 * 32]; }
+inline unsigned* emu_warp_words() { return &emu::block->warp_words[threadIdx.x / 32 * 256]; }
+inline const void** emu_warp_ptrs() { return &emu::block->warp_ptrs[threadIdx.x / 32 * 32]; }
+
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   const int lane = threadIdx.x & 31;
-  emu_warp_buf[lane] = v;
-  emu_warp_barrier->arrive_and_wait();
-  const float r = emu_warp_buf[lane ^ mask];
-  emu_warp_barrier->arrive_and_wait();
+  emu_warp_buf()[lane] = v;
+  emu_warp_barrier()->arrive_and_wait();
+  const float r = emu_warp_buf()[lane ^ mask];
+  emu_warp_barrier()->arrive_and_wait();
   return r;
 }
 using std::min;
@@ -70,18 +174,18 @@ using std::min;
 // (g, t + 4), (g + 8, t + 4), b words (t, g), (t + 4, g), and c (g, 2t),
 // (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
 inline void emu_mma_post(const unsigned a[4], const unsigned b[2]) {
-  unsigned* mine = emu_warp_words + (threadIdx.x & 31) * 8;
+  unsigned* mine = emu_warp_words() + (threadIdx.x & 31) * 8;
   for (int i = 0; i < 4; ++i) mine[i] = a[i];
   mine[4] = b[0];
   mine[5] = b[1];
-  emu_warp_barrier->arrive_and_wait();
+  emu_warp_barrier()->arrive_and_wait();
 }
 inline unsigned emu_a_word(int row, int w) {
   const int lane = (row & 7) * 4 + (w & 3);
-  return emu_warp_words[lane * 8 + (row >> 3) + 2 * (w >> 2)];
+  return emu_warp_words()[lane * 8 + (row >> 3) + 2 * (w >> 2)];
 }
 inline unsigned emu_b_word(int w, int col) {
-  return emu_warp_words[(col * 4 + (w & 3)) * 8 + 4 + (w >> 2)];
+  return emu_warp_words()[(col * 4 + (w & 3)) * 8 + 4 + (w >> 2)];
 }
 inline float emu_bf16(unsigned word, int half) {
   const unsigned bits = (half ? word & 0xffff0000u : word << 16);
@@ -96,7 +200,7 @@ inline void emu_mma_outputs(C c[4], Dot dot) {
   const int rows[4] = {g, g, g + 8, g + 8};
   const int cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
   for (int q = 0; q < 4; ++q) c[q] += dot(rows[q], cols[q]);
-  emu_warp_barrier->arrive_and_wait();  // the buffer is free again
+  emu_warp_barrier()->arrive_and_wait();  // the buffer is free again
 }
 inline void emu_mma_bf16_m16n8k16(float c[4], const unsigned a[4], const unsigned b[2]) {
   emu_mma_post(a, b);
@@ -116,75 +220,96 @@ inline void emu_mma_s8_m16n8k32(int c[4], const unsigned a[4], const unsigned b[
     return s;
   });
 }
+
+// ldmatrix.sync.aligned.m8n8.x4[.trans].shared.b16: lanes 8i .. 8i + 7 give
+// the addresses of rows 0-7 of matrix i (16 bytes each); lane l receives in
+// r[i] the elements (l / 4, 2 (l % 4)) and (l / 4, 2 (l % 4) + 1) of matrix
+// i, or with trans those of its transpose.
+inline void emu_ldmatrix_x4(unsigned r[4], const void* row, bool trans) {
+  const int lane = threadIdx.x & 31;
+  emu_warp_ptrs()[lane] = row;
+  emu_warp_barrier()->arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {
+    const void* const* rows = emu_warp_ptrs() + 8 * i;
+    uint16_t lo, hi;
+    if (trans) {
+      std::memcpy(&lo, static_cast<const char*>(rows[2 * t]) + 2 * g, 2);
+      std::memcpy(&hi, static_cast<const char*>(rows[2 * t + 1]) + 2 * g, 2);
+    } else {
+      std::memcpy(&lo, static_cast<const char*>(rows[g]) + 4 * t, 2);
+      std::memcpy(&hi, static_cast<const char*>(rows[g]) + 4 * t + 2, 2);
+    }
+    r[i] = lo | ((unsigned)hi << 16);
+  }
+  emu_warp_barrier()->arrive_and_wait();  // the addresses are free again
+}
+
+// cp.async.cg.shared.global [dst], [src], 16, src_bytes: src_bytes (0 or 16)
+// copied, the rest of the 16 bytes zero
+inline void emu_cp_async16(void* dst, const void* src, int src_bytes) {
+  std::memcpy(dst, src, src_bytes);
+  std::memset(static_cast<char*>(dst) + src_bytes, 0, 16 - src_bytes);
+}
+
+// thread 0 fills the block's shared memory with 0xff bytes (NaN in bf16 and
+// float32), then the block meets at a barrier
+inline void emu_poison_shared(void* p, size_t bytes) {
+  if (threadIdx.x == 0) std::memset(p, 0xff, bytes);
+  __syncthreads();
+}
+
 inline void sincosf(float x, float* s, float* c) {
   *s = std::sin(x);
   *c = std::cos(x);
 }
 
 namespace emu {
-// A fixed pool of worker threads, one per CUDA thread of the largest block
-// (1024), each waiting on its own semaphore: a block of nt threads wakes
-// only the first nt workers and waits for nt completions. Spawning threads
-// per block instead costs milliseconds per block. The pool is never torn
-// down: its idle workers end with the process.
-struct Pool {
-  static constexpr int N = 1024;
-  std::vector<std::unique_ptr<std::binary_semaphore>> go;
-  std::binary_semaphore finished{0};
-  std::atomic<int> remaining{0};
-  std::function<void(int)> task;
-  Pool() {
-    for (int t = 0; t < N; ++t) go.emplace_back(new std::binary_semaphore(0));
-    for (int t = 0; t < N; ++t)
-      std::thread([this, t]() {
-        for (;;) {
-          go[t]->acquire();
-          task(t);
-          if (remaining.fetch_sub(1) == 1) finished.release();
-        }
-      }).detach();
-  }
-  void run(int nt, std::function<void(int)> f) {
-    task = std::move(f);
-    remaining.store(nt);
-    for (int t = 0; t < nt; ++t) go[t]->release();
-    finished.acquire();
-  }
-};
-inline Pool& pool() {
-  static Pool* p = new Pool;
-  return *p;
-}
 
 template <class K>
 struct Launcher {
   K kernel;
-  dim3 grid, block;
+  dim3 grid, block_dim;
   template <class... A>
   void operator()(A... args) {
     gridDim = grid;
-    blockDim = block;
-    const int nt = block.x;
+    blockDim = block_dim;
+    const int nt = block_dim.x;
     const int nw = (nt + 31) / 32;
-    for (unsigned bz = 0; bz < grid.z; ++bz)
-      for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-          std::barrier<> block_barrier(nt);
-          std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
-          std::vector<float> warp_buf(nw * 32);
-          std::vector<unsigned> warp_words(nw * 32 * 8);
-          for (int w = 0; w < nw; ++w)
-            warp_barriers.emplace_back(new std::barrier<>(std::min(32, nt - 32 * w)));
-          pool().run(nt, [&](int t) {
-            threadIdx = {(unsigned)t, 0, 0};
-            blockIdx = {bx, by, bz};
-            emu_block_barrier = &block_barrier;
-            emu_warp_barrier = warp_barriers[t / 32].get();
-            emu_warp_buf = &warp_buf[(t / 32) * 32];
-            emu_warp_words = &warp_words[(t / 32) * 32 * 8];
-            kernel(args...);
-          });
+    if (nt > MAX_THREADS) std::abort();
+    Block b;
+    b.nt = nt;
+    b.sp.resize(nt);
+    b.block_barrier.reset(new Barrier(nt));
+    for (int w = 0; w < nw; ++w) b.warp_barriers.emplace_back(new Barrier(std::min(32, nt - 32 * w)));
+    b.warp_buf.resize(nw * 32);
+    b.warp_words.resize(nw * 32 * 8);
+    b.warp_ptrs.resize(nw * 32);
+    b.task = [&](int) { kernel(args...); };
+    Block* outer = block;
+    block = &b;
+    for (unsigned bz = grid.z; bz-- > 0;)
+      for (unsigned by = grid.y; by-- > 0;)
+        for (unsigned bx = grid.x; bx-- > 0;) {
+          blockIdx = {bx, by, bz};
+          b.finished = 0;
+          for (int t = 0; t < nt; ++t) {
+            b.sp[t] = fresh_stack(t);
+            b.ready.push_back(t);
+          }
+          while (!b.ready.empty()) {
+            b.current = b.ready.front();
+            b.ready.pop_front();
+            threadIdx = {(unsigned)b.current, 0, 0};
+            emu_switch(&b.sched_sp, b.sp[b.current]);
+          }
+          if (b.finished != nt) {
+            std::fprintf(stderr, "emulated block (%u, %u, %u): %d of %d threads never "
+                         "left a barrier\n", bx, by, bz, nt - b.finished, nt);
+            std::abort();
+          }
         }
+    block = outer;
   }
 };
 template <class K>

@@ -190,7 +190,12 @@ def test_wire_engine_adapters_on_card(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cout,padding", [
     ((2, 19, 35, 5, 16), 40, "SAME"), ((1, 3, 4, 3, 8), 8, "VALID"),
-    ((3, 33, 17, 9, 32), 32, "VALID")])
+    ((3, 33, 17, 9, 32), 32, "VALID"),
+    # the bfloat16 kernel's flat-plane tiling (tests/test_torch_cuda_emulated_conv3d.py):
+    # C 40, 24, 8 and 64 (K padded to 16), a ragged last tile, 11 t-planes
+    # through the three-plane ring, strips of 9 columns
+    ((1, 23, 13, 4, 40), 16, "SAME"), ((2, 6, 9, 11, 24), 48, "SAME"),
+    ((1, 40, 30, 5, 8), 8, "VALID"), ((1, 4, 20, 3, 64), 8, "SAME")])
 def test_conv3d_launches_and_matches_plain(card, shape, cout, padding, dtype):
     """K6 launches once per call and agrees with its plain version: float32
     within 1e-5 of the largest output, bf16 within one bf16 ulp of each
@@ -257,7 +262,13 @@ def _bwd_problem(card, shape, cout, padding, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cout,padding", [
     ((2, 19, 35, 5, 16), 40, "SAME"), ((1, 3, 4, 3, 8), 8, "VALID"),
-    ((3, 33, 17, 9, 32), 32, "VALID"), ((4, 34, 34, 9, 32), 32, "SAME")])
+    ((3, 33, 17, 9, 32), 32, "VALID"), ((4, 34, 34, 9, 32), 32, "SAME"),
+    # the bfloat16 kernels' tiling: dW input blocks of 32 and 8 channels,
+    # dx of a VALID conv (g padded by 2), dx over 64 channels, two column
+    # strips of dW, more work items than workspace slots
+    ((1, 23, 13, 4, 40), 16, "SAME"), ((2, 9, 7, 6, 24), 40, "VALID"),
+    ((1, 4, 20, 3, 16), 64, "SAME"), ((1, 3, 100, 3, 8), 8, "SAME"),
+    ((6, 17, 17, 12, 8), 8, "SAME")])
 def test_conv3d_bwd_launches_and_matches_plain(card, shape, cout, padding, dtype):
     """K7 launches once per call and agrees with its plain version: dW and
     db within 1e-4 of their largest entry (float32 sums over every output
@@ -278,6 +289,50 @@ def test_conv3d_bwd_launches_and_matches_plain(card, shape, cout, padding, dtype
     else:
         ulp = 2.0 ** (torch.floor(torch.log2(dx_r.float().abs().clamp_min(1e-30))) - 7)
         assert bool((diff <= ulp + 1e-5 * scale).all())
+
+
+def _bf16_within_one_ulp(out, ref) -> bool:
+    """chip_smoke.py's K6 bound: each bfloat16 output within one bf16 ulp of
+    the plain version's, plus 1e-5 of the largest output."""
+    diff = (out.float() - ref.float()).abs()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+    return bool((diff <= ulp + 1e-5 * float(ref.float().abs().max())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,padding", [((25, 130, 130, 9, 32), "SAME"),
+                                           ((25, 132, 132, 9, 32), "VALID")])
+def test_conv3d_bf16_at_the_serving_shapes(card, shape, padding):
+    """bfloat16 K6 at the MISR serving path's main SAME and VALID calls (25
+    draws, filters 32) against its plain version at chip_smoke.py's
+    tolerance, one launch a call."""
+    x, k, _ = _bwd_problem(card, shape, 32, padding, torch.bfloat16)
+    b = torch.randn(32, device=card) * 0.1
+    ck.reset_launches()
+    with torch.no_grad():
+        out = ck.conv3d_rfab(x, k, b, padding)
+    assert ck.LAUNCHES == {"conv3d_rfab": 1, "conv3d_rfab_bwd": 0}
+    assert _bf16_within_one_ulp(out, ck.conv3d_rfab_ref(x, k, b, padding))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,padding", [((32, 34, 34, 9, 32), "SAME"),
+                                           ((32, 36, 36, 9, 32), "VALID")])
+def test_conv3d_bwd_bf16_at_the_training_shapes(card, shape, padding):
+    """bfloat16 K7 at the training path's main SAME and VALID calls (batch
+    32, filters 32) against its plain version at chip_smoke.py's tolerances
+    (dx one bf16 ulp, dW and db 1e-5 of their largest entry); a second run
+    gives the same bits (no float atomics)."""
+    x, k, g = _bwd_problem(card, shape, 32, padding, torch.bfloat16)
+    ck.reset_launches()
+    got = ck.conv3d_rfab_bwd(x, k, g, padding)
+    again = ck.conv3d_rfab_bwd(x, k, g, padding)
+    assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 2}
+    dx_r, dw_r, db_r = ck.conv3d_rfab_bwd_ref(x, k, g, padding)
+    assert _bf16_within_one_ulp(got[0], dx_r)
+    for a, b in ((got[1], dw_r), (got[2], db_r)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
 @pytest.mark.cuda
