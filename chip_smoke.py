@@ -7,19 +7,24 @@ Run from the repository root on a machine with one NVIDIA H100:
         [--master_seg 30]
 
 Phases, in order; any failure ends the run with a non-zero exit:
-1. build: compile ``csrc/siren.cu``, ``csrc/wire.cu``, ``csrc/conv3d.cu`` and
-   ``csrc/mma_probe.cu`` with nvcc (sm_90a), one process each, started
-   together, and print the times and the compiler's register/spill report;
+1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``, ``csrc/wire.cu``,
+   ``csrc/conv3d.cu`` and ``csrc/mma_probe.cu`` with nvcc (sm_90a), one
+   process each, started together, and print the times and the compiler's
+   register/spill report;
 2. kernel parity against the plain PyTorch versions on the card: K1
-   ``siren_loss_grads``, K2 ``siren_fused_bwd`` (dx and dW) and K3
+   ``siren_loss_grads`` (on its tensor-core route, ``csrc/siren_tc.cu``, with
+   and without masked rows; the SIMT K1 of ``csrc/siren.cu`` at the same
+   shape for the record), K2 ``siren_fused_bwd`` (dx and dW) and K3
    ``siren_forward`` at the SIREN flagship (P = 70,000 rows, 256 -> 512x4
    -> 1), K3 also at the inference chunk (262,144 rows) and its ragged tails
-   (71,424 and 17,856 rows); K1's sample-weighted variant at the 2-D
+   (71,424 and 17,856 rows); a 20-step Adam fit at the flagship from one
+   init, K1's tensor-core route against the plain K1, loss by loss; K1's
+   sample-weighted variant at the 2-D
    ensemble's 3,600 rows (2 -> 64x7 -> 1) and its absmax/ReLU variant at
    the soft-ERD fit's 16,384 rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with
    ragged row counts and a collapsed output, and K2/K3 with the ReLU codes;
-   P1 ``mma_probe`` at one step of its full shape, int8 exact and bf16
-   within float32 rounding; K5 ``wire_forward`` and K4 ``wire_loss_grads``
+   P1 ``mma_probe`` (``wgmma``) at one and three steps of its full shape,
+   int8 exact and bf16 within float32 rounding; K5 ``wire_forward`` and K4 ``wire_loss_grads``
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
    chunk and its tails (K5) and with 1234 masked rows (K4); K6
    ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
@@ -36,8 +41,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    epochs cut to ``--epochs`` and ``--pn_epochs``; checks the
    CSV and timings.json, finite and clamped outputs, a falling loss, and,
    with every launch count set to 0 just before each run, that each kernel
-   of the path launched exactly as often as the schedule says (K1 and K4 on
-   every mean step, K3 on every inference chunk and PN step, K5 on every
+   of the path launched exactly as often as the schedule says (K1 on its
+   tensor-core route and K4 on every mean step, the SIMT K1 never, K3 on every inference chunk and PN step, K5 on every
    inference chunk) and no other kernel did; then ``pipelines.misr.run`` on
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
@@ -64,7 +69,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 4. times: each kernel at its main path's shapes with CUDA events, beside
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
-   bf16 and ``torch._int_mm`` over the same products for P1) and its bound;
+   bf16 and ``torch._int_mm`` over the same products for P1) and its bound
+   (K1's tensor-core route: its bf16x3 products at the bf16 peak; the SIMT
+   K1's time at the same shape printed beside it);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
    shape; P1 also at GRID 256, whose time must be about half; the
@@ -75,8 +82,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cuDNN route's own bf16-vs-float32 gap; one forward and one step per route
    under ``torch.profiler`` for the device's busy time and idle share.
 
-The last three lines are the ``{"kernels": ...}`` record (K1-K7, K1's
-weighted and absmax variants, P1 in bf16 and int8), the card's name and
+The last three lines are the ``{"kernels": ...}`` record (K1 on its
+tensor-core route, K2-K7, K1's weighted and absmax variants, P1 in bf16 and
+int8), the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
 no result, when no CUDA device is present.
 """
@@ -97,9 +105,18 @@ PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "wire", "conv3d", "mma_probe")  # csrc/<name>.cu
+SOURCES = ("siren", "siren_tc", "wire", "conv3d", "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
+# K1's tensor-core route (bf16x3 products) held to K1_K2_TOL too; a 20-step
+# Adam fit (lr 1e-4, the mean fit's) from one init, its loss at each step
+# within K1_TRACE_RTOL of the plain K1's (fits are chaotic: compare short
+# traces step by step, not end points).
+# Adam divides each gradient component by its own scale, so the components
+# within the route's error (about 5e-5 of the largest) of zero take steps of
+# another size or sign: the traces part by up to 9.5e-4 in 20 steps on an
+# H100, while the loss falls 3.7-fold
+K1_TRACE_STEPS, K1_TRACE_RTOL = 20, 5e-3
 K5_TOL = 1e-4  # WIRE forward, as K3
 K4_TOL = 1e-3  # WIRE loss and every dW, as K1
 E2E_ATOL = 1e-3  # small patient: card kernels vs plain path on the CPU
@@ -320,28 +337,38 @@ def phase_parity(P: int, dims) -> dict:
     del xc, wsc
     errs["siren_forward"] = e
 
-    loss, grads = sk.siren_loss_grads(x, ws, target)
+    from mri_super_resolution_tpu_torch.ops import _build
+
+    _require(sk.tc_route(dims, ("sine",) * (len(dims) - 2) + ("none",)),
+             "the flagship is not of the tensor-core route's class")
     loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target)
+    tc_before = sk.LAUNCHES["siren_loss_grads_tc"]
+    loss, grads = sk.siren_loss_grads(x, ws, target)
+    simt_loss, simt_grads = sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, P,
+                                                  _build.stream_ptr())
     torch.cuda.synchronize()
-    worst = _rel(loss, loss_r)
-    for a, b in zip(grads, grads_r):
-        worst = max(worst, _rel(a, b), key=lambda t: t[1])
-    print(f"[parity] K1 siren_loss_grads: loss {float(loss):.6e} vs "
-          f"{float(loss_r):.6e}; worst over loss/dW/db max abs {worst[0]:.3e}, "
-          f"rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
-    _require(worst[1] <= K1_K2_TOL, "K1 disagrees with its plain version")
-    errs["siren_loss_grads"] = max(float((loss - loss_r).abs()),
-                                   *[float((a - b).abs().max())
-                                     for a, b in zip(grads, grads_r)])
+    _require(sk.LAUNCHES["siren_loss_grads_tc"] == tc_before + 1,
+             "K1 at the flagship did not take the tensor-core route")
+    for what, (l_k, g_k) in (("tensor-core route", (loss, grads)),
+                             ("SIMT (csrc/siren.cu)", (simt_loss, simt_grads))):
+        worst = _worst_rel([(l_k, loss_r), *zip(g_k, grads_r)])
+        print(f"[parity] K1 siren_loss_grads, {what}: loss {float(l_k):.6e} vs "
+              f"{float(loss_r):.6e}; worst over loss/dW/db max abs {worst[0]:.3e}, "
+              f"rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+        _require(worst[1] <= K1_K2_TOL, f"K1 ({what}) disagrees with its plain version")
+    errs["siren_loss_grads_tc"] = max(float((loss - loss_r).abs()),
+                                      *[float((a - b).abs().max())
+                                        for a, b in zip(grads, grads_r)])
+    loss2, grads2 = sk.siren_loss_grads(x, ws, target)
+    _require(torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+             "two tensor-core K1 calls differ: the reductions are not in a fixed order")
 
     nr = P - 1234  # masked ragged rows
     loss_m, grads_m = sk.siren_loss_grads(x, ws, target, n_rows=nr)
     loss_mr, grads_mr = sk.siren_loss_grads_ref(x, ws, target, n_rows=nr)
     torch.cuda.synchronize()
-    worst_m = _rel(loss_m, loss_mr)
-    for a, b in zip(grads_m, grads_mr):
-        worst_m = max(worst_m, _rel(a, b), key=lambda t: t[1])
-    print(f"[parity] K1 n_rows={nr}: worst rel {worst_m[1]:.3e}")
+    worst_m = _worst_rel([(loss_m, loss_mr), *zip(grads_m, grads_mr)])
+    print(f"[parity] K1 tensor-core route n_rows={nr}: worst rel {worst_m[1]:.3e}")
     _require(worst_m[1] <= K1_K2_TOL, "K1 row mask disagrees")
 
     dx, dgr = sk.siren_fused_bwd(x, ws, g, need_dw=True)
@@ -362,6 +389,34 @@ def phase_parity(P: int, dims) -> dict:
                                   *[float((a - b).abs().max())
                                     for a, b in zip(dgr, dgr_r)])
     return errs
+
+
+def phase_k1_trace(P: int, dims) -> None:
+    """K1_TRACE_STEPS Adam steps (lr 1e-4, the mean fit's) at the
+    flagship from one init, K1 on its tensor-core route against the plain
+    K1 on the card; the losses step by step."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.fit.optim import Adam
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    x, ws, target, _ = _flagship_inputs(P, dims, seed=3)
+    traces = {}
+    for route, vag in (("kernel", sk.siren_loss_grads), ("plain", sk.siren_loss_grads_ref)):
+        params = [w.clone() for w in ws]
+        opt = Adam(params, 1e-4)
+        losses = []
+        for _ in range(K1_TRACE_STEPS):
+            loss, grads = vag(x, params, target)
+            losses.append(loss)
+            opt.step(grads)
+        traces[route] = torch.stack(losses).tolist()
+    k, p = traces["kernel"], traces["plain"]
+    rel = max(abs(a / b - 1.0) for a, b in zip(k, p))
+    print(f"[parity] K1 {K1_TRACE_STEPS}-step Adam trace at the flagship, tensor-core route "
+          f"vs plain: loss {p[0]:.6e} -> {p[-1]:.6e} (plain), {k[-1]:.6e} (kernel); worst "
+          f"step rel {rel:.3e} (tol {K1_TRACE_RTOL:g})")
+    _require(rel <= K1_TRACE_RTOL and k[-1] < k[0], "K1's Adam trace departs from the plain one")
 
 
 def _master_inputs(seed: int):
@@ -1461,6 +1516,34 @@ def _device_busy(what: str, fn) -> None:
           f"{1 - busy_ms / wall_ms:.3f}")
 
 
+def _k1_passes(fn, calls: int = 3) -> None:
+    """Where a K1 call's device time goes: ``calls`` calls under
+    ``torch.profiler``, each kernel's summed time per call, largest first
+    (the tensor-core route's forward, chain and dW passes are the
+    ``gemm3_kernel`` templates 0, 1 and 2)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = re.sub(r"\(.*$", "", re.sub(r"^void ", "", name))
+            per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    if not per_kernel:
+        print("[profile] K1 passes: no device events traced; not measured")
+        return
+    print(f"[profile] K1 passes, ms a call (device total {sum(per_kernel.values()):.3f}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_kernel.items(),
+                                                         key=lambda kv: -kv[1])))
+
+
 def phase_k7_times(err: float, launches: dict) -> dict:
     """K7 in bf16 at each training path shape: the kernel, its plain version
     and ``torch.autograd.grad`` through ``F.conv3d`` on the same channels-
@@ -1519,7 +1602,7 @@ def phase_k7_times(err: float, launches: dict) -> dict:
 def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
     """Launches of each kernel of the path in one patient: every mean step
     (the first epochs - pn_epochs and the odd alternating epochs) is one
-    K1/K4; each even alternating epoch is one PN step per combination (75),
+    K1 (on its tensor-core route; none on the SIMT one) or K4; each even alternating epoch is one PN step per combination (75),
     a K3 forward and a K2 backward on the SIREN path; inference is 5 + 2
     chunks (1,120,000 and 280,000 rows at 262,144 a chunk)."""
     n1 = epochs - pn_epochs
@@ -1527,7 +1610,7 @@ def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
     pn_steps = 75 * (pn_epochs - odd)
     if inr_model == "wire":
         return {"wire_loss_grads": n1 + odd, "wire_forward": 7}
-    return {"siren_loss_grads": n1 + odd, "siren_fused_bwd": pn_steps,
+    return {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd": pn_steps,
             "siren_forward": pn_steps + 7}
 
 
@@ -1742,22 +1825,36 @@ def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
     weight_bytes = 4 * sum(w.numel() for w in ws)
     in_bytes = 4 * x.numel()
     specs = [
-        ("siren_forward", ":240", lambda: sk.siren_forward(x, ws),
+        ("siren_forward", "siren", ":240", lambda: sk.siren_forward(x, ws),
          lambda: sk.siren_forward_ref(x, ws), lib_forward,
-         2 * P * fwd, in_bytes + weight_bytes + 4 * P),
-        ("siren_loss_grads", ":518", lambda: sk.siren_loss_grads(x, ws, target),
+         2 * P * fwd, in_bytes + weight_bytes + 4 * P, PEAK_F32_FLOPS),
+        # the tensor-core route: its bf16x3 products (three bf16 products for
+        # each float32 one) at the bf16 peak
+        ("siren_loss_grads_tc", "siren_tc", ":518", lambda: sk.siren_loss_grads(x, ws, target),
          lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads,
-         2 * P * (2 * fwd + chain), in_bytes + 2 * weight_bytes + 4 * P + 4),
+         3 * 2 * P * (2 * fwd + chain), in_bytes + 2 * weight_bytes + 4 * P + 4,
+         PEAK_BF16_TC),
         # as the main path calls it: dx for the PerturbNet step, no dW
-        ("siren_fused_bwd", ":377",
+        ("siren_fused_bwd", "siren", ":377",
          lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False),
          lambda: sk.siren_fused_bwd_ref(x, ws, g, need_dw=False), lib_fused_bwd,
          2 * P * (sum(macs[:-1]) + chain + macs[0]),
-         2 * in_bytes + weight_bytes + 4 * P),
+         2 * in_bytes + weight_bytes + 4 * P, PEAK_F32_FLOPS),
     ]
-    rows = [_time_row(name, "siren", f"siren_kernel.py{line}", kern, plain, lib, flops,
-                      nbytes, f"P={P}", errs, launches)
-            for name, line, kern, plain, lib, flops, nbytes in specs]
+    rows = [_time_row(name, source, f"siren_kernel.py{line}", kern, plain, lib, flops,
+                      nbytes, f"P={P}", errs, launches, peak=peak)
+            for name, source, line, kern, plain, lib, flops, nbytes, peak in specs]
+    from mri_super_resolution_tpu_torch.ops import _build
+
+    simt = lambda: sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, P, _build.stream_ptr())
+    tc_ms, simt_ms = _best_alternating(lambda: sk.siren_loss_grads(x, ws, target), simt, 10, 2)
+    flops32 = 2 * P * (2 * fwd + chain)
+    print(f"[times] K1 at P={P}, routes in turns (best of 2): tensor-core {tc_ms:.3f} ms "
+          f"({flops32 / tc_ms / 1e9:.1f} float32-equivalent TFLOP/s, "
+          f"{3 * flops32 / tc_ms / 1e9:.1f} TFLOP/s of bf16 products), SIMT {simt_ms:.3f} ms "
+          f"({flops32 / simt_ms / 1e9:.1f} TFLOP/s; its f32 bound "
+          f"{flops32 / PEAK_F32_FLOPS * 1e3:.3f} ms)")
+    _k1_passes(lambda: sk.siren_loss_grads(x, ws, target))
     xc, wsc, _, _ = _flagship_inputs(INFER_CHUNK, dims, seed=2)
     ms_chunk = _time_ms(lambda: sk.siren_forward(xc, wsc), 5)
     print(f"[times] siren_forward at the inference chunk P={INFER_CHUNK}: "
@@ -1790,6 +1887,7 @@ def main(argv=None) -> int:
     P, dims = 70_000, (256, 512, 512, 512, 512, 1)
     phase_build()
     errs = phase_parity(P, dims)
+    phase_k1_trace(P, dims)
     errs.update(phase_k1_variant_parity())
     errs.update(phase_probe_parity())
     errs.update(phase_wire_parity(P))

@@ -121,37 +121,6 @@ __host__ __device__ __forceinline__ int cdiv(long long a, long long b) {
   return (int)((a + b - 1) / b);
 }
 
-__device__ __forceinline__ unsigned f2u(float f) {
-#ifdef __CUDACC__
-  return __float_as_uint(f);
-#else
-  unsigned u;
-  std::memcpy(&u, &f, 4);
-  return u;
-#endif
-}
-
-__device__ __forceinline__ float u2f(unsigned u) {
-#ifdef __CUDACC__
-  return __uint_as_float(u);
-#else
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-#endif
-}
-
-// bfloat16 bits -> float32 (exact) and float32 -> bfloat16 bits, rounded to
-// nearest even (a NaN stays a NaN), as torch and XLA round.
-__device__ __forceinline__ float bf16_to_f32(unsigned h) { return u2f(h << 16); }
-
-__device__ __forceinline__ unsigned f32_to_bf16(float f) {
-  unsigned u = f2u(f);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return u >> 16;
-}
-
 // ---- float32: K6 and K7's dx on the SIMT cores ------------------------------
 
 constexpr int TH = 16;   // output tile rows (8 per thread, 2 threads)

@@ -1,0 +1,525 @@
+// Hand-written Hopper (sm_90a) tensor-core route of K1 (siren_loss_grads)
+// for the plain Siren at the 3-D pipeline's widths.
+//
+// Replaces, for the calls whose widths fit its tiling, the Pallas TPU kernel
+// siren_loss_grads of mri_super_resolution_tpu/ops/pallas/siren_kernel.py
+// (:518, pallas_call at :580): one-pass forward, masked MSE and backward,
+// giving the loss and every dW and db. ops/siren_kernel.py chooses this
+// route from the shapes alone: sine on every hidden layer, a linear last
+// layer of one output, no sample weights, no max |out|, and the input and
+// every hidden width a multiple of 128. csrc/siren.cu's SIMT kernels keep
+// every other K1 call, and K2 and K3.
+//
+// Numerics. The TPU kernel's float32 dots run on the MXU as multi-pass
+// bf16; the counterpart here is the bf16x3 split on the tensor cores. Each
+// float32 operand x becomes hi = bf16(x) and lo = bf16(x - hi), both rounded
+// to nearest even (|x - hi - lo| <= 2^-16 |x|), and each product is
+// hi hi + hi lo + lo hi on mma.sync m16n8k16 with float32 accumulation (lo lo,
+// below 2^-16 of the product, is dropped). Everything else stays float32:
+// the bias, the sine and omega cos(omega z) (sincosf, never fast math), the
+// warp-per-row last layer with the masked residual, the loss, db, and the
+// fixed-order split-K reduction of dW (no atomics: a run repeats bit for
+// bit). The activations and the chain's deltas live in device memory as hi
+// and lo bf16 planes (4 bytes an element, as float32), written by the
+// epilogue that makes them, so that the GEMMs read them with ldmatrix and
+// split nothing in their main loops; the weights are split once a call. The
+// last hidden activation is written in float32 instead, for the float32
+// last layer; the factors omega cos(omega z) stay float32.
+//
+// What bounds it on an H100: the products. At the 256 -> 512x4 -> 1 flagship
+// a row is 2,621,440 multiply-adds in the hidden layers (forward 917,504,
+// chain 786,432, dW 917,504): at P = 70,000 that is 367 GFLOP, and the
+// bf16x3 split makes it 1,101 GFLOP of tensor-core work, 1.114 ms at the
+// card's 989 TFLOP/s of dense bf16 (the SIMT route's bound at 67 TFLOP/s of
+// float32 FMA was 5.48 ms). The activation traffic, about 4-5 GB a call,
+// is under 1.5 ms at 3.35 TB/s and overlaps the GEMM passes.
+//
+// Design: every hidden-layer product is one pass of gemm3_kernel, a 128 x
+// 128 block tile of 8 warps (64 x 32 each: 4 x 4 mma tiles, 64 float32
+// sums a thread, at most 128 registers), 32 of depth a stage, two stages
+// filled by cp.async of 16 bytes (80 KB), so that two blocks share an SM and
+// one's epilogue and first loads overlap the other's products; ldmatrix
+// fragments, three mma a tile and k16 step:
+//   FWD   z = a W^T + b: a (P, din) and W (dout, din) planes, both read
+//         depth-contiguous; epilogue sine, hi/lo planes (or float32 for the
+//         last hidden layer) and the factor F = omega cos(omega z);
+//   CHAIN delta_{l-1} = (delta_l W_l) * F_{l-1}: W read row-contiguous
+//         (ldmatrix.trans); epilogue the product with F, hi/lo planes;
+//   DW    dW_l = delta_l^T a_l over this block's split of the P rows, both
+//         read row-contiguous (ldmatrix.trans); epilogue the split's
+//         float32 partial, summed by reduce_splits_kernel in a fixed order.
+// Shared rows are padded by 16 bytes, so the eight rows of an ldmatrix
+// matrix fall in distinct banks. The last layer (D -> 1), the loss, dW and
+// db of the last layer and the split reductions are common.cuh's kernels.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libsiren_tc.so siren_tc.cu   (see ops/_build.py)
+
+#include <cstdint>
+#include <vector>
+
+#include "common.cuh"
+#include "tensor_core.cuh"
+
+#ifdef __CUDACC__
+#define LAUNCH_SMEM(kernel, grid, block, smem, stream) \
+  kernel<<<(grid), (block), (smem), (stream)>>>
+#else  // a host compiler (the CPU emulation): shared memory is a static array
+#define LAUNCH_SMEM(kernel, grid, block, smem, stream) LAUNCH(kernel, grid, block, stream)
+#endif
+
+namespace {
+
+constexpr int TC_TILE = 128;  // block tile rows and columns; widths are multiples of it
+constexpr int TK = 32;        // depth a stage
+constexpr int TC_NT = 256;    // threads: 8 warps, 2 along rows x 4 along columns
+constexpr int TC_STAGES = 2;
+constexpr int KROW = TK + 8;          // halves a row of a depth-contiguous tile
+constexpr int MROW = TC_TILE + 8;     // halves a row of a row-contiguous tile
+constexpr int PLANE = TC_TILE * KROW;  // halves a tile plane (>= TK * MROW)
+constexpr int STAGE = 4 * PLANE;       // A hi, A lo, B hi, B lo
+constexpr int TC_SMEM = TC_STAGES * STAGE * 2;  // bytes: 81,920
+constexpr int TC_TARGET_BLOCKS = 2 * 132;  // two blocks on each SM
+
+enum Mode { MODE_FWD = 0, MODE_CHAIN = 1, MODE_DW = 2 };
+
+// two bf16 planes of one (rows, cols) array: x = hi + lo
+struct Planes {
+  const uint16_t* hi;
+  const uint16_t* lo;
+};
+
+// what a pass writes, and what its epilogue reads besides the products
+struct PassOut {
+  const float* bias;  // FWD
+  float omega;        // FWD
+  uint16_t* out_hi;   // FWD (or null), CHAIN: (M, N) planes
+  uint16_t* out_lo;
+  float* out_f32;     // FWD: (M, N) float32 (or null); DW: split 0's partial
+  float* F;           // FWD: written; CHAIN: read; (M, N)
+  long long split_stride;  // DW: floats between the splits' partials
+};
+
+__device__ __forceinline__ void split_bf16(float x, unsigned& hi, unsigned& lo) {
+  hi = f32_to_bf16(x);
+  lo = f32_to_bf16(x - bf16_to_f32(hi));
+}
+
+__device__ __forceinline__ void store_planes(uint16_t* hi, uint16_t* lo, long long off,
+                                             float v0, float v1) {
+  unsigned h0, l0, h1, l1;
+  split_bf16(v0, h0, l0);
+  split_bf16(v1, h1, l1);
+  *reinterpret_cast<unsigned*>(hi + off) = h0 | (h1 << 16);
+  *reinterpret_cast<unsigned*>(lo + off) = l0 | (l1 << 16);
+}
+
+// C (M x N) = sum over k of Aop[m, k] Bop[k, n] in bf16x3 (see the modes
+// above). Depth-contiguous operands (FWD's A and B, CHAIN's A) are (rows,
+// K) arrays of row length K; row-contiguous ones (CHAIN's B, DW's A and B)
+// are (K, cols) arrays of row length lda / ldb. Rows of A past M and depth
+// past this block's range read as zeros. Grid: x = column tile, y = row
+// tile, z = split of the depth (DW; k_split a multiple of TK).
+template <int MODE>
+__global__ void __launch_bounds__(TC_NT, 2) gemm3_kernel(Planes A, int lda, Planes B, int ldb,
+                                                         int M, int N, int K, int k_split,
+                                                         PassOut epi) {
+#ifdef __CUDACC__
+  extern __shared__ __align__(16) uint16_t smem3[];
+#else
+  alignas(16) __shared__ uint16_t smem3[TC_SMEM / 2];
+  emu_poison_shared(smem3, sizeof smem3);
+#endif
+  constexpr bool A_KC = MODE != MODE_DW;  // A depth-contiguous
+  constexpr bool B_KC = MODE == MODE_FWD;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int m0 = blockIdx.y * TC_TILE;
+  const int n0 = blockIdx.x * TC_TILE;
+  const int kb = blockIdx.z * k_split;
+  const int ke = min(K, kb + k_split);
+  const int wm = (warp >> 2) * 64;
+  const int wn = (warp & 3) * 32;
+
+  // depth-contiguous tile: rows r0 .. r0 + 127 (zero from rmax), depth k0 ..
+  // k0 + 31, row stride KROW
+  auto load_kc = [&](uint16_t* dh, uint16_t* dl, Planes src, int ld, int r0, int rmax,
+                     int k0) {
+    for (int i = tid; i < TC_TILE * 4; i += TC_NT) {
+      const int r = i >> 2, c = (i & 3) * 8;
+      const bool ok = r0 + r < rmax;
+      const long long off = ok ? (long long)(r0 + r) * ld + k0 + c : 0;
+      cp_async16(dh + r * KROW + c, src.hi + off, ok);
+      cp_async16(dl + r * KROW + c, src.lo + off, ok);
+    }
+  };
+  // row-contiguous tile: depth rows k0 .. k0 + 31 (zero from kmax), columns
+  // c0 .. c0 + 127, row stride MROW
+  auto load_rc = [&](uint16_t* dh, uint16_t* dl, Planes src, int ld, int k0, int kmax,
+                     int c0) {
+    for (int i = tid; i < TK * 16; i += TC_NT) {
+      const int k = i >> 4, c = (i & 15) * 8;
+      const bool ok = k0 + k < kmax;
+      const long long off = ok ? (long long)(k0 + k) * ld + c0 + c : 0;
+      cp_async16(dh + k * MROW + c, src.hi + off, ok);
+      cp_async16(dl + k * MROW + c, src.lo + off, ok);
+    }
+  };
+  auto load_stage = [&](int kt) {
+    uint16_t* s = smem3 + (kt % TC_STAGES) * STAGE;
+    const int k0 = kb + kt * TK;
+    if (A_KC) {
+      load_kc(s, s + PLANE, A, lda, m0, M, k0);
+    } else {
+      load_rc(s, s + PLANE, A, lda, k0, ke, m0);
+    }
+    if (B_KC) {
+      load_kc(s + 2 * PLANE, s + 3 * PLANE, B, ldb, n0, N, k0);
+    } else {
+      load_rc(s + 2 * PLANE, s + 3 * PLANE, B, ldb, k0, ke, n0);
+    }
+  };
+
+  // this lane's ldmatrix row addresses (in halves, within a plane) for k16
+  // step 0; step 1 is 16 halves (KC) or 16 rows (RC) further
+  const int q = lane >> 3;  // the 8 x 8 matrix this lane addresses
+  int a_off[4], b_off[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a_off[i] = A_KC ? (wm + i * 16 + (lane & 15)) * KROW + (lane >> 4) * 8
+                    : ((q >> 1) * 8 + (lane & 7)) * MROW + wm + i * 16 + (q & 1) * 8;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+    b_off[jj] = B_KC ? (wn + jj * 16 + (q >> 1) * 8 + (lane & 7)) * KROW + (q & 1) * 8
+                     : ((q & 1) * 8 + (lane & 7)) * MROW + wn + jj * 16 + (q >> 1) * 8;
+  constexpr int A_STEP = A_KC ? 16 : 16 * MROW;
+  constexpr int B_STEP = B_KC ? 16 : 16 * MROW;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (ke - kb + TK - 1) / TK;
+  for (int t = 0; t < TC_STAGES - 1; ++t) {
+    if (t < nk) load_stage(t);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // stage kt is in; every warp is done with stage kt - 1
+    if (kt + TC_STAGES - 1 < nk) load_stage(kt + TC_STAGES - 1);  // into kt - 1's slot
+    cp_async_commit();
+    const uint16_t* s = smem3 + (kt % TC_STAGES) * STAGE;
+#pragma unroll
+    for (int ks = 0; ks < TK / 16; ++ks) {
+      unsigned ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint16_t* p = s + a_off[i] + ks * A_STEP;
+        if (A_KC) {
+          ldsm_x4(ah[i], p);
+          ldsm_x4(al[i], p + PLANE);
+        } else {
+          ldsm_x4_trans(ah[i], p);
+          ldsm_x4_trans(al[i], p + PLANE);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const uint16_t* p = s + 2 * PLANE + b_off[jj] + ks * B_STEP;
+        unsigned rh[4], rl[4];
+        if (B_KC) {
+          ldsm_x4(rh, p);
+          ldsm_x4(rl, p + PLANE);
+        } else {
+          ldsm_x4_trans(rh, p);
+          ldsm_x4_trans(rl, p + PLANE);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          bh[2 * jj + h][0] = rh[2 * h];
+          bh[2 * jj + h][1] = rh[2 * h + 1];
+          bl[2 * jj + h][0] = rl[2 * h];
+          bl[2 * jj + h][1] = rl[2 * h + 1];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16(acc[i][j], ah[i], bl[j]);
+          mma_bf16(acc[i][j], al[i], bh[j]);
+          mma_bf16(acc[i][j], ah[i], bh[j]);
+        }
+    }
+  }
+
+  // acc[i][j][2 h + e] is row wm + 16 i + lane / 4 + 8 h, column wn + 8 j +
+  // 2 (lane % 4) + e of the tile
+  float* part = MODE == MODE_DW ? epi.out_f32 + blockIdx.z * epi.split_stride : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm + i * 16 + (lane >> 2) + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + wn + j * 8 + 2 * (lane & 3);
+        const long long off = (long long)row * N + col;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (MODE == MODE_FWD) {
+          float s0, c0, s1, c1;
+          sincosf(epi.omega * (v0 + epi.bias[col]), &s0, &c0);
+          sincosf(epi.omega * (v1 + epi.bias[col + 1]), &s1, &c1);
+          if (epi.out_hi != nullptr) store_planes(epi.out_hi, epi.out_lo, off, s0, s1);
+          if (epi.out_f32 != nullptr) {
+            epi.out_f32[off] = s0;
+            epi.out_f32[off + 1] = s1;
+          }
+          epi.F[off] = epi.omega * c0;
+          epi.F[off + 1] = epi.omega * c1;
+        } else if (MODE == MODE_CHAIN) {
+          store_planes(epi.out_hi, epi.out_lo, off, v0 * epi.F[off], v1 * epi.F[off + 1]);
+        } else {
+          part[off] = v0;
+          part[off + 1] = v1;
+        }
+      }
+    }
+}
+
+// hi/lo planes of n floats
+__global__ void split_kernel(const float* __restrict__ x, long long n, uint16_t* __restrict__ hi,
+                             uint16_t* __restrict__ lo) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    unsigned h, l;
+    split_bf16(x[e], h, l);
+    hi[e] = (uint16_t)h;
+    lo[e] = (uint16_t)l;
+  }
+}
+
+// planes of out[p, i] = (d[p] * w[i]) * F[p, i]: the chain step through the
+// D -> 1 layer; a block a row at a time, two columns a thread
+__global__ void outer_mul_split_kernel(const float* __restrict__ d, const float* __restrict__ w,
+                                       const float* __restrict__ F, int P, int D,
+                                       uint16_t* __restrict__ hi, uint16_t* __restrict__ lo) {
+  for (int p = blockIdx.x; p < P; p += gridDim.x) {
+    const float dp = d[p];
+    const long long row = (long long)p * D;
+    for (int i = 2 * threadIdx.x; i < D; i += 2 * blockDim.x)
+      store_planes(hi, lo, row + i, (dp * w[i]) * F[row + i], (dp * w[i + 1]) * F[row + i + 1]);
+  }
+}
+
+// partial[z, j] = sum over the rows p of split z of hi[p, j] + lo[p, j]
+__global__ void __launch_bounds__(COLSUM_THREADS) colsum_planes_kernel(
+    Planes X, int P, int N, int rows_per_split, float* __restrict__ partial) {
+  const int j = blockIdx.x * COLSUM_THREADS + threadIdx.x;
+  if (j >= N) return;
+  const long long r0 = (long long)blockIdx.y * rows_per_split;
+  const long long r1 = min((long long)P, r0 + rows_per_split);
+  float s = 0.f;
+  for (long long p = r0; p < r1; ++p)
+    s += bf16_to_f32(X.hi[p * N + j]) + bf16_to_f32(X.lo[p * N + j]);
+  partial[(long long)blockIdx.y * N + j] = s;
+}
+
+template <int MODE>
+int gemm3(Planes A, int lda, Planes B, int ldb, int M, int N, int K, int splits, int k_split,
+          const PassOut& epi, cudaStream_t stream) {
+  const dim3 grid(N / TC_TILE, cdiv(M, TC_TILE), splits);
+#ifdef __CUDACC__
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm3_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+#endif
+  LAUNCH_SMEM(gemm3_kernel<MODE>, grid, TC_NT, TC_SMEM, stream)(A, lda, B, ldb, M, N, K,
+                                                                k_split, epi);
+  CHECK_LAUNCH();
+  return 0;
+}
+
+// Split-K plan of a dW pass (M x N output, depth P): one wave of blocks.
+SplitPlan dw_plan(int M, int N, int P) {
+  const int tiles = (M / TC_TILE) * (N / TC_TILE);
+  int splits = TC_TARGET_BLOCKS / tiles;
+  if (splits < 1) splits = 1;
+  const int k_split = cdiv(cdiv(P, splits), TK) * TK;
+  return {cdiv(P, k_split), k_split};
+}
+
+bool supported(const int* dims, int n_layers) {
+  if (n_layers < 2 || dims[n_layers] != 1) return false;
+  for (int l = 0; l < n_layers; ++l)
+    if (dims[l] < TC_TILE || dims[l] % TC_TILE) return false;
+  return true;
+}
+
+// The workspace of one call, carved in order; every piece 256-byte aligned.
+struct Work {
+  Planes x;                        // (P, d_0)
+  std::vector<Planes> w;           // W_l (d_{l+1}, d_l), l < L - 1
+  std::vector<Planes> act;         // a_{l+1} (P, d_{l+1}), l < L - 2
+  float* a_last;                   // a_{L-1} (P, d_{L-1}), float32
+  std::vector<float*> F;           // omega cos(omega z_l) (P, d_{l+1}), l < L - 1
+  Planes delta[2];                 // (P, widest hidden)
+  float* delta_last;               // (P)
+  float* partial;
+  long long bytes;
+};
+
+Work carve(char* base, int P, const int* dims, int L) {
+  Work w;
+  long long at = 0;
+  auto take = [&](long long bytes) {
+    char* p = base ? base + at : nullptr;
+    at += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  auto planes = [&](long long n) {
+    uint16_t* p = reinterpret_cast<uint16_t*>(take(4 * n));
+    return Planes{p, p ? p + n : nullptr};
+  };
+  int width = 0;
+  long long part = 2 * ROWDOT_MAX_BLOCKS;
+  for (int l = 1; l < L; ++l) width = dims[l] > width ? dims[l] : width;
+  w.x = planes((long long)P * dims[0]);
+  for (int l = 0; l + 1 < L; ++l) {
+    w.w.push_back(planes((long long)dims[l + 1] * dims[l]));
+    if (l + 2 < L) w.act.push_back(planes((long long)P * dims[l + 1]));
+    w.F.push_back(reinterpret_cast<float*>(take(4LL * P * dims[l + 1])));
+    const SplitPlan sp = dw_plan(dims[l + 1], dims[l], P);
+    const long long need = (long long)sp.splits * dims[l + 1] * dims[l];
+    part = need > part ? need : part;
+    const long long cs = reduced_partial_floats(P, dims[l + 1], dims[l]);
+    part = cs > part ? cs : part;
+  }
+  w.a_last = reinterpret_cast<float*>(take(4LL * P * dims[L - 1]));
+  w.delta[0] = planes((long long)P * width);
+  w.delta[1] = planes((long long)P * width);
+  w.delta_last = reinterpret_cast<float*>(take(4LL * P));
+  w.partial = reinterpret_cast<float*>(take(4 * part));
+  w.bytes = at;
+  return w;
+}
+
+int split(const float* x, long long n, Planes out, cudaStream_t stream) {
+  LAUNCH(split_kernel, ew_blocks(n), EW_THREADS, stream)(x, n, const_cast<uint16_t*>(out.hi),
+                                                         const_cast<uint16_t*>(out.lo));
+  CHECK_LAUNCH();
+  return 0;
+}
+
+// out[j] = sum_p (hi + lo)[p, j] over the P rows of X (P, N)
+int colsum_planes_reduced(Planes X, int P, int N, float* out, float* partial,
+                          cudaStream_t stream) {
+  const ColsumPlan cp = colsum_plan(P, N);
+  const dim3 grid(cdiv(N, COLSUM_THREADS), cp.splits, 1);
+  LAUNCH(colsum_planes_kernel, grid, COLSUM_THREADS, stream)(X, P, N, cp.rows_per_split,
+                                                             partial);
+  CHECK_LAUNCH();
+  LAUNCH(reduce_splits_kernel, cdiv(N, 256), 256, stream)(partial, cp.splits, N, 1.f, out);
+  CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of workspace siren_loss_grads_tc needs for these shapes, or -1 when
+// the route does not take them (every width but the last a multiple of 128,
+// at least one hidden layer, one output).
+long long siren_tc_workspace_bytes(int P, const int* dims, int n_layers) {
+  if (!supported(dims, n_layers) || P < 1) return -1;
+  return carve(nullptr, P, dims, n_layers).bytes;
+}
+
+// K1 on the tensor cores: loss = inv_n * sum_{p < n_rows} (MLP(x)_p -
+// target_p)^2 and every dW/db, for sine hidden layers (omegas[l]) and a
+// linear last layer; work: siren_tc_workspace_bytes bytes.
+int siren_loss_grads_tc(const float* x, int P, int n_rows, const int* dims, int n_layers,
+                        const float* const* W, const float* const* b, const float* omegas,
+                        const float* target, float inv_n, void* work, float* const* dW,
+                        float* const* db, float* loss, cudaStream_t stream) {
+  if (!supported(dims, n_layers) || P < 1) return -1;
+  const int L = n_layers;
+  const Work w = carve(static_cast<char*>(work), P, dims, L);
+  int rc = split(x, (long long)P * dims[0], w.x, stream);
+  for (int l = 0; !rc && l + 1 < L; ++l)
+    rc = split(W[l], (long long)dims[l + 1] * dims[l], w.w[l], stream);
+  if (rc) return rc;
+
+  // forward through the hidden layers
+  for (int l = 0; l + 1 < L; ++l) {
+    const bool last = l + 2 == L;
+    PassOut e{};
+    e.bias = b[l];
+    e.omega = omegas[l];
+    e.out_hi = last ? nullptr : const_cast<uint16_t*>(w.act[l].hi);
+    e.out_lo = last ? nullptr : const_cast<uint16_t*>(w.act[l].lo);
+    e.out_f32 = last ? w.a_last : nullptr;
+    e.F = w.F[l];
+    rc = gemm3<MODE_FWD>(l == 0 ? w.x : w.act[l - 1], dims[l], w.w[l], dims[l], P,
+                         dims[l + 1], dims[l], 1, dims[l], e, stream);
+    if (rc) return rc;
+  }
+
+  // last layer, loss, and its dW (float32 column sums weighted by delta) and db
+  const int D = dims[L - 1];
+  const int blocks = rowdot_blocks(P);
+  const auto rowdot = rowdot_act_kernel<ROW_LOSS, false, false, false>;
+  LAUNCH(rowdot, blocks, ROWDOT_WARPS * 32, stream)(
+      w.a_last, P, D, W[L - 1], b[L - 1], w.delta_last, target, n_rows, 2.f * inv_n, w.partial,
+      nullptr, nullptr);
+  CHECK_LAUNCH();
+  LAUNCH(sum_kernel, 1, 1024, stream)(w.partial, (long long)blocks, inv_n, loss);
+  CHECK_LAUNCH();
+  rc = colsum_reduced(w.a_last, P, D, w.delta_last, dW[L - 1], w.partial, stream);
+  if (rc) return rc;
+  LAUNCH(sum_kernel, 1, 1024, stream)(w.delta_last, (long long)P, 1.f, db[L - 1]);
+  CHECK_LAUNCH();
+  LAUNCH(outer_mul_split_kernel, EW_MAX_BLOCKS, EW_THREADS, stream)(
+      w.delta_last, W[L - 1], w.F[L - 2], P, D, const_cast<uint16_t*>(w.delta[0].hi),
+      const_cast<uint16_t*>(w.delta[0].lo));
+  CHECK_LAUNCH();
+
+  // backward through the hidden layers: delta_l in w.delta[cur]
+  int cur = 0;
+  for (int l = L - 2; l >= 0; --l) {
+    const int din = dims[l], dout = dims[l + 1];
+    const SplitPlan sp = dw_plan(dout, din, P);
+    PassOut e{};
+    e.out_f32 = w.partial;
+    e.split_stride = (long long)dout * din;
+    rc = gemm3<MODE_DW>(w.delta[cur], dout, l == 0 ? w.x : w.act[l - 1], din, dout, din, P,
+                        sp.splits, sp.k_split, e, stream);
+    if (rc) return rc;
+    LAUNCH(reduce_splits_kernel, cdiv((long long)dout * din, 256), 256, stream)(
+        w.partial, sp.splits, (long long)dout * din, 1.f, dW[l]);
+    CHECK_LAUNCH();
+    rc = colsum_planes_reduced(w.delta[cur], P, dout, db[l], w.partial, stream);
+    if (rc) return rc;
+    if (l > 0) {
+      PassOut c{};
+      c.out_hi = const_cast<uint16_t*>(w.delta[1 - cur].hi);
+      c.out_lo = const_cast<uint16_t*>(w.delta[1 - cur].lo);
+      c.F = w.F[l - 1];
+      rc = gemm3<MODE_CHAIN>(w.delta[cur], dout, w.w[l], din, P, din, dout, 1, dout, c,
+                             stream);
+      if (rc) return rc;
+      cur = 1 - cur;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

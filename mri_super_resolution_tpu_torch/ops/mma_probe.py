@@ -10,8 +10,9 @@ converted to float32 before it is added.
 
 :func:`mma_probe` given CPU tensors runs :func:`mma_probe_ref`; given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
-:data:`LAUNCHES`. The kernel takes T and N multiples of 128 and H a multiple
-of 64 (bf16) or 128 (int8).
+:data:`LAUNCHES`. The kernel (``wgmma`` with both operands in shared memory)
+takes T and N multiples of 128 and H a multiple of 128 up to 512 (bf16) or
+of 256 up to 1024 (int8): one 128-column block of B stays in shared memory.
 """
 from __future__ import annotations
 
@@ -111,10 +112,10 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int, grid_steps: int,
     bt = b.t().contiguous() if bt is None else bt
     if _build.check_tensors("mma_probe", a, [b, bt], tuple(DTYPES)) == "cpu":
         return mma_probe_ref(a, b, reps, grid_steps)
-    depth = 128 if a.dtype == torch.int8 else 64
-    if T % 128 or N % 128 or H % depth or tuple(bt.shape) != (N, H):
-        raise ValueError(f"the kernel takes T and N multiples of 128 and H of {depth}; "
-                         f"got T {T}, H {H}, N {N}")
+    depth = 256 if a.dtype == torch.int8 else 128
+    if T % 128 or N % 128 or H % depth or H > 4 * depth or tuple(bt.shape) != (N, H):
+        raise ValueError(f"the kernel takes T and N multiples of 128 and H a multiple of "
+                         f"{depth} up to {4 * depth}; got T {T}, H {H}, N {N}")
     out = _launch(_lib(), a, bt, reps, grid_steps, _build.stream_ptr())
     LAUNCHES[f"mma_probe_{DTYPES[a.dtype]}"] += 1
     return out

@@ -27,8 +27,18 @@ hidden layer or one per hidden layer (read only on sine layers).
 A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
-both). The plain versions run on either device and are what the CPU tests
-and ``chip_smoke.py`` hold the kernels against.
+both, and ``siren_loss_grads_tc`` for the tensor-core route). The plain
+versions run on either device and are what the CPU tests and
+``chip_smoke.py`` hold the kernels against.
+
+K1's route, chosen from the shapes alone (:func:`tc_route`): a call with
+the plain Siren's activations (sine on every hidden layer, none on the
+last), no ``sample_weights``, no ``with_out_absmax``, and the input and
+every hidden width a multiple of 128 (:data:`TC_TILE`) runs on the tensor
+cores (``csrc/siren_tc.cu``: bf16x3 split products, float32 accumulation;
+the 3-D pipeline's 256 -> 512x4 -> 1); every other K1 call, and K2 and K3,
+on the SIMT kernels of ``csrc/siren.cu``. The route is not a fallback: a
+tensor-core launch that fails raises.
 """
 from __future__ import annotations
 
@@ -45,9 +55,10 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_weighted": 0,
                             "siren_loss_grads_absmax": 0,
                             "siren_loss_grads_weighted_absmax": 0,
-                            "siren_fused_bwd": 0}
+                            "siren_loss_grads_tc": 0, "siren_fused_bwd": 0}
 
 ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
+TC_TILE = 128  # csrc/siren_tc.cu's block tile: every width but the output's a multiple
 
 
 def reset_launches() -> None:
@@ -112,6 +123,17 @@ def _acts(acts: Sequence[str] | None, n_layers: int) -> tuple[str, ...]:
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
     return _build.check_tensors("SIREN", x, [*weights, *others], (torch.float32,))
+
+
+def tc_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
+             absmax: bool = False) -> bool:
+    """Whether a K1 call on the card runs on the tensor-core route: the
+    plain Siren's activations, no sample weights, no max |out|, and
+    ``dims`` (input, hidden widths..., 1) with every width but the last a
+    multiple of :data:`TC_TILE`."""
+    return (not weighted and not absmax and len(dims) >= 3 and dims[-1] == 1
+            and tuple(acts) == ("sine",) * (len(dims) - 2) + ("none",)
+            and all(d % TC_TILE == 0 and d > 0 for d in dims[:-1]))
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +245,15 @@ def siren_fused_bwd_ref(x, weights, g, omega=30.0, need_dw=True, need_dx=True,
     return _backprop(weights, inputs, factors, g, need_dw, need_dx)
 
 
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the tensor-core route's operand split: ``hi =
+    bf16(x)``, ``lo = bf16(x - hi)``, both rounded to nearest even, so that
+    ``|x - hi - lo| <= 2^-16 |x|``; the route's products are ``hi hi + hi lo
+    + lo hi`` in float32."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(x.dtype)).to(torch.bfloat16)
+
+
 # --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
@@ -244,6 +275,18 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _lib() -> ctypes.CDLL:
     return _build.library("siren", _declare)
+
+
+def _tc_declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.siren_tc_workspace_bytes.argtypes = [i, p, i]
+    lib.siren_tc_workspace_bytes.restype = ctypes.c_longlong
+    lib.siren_loss_grads_tc.argtypes = [p, i, i, p, i, p, p, p, p, f, p, p, p, p, p]
+    lib.siren_loss_grads_tc.restype = i
+
+
+def _tc_lib() -> ctypes.CDLL:
+    return _build.library("siren_tc", _tc_declare)
 
 
 class _Args:
@@ -314,6 +357,24 @@ def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream, acts=None
     return (loss, absmax, grads) if with_out_absmax else (loss, grads)
 
 
+def _launch_loss_grads_tc(lib, x, weights, target, omega, n_rows, stream):
+    """K1 on the tensor-core route (the shapes :func:`tc_route` takes)."""
+    a = _Args(x, weights, omega, None)
+    nbytes = int(lib.siren_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers))
+    if nbytes < 0:
+        raise ValueError(f"the tensor-core K1 does not take widths {a.dims_list}")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    grads = [torch.empty_like(w) for w in weights]
+    loss = torch.empty((), dtype=x.dtype, device=x.device)
+    rc = lib.siren_loss_grads_tc(
+        x.data_ptr(), a.P, int(n_rows), a.ptr(a.dims), a.n_layers, a.W, a.b,
+        a.ptr(a.omegas), target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
+        work.data_ptr(), _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2]),
+        loss.data_ptr(), stream)
+    _build.raise_on(rc, "siren_loss_grads_tc")
+    return loss, grads
+
+
 def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream, acts=None):
     a = _Args(x, weights, omega, acts)
     stash, facts, delta0, delta1 = _stash_buffers(a, x)
@@ -376,6 +437,11 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if _check(x, weights, target, *extra) == "cpu":
         return siren_loss_grads_ref(x, weights, target, omega, n_rows, acts,
                                     sample_weights, with_out_absmax)
+    if tc_route(_layer_dims(x, weights), acts, sample_weights is not None, with_out_absmax):
+        out = _launch_loss_grads_tc(_tc_lib(), x, [w.detach() for w in weights], target,
+                                    omega, n_rows, _build.stream_ptr())
+        LAUNCHES["siren_loss_grads_tc"] += 1
+        return out
     out = _launch_loss_grads(_lib(), x, [w.detach() for w in weights], target, omega,
                              n_rows, _build.stream_ptr(), acts, sample_weights,
                              with_out_absmax)

@@ -5,7 +5,8 @@
 // leaves its wrong values in place);
 // within a block every CUDA thread is a fiber with its own stack, all on the
 // launching OS thread, switched by hand (a few instructions) whenever one
-// waits: __syncthreads is a block-wide barrier and __shfl_xor_sync exchanges
+// waits: __syncthreads is a block-wide barrier (bar.sync id, n one of n
+// threads) and __shfl_xor_sync exchanges
 // through a per-warp buffer behind a warp barrier. The warp-wide
 // instructions of the tensor-core kernels exchange through per-warp buffers
 // the same way: mma.sync bf16 m16n8k16 and int8 m16n8k32 (every lane posts
@@ -16,7 +17,15 @@
 // have nothing to wait for: the block barrier that follows them on the card
 // orders the copies here too. emu_poison_shared fills a kernel's shared
 // memory with NaN bits at the start of each block, as the card's starts
-// undefined.
+// undefined, and makes it the block's shared window: a shared address
+// (shared_addr, a wgmma descriptor's start) is an offset into it.
+// wgmma (warpgroup-wide, asynchronous) is deferred as on the card: each
+// thread queues its wgmma, commit_group closes the queue into a group, and
+// wait_group N runs this thread's oldest groups until N are left, each
+// thread computing its own accumulator fragment from shared memory as it
+// stands then (a slot refilled before the wait is read refilled, as on the
+// card). The operands' descriptors are decoded as the hardware does; only
+// the 128-byte swizzled K-major layout is emulated, anything else aborts.
 // Include the .cu after this header; see tests/cuda_emulation/emulated.py.
 #pragma once
 #include <algorithm>
@@ -91,6 +100,12 @@ constexpr int MAX_THREADS = 1024;
 constexpr size_t STACK_BYTES = 256 << 10;
 
 struct Barrier;
+struct WgmmaOp {
+  int kind;  // EMU_WGMMA_BF16 or EMU_WGMMA_S8
+  void* d;   // the thread's accumulator fragment
+  uint64_t da, db;
+  int accumulate, n;
+};
 
 // The running block: its fibers' saved stack pointers, the queue of fibers
 // that may run, and the per-warp exchange buffers.
@@ -105,6 +120,10 @@ struct Block {
   std::vector<float> warp_buf;         // 32 floats a warp (shuffles)
   std::vector<unsigned> warp_words;    // 32 lanes x 8 words a warp (mma)
   std::vector<const void*> warp_ptrs;  // 32 addresses a warp (ldmatrix)
+  char* shared_base = nullptr;         // the block's shared window
+  std::unique_ptr<Barrier> named[16];  // bar.sync id, n (ids 1-15)
+  std::vector<std::vector<struct WgmmaOp>> wg_open;                // per thread
+  std::vector<std::deque<std::vector<struct WgmmaOp>>> wg_groups;  // per thread
 };
 inline Block* block;
 
@@ -153,6 +172,13 @@ inline void* fresh_stack(int t) {
 }  // namespace emu
 
 inline void __syncthreads() { emu::block->block_barrier->arrive_and_wait(); }
+// bar.sync id, n: the first thread to name id fixes its count
+inline void emu_named_barrier(int id, int n) {
+  auto& b = emu::block->named[id];
+  if (id < 1 || id > 15 || n % 32 || (b && b->expected != n)) std::abort();
+  if (!b) b.reset(new emu::Barrier(n));
+  b->arrive_and_wait();
+}
 inline emu::Barrier* emu_warp_barrier() { return emu::block->warp_barriers[threadIdx.x / 32].get(); }
 inline float* emu_warp_buf() { return &emu::block->warp_buf[threadIdx.x / 32 * 32]; }
 inline unsigned* emu_warp_words() { return &emu::block->warp_words[threadIdx.x / 32 * 256]; }
@@ -253,10 +279,97 @@ inline void emu_cp_async16(void* dst, const void* src, int src_bytes) {
 }
 
 // thread 0 fills the block's shared memory with 0xff bytes (NaN in bf16 and
-// float32), then the block meets at a barrier
+// float32), then the block meets at a barrier; p is the block's shared
+// window from then on
 inline void emu_poison_shared(void* p, size_t bytes) {
+  emu::block->shared_base = static_cast<char*>(p);
   if (threadIdx.x == 0) std::memset(p, 0xff, bytes);
   __syncthreads();
+}
+
+// the offset of p in the shared window: what shared_addr gives on the card
+// (an 18-bit shared-state-space address)
+inline unsigned emu_shared_offset(const void* p) {
+  const long long o = static_cast<const char*>(p) - emu::block->shared_base;
+  if (emu::block->shared_base == nullptr || o < 0 || o >= (1 << 18)) {
+    std::fprintf(stderr, "emulated shared address outside the block's window\n");
+    std::abort();
+  }
+  return (unsigned)o;
+}
+
+// ---- wgmma ------------------------------------------------------------------
+// The shared-memory matrix descriptor: start address >> 4 in bits 0-13,
+// leading byte offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, base
+// offset in 49-51, layout in 62-63 (1: 128-byte swizzle). In the K-major
+// SW128 layout, byte kb (< 32) of the instruction's depth in row r (of m
+// for A, of n for B) lies at start + (r / 8) SBO + (r % 8) 128 + kb, its
+// bits 4-6 then XORed with bits 7-9.
+enum { EMU_WGMMA_BF16 = 0, EMU_WGMMA_S8 = 1 };
+
+inline const unsigned char* emu_desc_byte(uint64_t desc, int r, int kb) {
+  const unsigned start = (unsigned)(desc & 0x3fff) << 4;
+  const unsigned sbo = (unsigned)((desc >> 32) & 0x3fff) << 4;
+  const unsigned base_offset = (unsigned)(desc >> 49) & 7;
+  const unsigned layout = (unsigned)(desc >> 62);
+  // the instruction's 32 bytes of depth must lie in the first 128-byte row
+  // of a 1024-byte swizzle atom
+  if (layout != 1 || base_offset != 0 || ((start >> 7) & 7) != 0 || (start & 127) > 96) {
+    std::fprintf(stderr, "emulated wgmma: descriptor %016llx is not a SW128 K-major tile\n",
+                 (unsigned long long)desc);
+    std::abort();
+  }
+  unsigned addr = start + (unsigned)(r / 8) * sbo + (unsigned)(r % 8) * 128 + (unsigned)kb;
+  addr ^= ((addr >> 7) & 7) << 4;
+  return reinterpret_cast<const unsigned char*>(emu::block->shared_base) + addr;
+}
+
+// this thread's fragment of one wgmma m64nNk(16 bf16 | 32 s8): rows
+// 16 w + l / 4 (+ 8), columns 8 i + 2 (l % 4) (+ 1) for warp w, lane l of
+// the warpgroup
+inline void emu_wgmma_run(const emu::WgmmaOp& op) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+  for (int i = 0; i < op.n / 8; ++i)
+    for (int h = 0; h < 2; ++h)
+      for (int e = 0; e < 2; ++e) {
+        const int row = 16 * w + l / 4 + 8 * h, col = 8 * i + 2 * (l % 4) + e;
+        const int q = 4 * i + 2 * h + e;
+        if (op.kind == EMU_WGMMA_BF16) {
+          float s = 0.f;
+          for (int k = 0; k < 16; ++k) {
+            uint16_t a, b;
+            std::memcpy(&a, emu_desc_byte(op.da, row, 2 * k), 2);
+            std::memcpy(&b, emu_desc_byte(op.db, col, 2 * k), 2);
+            s += emu_bf16(a, 0) * emu_bf16(b, 0);
+          }
+          float& d = static_cast<float*>(op.d)[q];
+          d = op.accumulate ? d + s : s;
+        } else {
+          int s = 0;
+          for (int k = 0; k < 32; ++k)
+            s += (int8_t)*emu_desc_byte(op.da, row, k) * (int8_t)*emu_desc_byte(op.db, col, k);
+          int& d = static_cast<int*>(op.d)[q];
+          d = op.accumulate ? d + s : s;
+        }
+      }
+}
+
+inline void emu_wgmma(int kind, void* d, uint64_t da, uint64_t db, int accumulate, int n) {
+  emu::block->wg_open[threadIdx.x].push_back({kind, d, da, db, accumulate, n});
+}
+
+inline void emu_wgmma_commit() {
+  auto& open = emu::block->wg_open[threadIdx.x];
+  emu::block->wg_groups[threadIdx.x].push_back(std::move(open));
+  open.clear();
+}
+
+inline void emu_wgmma_wait(int n) {
+  auto& groups = emu::block->wg_groups[threadIdx.x];
+  while ((int)groups.size() > n) {
+    for (const auto& op : groups.front()) emu_wgmma_run(op);
+    groups.pop_front();
+  }
 }
 
 inline void sincosf(float x, float* s, float* c) {
@@ -285,6 +398,8 @@ struct Launcher {
     b.warp_buf.resize(nw * 32);
     b.warp_words.resize(nw * 32 * 8);
     b.warp_ptrs.resize(nw * 32);
+    b.wg_open.resize(nt);
+    b.wg_groups.resize(nt);
     b.task = [&](int) { kernel(args...); };
     Block* outer = block;
     block = &b;
@@ -293,7 +408,11 @@ struct Launcher {
         for (unsigned bx = grid.x; bx-- > 0;) {
           blockIdx = {bx, by, bz};
           b.finished = 0;
+          b.shared_base = nullptr;
+          for (auto& nb : b.named) nb.reset();
           for (int t = 0; t < nt; ++t) {
+            b.wg_open[t].clear();
+            b.wg_groups[t].clear();
             b.sp[t] = fresh_stack(t);
             b.ready.push_back(t);
           }

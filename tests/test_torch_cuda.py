@@ -56,7 +56,28 @@ def test_kernels_launch_and_match_plain(card):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-8)
     assert tk.LAUNCHES == {"siren_forward": 1, "siren_loss_grads": 1,
                            "siren_loss_grads_weighted": 0, "siren_loss_grads_absmax": 0,
-                           "siren_loss_grads_weighted_absmax": 0, "siren_fused_bwd": 1}
+                           "siren_loss_grads_weighted_absmax": 0, "siren_loss_grads_tc": 0,
+                           "siren_fused_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,P,n_rows", [((256, 256, 256, 1), 1000, 900),
+                                           ((128, 384, 128, 1), 777, 777)])
+def test_k1_tc_route_launches_and_matches_plain(card, dims, P, n_rows):
+    """K1 at widths of the tensor-core route's class launches once under
+    its key (none on the SIMT route) and agrees with its plain version
+    (bf16x3 products: each dW/db within 1e-4 of its largest magnitude); two
+    calls give the same bits."""
+    x, ws, target, _ = _problem(card, P=P, dims=dims)
+    tk.reset_launches()
+    loss, grads = tk.siren_loss_grads(x, ws, target, n_rows=n_rows)
+    loss_r, grads_r = tk.siren_loss_grads_ref(x, ws, target, n_rows=n_rows)
+    torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=0)
+    for a, b in zip(grads, grads_r):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    loss2, grads2 = tk.siren_loss_grads(x, ws, target, n_rows=n_rows)
+    assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_tc": 2}
 
 
 @pytest.mark.cuda
@@ -100,8 +121,8 @@ def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_mma_probe_launches_and_matches_plain(card, dtype):
-    """P1 at T 128, H 256, REPS 2, GRID 3 and GRID 1: int8 equal to the
-    plain version, bf16 within float32 rounding of 512-term sums."""
+    """P1 (wgmma) at T 128, H 256, REPS 2, GRID 3 and GRID 1: int8 equal to
+    the plain version, bf16 within float32 rounding of 512-term sums."""
     from mri_super_resolution_tpu_torch.cli.int8_mma_probe import operands
 
     a, b = (u.to(card) for u in operands(dtype, 128, 256, 2, seed=1))

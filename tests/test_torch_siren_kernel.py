@@ -121,7 +121,8 @@ def test_cpu_runs_plain_versions_without_launching(setup):
     tk.siren_loss_grads(xt, tws, tt, sample_weights=tt, with_out_absmax=True)
     assert set(tk.LAUNCHES) == {"siren_forward", "siren_loss_grads",
                                 "siren_loss_grads_weighted", "siren_loss_grads_absmax",
-                                "siren_loss_grads_weighted_absmax", "siren_fused_bwd"}
+                                "siren_loss_grads_weighted_absmax", "siren_loss_grads_tc",
+                                "siren_fused_bwd"}
     assert not any(tk.LAUNCHES.values())
 
 

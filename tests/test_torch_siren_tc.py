@@ -1,0 +1,125 @@
+"""K1's tensor-core route on the CPU: which calls take it, the bf16x3 split
+its operands go through, and the plain version it is held against on the
+card, compared with the JAX package's Pallas kernel at a width of its class.
+
+The route itself (``csrc/siren_tc.cu``) runs here under the CUDA emulation
+(``tests/test_torch_cuda_emulated_siren_tc.py``) and on the card
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mri_super_resolution_tpu.models import Siren as JSiren
+from mri_super_resolution_tpu.ops.pallas import siren_kernel as jk
+from mri_super_resolution_tpu_torch import convert
+from mri_super_resolution_tpu_torch.models import Siren, SirenERD
+from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
+
+torch.set_num_threads(2)
+
+SIREN_ACTS = lambda n_hidden: ("sine",) * n_hidden + ("none",)
+
+
+@pytest.mark.parametrize("dims,acts,weighted,absmax,route", [
+    # the 3-D pipeline's reference SIREN: 128 Fourier mappings -> 512x4 -> 1
+    ((256, 512, 512, 512, 512, 1), SIREN_ACTS(4), False, False, True),
+    ((128, 128, 1), SIREN_ACTS(1), False, False, True),
+    ((256, 384, 128, 1), SIREN_ACTS(2), False, False, True),
+    # K1-w: the 2-D ensemble's Siren 2 -> 64x7 -> 1 with sample weights
+    ((2,) + (64,) * 7 + (1,), SIREN_ACTS(7), True, False, False),
+    # K1-a: the soft-ERD trunk, ReLU codes and max |out|
+    ((2, 128, 128, 128, 128, 128, 1), ("sine",) * 4 + ("relu", "relu"), False, True, False),
+    # the flagship's widths with either option, or ReLU codes
+    ((256, 512, 512, 1), SIREN_ACTS(2), True, False, False),
+    ((256, 512, 512, 1), SIREN_ACTS(2), False, True, False),
+    ((256, 512, 512, 1), ("sine", "relu", "none"), False, False, False),
+    ((256, 512, 512, 1), ("sine", "sine", "relu"), False, False, False),
+    # widths off the 128 tile: the small patient's 32 -> 32 -> 1, odd widths
+    ((32, 32, 1), SIREN_ACTS(1), False, False, False),
+    ((256, 500, 1), SIREN_ACTS(1), False, False, False),
+    ((100, 128, 1), SIREN_ACTS(1), False, False, False),
+])
+def test_route_rule(dims, acts, weighted, absmax, route):
+    """The route is chosen from the shapes and options alone."""
+    assert tk.tc_route(dims, acts, weighted, absmax) is route
+
+
+def test_route_of_the_models():
+    """The port's models: the 3-D pipeline's Siren at its reference widths
+    takes the tensor-core route; the 2-D ensemble's Siren 64x6 and the
+    soft-ERD SirenERD trunk stay on the SIMT kernels."""
+    def dims_of(model, d_in):
+        ws = model.weights()
+        return (d_in,) + tuple(int(w.shape[0]) for w in ws[0::2])
+
+    ref = Siren(256, 512, 3)
+    assert tk.tc_route(dims_of(ref, 256), ref.acts)
+    master = Siren(2, 64, 6)
+    assert not tk.tc_route(dims_of(master, 2), master.acts, weighted=True)
+    erd = SirenERD(2, 128, 3)
+    assert not tk.tc_route(dims_of(erd, 2), erd.acts, absmax=True)
+
+
+def _bf16_rne_numpy(x32: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 (as float32 values), round to nearest even on the
+    bit pattern: the reference for torch's and the kernel's rounding."""
+    u = x32.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16
+    return (u & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+
+
+def test_split_error_bound_against_numpy():
+    """split_bf16x3 (the plain version of the route's operand split): hi and
+    lo are numpy's round-to-nearest-even of x and of x - hi, and |x - hi -
+    lo| <= 2^-16 |x|, over magnitudes from 1e-30 to 1e30, ties and zeros."""
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=20_000) * 10.0 ** rng.uniform(-30, 30, size=20_000)).astype(np.float32)
+    x[:5] = [0.0, -0.0, 1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -9, -(1.0 + 2.0 ** -8)]
+    hi, lo = tk.split_bf16x3(torch.as_tensor(x))
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    want_hi = _bf16_rne_numpy(x)
+    want_lo = _bf16_rne_numpy(x - want_hi)
+    np.testing.assert_array_equal(hi.float().numpy(), want_hi)
+    np.testing.assert_array_equal(lo.float().numpy(), want_lo)
+    err = np.abs(x.astype(np.float64) - want_hi - want_lo.astype(np.float64))
+    assert (err <= 2.0 ** -16 * np.abs(x.astype(np.float64))).all()
+    assert err.max() > 0  # the bound is met, not vacuous
+
+
+@pytest.fixture(scope="module")
+def tc_class():
+    """A Siren of the route's class, 256 -> 256x2 -> 1, on 400 rows (no tile
+    of 128 divides 400): the JAX model's init, converted."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(400, 256)).astype(np.float32)
+    model = JSiren(hidden_features=256, hidden_layers=1)
+    params = model.init(jax.random.key(1), jnp.asarray(x))
+    jws = tuple(jk.weights_from_flax(params))
+    tws = convert.siren_weights(jax.tree.map(np.asarray, params))
+    target = rng.normal(size=(400, 1)).astype(np.float32)
+    return x, jws, tws, target
+
+
+@pytest.mark.parametrize("n_rows", [None, 350])
+def test_plain_k1_matches_pallas_at_the_tc_width(tc_class, n_rows):
+    """The plain K1 that the route is held against on the card agrees with
+    the Pallas kernel (interpret mode) at the tolerances of
+    ``tests/test_torch_siren_kernel.py`` (loss rtol 1e-4, dW atol 5e-4: the
+    JAX kernel stashes activations in bf16), and on the CPU it launches
+    nothing."""
+    x, jws, tws, target = tc_class
+    dims = (256,) + tuple(int(w.shape[0]) for w in tws[0::2])
+    assert tk.tc_route(dims, SIREN_ACTS(len(dims) - 2))
+    loss_j, dws_j = jk.siren_loss_grads(jnp.asarray(x), jws, jnp.asarray(target),
+                                        n_rows=n_rows)
+    tk.reset_launches()
+    loss_t, dws_t = tk.siren_loss_grads(torch.as_tensor(x), tws, torch.as_tensor(target),
+                                        n_rows=n_rows)
+    assert not any(tk.LAUNCHES.values())
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-4)
+    for gt, gj in zip(dws_t, dws_j):
+        gt = gt.T.numpy() if gt.dim() == 2 else gt.numpy()
+        np.testing.assert_allclose(gt, np.asarray(gj), atol=5e-4)
