@@ -11,18 +11,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``csrc/conv3d.cu`` and ``csrc/mma_probe.cu`` with nvcc (sm_90a), one
    process each, started together, and print the times and the compiler's
    register/spill report;
-2. kernel parity against the plain PyTorch versions on the card: K1
-   ``siren_loss_grads`` (on its tensor-core route, ``csrc/siren_tc.cu``, with
-   and without masked rows; the SIMT K1 of ``csrc/siren.cu`` at the same
-   shape for the record), K2 ``siren_fused_bwd`` (dx and dW) and K3
+2. kernel parity against the plain PyTorch versions on the card, K1-K3 on
+   their tensor-core route (``csrc/siren_tc.cu``) and the SIMT kernels of
+   ``csrc/siren.cu`` at the same shapes for the record: K3
    ``siren_forward`` at the SIREN flagship (P = 70,000 rows, 256 -> 512x4
-   -> 1), K3 also at the inference chunk (262,144 rows) and its ragged tails
-   (71,424 and 17,856 rows); a 20-step Adam fit at the flagship from one
-   init, K1's tensor-core route against the plain K1, loss by loss; K1's
-   sample-weighted variant at the 2-D
+   -> 1), the inference chunk (262,144 rows) and its ragged tails (71,424
+   and 17,856 rows); K1 ``siren_loss_grads`` with and without masked rows;
+   K2 ``siren_fused_bwd`` with and without dW; two calls of each giving the
+   same bits; a 20-step Adam fit at the flagship from one init, K1's
+   tensor-core route against the plain K1, loss by loss; a 10-step
+   PerturbNet Adam trace over 3 acquisitions through the frozen flagship
+   INR, K3/K2 on the tensor cores against autograd through the plain
+   forward, loss by loss; K1's sample-weighted variant at the 2-D
    ensemble's 3,600 rows (2 -> 64x7 -> 1) and its absmax/ReLU variant at
    the soft-ERD fit's 16,384 rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with
-   ragged row counts and a collapsed output, and K2/K3 with the ReLU codes;
+   ragged row counts and a collapsed output, and the SIMT K2/K3 with the
+   ReLU codes;
    P1 ``mma_probe`` (``wgmma``) at one and three steps of its full shape,
    int8 exact and bf16 within float32 rounding; K5 ``wire_forward`` and K4 ``wire_loss_grads``
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
@@ -41,9 +45,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    epochs cut to ``--epochs`` and ``--pn_epochs``; checks the
    CSV and timings.json, finite and clamped outputs, a falling loss, and,
    with every launch count set to 0 just before each run, that each kernel
-   of the path launched exactly as often as the schedule says (K1 on its
-   tensor-core route and K4 on every mean step, the SIMT K1 never, K3 on every inference chunk and PN step, K5 on every
-   inference chunk) and no other kernel did; then ``pipelines.misr.run`` on
+   of the path launched exactly as often as the schedule says (K1 and K4 on
+   every mean step, K3 on every inference chunk and PN step and K2 on every
+   PN step, K1-K3 on their tensor-core route and the SIMT ones never, K5 on
+   every inference chunk) and no other kernel did; then ``pipelines.misr.run`` on
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
    ``conv_kernel=True``: DICOMs, timings.json, finite (384, 384) outputs in
@@ -70,8 +75,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
    bf16 and ``torch._int_mm`` over the same products for P1) and its bound
-   (K1's tensor-core route: its bf16x3 products at the bf16 peak; the SIMT
-   K1's time at the same shape printed beside it);
+   (K1-K3's tensor-core route: its bf16x3 products at the bf16 peak; the
+   SIMT K1-K3's times at the same shapes printed beside them, routes in
+   turns, K3 also at the inference chunk; each one's device time by pass
+   under ``torch.profiler``);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
    shape; P1 also at GRID 256, whose time must be about half; the
@@ -82,8 +89,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cuDNN route's own bf16-vs-float32 gap; one forward and one step per route
    under ``torch.profiler`` for the device's busy time and idle share.
 
-The last three lines are the ``{"kernels": ...}`` record (K1 on its
-tensor-core route, K2-K7, K1's weighted and absmax variants, P1 in bf16 and
+The last three lines are the ``{"kernels": ...}`` record (K1-K3 on their
+tensor-core route, K4-K7, K1's weighted and absmax variants, P1 in bf16 and
 int8), the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
 no result, when no CUDA device is present.
@@ -117,6 +124,9 @@ K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
 # another size or sign: the traces part by up to 9.5e-4 in 20 steps on an
 # H100, while the loss falls 3.7-fold
 K1_TRACE_STEPS, K1_TRACE_RTOL = 20, 5e-3
+# the PerturbNet steps through K3 and K2 on their tensor-core route, held to
+# K1_TRACE_RTOL step by step against autograd through the plain forward
+PN_TRACE_STEPS, PN_TRACE_ACQ = 10, 3
 K5_TOL = 1e-4  # WIRE forward, as K3
 K4_TOL = 1e-3  # WIRE loss and every dW, as K1
 E2E_ATOL = 1e-3  # small patient: card kernels vs plain path on the CPU
@@ -313,34 +323,41 @@ def phase_parity(P: int, dims) -> dict:
     errors by kernel."""
     import torch
 
+    from mri_super_resolution_tpu_torch.ops import _build
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
     x, ws, target, g = _flagship_inputs(P, dims, seed=0)
     errs = {}
-
-    out = sk.siren_forward(x, ws)
-    ref = sk.siren_forward_ref(x, ws)
-    torch.cuda.synchronize()
-    e, r = _rel(out, ref)
-    print(f"[parity] K3 siren_forward  P={P}: max abs {e:.3e}, rel {r:.3e} "
-          f"(tol rel {K3_TOL:g})")
-    _require(r <= K3_TOL, "K3 disagrees with its plain version")
-    # inference: full 262,144-row chunks and the ragged tails of the 2x grid
-    # (1,120,000 rows) and the HR grid (280,000 rows)
-    xc, wsc, _, _ = _flagship_inputs(INFER_CHUNK, dims, seed=2)
-    for n in (INFER_CHUNK, 1_120_000 % INFER_CHUNK, 280_000 % INFER_CHUNK):
-        ec, rc = _rel(sk.siren_forward(xc[:n], wsc), sk.siren_forward_ref(xc[:n], wsc))
-        print(f"[parity] K3 siren_forward  P={n}: max abs {ec:.3e}, rel {rc:.3e} "
-              f"(tol rel {K3_TOL:g})")
-        _require(rc <= K3_TOL, f"K3 disagrees with its plain version at P={n}")
-        e = max(e, ec)
-    del xc, wsc
-    errs["siren_forward"] = e
-
-    from mri_super_resolution_tpu_torch.ops import _build
-
     _require(sk.tc_route(dims, ("sine",) * (len(dims) - 2) + ("none",)),
              "the flagship is not of the tensor-core route's class")
+
+    # K3 on its tensor-core route at the PerturbNet's P rows, the inference
+    # chunk and the ragged tails of the 2x grid (1,120,000 rows) and the HR
+    # grid (280,000 rows); the SIMT K3 at the same shapes for the record
+    xc, wsc, _, _ = _flagship_inputs(INFER_CHUNK, dims, seed=2)
+    before = dict(sk.LAUNCHES)
+    e = 0.0
+    for n in (P, INFER_CHUNK, 1_120_000 % INFER_CHUNK, 280_000 % INFER_CHUNK):
+        xn, wn = (x, ws) if n == P else (xc[:n], wsc)
+        out = sk.siren_forward(xn, wn)
+        simt = sk._launch_forward(sk._lib(), xn, wn, 30.0, _build.stream_ptr())
+        ref = sk.siren_forward_ref(xn, wn)
+        torch.cuda.synchronize()
+        en, rn = _rel(out, ref)
+        print(f"[parity] K3 siren_forward P={n}: tensor-core route max abs {en:.3e}, rel "
+              f"{rn:.3e}; SIMT rel {_rel(simt, ref)[1]:.3e} (tol rel {K3_TOL:g})")
+        _require(rn <= K3_TOL and _rel(simt, ref)[1] <= K3_TOL,
+                 f"K3 disagrees with its plain version at P={n}")
+        e = max(e, en)
+        if n == P:
+            _require(torch.equal(out, sk.siren_forward(xn, wn)),
+                     "two tensor-core K3 calls differ")
+    del xc, wsc
+    _require(sk.LAUNCHES["siren_forward_tc"] == before["siren_forward_tc"] + 5
+             and sk.LAUNCHES["siren_forward"] == before["siren_forward"],
+             "K3 at the flagship's widths did not take the tensor-core route")
+    errs["siren_forward_tc"] = e
+
     loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target)
     tc_before = sk.LAUNCHES["siren_loss_grads_tc"]
     loss, grads = sk.siren_loss_grads(x, ws, target)
@@ -371,24 +388,100 @@ def phase_parity(P: int, dims) -> dict:
     print(f"[parity] K1 tensor-core route n_rows={nr}: worst rel {worst_m[1]:.3e}")
     _require(worst_m[1] <= K1_K2_TOL, "K1 row mask disagrees")
 
-    dx, dgr = sk.siren_fused_bwd(x, ws, g, need_dw=True)
+    # K2 on its tensor-core route with dW and without (the PerturbNet step);
+    # the SIMT K2 at the same shape for the record
     dx_r, dgr_r = sk.siren_fused_bwd_ref(x, ws, g)
-    torch.cuda.synchronize()
-    worst = _rel(dx, dx_r)
-    for a, b in zip(dgr, dgr_r):
-        worst = max(worst, _rel(a, b), key=lambda t: t[1])
-    print(f"[parity] K2 siren_fused_bwd: dx max abs err {_rel(dx, dx_r)[0]:.3e} "
-          f"(max |dx| {float(dx_r.abs().max()):.3e}); worst "
-          f"over dx/dW/db max abs {worst[0]:.3e}, rel {worst[1]:.3e} "
-          f"(tol rel {K1_K2_TOL:g})")
-    _require(worst[1] <= K1_K2_TOL, "K2 disagrees with its plain version")
-    dx_only, none = sk.siren_fused_bwd(x, ws, g, need_dw=False)
-    _require(none is None and _rel(dx_only, dx_r)[1] <= K1_K2_TOL,
-             "K2 without dW disagrees")
-    errs["siren_fused_bwd"] = max(float((dx - dx_r).abs().max()),
-                                  *[float((a - b).abs().max())
-                                    for a, b in zip(dgr, dgr_r)])
+    before = dict(sk.LAUNCHES)
+    e = 0.0
+    for need_dw in (True, False):
+        got = sk.siren_fused_bwd(x, ws, g, need_dw=need_dw)
+        again = sk.siren_fused_bwd(x, ws, g, need_dw=need_dw)
+        simt = sk._launch_fused_bwd(sk._lib(), x, ws, g, 30.0, need_dw, True,
+                                    _build.stream_ptr())
+        torch.cuda.synchronize()
+        want = [dx_r, *(dgr_r if need_dw else [])]
+        for what, (dx, dgr) in (("tensor-core route", got), ("SIMT (csrc/siren.cu)", simt)):
+            worst = _worst_rel(zip([dx, *(dgr or [])], want))
+            print(f"[parity] K2 siren_fused_bwd {'dx, dW, db' if need_dw else 'dx only'}, "
+                  f"{what}: dx max abs err {_rel(dx, dx_r)[0]:.3e} (max |dx| "
+                  f"{float(dx_r.abs().max()):.3e}); worst max abs {worst[0]:.3e}, rel "
+                  f"{worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+            _require(worst[1] <= K1_K2_TOL, f"K2 ({what}) disagrees with its plain version")
+        _require(all(torch.equal(a, b) for a, b in zip([got[0], *(got[1] or [])],
+                                                       [again[0], *(again[1] or [])])),
+                 "two tensor-core K2 calls differ: the reductions are not in a fixed order")
+        e = max(e, _worst_rel(zip([got[0], *(got[1] or [])], want))[0])
+    _require(sk.LAUNCHES["siren_fused_bwd_tc"] == before["siren_fused_bwd_tc"] + 4
+             and sk.LAUNCHES["siren_fused_bwd"] == before["siren_fused_bwd"],
+             "K2 at the flagship's widths did not take the tensor-core route")
+    errs["siren_fused_bwd_tc"] = e
     return errs
+
+
+def phase_pn_trace(P: int, dims) -> None:
+    """PN_TRACE_STEPS PerturbNet Adam steps at the flagship (the pipeline's
+    step: PerturbNet on the encoded coordinates, its output encoded again,
+    the frozen INR, the MSE to one acquisition, the PerturbNet's gradient),
+    over PN_TRACE_ACQ acquisitions in turn, from one init: the INR through
+    ``siren_fused`` (K3 forward, K2 backward for dx, both on the tensor
+    cores) against autograd through the plain ``siren_forward_ref``, loss
+    by loss. Each acquisition's target is the INR at a per-row offset that
+    the PerturbNet can express (at most eps / 2 on each axis), so the loss
+    falls when the gradient is right; lr 1e-3, a thousand times the
+    pipeline's 1e-6, so that ten steps move it."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix, mgrid
+    from mri_super_resolution_tpu_torch.fit.losses import mse
+    from mri_super_resolution_tpu_torch.fit.optim import Adam
+    from mri_super_resolution_tpu_torch.models import PerturbNet, Siren
+    from mri_super_resolution_tpu_torch.models.perturbnet import perturbnet_apply
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    gen = torch.Generator().manual_seed(11)
+    shape = (25, 25, 28, 4)
+    _require(P == 25 * 25 * 28 * 4, "the PN trace runs at the flagship's 70,000 rows")
+    coords = mgrid(shape, device="cuda")
+    B = fourier_matrix(gen, dims[0] // 2, len(shape), device="cuda")
+    ff = fourier_encode(coords, B)
+    inr = Siren(dims[0], dims[1], len(dims) - 3, generator=gen, device="cuda")
+    inr.requires_grad_(False)
+    ws = inr.weights()
+    pn = PerturbNet(ff.shape[1], 128, len(shape), generator=gen, device="cuda")
+    eps = 1.0 / 128.0
+    with torch.no_grad():
+        targets = []
+        for _ in range(PN_TRACE_ACQ):
+            M = torch.randn(len(shape), len(shape), generator=gen).cuda()
+            targets.append(sk.siren_forward_ref(
+                fourier_encode(0.5 * eps * torch.tanh(coords @ M), B), ws))
+    traces = {}
+    before = dict(sk.LAUNCHES)
+    for route, apply in (("kernel", sk.siren_fused), ("plain", sk.siren_forward_ref)):
+        params = [w.detach().clone() for w in pn.weights()]
+        opt = Adam(params, 1e-3)
+        losses = []
+        for step in range(PN_TRACE_STEPS):
+            a = step % PN_TRACE_ACQ
+            leaves = [p.detach().requires_grad_() for p in params]
+            enc = fourier_encode(perturbnet_apply(leaves, ff, float(a), eps), B)
+            loss = mse(apply(enc, ws), targets[a])
+            opt.step(torch.autograd.grad(loss, leaves))
+            losses.append(loss.detach())
+        traces[route] = torch.stack(losses).tolist()
+    _require(sk.LAUNCHES == {**before,
+                             "siren_forward_tc": before["siren_forward_tc"] + PN_TRACE_STEPS,
+                             "siren_fused_bwd_tc": before["siren_fused_bwd_tc"] + PN_TRACE_STEPS},
+             "the PerturbNet steps did not run K3 and K2 on the tensor cores once each")
+    k, p = traces["kernel"], traces["plain"]
+    rel = max(abs(a / b - 1.0) for a, b in zip(k, p))
+    n = PN_TRACE_ACQ
+    print(f"[parity] PN {PN_TRACE_STEPS}-step Adam trace at the flagship over {n} "
+          f"acquisitions in turn, K3/K2 tensor-core route vs plain autograd: loss by step "
+          f"{', '.join(f'{v:.4e}' for v in p)} (plain), last {k[-1]:.4e} (kernel); worst "
+          f"step rel {rel:.3e} (tol {K1_TRACE_RTOL:g})")
+    _require(rel <= K1_TRACE_RTOL and k[-1] < k[PN_TRACE_STEPS - 1 - n],
+             "the PerturbNet's Adam trace departs from the plain one or does not fall")
 
 
 def phase_k1_trace(P: int, dims) -> None:
@@ -508,17 +601,23 @@ def phase_k1_variant_parity() -> dict:
             worst_all = max(worst_all, worst, (float((am - am_r).abs()), am_rel))
     errs["siren_loss_grads_absmax"] = worst_all[0]
 
+    # the SIMT K3 and K2 (csrc/siren.cu), which every call off the
+    # tensor-core route's class takes
     model, x, target = _erd_inputs(seed=33, last_bias=0.05)
     ws, acts = model.weights(), model.acts
+    before = dict(sk.LAUNCHES)
     e, r = _rel(sk.siren_forward(x, ws, acts=acts), sk.siren_forward_ref(x, ws, acts=acts))
     g = (target - 0.5) / P
     dx, dws = sk.siren_fused_bwd(x, ws, g, acts=acts)
     dx_r, dws_r = sk.siren_fused_bwd_ref(x, ws, g, acts=acts)
     torch.cuda.synchronize()
     worst = _worst_rel([(dx, dx_r), *zip(dws, dws_r)])
-    print(f"[parity] K3 with ReLU codes P={P}: rel {r:.3e} (tol {K3_TOL:g}); K2 with ReLU "
-          f"codes: worst over dx/dW rel {worst[1]:.3e} (tol {K1_K2_TOL:g})")
+    print(f"[parity] SIMT K3 with ReLU codes P={P}: rel {r:.3e} (tol {K3_TOL:g}); SIMT K2 "
+          f"with ReLU codes: worst over dx/dW rel {worst[1]:.3e} (tol {K1_K2_TOL:g})")
     _require(r <= K3_TOL and worst[1] <= K1_K2_TOL, "K2/K3 with ReLU codes disagree")
+    _require(sk.LAUNCHES["siren_forward"] == before["siren_forward"] + 1
+             and sk.LAUNCHES["siren_fused_bwd"] == before["siren_fused_bwd"] + 1,
+             "K2/K3 with ReLU codes did not take the SIMT kernels")
     return errs
 
 
@@ -1516,11 +1615,11 @@ def _device_busy(what: str, fn) -> None:
           f"{1 - busy_ms / wall_ms:.3f}")
 
 
-def _k1_passes(fn, calls: int = 3) -> None:
-    """Where a K1 call's device time goes: ``calls`` calls under
+def _passes(what: str, fn, calls: int = 3) -> None:
+    """Where a call's device time goes: ``calls`` calls under
     ``torch.profiler``, each kernel's summed time per call, largest first
-    (the tensor-core route's forward, chain and dW passes are the
-    ``gemm3_kernel`` templates 0, 1 and 2)."""
+    (the tensor-core route's forward, chain, dW and dx passes are the
+    ``gemm3_kernel`` templates 0, 1, 2 and 3)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1537,9 +1636,10 @@ def _k1_passes(fn, calls: int = 3) -> None:
             name = re.sub(r"\(.*$", "", re.sub(r"^void ", "", name))
             per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     if not per_kernel:
-        print("[profile] K1 passes: no device events traced; not measured")
+        print(f"[profile] {what} passes: no device events traced; not measured")
         return
-    print(f"[profile] K1 passes, ms a call (device total {sum(per_kernel.values()):.3f}): "
+    print(f"[profile] {what} passes, ms a call (device total "
+          f"{sum(per_kernel.values()):.3f}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_kernel.items(),
                                                          key=lambda kv: -kv[1])))
 
@@ -1602,16 +1702,17 @@ def phase_k7_times(err: float, launches: dict) -> dict:
 def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
     """Launches of each kernel of the path in one patient: every mean step
     (the first epochs - pn_epochs and the odd alternating epochs) is one
-    K1 (on its tensor-core route; none on the SIMT one) or K4; each even alternating epoch is one PN step per combination (75),
-    a K3 forward and a K2 backward on the SIREN path; inference is 5 + 2
-    chunks (1,120,000 and 280,000 rows at 262,144 a chunk)."""
+    K1 or K4; each even alternating epoch is one PN step per combination
+    (75), a K3 forward and a K2 backward on the SIREN path; inference is 5 +
+    2 chunks (1,120,000 and 280,000 rows at 262,144 a chunk). K1, K2 and K3
+    run on their tensor-core route: the SIMT ones launch zero times."""
     n1 = epochs - pn_epochs
     odd = sum(e % 2 for e in range(n1, epochs))
     pn_steps = 75 * (pn_epochs - odd)
     if inr_model == "wire":
         return {"wire_loss_grads": n1 + odd, "wire_forward": 7}
-    return {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd": pn_steps,
-            "siren_forward": pn_steps + 7}
+    return {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd_tc": pn_steps,
+            "siren_forward_tc": pn_steps + 7}
 
 
 def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
@@ -1822,43 +1923,58 @@ def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
 
     macs = _layer_macs(dims)
     fwd, chain = sum(macs), sum(macs[1:])
+    bwd = sum(macs[:-1]) + chain + macs[0]  # K2, dx only: forward, chain, dx
     weight_bytes = 4 * sum(w.numel() for w in ws)
     in_bytes = 4 * x.numel()
+    # the tensor-core route's bound: its bf16x3 products (three bf16
+    # products for each float32 one) at the bf16 peak
     specs = [
-        ("siren_forward", "siren", ":240", lambda: sk.siren_forward(x, ws),
+        ("siren_forward_tc", "siren_tc", ":240", lambda: sk.siren_forward(x, ws),
          lambda: sk.siren_forward_ref(x, ws), lib_forward,
-         2 * P * fwd, in_bytes + weight_bytes + 4 * P, PEAK_F32_FLOPS),
-        # the tensor-core route: its bf16x3 products (three bf16 products for
-        # each float32 one) at the bf16 peak
+         3 * 2 * P * fwd, in_bytes + weight_bytes + 4 * P),
         ("siren_loss_grads_tc", "siren_tc", ":518", lambda: sk.siren_loss_grads(x, ws, target),
          lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads,
-         3 * 2 * P * (2 * fwd + chain), in_bytes + 2 * weight_bytes + 4 * P + 4,
-         PEAK_BF16_TC),
+         3 * 2 * P * (2 * fwd + chain), in_bytes + 2 * weight_bytes + 4 * P + 4),
         # as the main path calls it: dx for the PerturbNet step, no dW
-        ("siren_fused_bwd", "siren", ":377",
+        ("siren_fused_bwd_tc", "siren_tc", ":377",
          lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False),
          lambda: sk.siren_fused_bwd_ref(x, ws, g, need_dw=False), lib_fused_bwd,
-         2 * P * (sum(macs[:-1]) + chain + macs[0]),
-         2 * in_bytes + weight_bytes + 4 * P, PEAK_F32_FLOPS),
+         3 * 2 * P * bwd, 2 * in_bytes + weight_bytes + 4 * P),
     ]
     rows = [_time_row(name, source, f"siren_kernel.py{line}", kern, plain, lib, flops,
-                      nbytes, f"P={P}", errs, launches, peak=peak)
-            for name, source, line, kern, plain, lib, flops, nbytes, peak in specs]
+                      nbytes, f"P={P}", errs, launches, peak=PEAK_BF16_TC)
+            for name, source, line, kern, plain, lib, flops, nbytes in specs]
     from mri_super_resolution_tpu_torch.ops import _build
 
-    simt = lambda: sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, P, _build.stream_ptr())
-    tc_ms, simt_ms = _best_alternating(lambda: sk.siren_loss_grads(x, ws, target), simt, 10, 2)
-    flops32 = 2 * P * (2 * fwd + chain)
-    print(f"[times] K1 at P={P}, routes in turns (best of 2): tensor-core {tc_ms:.3f} ms "
-          f"({flops32 / tc_ms / 1e9:.1f} float32-equivalent TFLOP/s, "
-          f"{3 * flops32 / tc_ms / 1e9:.1f} TFLOP/s of bf16 products), SIMT {simt_ms:.3f} ms "
-          f"({flops32 / simt_ms / 1e9:.1f} TFLOP/s; its f32 bound "
-          f"{flops32 / PEAK_F32_FLOPS * 1e3:.3f} ms)")
-    _k1_passes(lambda: sk.siren_loss_grads(x, ws, target))
+    def routes_in_turns(what, n, tc, simt, flops32):
+        tc_ms, simt_ms = _best_alternating(tc, simt, 10, 2)
+        print(f"[times] {what} at P={n}, routes in turns (best of 2): tensor-core "
+              f"{tc_ms:.3f} ms ({flops32 / tc_ms / 1e9:.1f} float32-equivalent TFLOP/s, "
+              f"{3 * flops32 / tc_ms / 1e9:.1f} TFLOP/s of bf16 products; bound "
+              f"{3 * flops32 / PEAK_BF16_TC * 1e3:.3f} ms), SIMT {simt_ms:.3f} ms "
+              f"({flops32 / simt_ms / 1e9:.1f} TFLOP/s; its f32 bound "
+              f"{flops32 / PEAK_F32_FLOPS * 1e3:.3f} ms)")
+
+    stream = _build.stream_ptr()
+    routes_in_turns("K1", P, lambda: sk.siren_loss_grads(x, ws, target),
+                    lambda: sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, P, stream),
+                    2 * P * (2 * fwd + chain))
+    routes_in_turns("K3", P, lambda: sk.siren_forward(x, ws),
+                    lambda: sk._launch_forward(sk._lib(), x, ws, 30.0, stream), 2 * P * fwd)
+    routes_in_turns("K2 (dx only)", P, lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False),
+                    lambda: sk._launch_fused_bwd(sk._lib(), x, ws, g, 30.0, False, True,
+                                                 stream), 2 * P * bwd)
+    _passes("K1", lambda: sk.siren_loss_grads(x, ws, target))
+    _passes("K3", lambda: sk.siren_forward(x, ws))
+    _passes("K2 (dx only)", lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False))
     xc, wsc, _, _ = _flagship_inputs(INFER_CHUNK, dims, seed=2)
-    ms_chunk = _time_ms(lambda: sk.siren_forward(xc, wsc), 5)
-    print(f"[times] siren_forward at the inference chunk P={INFER_CHUNK}: "
-          f"{ms_chunk:.3f} ms")
+    routes_in_turns("K3 at the inference chunk", INFER_CHUNK, lambda: sk.siren_forward(xc, wsc),
+                    lambda: sk._launch_forward(sk._lib(), xc, wsc, 30.0, stream),
+                    2 * INFER_CHUNK * fwd)
+    with torch.no_grad():
+        plain_chunk = _time_ms(lambda: sk.siren_forward_ref(xc, wsc), 5)
+    print(f"[times] K3 at the inference chunk P={INFER_CHUNK}: plain version "
+          f"{plain_chunk:.3f} ms")
     return rows
 
 
@@ -1888,6 +2004,7 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_parity(P, dims)
     phase_k1_trace(P, dims)
+    phase_pn_trace(P, dims)
     errs.update(phase_k1_variant_parity())
     errs.update(phase_probe_parity())
     errs.update(phase_wire_parity(P))

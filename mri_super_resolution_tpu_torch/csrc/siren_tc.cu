@@ -1,14 +1,18 @@
-// Hand-written Hopper (sm_90a) tensor-core route of K1 (siren_loss_grads)
+// Hand-written Hopper (sm_90a) tensor-core route of the SIREN kernels K1
+// (siren_loss_grads), K2 (siren_fused's backward) and K3 (siren_forward)
 // for the plain Siren at the 3-D pipeline's widths.
 //
-// Replaces, for the calls whose widths fit its tiling, the Pallas TPU kernel
-// siren_loss_grads of mri_super_resolution_tpu/ops/pallas/siren_kernel.py
-// (:518, pallas_call at :580): one-pass forward, masked MSE and backward,
-// giving the loss and every dW and db. ops/siren_kernel.py chooses this
-// route from the shapes alone: sine on every hidden layer, a linear last
-// layer of one output, no sample weights, no max |out|, and the input and
-// every hidden width a multiple of 128. csrc/siren.cu's SIMT kernels keep
-// every other K1 call, and K2 and K3.
+// Replaces, for the calls whose widths fit its tiling, the Pallas TPU
+// kernels of mri_super_resolution_tpu/ops/pallas/siren_kernel.py:
+//   K1 siren_loss_grads (:518, pallas_call at :580): one-pass forward,
+//      masked MSE and backward, giving the loss and every dW and db;
+//   K2 siren_fused's _bwd (:377, pallas_call at :401): the forward again,
+//      then an upstream g (P, 1) back to dx and, when asked, every dW, db;
+//   K3 siren_forward (:240, pallas_call at :258): the MLP's output (P, 1).
+// ops/siren_kernel.py chooses this route from the shapes alone: sine on
+// every hidden layer, a linear last layer of one output, no sample weights,
+// no max |out| (K1), and the input and every hidden width a multiple of
+// 128. csrc/siren.cu's SIMT kernels keep every other call.
 //
 // Numerics. The TPU kernel's float32 dots run on the MXU as multi-pass
 // bf16; the counterpart here is the bf16x3 split on the tensor cores. Each
@@ -27,12 +31,16 @@
 // last layer; the factors omega cos(omega z) stay float32.
 //
 // What bounds it on an H100: the products. At the 256 -> 512x4 -> 1 flagship
-// a row is 2,621,440 multiply-adds in the hidden layers (forward 917,504,
+// a row is 2,621,440 multiply-adds in K1's hidden layers (forward 917,504,
 // chain 786,432, dW 917,504): at P = 70,000 that is 367 GFLOP, and the
 // bf16x3 split makes it 1,101 GFLOP of tensor-core work, 1.114 ms at the
 // card's 989 TFLOP/s of dense bf16 (the SIMT route's bound at 67 TFLOP/s of
-// float32 FMA was 5.48 ms). The activation traffic, about 4-5 GB a call,
-// is under 1.5 ms at 3.35 TB/s and overlaps the GEMM passes.
+// float32 FMA was 5.48 ms). K3 is the forward alone (385 GFLOP of products
+// at P = 70,000, 0.390 ms); K2 as the PerturbNet step calls it, dx without
+// dW, is the forward, the chain and dx = delta_0 W_0 (131,072 a row): 771
+// GFLOP, 0.779 ms. The activation traffic, about 4-5 GB a K1 call, is under
+// 1.5 ms at 3.35 TB/s and overlaps the GEMM passes; K3 writes no F and keeps
+// two activation buffers, K2 without dW keeps no activation for a backward.
 //
 // Design: every hidden-layer product is one pass of gemm3_kernel, a 128 x
 // 128 block tile of 8 warps (64 x 32 each: 4 x 4 mma tiles, 64 float32
@@ -42,9 +50,12 @@
 // fragments, three mma a tile and k16 step:
 //   FWD   z = a W^T + b: a (P, din) and W (dout, din) planes, both read
 //         depth-contiguous; epilogue sine, hi/lo planes (or float32 for the
-//         last hidden layer) and the factor F = omega cos(omega z);
+//         last hidden layer) and, unless F is null (K3), the factor
+//         F = omega cos(omega z);
 //   CHAIN delta_{l-1} = (delta_l W_l) * F_{l-1}: W read row-contiguous
 //         (ldmatrix.trans); epilogue the product with F, hi/lo planes;
+//   DX    dx = delta_0 W_0 (K2): operands as CHAIN; epilogue the float32
+//         product, no factor;
 //   DW    dW_l = delta_l^T a_l over this block's split of the P rows, both
 //         read row-contiguous (ldmatrix.trans); epilogue the split's
 //         float32 partial, summed by reduce_splits_kernel in a fixed order.
@@ -81,7 +92,7 @@ constexpr int STAGE = 4 * PLANE;       // A hi, A lo, B hi, B lo
 constexpr int TC_SMEM = TC_STAGES * STAGE * 2;  // bytes: 81,920
 constexpr int TC_TARGET_BLOCKS = 2 * 132;  // two blocks on each SM
 
-enum Mode { MODE_FWD = 0, MODE_CHAIN = 1, MODE_DW = 2 };
+enum Mode { MODE_FWD = 0, MODE_CHAIN = 1, MODE_DW = 2, MODE_DX = 3 };
 
 // two bf16 planes of one (rows, cols) array: x = hi + lo
 struct Planes {
@@ -95,8 +106,8 @@ struct PassOut {
   float omega;        // FWD
   uint16_t* out_hi;   // FWD (or null), CHAIN: (M, N) planes
   uint16_t* out_lo;
-  float* out_f32;     // FWD: (M, N) float32 (or null); DW: split 0's partial
-  float* F;           // FWD: written; CHAIN: read; (M, N)
+  float* out_f32;     // FWD (or null), DX: (M, N) float32; DW: split 0's partial
+  float* F;           // FWD: written (or null); CHAIN: read; (M, N)
   long long split_stride;  // DW: floats between the splits' partials
 };
 
@@ -115,10 +126,10 @@ __device__ __forceinline__ void store_planes(uint16_t* hi, uint16_t* lo, long lo
 }
 
 // C (M x N) = sum over k of Aop[m, k] Bop[k, n] in bf16x3 (see the modes
-// above). Depth-contiguous operands (FWD's A and B, CHAIN's A) are (rows,
-// K) arrays of row length K; row-contiguous ones (CHAIN's B, DW's A and B)
-// are (K, cols) arrays of row length lda / ldb. Rows of A past M and depth
-// past this block's range read as zeros. Grid: x = column tile, y = row
+// above). Depth-contiguous operands (FWD's A and B, CHAIN's and DX's A) are
+// (rows, K) arrays of row length K; row-contiguous ones (CHAIN's and DX's B,
+// DW's A and B) are (K, cols) arrays of row length lda / ldb. Rows of A past
+// M and depth past this block's range read as zeros. Grid: x = column tile, y = row
 // tile, z = split of the depth (DW; k_split a multiple of TK).
 template <int MODE>
 __global__ void __launch_bounds__(TC_NT, 2) gemm3_kernel(Planes A, int lda, Planes B, int ldb,
@@ -282,10 +293,15 @@ __global__ void __launch_bounds__(TC_NT, 2) gemm3_kernel(Planes A, int lda, Plan
             epi.out_f32[off] = s0;
             epi.out_f32[off + 1] = s1;
           }
-          epi.F[off] = epi.omega * c0;
-          epi.F[off + 1] = epi.omega * c1;
+          if (epi.F != nullptr) {
+            epi.F[off] = epi.omega * c0;
+            epi.F[off + 1] = epi.omega * c1;
+          }
         } else if (MODE == MODE_CHAIN) {
           store_planes(epi.out_hi, epi.out_lo, off, v0 * epi.F[off], v1 * epi.F[off + 1]);
+        } else if (MODE == MODE_DX) {
+          epi.out_f32[off] = v0;
+          epi.out_f32[off + 1] = v1;
         } else {
           part[off] = v0;
           part[off + 1] = v1;
@@ -363,20 +379,28 @@ bool supported(const int* dims, int n_layers) {
   return true;
 }
 
+// What a call keeps in its workspace.
+enum Plan {
+  PLAN_LOSS_GRADS,  // K1 and K2 with dW: every activation, F, both deltas, delta_last
+                    // (K1's alone), partials
+  PLAN_FORWARD,     // K3: two activation slots, the last hidden one float32 in its slot
+  PLAN_BWD_DX,      // K2, dx only: F and both deltas; activations ping-pong in the deltas
+};
+
 // The workspace of one call, carved in order; every piece 256-byte aligned.
 struct Work {
   Planes x;                        // (P, d_0)
   std::vector<Planes> w;           // W_l (d_{l+1}, d_l), l < L - 1
   std::vector<Planes> act;         // a_{l+1} (P, d_{l+1}), l < L - 2
-  float* a_last;                   // a_{L-1} (P, d_{L-1}), float32
-  std::vector<float*> F;           // omega cos(omega z_l) (P, d_{l+1}), l < L - 1
-  Planes delta[2];                 // (P, widest hidden)
-  float* delta_last;               // (P)
-  float* partial;
-  long long bytes;
+  float* a_last = nullptr;         // a_{L-1} (P, d_{L-1}), float32 (null: K2, dx only)
+  std::vector<float*> F;           // omega cos(omega z_l) (P, d_{l+1}), l < L - 1 (K3: none)
+  Planes delta[2] = {};            // (P, widest hidden)
+  float* delta_last = nullptr;     // (P): K1 (K2 with dW leaves it unused)
+  float* partial = nullptr;        // K1, K2 with dW
+  long long bytes = 0;
 };
 
-Work carve(char* base, int P, const int* dims, int L) {
+Work carve(char* base, int P, const int* dims, int L, Plan plan) {
   Work w;
   long long at = 0;
   auto take = [&](long long bytes) {
@@ -388,25 +412,40 @@ Work carve(char* base, int P, const int* dims, int L) {
     uint16_t* p = reinterpret_cast<uint16_t*>(take(4 * n));
     return Planes{p, p ? p + n : nullptr};
   };
+  const bool keep = plan == PLAN_LOSS_GRADS;  // every activation
   int width = 0;
   long long part = 2 * ROWDOT_MAX_BLOCKS;
   for (int l = 1; l < L; ++l) width = dims[l] > width ? dims[l] : width;
   w.x = planes((long long)P * dims[0]);
   for (int l = 0; l + 1 < L; ++l) {
     w.w.push_back(planes((long long)dims[l + 1] * dims[l]));
-    if (l + 2 < L) w.act.push_back(planes((long long)P * dims[l + 1]));
-    w.F.push_back(reinterpret_cast<float*>(take(4LL * P * dims[l + 1])));
+    if (keep && l + 2 < L) w.act.push_back(planes((long long)P * dims[l + 1]));
+    if (plan != PLAN_FORWARD)
+      w.F.push_back(reinterpret_cast<float*>(take(4LL * P * dims[l + 1])));
     const SplitPlan sp = dw_plan(dims[l + 1], dims[l], P);
     const long long need = (long long)sp.splits * dims[l + 1] * dims[l];
     part = need > part ? need : part;
     const long long cs = reduced_partial_floats(P, dims[l + 1], dims[l]);
     part = cs > part ? cs : part;
   }
-  w.a_last = reinterpret_cast<float*>(take(4LL * P * dims[L - 1]));
-  w.delta[0] = planes((long long)P * width);
-  w.delta[1] = planes((long long)P * width);
-  w.delta_last = reinterpret_cast<float*>(take(4LL * P));
-  w.partial = reinterpret_cast<float*>(take(4 * part));
+  if (keep) w.a_last = reinterpret_cast<float*>(take(4LL * P * dims[L - 1]));
+  if (plan == PLAN_FORWARD) {
+    // hidden layer l writes slot l % 2; the last one float32 (4 bytes an
+    // element, as the planes) over its slot's two planes
+    Planes slot[2] = {planes((long long)P * width), {}};
+    if (L > 2) slot[1] = planes((long long)P * width);
+    for (int l = 0; l + 2 < L; ++l) w.act.push_back(slot[l % 2]);
+    w.a_last = reinterpret_cast<float*>(const_cast<uint16_t*>(slot[(L - 2) % 2].hi));
+  } else {
+    w.delta[0] = planes((long long)P * width);
+    w.delta[1] = planes((long long)P * width);
+    // dx only: the forward's activations are read by the next layer alone,
+    // and the deltas are not written before the forward ends
+    if (plan == PLAN_BWD_DX)
+      for (int l = 0; l + 2 < L; ++l) w.act.push_back(w.delta[l % 2]);
+  }
+  if (plan == PLAN_LOSS_GRADS) w.delta_last = reinterpret_cast<float*>(take(4LL * P));
+  if (keep) w.partial = reinterpret_cast<float*>(take(4 * part));
   w.bytes = at;
   return w;
 }
@@ -431,6 +470,85 @@ int colsum_planes_reduced(Planes X, int P, int N, float* out, float* partial,
   return 0;
 }
 
+// hi/lo planes of x and of every hidden layer's W, once a call
+int split_operands(const Work& w, const float* x, int P, const int* dims, int L,
+                   const float* const* W, cudaStream_t stream) {
+  int rc = split(x, (long long)P * dims[0], w.x, stream);
+  for (int l = 0; !rc && l + 1 < L; ++l)
+    rc = split(W[l], (long long)dims[l + 1] * dims[l], w.w[l], stream);
+  return rc;
+}
+
+// The FWD passes through the hidden layers: layer l reads x or act[l - 1]
+// and writes act[l] as planes or, the last hidden layer, a_last in float32
+// (nothing when a_last is null), and F[l] when the plan keeps F.
+int forward_passes(const Work& w, int P, const int* dims, int L, const float* const* b,
+                   const float* omegas, cudaStream_t stream) {
+  for (int l = 0; l + 1 < L; ++l) {
+    PassOut e{};
+    e.bias = b[l];
+    e.omega = omegas[l];
+    if (l + 2 < L) {
+      e.out_hi = const_cast<uint16_t*>(w.act[l].hi);
+      e.out_lo = const_cast<uint16_t*>(w.act[l].lo);
+    } else {
+      e.out_f32 = w.a_last;
+    }
+    e.F = w.F.empty() ? nullptr : w.F[l];
+    const int rc = gemm3<MODE_FWD>(l == 0 ? w.x : w.act[l - 1], dims[l], w.w[l], dims[l], P,
+                                   dims[l + 1], dims[l], 1, dims[l], e, stream);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+// The passes below the D -> 1 layer, from delta_{L-2} in w.delta[0]: for
+// each hidden layer l from L - 2 down, with dW (dW != null) its DW pass,
+// split sum and db's column sums; then the CHAIN pass to delta_{l-1} or, at
+// l = 0 and with dx, the DX pass.
+int backward_passes(const Work& w, int P, const int* dims, int L, float* const* dW,
+                    float* const* db, float* dx, cudaStream_t stream) {
+  int cur = 0, rc = 0;
+  for (int l = L - 2; l >= 0; --l) {
+    const int din = dims[l], dout = dims[l + 1];
+    if (dW != nullptr) {
+      const SplitPlan sp = dw_plan(dout, din, P);
+      PassOut e{};
+      e.out_f32 = w.partial;
+      e.split_stride = (long long)dout * din;
+      rc = gemm3<MODE_DW>(w.delta[cur], dout, l == 0 ? w.x : w.act[l - 1], din, dout, din, P,
+                          sp.splits, sp.k_split, e, stream);
+      if (rc) return rc;
+      LAUNCH(reduce_splits_kernel, cdiv((long long)dout * din, 256), 256, stream)(
+          w.partial, sp.splits, (long long)dout * din, 1.f, dW[l]);
+      CHECK_LAUNCH();
+      rc = colsum_planes_reduced(w.delta[cur], P, dout, db[l], w.partial, stream);
+      if (rc) return rc;
+    }
+    if (l > 0) {
+      PassOut c{};
+      c.out_hi = const_cast<uint16_t*>(w.delta[1 - cur].hi);
+      c.out_lo = const_cast<uint16_t*>(w.delta[1 - cur].lo);
+      c.F = w.F[l - 1];
+      rc = gemm3<MODE_CHAIN>(w.delta[cur], dout, w.w[l], din, P, din, dout, 1, dout, c,
+                             stream);
+      if (rc) return rc;
+      cur = 1 - cur;
+    } else if (dx != nullptr) {
+      PassOut d{};
+      d.out_f32 = dx;
+      rc = gemm3<MODE_DX>(w.delta[cur], dout, w.w[0], din, P, din, dout, 1, dout, d, stream);
+      if (rc) return rc;
+    }
+  }
+  return 0;
+}
+
+long long workspace_bytes(int P, const int* dims, int n_layers, Plan plan) {
+  if (!supported(dims, n_layers) || P < 1) return -1;
+  return carve(nullptr, P, dims, n_layers, plan).bytes;
+}
+
 }  // namespace
 
 extern "C" {
@@ -439,8 +557,7 @@ extern "C" {
 // the route does not take them (every width but the last a multiple of 128,
 // at least one hidden layer, one output).
 long long siren_tc_workspace_bytes(int P, const int* dims, int n_layers) {
-  if (!supported(dims, n_layers) || P < 1) return -1;
-  return carve(nullptr, P, dims, n_layers).bytes;
+  return workspace_bytes(P, dims, n_layers, PLAN_LOSS_GRADS);
 }
 
 // K1 on the tensor cores: loss = inv_n * sum_{p < n_rows} (MLP(x)_p -
@@ -452,26 +569,10 @@ int siren_loss_grads_tc(const float* x, int P, int n_rows, const int* dims, int 
                         float* const* db, float* loss, cudaStream_t stream) {
   if (!supported(dims, n_layers) || P < 1) return -1;
   const int L = n_layers;
-  const Work w = carve(static_cast<char*>(work), P, dims, L);
-  int rc = split(x, (long long)P * dims[0], w.x, stream);
-  for (int l = 0; !rc && l + 1 < L; ++l)
-    rc = split(W[l], (long long)dims[l + 1] * dims[l], w.w[l], stream);
+  const Work w = carve(static_cast<char*>(work), P, dims, L, PLAN_LOSS_GRADS);
+  int rc = split_operands(w, x, P, dims, L, W, stream);
+  if (!rc) rc = forward_passes(w, P, dims, L, b, omegas, stream);
   if (rc) return rc;
-
-  // forward through the hidden layers
-  for (int l = 0; l + 1 < L; ++l) {
-    const bool last = l + 2 == L;
-    PassOut e{};
-    e.bias = b[l];
-    e.omega = omegas[l];
-    e.out_hi = last ? nullptr : const_cast<uint16_t*>(w.act[l].hi);
-    e.out_lo = last ? nullptr : const_cast<uint16_t*>(w.act[l].lo);
-    e.out_f32 = last ? w.a_last : nullptr;
-    e.F = w.F[l];
-    rc = gemm3<MODE_FWD>(l == 0 ? w.x : w.act[l - 1], dims[l], w.w[l], dims[l], P,
-                         dims[l + 1], dims[l], 1, dims[l], e, stream);
-    if (rc) return rc;
-  }
 
   // last layer, loss, and its dW (float32 column sums weighted by delta) and db
   const int D = dims[L - 1];
@@ -491,35 +592,65 @@ int siren_loss_grads_tc(const float* x, int P, int n_rows, const int* dims, int 
       w.delta_last, W[L - 1], w.F[L - 2], P, D, const_cast<uint16_t*>(w.delta[0].hi),
       const_cast<uint16_t*>(w.delta[0].lo));
   CHECK_LAUNCH();
+  return backward_passes(w, P, dims, L, dW, db, nullptr, stream);
+}
 
-  // backward through the hidden layers: delta_l in w.delta[cur]
-  int cur = 0;
-  for (int l = L - 2; l >= 0; --l) {
-    const int din = dims[l], dout = dims[l + 1];
-    const SplitPlan sp = dw_plan(dout, din, P);
-    PassOut e{};
-    e.out_f32 = w.partial;
-    e.split_stride = (long long)dout * din;
-    rc = gemm3<MODE_DW>(w.delta[cur], dout, l == 0 ? w.x : w.act[l - 1], din, dout, din, P,
-                        sp.splits, sp.k_split, e, stream);
-    if (rc) return rc;
-    LAUNCH(reduce_splits_kernel, cdiv((long long)dout * din, 256), 256, stream)(
-        w.partial, sp.splits, (long long)dout * din, 1.f, dW[l]);
-    CHECK_LAUNCH();
-    rc = colsum_planes_reduced(w.delta[cur], P, dout, db[l], w.partial, stream);
-    if (rc) return rc;
-    if (l > 0) {
-      PassOut c{};
-      c.out_hi = const_cast<uint16_t*>(w.delta[1 - cur].hi);
-      c.out_lo = const_cast<uint16_t*>(w.delta[1 - cur].lo);
-      c.F = w.F[l - 1];
-      rc = gemm3<MODE_CHAIN>(w.delta[cur], dout, w.w[l], din, P, din, dout, 1, dout, c,
-                             stream);
-      if (rc) return rc;
-      cur = 1 - cur;
-    }
-  }
+// Bytes of workspace siren_forward_tc needs, or -1 (as above).
+long long siren_forward_tc_workspace_bytes(int P, const int* dims, int n_layers) {
+  return workspace_bytes(P, dims, n_layers, PLAN_FORWARD);
+}
+
+// K3 on the tensor cores: out (P, 1) = MLP(x) for sine hidden layers
+// (omegas[l]) and a linear last layer; work: siren_forward_tc_workspace_bytes.
+int siren_forward_tc(const float* x, int P, const int* dims, int n_layers,
+                     const float* const* W, const float* const* b, const float* omegas,
+                     void* work, float* out, cudaStream_t stream) {
+  if (!supported(dims, n_layers) || P < 1) return -1;
+  const int L = n_layers;
+  const Work w = carve(static_cast<char*>(work), P, dims, L, PLAN_FORWARD);
+  int rc = split_operands(w, x, P, dims, L, W, stream);
+  if (!rc) rc = forward_passes(w, P, dims, L, b, omegas, stream);
+  if (rc) return rc;
+  const auto rowdot = rowdot_kernel<false>;
+  LAUNCH(rowdot, rowdot_blocks(P), ROWDOT_WARPS * 32, stream)(
+      w.a_last, P, dims[L - 1], W[L - 1], b[L - 1], out, nullptr, 0, 0.f, nullptr);
+  CHECK_LAUNCH();
   return 0;
+}
+
+// Bytes of workspace siren_fused_bwd_tc needs with dW (need_dw != 0) or
+// without, or -1 (as above).
+long long siren_fused_bwd_tc_workspace_bytes(int P, const int* dims, int n_layers,
+                                             int need_dw) {
+  return workspace_bytes(P, dims, n_layers, need_dw ? PLAN_LOSS_GRADS : PLAN_BWD_DX);
+}
+
+// K2 on the tensor cores: for g = dL/d out (P, 1), dx (P, d_0) unless dx is
+// null and every dW/db unless dW is null; work:
+// siren_fused_bwd_tc_workspace_bytes(..., dW != null) bytes.
+int siren_fused_bwd_tc(const float* x, int P, const int* dims, int n_layers,
+                       const float* const* W, const float* const* b, const float* omegas,
+                       const float* g, void* work, float* const* dW, float* const* db,
+                       float* dx, cudaStream_t stream) {
+  if (!supported(dims, n_layers) || P < 1) return -1;
+  const int L = n_layers;
+  const Work w = carve(static_cast<char*>(work), P, dims, L,
+                       dW != nullptr ? PLAN_LOSS_GRADS : PLAN_BWD_DX);
+  int rc = split_operands(w, x, P, dims, L, W, stream);
+  if (!rc) rc = forward_passes(w, P, dims, L, b, omegas, stream);
+  if (rc) return rc;
+  const int D = dims[L - 1];
+  if (dW != nullptr) {  // the last layer's dW (column sums weighted by g) and db
+    rc = colsum_reduced(w.a_last, P, D, g, dW[L - 1], w.partial, stream);
+    if (rc) return rc;
+    LAUNCH(sum_kernel, 1, 1024, stream)(g, (long long)P, 1.f, db[L - 1]);
+    CHECK_LAUNCH();
+  }
+  LAUNCH(outer_mul_split_kernel, EW_MAX_BLOCKS, EW_THREADS, stream)(
+      g, W[L - 1], w.F[L - 2], P, D, const_cast<uint16_t*>(w.delta[0].hi),
+      const_cast<uint16_t*>(w.delta[0].lo));
+  CHECK_LAUNCH();
+  return backward_passes(w, P, dims, L, dW, db, dx, stream);
 }
 
 }  // extern "C"

@@ -27,18 +27,19 @@ hidden layer or one per hidden layer (read only on sine layers).
 A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
-both, and ``siren_loss_grads_tc`` for the tensor-core route). The plain
-versions run on either device and are what the CPU tests and
+both; each kernel's tensor-core route under its own ``*_tc`` key). The
+plain versions run on either device and are what the CPU tests and
 ``chip_smoke.py`` hold the kernels against.
 
-K1's route, chosen from the shapes alone (:func:`tc_route`): a call with
-the plain Siren's activations (sine on every hidden layer, none on the
-last), no ``sample_weights``, no ``with_out_absmax``, and the input and
-every hidden width a multiple of 128 (:data:`TC_TILE`) runs on the tensor
-cores (``csrc/siren_tc.cu``: bf16x3 split products, float32 accumulation;
-the 3-D pipeline's 256 -> 512x4 -> 1); every other K1 call, and K2 and K3,
-on the SIMT kernels of ``csrc/siren.cu``. The route is not a fallback: a
-tensor-core launch that fails raises.
+The route, chosen from the shapes alone (:func:`tc_route`): a K1, K2 or K3
+call with the plain Siren's activations (sine on every hidden layer, none
+on the last), for K1 no ``sample_weights`` and no ``with_out_absmax``, and
+the input and every hidden width a multiple of 128 (:data:`TC_TILE`) runs
+on the tensor cores (``csrc/siren_tc.cu``: bf16x3 split products, float32
+accumulation; the 3-D pipeline's 256 -> 512x4 -> 1, for K2 with or without
+dW); every other call (ReLU codes, the 2-D ensemble's 64-wide Siren, odd
+widths) on the SIMT kernels of ``csrc/siren.cu``. The route is not a
+fallback: a tensor-core launch that fails raises.
 """
 from __future__ import annotations
 
@@ -55,7 +56,8 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_weighted": 0,
                             "siren_loss_grads_absmax": 0,
                             "siren_loss_grads_weighted_absmax": 0,
-                            "siren_loss_grads_tc": 0, "siren_fused_bwd": 0}
+                            "siren_loss_grads_tc": 0, "siren_fused_bwd": 0,
+                            "siren_forward_tc": 0, "siren_fused_bwd_tc": 0}
 
 ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
 TC_TILE = 128  # csrc/siren_tc.cu's block tile: every width but the output's a multiple
@@ -127,10 +129,10 @@ def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
 
 def tc_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
              absmax: bool = False) -> bool:
-    """Whether a K1 call on the card runs on the tensor-core route: the
-    plain Siren's activations, no sample weights, no max |out|, and
-    ``dims`` (input, hidden widths..., 1) with every width but the last a
-    multiple of :data:`TC_TILE`."""
+    """Whether a K1, K2 or K3 call on the card runs on the tensor-core
+    route: the plain Siren's activations, no sample weights and no max |out|
+    (K1's options), and ``dims`` (input, hidden widths..., 1) with every
+    width but the last a multiple of :data:`TC_TILE`."""
     return (not weighted and not absmax and len(dims) >= 3 and dims[-1] == 1
             and tuple(acts) == ("sine",) * (len(dims) - 2) + ("none",)
             and all(d % TC_TILE == 0 and d > 0 for d in dims[:-1]))
@@ -283,6 +285,14 @@ def _tc_declare(lib: ctypes.CDLL) -> None:
     lib.siren_tc_workspace_bytes.restype = ctypes.c_longlong
     lib.siren_loss_grads_tc.argtypes = [p, i, i, p, i, p, p, p, p, f, p, p, p, p, p]
     lib.siren_loss_grads_tc.restype = i
+    lib.siren_forward_tc_workspace_bytes.argtypes = [i, p, i]
+    lib.siren_forward_tc_workspace_bytes.restype = ctypes.c_longlong
+    lib.siren_forward_tc.argtypes = [p, i, p, i, p, p, p, p, p, p]
+    lib.siren_forward_tc.restype = i
+    lib.siren_fused_bwd_tc_workspace_bytes.argtypes = [i, p, i, i]
+    lib.siren_fused_bwd_tc_workspace_bytes.restype = ctypes.c_longlong
+    lib.siren_fused_bwd_tc.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p]
+    lib.siren_fused_bwd_tc.restype = i
 
 
 def _tc_lib() -> ctypes.CDLL:
@@ -357,13 +367,18 @@ def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream, acts=None
     return (loss, absmax, grads) if with_out_absmax else (loss, grads)
 
 
+def _tc_work(nbytes: int, a: _Args, what: str, like: torch.Tensor) -> torch.Tensor:
+    """The workspace of a tensor-core call, whose size query gave ``nbytes``
+    (-1: the route does not take these widths)."""
+    if nbytes < 0:
+        raise ValueError(f"the tensor-core {what} does not take widths {a.dims_list}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=like.device)
+
+
 def _launch_loss_grads_tc(lib, x, weights, target, omega, n_rows, stream):
     """K1 on the tensor-core route (the shapes :func:`tc_route` takes)."""
     a = _Args(x, weights, omega, None)
-    nbytes = int(lib.siren_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers))
-    if nbytes < 0:
-        raise ValueError(f"the tensor-core K1 does not take widths {a.dims_list}")
-    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    work = _tc_work(lib.siren_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers), a, "K1", x)
     grads = [torch.empty_like(w) for w in weights]
     loss = torch.empty((), dtype=x.dtype, device=x.device)
     rc = lib.siren_loss_grads_tc(
@@ -373,6 +388,35 @@ def _launch_loss_grads_tc(lib, x, weights, target, omega, n_rows, stream):
         loss.data_ptr(), stream)
     _build.raise_on(rc, "siren_loss_grads_tc")
     return loss, grads
+
+
+def _launch_forward_tc(lib, x, weights, omega, stream) -> torch.Tensor:
+    """K3 on the tensor-core route (the shapes :func:`tc_route` takes)."""
+    a = _Args(x, weights, omega, None)
+    work = _tc_work(lib.siren_forward_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers), a,
+                    "K3", x)
+    out = torch.empty(a.P, 1, dtype=x.dtype, device=x.device)
+    rc = lib.siren_forward_tc(x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b,
+                              a.ptr(a.omegas), work.data_ptr(), out.data_ptr(), stream)
+    _build.raise_on(rc, "siren_forward_tc")
+    return out
+
+
+def _launch_fused_bwd_tc(lib, x, weights, g, omega, need_dw, need_dx, stream):
+    """K2 on the tensor-core route (the shapes :func:`tc_route` takes)."""
+    a = _Args(x, weights, omega, None)
+    work = _tc_work(lib.siren_fused_bwd_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers,
+                                                           int(need_dw)), a, "K2", x)
+    grads = [torch.empty_like(w) for w in weights] if need_dw else None
+    dx = torch.empty_like(x) if need_dx else None
+    rc = lib.siren_fused_bwd_tc(
+        x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b, a.ptr(a.omegas),
+        g.data_ptr(), work.data_ptr(),
+        _build.ptr_array(grads[0::2]) if need_dw else None,
+        _build.ptr_array(grads[1::2]) if need_dw else None,
+        None if dx is None else dx.data_ptr(), stream)
+    _build.raise_on(rc, "siren_fused_bwd_tc")
+    return dx, grads
 
 
 def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream, acts=None):
@@ -402,12 +446,16 @@ def siren_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                   acts: Sequence[str] | None = None) -> torch.Tensor:
     """K3: the MLP output (P, 1)."""
     weights = list(weights)
-    _layer_dims(x, weights)
+    dims = _layer_dims(x, weights)
     acts = _acts(acts, len(weights) // 2)
     if _check(x, weights) == "cpu":
         return siren_forward_ref(x, weights, omega, acts)
-    out = _launch_forward(_lib(), x, [w.detach() for w in weights], omega,
-                          _build.stream_ptr(), acts)
+    weights = [w.detach() for w in weights]
+    if tc_route(dims, acts):
+        out = _launch_forward_tc(_tc_lib(), x, weights, omega, _build.stream_ptr())
+        LAUNCHES["siren_forward_tc"] += 1
+        return out
+    out = _launch_forward(_lib(), x, weights, omega, _build.stream_ptr(), acts)
     LAUNCHES["siren_forward"] += 1
     return out
 
@@ -456,14 +504,20 @@ def siren_fused_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """K2: ``(dx, grads)`` for the upstream gradient ``g`` (P, 1) of the MLP
     output; ``None`` in place of what was not asked for."""
     weights = list(weights)
-    _layer_dims(x, weights)
+    dims = _layer_dims(x, weights)
     acts = _acts(acts, len(weights) // 2)
     if g.shape != (x.shape[0], 1):
         raise ValueError(f"g must be ({x.shape[0]}, 1); got {tuple(g.shape)}")
     if _check(x, weights, g) == "cpu":
         return siren_fused_bwd_ref(x, weights, g, omega, need_dw, need_dx, acts)
-    out = _launch_fused_bwd(_lib(), x, [w.detach() for w in weights], g, omega,
-                            need_dw, need_dx, _build.stream_ptr(), acts)
+    weights = [w.detach() for w in weights]
+    if tc_route(dims, acts):
+        out = _launch_fused_bwd_tc(_tc_lib(), x, weights, g, omega, need_dw, need_dx,
+                                   _build.stream_ptr())
+        LAUNCHES["siren_fused_bwd_tc"] += 1
+        return out
+    out = _launch_fused_bwd(_lib(), x, weights, g, omega, need_dw, need_dx,
+                            _build.stream_ptr(), acts)
     LAUNCHES["siren_fused_bwd"] += 1
     return out
 

@@ -57,7 +57,8 @@ def test_kernels_launch_and_match_plain(card):
     assert tk.LAUNCHES == {"siren_forward": 1, "siren_loss_grads": 1,
                            "siren_loss_grads_weighted": 0, "siren_loss_grads_absmax": 0,
                            "siren_loss_grads_weighted_absmax": 0, "siren_loss_grads_tc": 0,
-                           "siren_fused_bwd": 1}
+                           "siren_fused_bwd": 1, "siren_forward_tc": 0,
+                           "siren_fused_bwd_tc": 0}
 
 
 @pytest.mark.cuda
@@ -78,6 +79,56 @@ def test_k1_tc_route_launches_and_matches_plain(card, dims, P, n_rows):
     loss2, grads2 = tk.siren_loss_grads(x, ws, target, n_rows=n_rows)
     assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
     assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_tc": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,P", [((256, 256, 256, 1), 1000), ((128, 384, 128, 1), 777),
+                                    ((256, 128, 1), 300)])
+def test_k2_k3_tc_route_launches_and_matches_plain(card, dims, P):
+    """K3 and K2 (with and without dW) at widths of the tensor-core route's
+    class launch under their ``*_tc`` keys (none on the SIMT route) and agree
+    with their plain versions (bf16x3 products: the output, dx and each
+    dW/db within 1e-4 of their largest magnitude); two calls give the same
+    bits."""
+    x, ws, _, g = _problem(card, P=P, dims=dims)
+    tk.reset_launches()
+    out = tk.siren_forward(x, ws)
+    ref = tk.siren_forward_ref(x, ws)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(out, tk.siren_forward(x, ws))
+    dx_r, grads_r = tk.siren_fused_bwd_ref(x, ws, g)
+    for need_dw in (False, True):
+        dx, grads = tk.siren_fused_bwd(x, ws, g, need_dw=need_dw)
+        got, want = [dx, *(grads or [])], [dx_r, *(grads_r if need_dw else [])]
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        dx2, grads2 = tk.siren_fused_bwd(x, ws, g, need_dw=need_dw)
+        assert all(torch.equal(a, b) for a, b in zip(got, [dx2, *(grads2 or [])]))
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward_tc": 2,
+                           "siren_fused_bwd_tc": 4}
+
+
+@pytest.mark.cuda
+def test_autograd_function_on_the_tc_route(card):
+    """siren_fused at a width of the route's class: K3 forward and K2
+    backward on the tensor cores, gradients for x and the weights (K2 with
+    dW) and for x alone (frozen weights, the PerturbNet step) against
+    autograd through the plain forward."""
+    x, ws, target, _ = _problem(card, P=777, dims=(128, 256, 256, 1))
+    xr = x.clone().requires_grad_()
+    wr = [w.clone().requires_grad_() for w in ws]
+    gr = torch.autograd.grad(torch.mean((tk.siren_forward_ref(xr, wr) - target) ** 2),
+                             [xr, *wr])
+    tk.reset_launches()
+    xk = x.clone().requires_grad_()
+    wk = [w.clone().requires_grad_() for w in ws]
+    gk = torch.autograd.grad(torch.mean((tk.siren_fused(xk, wk) - target) ** 2), [xk, *wk])
+    for a, b in zip(gk, gr):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    (gx,) = torch.autograd.grad(torch.mean((tk.siren_fused(xk, ws) - target) ** 2), xk)
+    assert float((gx - gr[0]).abs().max()) <= 1e-4 * float(gr[0].abs().max())
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward_tc": 2,
+                           "siren_fused_bwd_tc": 2}
 
 
 @pytest.mark.cuda

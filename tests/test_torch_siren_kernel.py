@@ -122,7 +122,7 @@ def test_cpu_runs_plain_versions_without_launching(setup):
     assert set(tk.LAUNCHES) == {"siren_forward", "siren_loss_grads",
                                 "siren_loss_grads_weighted", "siren_loss_grads_absmax",
                                 "siren_loss_grads_weighted_absmax", "siren_loss_grads_tc",
-                                "siren_fused_bwd"}
+                                "siren_fused_bwd", "siren_forward_tc", "siren_fused_bwd_tc"}
     assert not any(tk.LAUNCHES.values())
 
 

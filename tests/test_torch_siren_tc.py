@@ -1,10 +1,12 @@
-"""K1's tensor-core route on the CPU: which calls take it, the bf16x3 split
-its operands go through, and the plain version it is held against on the
-card, compared with the JAX package's Pallas kernel at a width of its class.
+"""K1-K3's tensor-core route on the CPU: which calls take it, the bf16x3
+split its operands go through, and the plain versions it is held against on
+the card, compared with the JAX package's Pallas kernels at a width of its
+class.
 
 The route itself (``csrc/siren_tc.cu``) runs here under the CUDA emulation
-(``tests/test_torch_cuda_emulated_siren_tc.py``) and on the card
-(``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+(``tests/test_torch_cuda_emulated_siren_tc.py`` for K1,
+``tests/test_torch_cuda_emulated_siren_tc_fwd.py`` for K3 and K2) and on
+the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -47,6 +49,29 @@ def test_route_rule(dims, acts, weighted, absmax, route):
     assert tk.tc_route(dims, acts, weighted, absmax) is route
 
 
+@pytest.mark.parametrize("dims,acts,route", [
+    # the 3-D pipeline's K3 (inference chunks, PerturbNet forward) and K2
+    # (PerturbNet backward) at the reference SIREN
+    ((256, 512, 512, 512, 512, 1), SIREN_ACTS(4), True),
+    ((256, 128, 1), SIREN_ACTS(1), True),
+    ((128, 256, 128, 1), SIREN_ACTS(2), True),
+    # SirenERD's trunk: ReLU codes stay on the SIMT K2/K3
+    ((2, 128, 128, 128, 128, 128, 1), ("sine",) * 4 + ("relu", "relu"), False),
+    ((256, 512, 512, 1), ("sine", "relu", "none"), False),
+    ((256, 512, 512, 1), ("sine", "sine", "relu"), False),
+    # the 2-D ensemble's 64-wide Siren, the small patient's, odd widths
+    ((2,) + (64,) * 7 + (1,), SIREN_ACTS(7), False),
+    ((32, 32, 1), SIREN_ACTS(1), False),
+    ((256, 500, 1), SIREN_ACTS(1), False),
+    ((100, 128, 1), SIREN_ACTS(1), False),
+    ((128, 128, 2), SIREN_ACTS(1), False),
+])
+def test_route_rule_k2_k3(dims, acts, route):
+    """K2 and K3 take the route by the same rule as K1, from the shapes and
+    activations alone (they have no sample weights or max |out|)."""
+    assert tk.tc_route(dims, acts) is route
+
+
 def test_route_of_the_models():
     """The port's models: the 3-D pipeline's Siren at its reference widths
     takes the tensor-core route; the 2-D ensemble's Siren 64x6 and the
@@ -61,6 +86,23 @@ def test_route_of_the_models():
     assert not tk.tc_route(dims_of(master, 2), master.acts, weighted=True)
     erd = SirenERD(2, 128, 3)
     assert not tk.tc_route(dims_of(erd, 2), erd.acts, absmax=True)
+
+
+def test_k2_k3_route_of_the_models():
+    """K2 and K3 of the port's models: the 3-D Siren's PerturbNet steps and
+    inference take the tensor-core route; SirenERD's trunk (ReLU codes) and
+    the 2-D ensemble's 64-wide Siren keep the SIMT kernels, with or without
+    K1's options."""
+    def dims_of(model, d_in):
+        return (d_in,) + tuple(int(w.shape[0]) for w in model.weights()[0::2])
+
+    ref = Siren(256, 512, 3)
+    assert tk.tc_route(dims_of(ref, 256), ref.acts)
+    for model in (Siren(2, 64, 6), SirenERD(2, 128, 3)):
+        assert not tk.tc_route(dims_of(model, 2), model.acts)
+    # SirenERD's ReLU codes alone keep it off the route, at any input width
+    erd = SirenERD(2, 128, 3)
+    assert not tk.tc_route((128,) + dims_of(erd, 2)[1:], erd.acts)
 
 
 def _bf16_rne_numpy(x32: np.ndarray) -> np.ndarray:
@@ -123,3 +165,56 @@ def test_plain_k1_matches_pallas_at_the_tc_width(tc_class, n_rows):
     for gt, gj in zip(dws_t, dws_j):
         gt = gt.T.numpy() if gt.dim() == 2 else gt.numpy()
         np.testing.assert_allclose(gt, np.asarray(gj), atol=5e-4)
+
+
+def test_plain_k3_matches_pallas_at_the_tc_width(tc_class):
+    """The plain K3 that the route is held against on the card agrees with
+    the Pallas ``siren_forward`` (interpret mode) at the tolerance of
+    ``tests/test_torch_siren_kernel.py`` (atol 2e-4), and on the CPU the
+    wrapper launches nothing."""
+    x, jws, tws, _ = tc_class
+    ref = np.asarray(jk.siren_forward(jnp.asarray(x), list(jws)))
+    tk.reset_launches()
+    got = tk.siren_forward(torch.as_tensor(x), tws)
+    assert not any(tk.LAUNCHES.values())
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4)
+    np.testing.assert_allclose(tk.siren_forward_ref(torch.as_tensor(x), tws).numpy(), ref,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("need_dw", [False, True])
+def test_plain_k2_matches_pallas_at_the_tc_width(tc_class, need_dw):
+    """The plain K2, with and without dW, agrees with the VJP of the Pallas
+    ``siren_fused`` (interpret mode) at the tolerances of
+    ``tests/test_torch_siren_kernel.py`` (dx atol 5e-3, dW atol 5e-4), and
+    on the CPU the wrapper launches nothing.
+
+    With g ~ N(0, 1) / 400, dx is at most about 7e-5, far below its atol; so
+    dx, and every dW and db, are also held to 1e-2 of their own largest
+    magnitude. The JAX kernel's bf16 stash of activations allows that: the
+    gap measured on the CPU is 1.7e-3 of max |dx| and at most 2.7e-3 of a
+    dW's."""
+    x, jws, tws, _ = tc_class
+    g = (np.random.default_rng(2).normal(size=(x.shape[0], 1)) / x.shape[0]).astype(np.float32)
+    gj = jnp.asarray(g)
+
+    def f(xx, ws):
+        return jnp.sum(jk.siren_fused(xx, ws, 30.0) * gj)
+
+    def close(got, want):
+        np.testing.assert_array_less(np.abs(got - want).max(), 1e-2 * np.abs(want).max())
+
+    dx_j, dws_j = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jws)
+    tk.reset_launches()
+    dx_t, dws_t = tk.siren_fused_bwd(torch.as_tensor(x), tws, torch.as_tensor(g),
+                                     need_dw=need_dw)
+    assert not any(tk.LAUNCHES.values())
+    np.testing.assert_allclose(dx_t.numpy(), np.asarray(dx_j), atol=5e-3)
+    close(dx_t.numpy(), np.asarray(dx_j))
+    if not need_dw:
+        assert dws_t is None
+        return
+    for gt, gjw in zip(dws_t, dws_j):
+        gt = gt.T.numpy() if gt.dim() == 2 else gt.numpy()
+        np.testing.assert_allclose(gt, np.asarray(gjw), atol=5e-4)
+        close(gt, np.asarray(gjw))
