@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
         [--master_seg 30]
 
 Phases, in order; any failure ends the run with a non-zero exit:
-1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``, ``csrc/wire.cu``,
+1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``,
+   ``csrc/siren_resident.cu``, ``csrc/wire.cu``, ``csrc/wire_tc.cu``,
    ``csrc/conv3d.cu`` and ``csrc/mma_probe.cu`` with nvcc (sm_90a), one
    process each, started together, and print the times and the compiler's
    register/spill report;
@@ -22,15 +23,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tensor-core route against the plain K1, loss by loss; a 10-step
    PerturbNet Adam trace over 3 acquisitions through the frozen flagship
    INR, K3/K2 on the tensor cores against autograd through the plain
-   forward, loss by loss; K1's sample-weighted variant at the 2-D
-   ensemble's 3,600 rows (2 -> 64x7 -> 1) and its absmax/ReLU variant at
+   forward, loss by loss; K1's sample-weighted variant on its
+   weight-resident route (``csrc/siren_resident.cu``) at the 2-D ensemble's
+   3,600 rows (2 -> 64x7 -> 1), twice for the same bits, with the SIMT K1-w
+   for the record, and its absmax/ReLU variant (SIMT) at
    the soft-ERD fit's 16,384 rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with
    ragged row counts and a collapsed output, and the SIMT K2/K3 with the
    ReLU codes;
    P1 ``mma_probe`` (``wgmma``) at one and three steps of its full shape,
    int8 exact and bf16 within float32 rounding; K5 ``wire_forward`` and K4 ``wire_loss_grads``
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
-   chunk and its tails (K5) and with 1234 masked rows (K4); K6
+   chunk and its tails (K5) and with 1234 masked rows (K4, on its
+   tensor-core route ``csrc/wire_tc.cu``, twice for the same bits, the SIMT
+   K4 for the record), and a 20-step Adam fit (lr 1e-3) of the WIRE path's
+   network from one init, K4's route against the plain K4, loss by loss; K6
    ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
    and on ragged shapes; K7 ``conv3d_rfab_bwd`` (dx, dW, db) at the seven
    shapes of the training path in bf16 and float32 and on ragged shapes;
@@ -47,7 +53,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with every launch count set to 0 just before each run, that each kernel
    of the path launched exactly as often as the schedule says (K1 and K4 on
    every mean step, K3 on every inference chunk and PN step and K2 on every
-   PN step, K1-K3 on their tensor-core route and the SIMT ones never, K5 on
+   PN step, K1-K4 on their tensor-core route and the SIMT ones never, K5 on
    every inference chunk) and no other kernel did; then ``pipelines.misr.run`` on
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
@@ -64,7 +70,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ROI 40:100, scale 3, AutoERD mode 1) on one seeded synthetic case (b0
    (128, 128, 24), 27 acquisitions (9, 9, 9)) with the steps cut to
    ``--master_steps`` and ``--master_seg``: CSV, DICOMs, finite outputs and
-   exactly steps x 27 K1-weighted launches and no other kernel; then the
+   exactly steps x 27 K1-weighted launches on the weight-resident route and
+   no other kernel (none of the SIMT K1-w); then the
    soft-ERD fit, ``cli/inr_erd.main`` at full width (SirenERD 128x3, 9
    acquisitions, one seed) on the same kind of volume with phase 1 run to
    the reference's 2e-5 (about 700 steps): CSV, checkpoints, and exactly one K1-absmax
@@ -75,23 +82,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
    bf16 and ``torch._int_mm`` over the same products for P1) and its bound
-   (K1-K3's tensor-core route: its bf16x3 products at the bf16 peak; the
-   SIMT K1-K3's times at the same shapes printed beside them, routes in
+   (K1-K4's tensor-core route: its bf16x3 products at the bf16 peak; the
+   SIMT K1-K4's times at the same shapes printed beside them, routes in
    turns, K3 also at the inference chunk; each one's device time by pass
-   under ``torch.profiler``);
+   under ``torch.profiler``; K1-weighted's two routes in turns and by
+   pass);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
    shape; P1 also at GRID 256, whose time must be about half; the
-   per-update costs of the two 2-D paths (a K1 call, an Adam step,
-   ``fit_until``'s per-step read-back); the 25-draw RAMS forward on both
+   per-update costs of the two 2-D paths (a K1 call on either route, an
+   Adam step, a whole update, ``fit_until``'s per-step read-back); the
+   25-draw RAMS forward on both
    routes; one full training step at batch 32 on both routes, whose losses
    over the same three steps from the same init differ by at most twice the
    cuDNN route's own bf16-vs-float32 gap; one forward and one step per route
    under ``torch.profiler`` for the device's busy time and idle share.
 
-The last three lines are the ``{"kernels": ...}`` record (K1-K3 on their
-tensor-core route, K4-K7, K1's weighted and absmax variants, P1 in bf16 and
-int8), the card's name and
+The last three lines are the ``{"kernels": ...}`` record (K1-K4 on their
+tensor-core route, K5-K7, K1's weighted variant on its weight-resident
+route and its absmax variant, P1 in bf16 and int8), the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
 no result, when no CUDA device is present.
 """
@@ -112,7 +121,8 @@ PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "siren_tc", "wire", "conv3d", "mma_probe")  # csrc/<name>.cu
+SOURCES = ("siren", "siren_tc", "siren_resident", "wire", "wire_tc", "conv3d",
+           "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
 # K1's tensor-core route (bf16x3 products) held to K1_K2_TOL too; a 20-step
@@ -129,6 +139,10 @@ K1_TRACE_STEPS, K1_TRACE_RTOL = 20, 5e-3
 PN_TRACE_STEPS, PN_TRACE_ACQ = 10, 3
 K5_TOL = 1e-4  # WIRE forward, as K3
 K4_TOL = 1e-3  # WIRE loss and every dW, as K1
+# K4's tensor-core route (bf16x3 products) held to K4_TOL too, and a
+# K1_TRACE_STEPS-step Adam fit at the WIRE fit's lr of 1e-3 from one init to
+# K1_TRACE_RTOL of the plain K4's losses, step by step
+K4_TRACE_LR = 1e-3
 E2E_ATOL = 1e-3  # small patient: card kernels vs plain path on the CPU
 # K6 float32: max |kernel - plain| / max |plain|; the two sum 27 C products
 # in other orders (the K1 class)
@@ -290,9 +304,11 @@ def phase_wire_parity(P: int) -> dict:
     512x2 width; returns max abs errors by kernel."""
     import torch
 
+    from mri_super_resolution_tpu_torch.ops import _build
     from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
-    errs = {"wire_forward": 0.0, "wire_loss_grads": 0.0}
+    errs = {"wire_forward": 0.0, "wire_loss_grads_tc": 0.0}
+    stream = _build.stream_ptr()
     for H in (256, 512):
         model, x, target = _wire_inputs(P, H, 2, seed=H)
         ws, _, oms = wk.split_params(model.params(), 2)
@@ -304,16 +320,33 @@ def phase_wire_parity(P: int) -> dict:
                   f"(tol rel {K5_TOL:g})")
             _require(r <= K5_TOL, f"K5 disagrees with its plain version (H={H}, P={n})")
             errs["wire_forward"] = max(errs["wire_forward"], e)
+        _require(wk.wire_tc_route(H, 2), f"K4 at H={H} is not of the tensor-core route's class")
         for n_rows in (P, P - 1234):
+            before = dict(wk.LAUNCHES)
             loss, grads = wk.wire_loss_grads(x, ws, oms, target, n_rows=n_rows)
+            again = wk.wire_loss_grads(x, ws, oms, target, n_rows=n_rows)
+            simt = wk._launch_loss_grads(wk._lib(), x, ws, oms, target, n_rows, stream)
             loss_r, grads_r = wk.wire_loss_grads_ref(x, ws, oms, target, n_rows=n_rows)
             torch.cuda.synchronize()
+            _require(wk.LAUNCHES == {**before,
+                                     "wire_loss_grads_tc": before["wire_loss_grads_tc"] + 2},
+                     f"K4 at H={H} did not take the tensor-core route")
             e, r = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
-            print(f"[parity] K4 wire_loss_grads H={H} n_rows={n_rows}: loss "
-                  f"{float(loss):.6e} vs {float(loss_r):.6e}; worst over loss/dW max "
-                  f"abs {e:.3e}, rel {r:.3e} (tol rel {K4_TOL:g})")
+            per = [_rel(a, b)[1] for a, b in zip(grads, grads_r)]
+            r_simt = _worst_rel([(simt[0], loss_r), *zip(simt[1], grads_r)])[1]
+            print(f"[parity] K4 wire_loss_grads H={H} n_rows={n_rows}, tensor-core route: loss "
+                  f"{float(loss):.6e} vs {float(loss_r):.6e} (rel "
+                  f"{_rel(loss, loss_r)[1]:.3e}); worst over loss/dW max abs {e:.3e}, rel "
+                  f"{r:.3e} (tol rel {K4_TOL:g}); by weight "
+                  f"{', '.join(f'{v:.1e}' for v in per)}; SIMT (csrc/wire.cu) rel "
+                  f"{r_simt:.3e}")
             _require(r <= K4_TOL, f"K4 disagrees with its plain version (H={H})")
-            errs["wire_loss_grads"] = max(errs["wire_loss_grads"], e)
+            _require(r_simt <= K4_TOL,
+                     f"the SIMT K4 (csrc/wire.cu) disagrees with its plain version (H={H})")
+            _require(torch.equal(loss, again[0])
+                     and all(torch.equal(a, b) for a, b in zip(grads, again[1])),
+                     "two tensor-core K4 calls differ: the reductions are not in a fixed order")
+            errs["wire_loss_grads_tc"] = max(errs["wire_loss_grads_tc"], e)
         del model, x, target
     return errs
 
@@ -512,6 +545,39 @@ def phase_k1_trace(P: int, dims) -> None:
     _require(rel <= K1_TRACE_RTOL and k[-1] < k[0], "K1's Adam trace departs from the plain one")
 
 
+def phase_k4_trace(P: int) -> None:
+    """K1_TRACE_STEPS Adam steps (lr K4_TRACE_LR, the WIRE fit's) at the
+    WIRE path's 4 -> 256x2 -> 1 on P rows from one init, K4 on its
+    tensor-core route against the plain K4 on the card; the losses step by
+    step."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.fit.optim import Adam
+    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
+
+    model, x, target = _wire_inputs(P, 256, 2, seed=5)
+    ws, _, oms = wk.split_params(model.params(), 2)
+    traces = {}
+    before = wk.LAUNCHES["wire_loss_grads_tc"]
+    for route, vag in (("kernel", wk.wire_loss_grads), ("plain", wk.wire_loss_grads_ref)):
+        params = [w.detach().clone() for w in ws]
+        opt = Adam(params, K4_TRACE_LR)
+        losses = []
+        for _ in range(K1_TRACE_STEPS):
+            loss, grads = vag(x, params, oms, target)
+            losses.append(loss)
+            opt.step(grads)
+        traces[route] = torch.stack(losses).tolist()
+    _require(wk.LAUNCHES["wire_loss_grads_tc"] == before + K1_TRACE_STEPS,
+             "the K4 trace did not run on the tensor-core route")
+    k, p = traces["kernel"], traces["plain"]
+    rel = max(abs(a / b - 1.0) for a, b in zip(k, p))
+    print(f"[parity] K4 {K1_TRACE_STEPS}-step Adam trace (lr {K4_TRACE_LR:g}) at 4 -> 256x2 "
+          f"-> 1, tensor-core route vs plain: loss {p[0]:.6e} -> {p[-1]:.6e} (plain), "
+          f"{k[-1]:.6e} (kernel); worst step rel {rel:.3e} (tol {K1_TRACE_RTOL:g})")
+    _require(rel <= K1_TRACE_RTOL and k[-1] < k[0], "K4's Adam trace departs from the plain one")
+
+
 def _master_inputs(seed: int):
     """The 2-D ensemble's K1 call on the card: a seeded Siren(2 -> 64x6) at
     its init, the 60 x 60 ROI grid, a target in Normalize(0.5, 0.5) space
@@ -557,32 +623,52 @@ def phase_k1_variant_parity() -> dict:
     errors by variant."""
     import torch
 
+    from mri_super_resolution_tpu_torch.ops import _build
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
     errs = {}
     model, x, target, sw = _master_inputs(seed=31)
     ws, acts = model.weights(), model.acts
+    dims = (2,) + (MASTER_HIDDEN,) * (MASTER_LAYERS + 1) + (1,)
+    _require(sk.resident_route(dims), "the 2-D ensemble's K1 is not of the resident route's class")
     worst_all = (0.0, 0.0)
     for n_rows in (MASTER_P, MASTER_P - 123):
+        before = dict(sk.LAUNCHES)
         loss, grads = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows,
                                           sample_weights=sw)
+        again = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows, sample_weights=sw)
+        simt = sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, n_rows,
+                                     _build.stream_ptr(), acts, sw)
         loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, n_rows, acts, sw)
         torch.cuda.synchronize()
+        _require(sk.LAUNCHES == {**before, "siren_loss_grads_weighted_resident":
+                                 before["siren_loss_grads_weighted_resident"] + 2},
+                 "K1-w did not take the weight-resident route")
         worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
-        print(f"[parity] K1 weighted P={MASTER_P} n_rows={n_rows}: loss {float(loss):.6e} vs "
-              f"{float(loss_r):.6e}; worst over loss/dW max abs {worst[0]:.3e}, rel "
-              f"{worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+        r_simt = _worst_rel([(simt[0], loss_r), *zip(simt[1], grads_r)])[1]
+        print(f"[parity] K1 weighted P={MASTER_P} n_rows={n_rows}, weight-resident route: loss "
+              f"{float(loss):.6e} vs {float(loss_r):.6e}; worst over loss/dW max abs "
+              f"{worst[0]:.3e}, rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g}); SIMT (csrc/siren.cu) "
+              f"rel {r_simt:.3e}")
         _require(worst[1] <= K1_K2_TOL, "K1 weighted disagrees with its plain version")
+        _require(r_simt <= K1_K2_TOL,
+                 "the SIMT K1-w (csrc/siren.cu) disagrees with its plain version")
+        _require(torch.equal(loss, again[0])
+                 and all(torch.equal(a, b) for a, b in zip(grads, again[1])),
+                 "two resident K1-w calls differ: the slots are not summed in a fixed order")
         worst_all = max(worst_all, worst)
-    errs["siren_loss_grads_weighted"] = worst_all[0]
+    errs["siren_loss_grads_weighted_resident"] = worst_all[0]
 
     worst_all = (0.0, 0.0)
     P = ERD_SIDE * ERD_SIDE
     for bias, n_rows in ((0.05, P), (0.05, P - 1234), (-10.0, P)):
         model, x, target = _erd_inputs(seed=32, last_bias=bias)
         ws, acts = model.weights(), model.acts
+        before = sk.LAUNCHES["siren_loss_grads_absmax"]
         loss, am, grads = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows,
                                               with_out_absmax=True)
+        _require(sk.LAUNCHES["siren_loss_grads_absmax"] == before + 1,
+                 "K1-a left the SIMT kernels")
         loss_r, am_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, n_rows, acts,
                                                         None, True)
         torch.cuda.synchronize()
@@ -685,11 +771,11 @@ def phase_small_2d() -> None:
         sk.reset_launches()
         outs[dev] = master2d.run_case(case, cfg, 0, device=dev)
         if dev == "cuda":
-            launches = sk.LAUNCHES["siren_loss_grads_weighted"]
+            launches = sk.LAUNCHES["siren_loss_grads_weighted_resident"]
     err = max(float(np.abs(outs["cuda"][d].superres - outs["cpu"][d].superres).max())
               for d in outs["cpu"])
-    print(f"[parity] small 2-D ensemble case, card K1-weighted vs CPU plain: superres max "
-          f"abs {err:.3e} (tol {E2E_ATOL:g}); K1-weighted launches {launches}")
+    print(f"[parity] small 2-D ensemble case, card K1-weighted (resident) vs CPU plain: "
+          f"superres max abs {err:.3e} (tol {E2E_ATOL:g}); K1-weighted launches {launches}")
     _require(err <= E2E_ATOL and launches == 6 * 27, "small 2-D ensemble case disagrees")
 
     runs = {}
@@ -1012,7 +1098,7 @@ def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _all_counts()
-    want = {"siren_loss_grads_weighted": steps * MASTER_ACQ}
+    want = {"siren_loss_grads_weighted_resident": steps * MASTER_ACQ}
     _check_only(launches, want, "2-D ensemble")
     rows = [ln.split(",") for ln in open(csv_path).read().splitlines()]
     _require(rows[0] == list(CONTRAST_HEADER) and len(rows) == 1 + 4 * 8 * 3,
@@ -1027,7 +1113,7 @@ def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
     print(f"[main master] cli.master.main() {wall:.1f} s for {steps} steps (seg {seg}) x "
           f"{MASTER_ACQ} acquisitions = {updates} updates, {1e3 * wall / updates:.3f} ms an "
           f"update end to end; launches {want}; superres contrast C by direction {superres}")
-    return {"siren_loss_grads_weighted": launches["siren_loss_grads_weighted"]}, wall
+    return want, wall
 
 
 def phase_erd_main(out_dir: str, threshold: float) -> dict:
@@ -1108,15 +1194,19 @@ def phase_probe_main(out_dir: str) -> dict:
 
 
 def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
-    """K1-weighted at the 2-D ensemble's shape and K1-absmax at the soft-ERD
-    fit's, beside their plain versions, eager autograd of the same loss and
-    their bounds; then the per-update costs of the two paths on the host
-    clock: a K1 call (its launches' host time included), an Adam step over
-    the same params, and ``fit_until``'s per-step read-back of the loss and
-    max |out| (200 steps with and without it)."""
+    """K1-weighted at the 2-D ensemble's shape (the weight-resident route)
+    and K1-absmax at the soft-ERD fit's, beside their plain versions, eager
+    autograd of the same loss and their bounds; K1-weighted's SIMT route in
+    turns with the resident one (CUDA events) and each one's device time
+    under ``torch.profiler``; then the per-update costs of the two paths on
+    the host clock: a K1 call on either route (its launches' host time
+    included), an Adam step over the same params, a whole update, and
+    ``fit_until``'s per-step read-back of the loss and max |out| (200 steps
+    with and without it)."""
     import torch
 
     from mri_super_resolution_tpu_torch.fit.optim import Adam
+    from mri_super_resolution_tpu_torch.ops import _build
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
     rows = []
@@ -1133,18 +1223,32 @@ def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
         loss = torch.mean(sw * (lib_model(x) - target) ** 2)
         torch.autograd.grad(loss, lib_params)
 
+    resident = lambda: sk.siren_loss_grads(x, ws, target, acts=acts, sample_weights=sw)
+    stream = _build.stream_ptr()
+    simt = lambda: sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, MASTER_P, stream,
+                                         acts, sw)
+    flops = 2 * MASTER_P * (2 * sum(macs) + sum(macs[1:]))
     rows.append(_time_row(
-        "siren_loss_grads_weighted", "siren", "siren_kernel.py:518",
-        lambda: sk.siren_loss_grads(x, ws, target, acts=acts, sample_weights=sw),
-        lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, sw), lib_weighted,
-        2 * MASTER_P * (2 * sum(macs) + sum(macs[1:])),
-        4 * x.numel() + 2 * wbytes + 8 * MASTER_P + 4, f"P={MASTER_P}", errs, launches))
-    opt = Adam([w.clone() for w in ws], 3e-4)
-    grads = sk.siren_loss_grads(x, ws, target, acts=acts, sample_weights=sw)[1]
+        "siren_loss_grads_weighted_resident", "siren_resident", "siren_kernel.py:518",
+        resident, lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, sw),
+        lib_weighted, flops, 4 * x.numel() + 2 * wbytes + 8 * MASTER_P + 4, f"P={MASTER_P}",
+        errs, launches))
+    res_ms, simt_ms = _best_alternating(resident, simt, 100, 2)
+    print(f"[times] K1-weighted at P={MASTER_P}, routes in turns (CUDA events, 100 calls, best "
+          f"of 2): weight-resident {res_ms:.4f} ms, SIMT (csrc/siren.cu) {simt_ms:.4f} ms; "
+          f"f32 bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
+    _passes("K1-weighted (weight-resident)", resident, calls=20)
+    _passes("K1-weighted (SIMT)", simt, calls=20)
+    params = [w.clone() for w in ws]
+    opt = Adam(params, 3e-4)
+    grads = resident()[1]
+
+    def update():
+        opt.step(sk.siren_loss_grads(x, params, target, acts=acts, sample_weights=sw)[1])
+
     host = {}
-    for what, fn in (("K1 call", lambda: sk.siren_loss_grads(x, ws, target, acts=acts,
-                                                              sample_weights=sw)),
-                     ("Adam step", lambda: opt.step(grads))):
+    for what, fn in (("K1 call", resident), ("SIMT K1 call", simt),
+                     ("Adam step", lambda: opt.step(grads)), ("update", update)):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1153,8 +1257,9 @@ def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
         torch.cuda.synchronize()
         host[what] = 1e3 * (time.perf_counter() - t0) / 500
     print(f"[times] 2-D ensemble update on the host clock (500 in a row): K1-weighted call "
-          f"{host['K1 call']:.3f} ms, Adam step ({len(ws)} tensors) {host['Adam step']:.3f} "
-          f"ms; kernel alone {rows[-1]['ms']:.3f} ms")
+          f"{host['K1 call']:.4f} ms (SIMT route {host['SIMT K1 call']:.4f} ms), Adam step "
+          f"({len(ws)} tensors) {host['Adam step']:.4f} ms, K1 + Adam "
+          f"{host['update']:.4f} ms; kernel alone {rows[-1]['ms']:.4f} ms (CUDA events)")
 
     model, x, target = _erd_inputs(seed=52, last_bias=0.05)
     ws, acts = model.weights(), model.acts
@@ -1619,7 +1724,8 @@ def _passes(what: str, fn, calls: int = 3) -> None:
     """Where a call's device time goes: ``calls`` calls under
     ``torch.profiler``, each kernel's summed time per call, largest first
     (the tensor-core route's forward, chain, dW and dx passes are the
-    ``gemm3_kernel`` templates 0, 1, 2 and 3)."""
+    ``gemm3_kernel`` templates 0, 1, 2 and 3; K4's forward, dW and dh passes
+    the ``wire_gemm_kernel`` templates 0, 2 and 3)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1710,7 +1816,7 @@ def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
     odd = sum(e % 2 for e in range(n1, epochs))
     pn_steps = 75 * (pn_epochs - odd)
     if inr_model == "wire":
-        return {"wire_loss_grads": n1 + odd, "wire_forward": 7}
+        return {"wire_loss_grads_tc": n1 + odd, "wire_forward": 7}
     return {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd_tc": pn_steps,
             "siren_forward_tc": pn_steps + 7}
 
@@ -1842,11 +1948,13 @@ def _wire_macs(d: int, H: int, nh: int) -> tuple[int, int, int]:
 
 
 def phase_wire_times(P: int, errs: dict, launches: dict) -> list[dict]:
-    """K4 at the main path's P rows and K5 at its 262,144-row inference
-    chunk (4 -> 256x2 -> 1), beside eager autograd of the Wire module; K4
-    at 512x2 and K5 at P rows printed for the record."""
+    """K4 (its tensor-core route, the SIMT K4 in turns, and by pass) at the
+    main path's P rows and K5 at its 262,144-row inference chunk (4 ->
+    256x2 -> 1), beside eager autograd of the Wire module; K4 at 512x2 and
+    K5 at P rows printed for the record."""
     import torch
 
+    from mri_super_resolution_tpu_torch.ops import _build
     from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
     rows = []
@@ -1862,12 +1970,25 @@ def phase_wire_times(P: int, errs: dict, launches: dict) -> list[dict]:
             loss = torch.mean((model(x) - target) ** 2)
             torch.autograd.grad(loss, ws)
 
+        flops = 2 * P * (fwd + dw + dh)
+        tc = lambda: wk.wire_loss_grads(x, ws, oms, target)
+        # the tensor-core route's bound: its bf16x3 products at the bf16 peak
         row = _time_row(
-            "wire_loss_grads", "wire", "wire_kernel.py:302",
-            lambda: wk.wire_loss_grads(x, ws, oms, target),
+            "wire_loss_grads_tc", "wire_tc", "wire_kernel.py:302", tc,
             lambda: wk.wire_loss_grads_ref(x, ws, oms, target), lib_loss_grads,
-            2 * P * (fwd + dw + dh), 4 * x.numel() + 4 * P + 2 * wbytes + 4, f"P={P}", errs,
-            launches)
+            3 * flops, 4 * x.numel() + 4 * P + 2 * wbytes + 4, f"P={P}", errs, launches,
+            peak=PEAK_BF16_TC)
+        stream = _build.stream_ptr()
+        tc_ms, simt_ms = _best_alternating(
+            tc, lambda: wk._launch_loss_grads(wk._lib(), x, ws, oms, target, P, stream), 5, 2)
+        print(f"[times] K4 at P={P} H={H}, routes in turns (best of 2): tensor-core "
+              f"{tc_ms:.3f} ms ({flops / tc_ms / 1e9:.1f} float32-equivalent TFLOP/s, "
+              f"{3 * flops / tc_ms / 1e9:.1f} TFLOP/s of bf16 products; bound "
+              f"{3 * flops / PEAK_BF16_TC * 1e3:.3f} ms), SIMT {simt_ms:.3f} ms "
+              f"({flops / simt_ms / 1e9:.1f} TFLOP/s; its f32 bound "
+              f"{flops / PEAK_F32_FLOPS * 1e3:.3f} ms)")
+        if record:
+            _passes("K4 (tensor-core route)", tc)
         gen = torch.Generator().manual_seed(H + 2)
         xc = (torch.rand(INFER_CHUNK, 4, generator=gen) * 2.0 - 1.0).cuda()
         for n, xn in ((P, x), (INFER_CHUNK, xc)):
@@ -2004,6 +2125,7 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_parity(P, dims)
     phase_k1_trace(P, dims)
+    phase_k4_trace(P)
     phase_pn_trace(P, dims)
     errs.update(phase_k1_variant_parity())
     errs.update(phase_probe_parity())

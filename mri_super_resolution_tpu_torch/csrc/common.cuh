@@ -12,9 +12,7 @@
 
 #include <cuda_runtime.h>
 
-#ifndef LAUNCH
-#define LAUNCH(kernel, grid, block, stream) kernel<<<(grid), (block), 0, (stream)>>>
-#endif
+#include "launch.cuh"
 
 #define CHECK_LAUNCH()                          \
   do {                                          \

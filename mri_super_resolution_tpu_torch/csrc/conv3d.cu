@@ -103,15 +103,8 @@
 #include <cstdint>
 #include <cstring>
 
+#include "launch.cuh"
 #include "tensor_core.cuh"
-
-#ifdef __CUDACC__
-#define LAUNCH(kernel, grid, block, stream) kernel<<<(grid), (block), 0, (stream)>>>
-#define LAUNCH_SMEM(kernel, grid, block, smem, stream) \
-  kernel<<<(grid), (block), (smem), (stream)>>>
-#else  // a host compiler (the CPU emulation): shared memory is a static array
-#define LAUNCH_SMEM(kernel, grid, block, smem, stream) LAUNCH(kernel, grid, block, stream)
-#endif
 
 namespace {
 

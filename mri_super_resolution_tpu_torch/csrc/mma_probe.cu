@@ -49,13 +49,6 @@
 #include "common.cuh"
 #include "tensor_core.cuh"
 
-#ifdef __CUDACC__
-#define LAUNCH_SMEM(kernel, grid, block, smem, stream) \
-  kernel<<<(grid), (block), (smem), (stream)>>>
-#else  // a host compiler (the CPU emulation): shared memory is a static array
-#define LAUNCH_SMEM(kernel, grid, block, smem, stream) LAUNCH(kernel, grid, block, stream)
-#endif
-
 namespace {
 
 constexpr int PT = 128;                // output tile rows and columns per block

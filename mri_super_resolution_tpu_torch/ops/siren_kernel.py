@@ -1,5 +1,6 @@
 """SIREN kernels K1-K3: wrappers over the hand-written CUDA kernels of
-``csrc/siren.cu`` and their plain PyTorch versions.
+``csrc/siren.cu``, ``csrc/siren_tc.cu`` and ``csrc/siren_resident.cu`` and
+their plain PyTorch versions.
 
 Counterpart of ``mri_super_resolution_tpu/ops/pallas/siren_kernel.py``:
 
@@ -27,7 +28,8 @@ hidden layer or one per hidden layer (read only on sine layers).
 A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
-both; each kernel's tensor-core route under its own ``*_tc`` key). The
+both, and per variant on the weight-resident route (``*_resident``); each
+kernel's tensor-core route under its own ``*_tc`` key). The
 plain versions run on either device and are what the CPU tests and
 ``chip_smoke.py`` hold the kernels against.
 
@@ -38,8 +40,13 @@ the input and every hidden width a multiple of 128 (:data:`TC_TILE`) runs
 on the tensor cores (``csrc/siren_tc.cu``: bf16x3 split products, float32
 accumulation; the 3-D pipeline's 256 -> 512x4 -> 1, for K2 with or without
 dW); every other call (ReLU codes, the 2-D ensemble's 64-wide Siren, odd
-widths) on the SIMT kernels of ``csrc/siren.cu``. The route is not a
-fallback: a tensor-core launch that fails raises.
+widths) on the SIMT kernels of ``csrc/siren.cu``, except that a K1 call
+off the tensor-core route whose weights and one 32-row tile's working set
+fit in one block's shared memory (:func:`resident_route`: the 2-D
+ensemble's 2 -> 64x7 -> 1 and other small MLPs, with any of K1's options)
+runs on the weight-resident kernel of ``csrc/siren_resident.cu``: two
+launches a call instead of about one a layer and pass. No route is a
+fallback: a launch that fails raises.
 """
 from __future__ import annotations
 
@@ -57,10 +64,17 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_absmax": 0,
                             "siren_loss_grads_weighted_absmax": 0,
                             "siren_loss_grads_tc": 0, "siren_fused_bwd": 0,
-                            "siren_forward_tc": 0, "siren_fused_bwd_tc": 0}
+                            "siren_forward_tc": 0, "siren_fused_bwd_tc": 0,
+                            "siren_loss_grads_resident": 0,
+                            "siren_loss_grads_weighted_resident": 0,
+                            "siren_loss_grads_absmax_resident": 0,
+                            "siren_loss_grads_weighted_absmax_resident": 0}
 
 ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
 TC_TILE = 128  # csrc/siren_tc.cu's block tile: every width but the output's a multiple
+# csrc/siren_resident.cu: rows a tile, layers at most, and the shared memory
+# a block may use on an H100 (bytes)
+RES_ROWS, RES_MAX_LAYERS, RES_SMEM_MAX = 32, 16, 232_448
 
 
 def reset_launches() -> None:
@@ -68,10 +82,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def loss_grads_key(weighted: bool, absmax: bool) -> str:
-    """The :data:`LAUNCHES` key of a K1 variant."""
+def loss_grads_key(weighted: bool, absmax: bool, resident: bool = False) -> str:
+    """The :data:`LAUNCHES` key of a K1 variant on the SIMT or the
+    weight-resident route."""
     return ("siren_loss_grads" + ("_weighted" if weighted else "")
-            + ("_absmax" if absmax else ""))
+            + ("_absmax" if absmax else "") + ("_resident" if resident else ""))
 
 
 # --------------------------------------------------------------------------
@@ -136,6 +151,34 @@ def tc_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
     return (not weighted and not absmax and len(dims) >= 3 and dims[-1] == 1
             and tuple(acts) == ("sine",) * (len(dims) - 2) + ("none",)
             and all(d % TC_TILE == 0 and d > 0 for d in dims[:-1]))
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def resident_smem_bytes(dims: Sequence[int]) -> int:
+    """Bytes of shared memory K1's weight-resident kernel needs for ``dims``
+    (input, hidden widths..., 1): every W and b zero-padded to widths of a
+    multiple of 4, a z stash of 32 rows a hidden layer and three 32-row
+    buffers at a row stride of the widest input or hidden width (padded so
+    that a lane's 16-byte reads fall in distinct banks), and the last
+    layer's 32 deltas; ``csrc/siren_resident.cu``'s ``make_plan``."""
+    L = len(dims) - 1
+    floats = sum(_pad4(dims[l + 1]) * (_pad4(dims[l]) + 1) for l in range(L))
+    stride = _pad4(max(dims[:-1]))
+    stride += 4 if (stride // 4) % 2 == 0 else 0
+    return 4 * (floats + (L + 2) * RES_ROWS * stride + RES_ROWS)
+
+
+def resident_route(dims: Sequence[int]) -> bool:
+    """Whether a K1 call off the tensor-core route runs on the
+    weight-resident kernel: at most :data:`RES_MAX_LAYERS` layers, one
+    output, and :func:`resident_smem_bytes` within one block's
+    :data:`RES_SMEM_MAX`. The options (sample weights, max |out|, the act
+    codes) do not matter."""
+    return (3 <= len(dims) <= RES_MAX_LAYERS + 1 and dims[-1] == 1
+            and resident_smem_bytes(dims) <= RES_SMEM_MAX)
 
 
 # --------------------------------------------------------------------------
@@ -299,6 +342,18 @@ def _tc_lib() -> ctypes.CDLL:
     return _build.library("siren_tc", _tc_declare)
 
 
+def _res_declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.siren_resident_work_floats.argtypes = [i, p, i]
+    lib.siren_resident_work_floats.restype = ctypes.c_longlong
+    lib.siren_loss_grads_resident.argtypes = [p, i, i, p, i, p, p, p, p, p, f, p, p, p]
+    lib.siren_loss_grads_resident.restype = i
+
+
+def _res_lib() -> ctypes.CDLL:
+    return _build.library("siren_resident", _res_declare)
+
+
 class _Args:
     """ctypes views of the shared arguments; keeps the arrays alive."""
 
@@ -390,6 +445,60 @@ def _launch_loss_grads_tc(lib, x, weights, target, omega, n_rows, stream):
     return loss, grads
 
 
+class _ResidentCall:
+    """The ctypes arguments of weight-resident K1 calls of one shape and
+    one set of codes and omegas, built once; each call fills in the
+    weights' pointers."""
+
+    def __init__(self, lib, P: int, dims: tuple, codes: tuple, omegas: tuple):
+        L = len(dims) - 1
+        self.L = L
+        self._arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_int * L)(*codes),
+                        (ctypes.c_float * (L - 1))(*omegas), (ctypes.c_void_p * (2 * L))())
+        self.dims, self.codes, self.omegas, self.ptrs_arg = (ctypes.cast(a, ctypes.c_void_p)
+                                                             for a in self._arrays)
+        self.ptrs = self._arrays[3]  # the weights' pointers, filled in each call
+        self.work = int(lib.siren_resident_work_floats(P, self.dims, L))
+        if self.work < 0:
+            raise ValueError(f"the weight-resident K1 does not take widths {list(dims)}")
+        # each grad's (shape, stride, offset) in the output buffer: W0, b0, W1, b1, ...
+        self.views, at = [], 0
+        for l in range(L):
+            for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
+                self.views.append((shape, stride, at))
+                at += int(torch.Size(shape).numel())
+        self.n_params = at
+
+
+_RESIDENT_CALLS: dict[tuple, _ResidentCall] = {}
+
+
+def _launch_loss_grads_resident(lib, x, weights, target, omega, n_rows, stream, acts=None,
+                                sample_weights=None, with_out_absmax=False):
+    """K1 on the weight-resident route (the widths :func:`resident_route`
+    takes): one workspace and one output buffer a call, whose views are the
+    returned loss, max |out| and grads."""
+    n = len(weights) // 2
+    dims = tuple(int(s) for s in x.shape[1:]) + tuple(int(w.shape[0]) for w in weights[0::2])
+    key = (int(x.shape[0]), dims, tuple(ACT_CODES[a] for a in _acts(acts, n)),
+           tuple(_omegas(omega, n - 1)))
+    call = _RESIDENT_CALLS.get((key, x.device))  # blocks a call: one an SM of the device
+    if call is None:
+        call = _RESIDENT_CALLS[key, x.device] = _ResidentCall(lib, *key)
+    call.ptrs[:] = [w.data_ptr() for w in weights]
+    work = torch.empty(call.work, dtype=x.dtype, device=x.device)
+    out = torch.empty(call.n_params + 2, dtype=x.dtype, device=x.device)
+    rc = lib.siren_loss_grads_resident(
+        x.data_ptr(), key[0], int(n_rows), call.dims, call.L, call.codes,
+        call.ptrs_arg, call.omegas, target.data_ptr(),
+        None if sample_weights is None else sample_weights.data_ptr(),
+        1.0 / (n_rows * target.shape[-1]), work.data_ptr(), out.data_ptr(), stream)
+    _build.raise_on(rc, "siren_loss_grads_resident")
+    grads = [out.as_strided(*v) for v in call.views]
+    loss = out[call.n_params]
+    return (loss, out[call.n_params + 1], grads) if with_out_absmax else (loss, grads)
+
+
 def _launch_forward_tc(lib, x, weights, omega, stream) -> torch.Tensor:
     """K3 on the tensor-core route (the shapes :func:`tc_route` takes)."""
     a = _Args(x, weights, omega, None)
@@ -469,9 +578,11 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     ``n_rows`` rows (default all), with ``grads`` matching ``weights``;
     ``sample_weights`` (P, 1) weighs each squared residual (the mean stays
     over ``n_rows``); ``with_out_absmax`` returns ``(loss, out_absmax,
-    grads)`` with ``out_absmax`` = max |MLP(x)| over those rows."""
+    grads)`` with ``out_absmax`` = max |MLP(x)| over those rows. On the
+    weight-resident route the loss, max |out| and grads are views of one
+    buffer that the call allocates."""
     weights = list(weights)
-    _layer_dims(x, weights)
+    dims = _layer_dims(x, weights)
     acts = _acts(acts, len(weights) // 2)
     if target.shape != (x.shape[0], 1):
         raise ValueError(f"target must be ({x.shape[0]}, 1); got {tuple(target.shape)}")
@@ -485,15 +596,18 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if _check(x, weights, target, *extra) == "cpu":
         return siren_loss_grads_ref(x, weights, target, omega, n_rows, acts,
                                     sample_weights, with_out_absmax)
-    if tc_route(_layer_dims(x, weights), acts, sample_weights is not None, with_out_absmax):
-        out = _launch_loss_grads_tc(_tc_lib(), x, [w.detach() for w in weights], target,
-                                    omega, n_rows, _build.stream_ptr())
+    weighted = sample_weights is not None
+    weights = [w.detach() for w in weights]
+    if tc_route(dims, acts, weighted, with_out_absmax):
+        out = _launch_loss_grads_tc(_tc_lib(), x, weights, target, omega, n_rows,
+                                    _build.stream_ptr())
         LAUNCHES["siren_loss_grads_tc"] += 1
         return out
-    out = _launch_loss_grads(_lib(), x, [w.detach() for w in weights], target, omega,
-                             n_rows, _build.stream_ptr(), acts, sample_weights,
-                             with_out_absmax)
-    LAUNCHES[loss_grads_key(sample_weights is not None, with_out_absmax)] += 1
+    resident = resident_route(dims)
+    launch = _launch_loss_grads_resident if resident else _launch_loss_grads
+    out = launch(_res_lib() if resident else _lib(), x, weights, target, omega, n_rows,
+                 _build.stream_ptr(), acts, sample_weights, with_out_absmax)
+    LAUNCHES[loss_grads_key(weighted, with_out_absmax, resident)] += 1
     return out
 
 

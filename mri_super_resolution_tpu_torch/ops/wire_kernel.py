@@ -1,5 +1,5 @@
 """WIRE kernels K4-K5: wrappers over the hand-written CUDA kernels of
-``csrc/wire.cu`` and their plain PyTorch versions.
+``csrc/wire.cu`` and ``csrc/wire_tc.cu`` and their plain PyTorch versions.
 
 Counterpart of ``mri_super_resolution_tpu/ops/pallas/wire_kernel.py``:
 
@@ -21,6 +21,15 @@ A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES`. The TPU kernel's VMEM gate (``wire_kernel_fits``) has no
 counterpart: the CUDA kernels take any width.
+
+The route, chosen from the shapes alone (:func:`wire_tc_route`): a K4 call
+with a hidden width H that is a multiple of 64 (:data:`WIRE_TC_STEP`) and at
+least one hidden layer (the reference's 4 -> 256x2 -> 1) runs on the tensor
+cores (``csrc/wire_tc.cu``: bf16x3 split products, float32 accumulation,
+the Gabor activation and its backward fused into the products' epilogues)
+under the ``wire_loss_grads_tc`` key; every other K4 call and every K5 call
+on the SIMT kernels of ``csrc/wire.cu``. The route is not a fallback: a
+tensor-core launch that fails raises.
 """
 from __future__ import annotations
 
@@ -33,7 +42,9 @@ from mri_super_resolution_tpu_torch.models.wire import FINAL_N, FIRST_N, HIDDEN_
 from mri_super_resolution_tpu_torch.ops import _build
 
 # one count per wrapper, bumped once per kernel launch on a CUDA tensor
-LAUNCHES: dict[str, int] = {"wire_forward": 0, "wire_loss_grads": 0}
+LAUNCHES: dict[str, int] = {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 0}
+
+WIRE_TC_STEP = 64  # csrc/wire_tc.cu: H a multiple of it, so 2H and 4H fill 128-wide tiles
 
 
 def reset_launches() -> None:
@@ -70,6 +81,13 @@ def _shapes(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
     return _build.check_tensors("WIRE", x, [*weights, *others], (torch.float32,))
+
+
+def wire_tc_route(H: int, n_hidden: int) -> bool:
+    """Whether a K4 call on the card runs on the tensor-core route: a hidden
+    width that is a multiple of :data:`WIRE_TC_STEP` and at least one hidden
+    layer (whose block products the route runs on the tensor cores)."""
+    return H > 0 and H % WIRE_TC_STEP == 0 and n_hidden >= 1
 
 
 # --------------------------------------------------------------------------
@@ -189,6 +207,18 @@ def _lib() -> ctypes.CDLL:
     return _build.library("wire", _declare)
 
 
+def _tc_declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.wire_tc_workspace_bytes.argtypes = [i, i, i, i]
+    lib.wire_tc_workspace_bytes.restype = ctypes.c_longlong
+    lib.wire_loss_grads_tc.argtypes = [p, i, i, i, i, i, p, p, p, f, p, p, p, p]
+    lib.wire_loss_grads_tc.restype = i
+
+
+def _tc_lib() -> ctypes.CDLL:
+    return _build.library("wire_tc", _tc_declare)
+
+
 def _launch_forward(lib, x, weights, omegas, stream) -> torch.Tensor:
     d, H, nh = _shapes(x, weights, omegas)
     P = int(x.shape[0])
@@ -228,6 +258,24 @@ def _launch_loss_grads(lib, x, weights, omegas, target, n_rows, stream):
     return loss, grads
 
 
+def _launch_loss_grads_tc(lib, x, weights, omegas, target, n_rows, stream):
+    """K4 on the tensor-core route (the shapes :func:`wire_tc_route` takes)."""
+    d, H, nh = _shapes(x, weights, omegas)
+    P = int(x.shape[0])
+    nbytes = int(lib.wire_tc_workspace_bytes(P, d, H, nh))
+    if nbytes < 0:
+        raise ValueError(f"the tensor-core K4 does not take width {H} with {nh} hidden layers")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    grads = [torch.empty_like(w) for w in weights]
+    loss = torch.empty((), dtype=x.dtype, device=x.device)
+    rc = lib.wire_loss_grads_tc(
+        x.data_ptr(), P, int(n_rows), d, H, nh, _build.ptr_array(weights), omegas.data_ptr(),
+        target.data_ptr(), 1.0 / (n_rows * target.shape[-1]), work.data_ptr(),
+        _build.ptr_array(grads), loss.data_ptr(), stream)
+    _build.raise_on(rc, "wire_loss_grads_tc")
+    return loss, grads
+
+
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
@@ -252,7 +300,7 @@ def wire_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """K4: ``(loss, grads)`` of ``mean((WIRE(x) - target)^2)`` over the first
     ``n_rows`` rows (default all), with ``grads`` matching ``weights``."""
     weights = list(weights)
-    _shapes(x, weights, omegas)
+    _, H, n_hidden = _shapes(x, weights, omegas)
     if target.shape != (x.shape[0], 1):
         raise ValueError(f"target must be ({x.shape[0]}, 1); got {tuple(target.shape)}")
     n_rows = x.shape[0] if n_rows is None else int(n_rows)
@@ -260,9 +308,11 @@ def wire_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError(f"n_rows {n_rows} outside (0, {x.shape[0]}]")
     if _check(x, weights, omegas, target) == "cpu":
         return wire_loss_grads_ref(x, weights, omegas, target, n_rows)
-    out = _launch_loss_grads(_lib(), x, [w.detach() for w in weights], omegas.detach(),
-                             target, n_rows, _build.stream_ptr())
-    LAUNCHES["wire_loss_grads"] += 1
+    tc = wire_tc_route(H, n_hidden)
+    launch = _launch_loss_grads_tc if tc else _launch_loss_grads
+    out = launch(_tc_lib() if tc else _lib(), x, [w.detach() for w in weights],
+                 omegas.detach(), target, n_rows, _build.stream_ptr())
+    LAUNCHES["wire_loss_grads_tc" if tc else "wire_loss_grads"] += 1
     return out
 
 

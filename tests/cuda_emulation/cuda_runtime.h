@@ -65,6 +65,17 @@ const int cudaSuccess = 0;
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+// one device with an H100's 132 SMs
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? 132 : 0;
+  return cudaSuccess;
+}
+
 namespace emu {
 
 // ---- fibers ----------------------------------------------------------------

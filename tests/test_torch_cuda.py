@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from mri_super_resolution_tpu_torch import set_float32_precision
-from mri_super_resolution_tpu_torch.models import RAMS, SirenERD, Wire
+from mri_super_resolution_tpu_torch.models import RAMS, Siren, SirenERD, Wire
 from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
 from mri_super_resolution_tpu_torch.ops import mma_probe as mp
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
@@ -39,26 +39,26 @@ def _problem(card, P=1000, dims=(64, 96, 96, 1), seed=1):
 @pytest.mark.cuda
 def test_kernels_launch_and_match_plain(card):
     """On a CUDA device each wrapper launches its kernel once (the counts
-    move) and agrees with its plain version, ragged rows and widths too."""
+    move) and agrees with its plain version, ragged rows and widths too; K1
+    at these widths takes the weight-resident route, and the SIMT K1 is held
+    at the same shapes through its launch code."""
     x, ws, target, g = _problem(card, P=1000, dims=(64, 96, 130, 1))
     tk.reset_launches()
     torch.testing.assert_close(tk.siren_forward(x, ws), tk.siren_forward_ref(x, ws),
                                rtol=1e-4, atol=1e-6)
-    loss, grads = tk.siren_loss_grads(x, ws, target, n_rows=900)
     loss_r, grads_r = tk.siren_loss_grads_ref(x, ws, target, n_rows=900)
-    torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
-    for a, b in zip(grads, grads_r):
-        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+    simt = tk._launch_loss_grads(tk._lib(), x, ws, target, 30.0, 900, 0)
+    for loss, grads in (tk.siren_loss_grads(x, ws, target, n_rows=900), simt):
+        torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
+        for a, b in zip(grads, grads_r):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
     dx, dws = tk.siren_fused_bwd(x, ws, g)
     dx_r, dws_r = tk.siren_fused_bwd_ref(x, ws, g)
     torch.testing.assert_close(dx, dx_r, rtol=1e-3, atol=1e-8)
     for a, b in zip(dws, dws_r):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-8)
-    assert tk.LAUNCHES == {"siren_forward": 1, "siren_loss_grads": 1,
-                           "siren_loss_grads_weighted": 0, "siren_loss_grads_absmax": 0,
-                           "siren_loss_grads_weighted_absmax": 0, "siren_loss_grads_tc": 0,
-                           "siren_fused_bwd": 1, "siren_forward_tc": 0,
-                           "siren_fused_bwd_tc": 0}
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward": 1,
+                           "siren_loss_grads_resident": 1, "siren_fused_bwd": 1}
 
 
 @pytest.mark.cuda
@@ -136,8 +136,9 @@ def test_autograd_function_on_the_tc_route(card):
                                                     (True, True, 999)])
 def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
     """K1 with sample weights and/or max |out| on a SirenERD trunk (ReLU
-    codes) launches once under its variant's key and agrees with its plain
-    version; K3 and K2 with the same codes too."""
+    codes) launches once under its variant's key (the weight-resident route
+    at these widths) and agrees with its plain version, and so does the SIMT
+    K1 through its launch code; K3 and K2 with the same codes too."""
     gen = torch.Generator().manual_seed(7)
     model = SirenERD(2, 64, 2, generator=gen).to(card)
     with torch.no_grad():
@@ -152,11 +153,14 @@ def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
                               with_out_absmax=absmax)
     want = tk.siren_loss_grads_ref(x, ws, t, 30.0, n_rows, acts, sw if weighted else None,
                                    absmax)
-    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
-    if absmax:
-        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
-    for a, b in zip(got[-1], want[-1]):
-        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+    simt = tk._launch_loss_grads(tk._lib(), x, ws, t, 30.0, n_rows, 0, acts,
+                                 sw if weighted else None, absmax)
+    for res in (got, simt):
+        torch.testing.assert_close(res[0], want[0], rtol=1e-4, atol=0)
+        if absmax:
+            torch.testing.assert_close(res[1], want[1], rtol=1e-5, atol=0)
+        for a, b in zip(res[-1], want[-1]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
     torch.testing.assert_close(tk.siren_forward(x, ws, acts=acts),
                                tk.siren_forward_ref(x, ws, acts=acts), rtol=1e-4, atol=1e-6)
     g = torch.randn(1000, 1, generator=gen).to(card) / 1000
@@ -164,9 +168,47 @@ def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
     dx_r, dws_r = tk.siren_fused_bwd_ref(x, ws, g, acts=acts)
     for a, b in zip([dx, *dws], [dx_r, *dws_r]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-7)
-    key = tk.loss_grads_key(weighted, absmax)
+    key = tk.loss_grads_key(weighted, absmax, resident=True)
     assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, key: 1, "siren_forward": 1,
                            "siren_fused_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n_rows", [(3600, 3600), (3600, 3477), (4300, 4300)])
+def test_k1_resident_route_at_the_ensemble_shape(card, P, n_rows):
+    """K1-w at the 2-D ensemble's Siren 2 -> 64x7 -> 1 (and past 132 row
+    tiles of 32) launches once under its resident key, agrees with its plain
+    version within the SIMT route's bars, and repeats bit for bit."""
+    gen = torch.Generator().manual_seed(P + n_rows)
+    model = Siren(2, 64, 6, generator=gen).to(card)
+    ws, acts = [w.detach() for w in model.weights()], model.acts
+    x = (torch.rand(P, 2, generator=gen) * 2 - 1).to(card)
+    t = (torch.rand(P, 1, generator=gen) * 2 - 1).to(card)
+    sw = (torch.rand(P, 1, generator=gen) > 0.1).float().to(card)
+    tk.reset_launches()
+    loss, grads = tk.siren_loss_grads(x, ws, t, acts=acts, n_rows=n_rows, sample_weights=sw)
+    loss_r, grads_r = tk.siren_loss_grads_ref(x, ws, t, 30.0, n_rows, acts, sw)
+    torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
+    for a, b in zip(grads, grads_r):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+    loss2, grads2 = tk.siren_loss_grads(x, ws, t, acts=acts, n_rows=n_rows, sample_weights=sw)
+    assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES},
+                           "siren_loss_grads_weighted_resident": 2}
+
+
+@pytest.mark.cuda
+def test_k1_absmax_off_the_resident_route(card):
+    """K1-a at the soft-ERD trunk's widths (about 270 KB of weights) does
+    not fit one block and keeps the SIMT kernels."""
+    gen = torch.Generator().manual_seed(3)
+    model = SirenERD(2, 128, 3, generator=gen).to(card)
+    ws, acts = [w.detach() for w in model.weights()], model.acts
+    x = (torch.rand(500, 2, generator=gen) * 2 - 1).to(card)
+    t = torch.rand(500, 1, generator=gen).to(card)
+    tk.reset_launches()
+    tk.siren_loss_grads(x, ws, t, acts=acts, with_out_absmax=True)
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_absmax": 1}
 
 
 @pytest.mark.cuda
@@ -236,7 +278,27 @@ def test_wire_kernels_launch_and_match_plain(card, P, H, nh, n_rows):
     torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
     for a, b in zip(grads, grads_r):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5 * float(b.abs().max()))
-    assert wk.LAUNCHES == {"wire_forward": 1, "wire_loss_grads": 1}
+    assert wk.LAUNCHES == {"wire_forward": 1, "wire_loss_grads": 1, "wire_loss_grads_tc": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,H,nh,n_rows", [(1000, 64, 2, 900), (777, 128, 1, 777),
+                                           (3000, 256, 2, 2990)])
+def test_wire_tc_route_launches_and_matches_plain(card, P, H, nh, n_rows):
+    """K4 at a width of the tensor-core route's class launches once under
+    its ``_tc`` key (none on the SIMT route), agrees with its plain version
+    (bf16x3 products: the loss and each dW/db within 1e-3 of its largest
+    magnitude, chip_smoke.py's K4_TOL) and repeats bit for bit."""
+    model, x, target = _wire(card, P, H, nh)
+    ws, _, oms = wk.split_params(model.params(), nh)
+    wk.reset_launches()
+    loss, grads = wk.wire_loss_grads(x, ws, oms, target, n_rows=n_rows)
+    loss_r, grads_r = wk.wire_loss_grads_ref(x, ws, oms, target, n_rows=n_rows)
+    for a, b in zip([loss, *grads], [loss_r, *grads_r]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    loss2, grads2 = wk.wire_loss_grads(x, ws, oms, target, n_rows=n_rows)
+    assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 2}
 
 
 @pytest.mark.cuda
@@ -255,7 +317,7 @@ def test_wire_engine_adapters_on_card(card):
     torch.testing.assert_close(moved, model(x), rtol=1e-4, atol=1e-6)
     loss, grads = wk.make_wire_value_and_grad(2)(params, x, target)
     assert len(grads) == len(params) and all(float(g) == 0 for g in grads[-6:])
-    assert wk.LAUNCHES == {"wire_forward": 2, "wire_loss_grads": 1}
+    assert wk.LAUNCHES == {"wire_forward": 2, "wire_loss_grads": 0, "wire_loss_grads_tc": 1}
 
 
 @pytest.mark.cuda

@@ -122,7 +122,11 @@ def test_cpu_runs_plain_versions_without_launching(setup):
     assert set(tk.LAUNCHES) == {"siren_forward", "siren_loss_grads",
                                 "siren_loss_grads_weighted", "siren_loss_grads_absmax",
                                 "siren_loss_grads_weighted_absmax", "siren_loss_grads_tc",
-                                "siren_fused_bwd", "siren_forward_tc", "siren_fused_bwd_tc"}
+                                "siren_fused_bwd", "siren_forward_tc", "siren_fused_bwd_tc",
+                                "siren_loss_grads_resident",
+                                "siren_loss_grads_weighted_resident",
+                                "siren_loss_grads_absmax_resident",
+                                "siren_loss_grads_weighted_absmax_resident"}
     assert not any(tk.LAUNCHES.values())
 
 

@@ -75,7 +75,8 @@ def test_route_rule_k2_k3(dims, acts, route):
 def test_route_of_the_models():
     """The port's models: the 3-D pipeline's Siren at its reference widths
     takes the tensor-core route; the 2-D ensemble's Siren 64x6 and the
-    soft-ERD SirenERD trunk stay on the SIMT kernels."""
+    soft-ERD SirenERD trunk stay off it (K1 of the first takes the
+    weight-resident route, the second the SIMT kernels)."""
     def dims_of(model, d_in):
         ws = model.weights()
         return (d_in,) + tuple(int(w.shape[0]) for w in ws[0::2])
@@ -86,6 +87,36 @@ def test_route_of_the_models():
     assert not tk.tc_route(dims_of(master, 2), master.acts, weighted=True)
     erd = SirenERD(2, 128, 3)
     assert not tk.tc_route(dims_of(erd, 2), erd.acts, absmax=True)
+
+
+@pytest.mark.parametrize("dims,route", [
+    ((2,) + (64,) * 7 + (1,), True),  # K1-w: the 2-D ensemble's Siren 2 -> 64x7 -> 1
+    ((32, 32, 1), True),  # the small patient's
+    ((3, 10, 7, 1), True), ((2,) + (72,) * 7 + (1,), True),
+    ((2, 128, 128, 128, 128, 128, 1), False),  # K1-a: the soft-ERD trunk, ~270 KB of weights
+    ((256, 512, 512, 512, 512, 1), False),  # the flagship
+    ((2,) + (80,) * 7 + (1,), False),  # just over one block's shared memory
+    ((2,) + (4,) * 17 + (1,), False),  # more layers than the kernel's plan holds
+])
+def test_resident_route_rule(dims, route):
+    """K1 off the tensor-core route takes the weight-resident route when its
+    plan fits one block's shared memory, from the widths alone; the plan of
+    the 2-D ensemble's Siren is 189,328 bytes of the H100's 232,448."""
+    assert tk.resident_route(dims) is route
+    assert (tk.resident_smem_bytes(dims) <= tk.RES_SMEM_MAX) is (route or len(dims) > 17)
+    assert tk.resident_smem_bytes((2,) + (64,) * 7 + (1,)) == 189_328
+
+
+def test_resident_route_of_the_models():
+    """The 2-D ensemble's Siren(2, 64, 6) takes the weight-resident route;
+    the soft-ERD SirenERD(2, 128, 3) trunk and the 3-D pipeline's Siren do
+    not (the latter takes the tensor-core route first)."""
+    def dims_of(model, d_in):
+        return (d_in,) + tuple(int(w.shape[0]) for w in model.weights()[0::2])
+
+    assert tk.resident_route(dims_of(Siren(2, 64, 6), 2))
+    assert not tk.resident_route(dims_of(SirenERD(2, 128, 3), 2))
+    assert not tk.resident_route(dims_of(Siren(256, 512, 3), 256))
 
 
 def test_k2_k3_route_of_the_models():

@@ -193,7 +193,18 @@ def test_cpu_runs_plain_versions_without_launching(setup):
     x, t = torch.as_tensor(setup["x"]), torch.as_tensor(setup["target"])
     wk.wire_forward(x, setup["ws"], setup["oms"])
     wk.wire_loss_grads(x, setup["ws"], setup["oms"], t)
-    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0}
+    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 0}
+
+
+@pytest.mark.parametrize("H,n_hidden,route", [
+    (256, 2, True),  # the reference's WIRE (config.py wire_hidden, wire_layers)
+    (512, 2, True), (64, 1, True), (128, 3, True),
+    (100, 2, False), (96, 2, False), (32, 2, False),  # 2H or 4H off the 128 tile
+    (256, 0, False),  # no hidden layer: no block products
+])
+def test_wire_tc_route_rule(H, n_hidden, route):
+    """K4's tensor-core route is chosen from the shapes alone."""
+    assert wk.wire_tc_route(H, n_hidden) is route
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(setup):
