@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any failure ends the run with a non-zero exit:
 1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``,
-   ``csrc/siren_resident.cu``, ``csrc/wire.cu``, ``csrc/wire_tc.cu``,
+   ``csrc/siren_resident.cu``, ``csrc/siren_stream.cu``, ``csrc/wire.cu``,
+   ``csrc/wire_tc.cu``,
    ``csrc/conv3d.cu`` and ``csrc/mma_probe.cu`` with nvcc (sm_90a), one
    process each, started together, and print the times and the compiler's
    register/spill report;
@@ -26,16 +27,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    forward, loss by loss; K1's sample-weighted variant on its
    weight-resident route (``csrc/siren_resident.cu``) at the 2-D ensemble's
    3,600 rows (2 -> 64x7 -> 1), twice for the same bits, with the SIMT K1-w
-   for the record, and its absmax/ReLU variant (SIMT) at
-   the soft-ERD fit's 16,384 rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with
-   ragged row counts and a collapsed output, and the SIMT K2/K3 with the
-   ReLU codes;
+   for the record, and its absmax/ReLU variant K1-a on its streaming
+   tensor-core route (``csrc/siren_stream.cu``) at the soft-ERD fit's 16,384
+   rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with ragged row counts, with and
+   without sample weights and with a collapsed output (max |out| exactly
+   0), twice for the same bits, the SIMT K1-a for the record; a 20-step Adam
+   fit at phase 1's lr (3e-4) of that network from one init, K1-a's route
+   against the plain K1-a, loss by loss; and the SIMT K2/K3 with the ReLU
+   codes;
    P1 ``mma_probe`` (``wgmma``) at one and three steps of its full shape,
    int8 exact and bf16 within float32 rounding; K5 ``wire_forward`` and K4 ``wire_loss_grads``
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
-   chunk and its tails (K5) and with 1234 masked rows (K4, on its
+   chunk and its tails (K5) and with 1234 masked rows (K4), both on their
    tensor-core route ``csrc/wire_tc.cu``, twice for the same bits, the SIMT
-   K4 for the record), and a 20-step Adam fit (lr 1e-3) of the WIRE path's
+   ones for the record, and a 20-step Adam fit (lr 1e-3) of the WIRE path's
    network from one init, K4's route against the plain K4, loss by loss; K6
    ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
    and on ragged shapes; K7 ``conv3d_rfab_bwd`` (dx, dW, db) at the seven
@@ -53,8 +58,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with every launch count set to 0 just before each run, that each kernel
    of the path launched exactly as often as the schedule says (K1 and K4 on
    every mean step, K3 on every inference chunk and PN step and K2 on every
-   PN step, K1-K4 on their tensor-core route and the SIMT ones never, K5 on
-   every inference chunk) and no other kernel did; then ``pipelines.misr.run`` on
+   PN step, K5 on every inference chunk, K1-K5 on their tensor-core route
+   and the SIMT ones never) and no other kernel did; then ``pipelines.misr.run`` on
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
    ``conv_kernel=True``: DICOMs, timings.json, finite (384, 384) outputs in
@@ -75,7 +80,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    soft-ERD fit, ``cli/inr_erd.main`` at full width (SirenERD 128x3, 9
    acquisitions, one seed) on the same kind of volume with phase 1 run to
    the reference's 2e-5 (about 700 steps): CSV, checkpoints, and exactly one K1-absmax
-   launch per phase-1 step and no other kernel; then the P1 probe,
+   launch on the streaming route per phase-1 step and no other kernel (none
+   of the SIMT K1-a); then phase 1 on that case's target from one init on
+   the streaming and the SIMT route in turns: both stop steps, restart
+   lists and wall-clocks printed side by side; then the P1 probe,
    ``cli/int8_mma_probe.main`` at its full shape (T 384, H 512, REPS 8,
    GRID 512): the JAX probe's JSON keys and 11 launches per type;
 4. times: each kernel at its main path's shapes with CUDA events, beside
@@ -83,24 +91,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
    bf16 and ``torch._int_mm`` over the same products for P1) and its bound
    (K1-K4's tensor-core route: its bf16x3 products at the bf16 peak; the
-   SIMT K1-K4's times at the same shapes printed beside them, routes in
+   SIMT K1-K5's times at the same shapes printed beside them, routes in
    turns, K3 also at the inference chunk; each one's device time by pass
-   under ``torch.profiler``; K1-weighted's two routes in turns and by
-   pass);
+   under ``torch.profiler``, K5 at the inference chunk too; K1-weighted's
+   and K1-absmax's two routes in turns and by pass);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
    shape; P1 also at GRID 256, whose time must be about half; the
    per-update costs of the two 2-D paths (a K1 call on either route, an
-   Adam step, a whole update, ``fit_until``'s per-step read-back); the
+   Adam step, a whole update, ``fit_until``'s per-step read-back, the
+   soft-ERD step on both K1-a routes); the
    25-draw RAMS forward on both
    routes; one full training step at batch 32 on both routes, whose losses
    over the same three steps from the same init differ by at most twice the
    cuDNN route's own bf16-vs-float32 gap; one forward and one step per route
    under ``torch.profiler`` for the device's busy time and idle share.
 
-The last three lines are the ``{"kernels": ...}`` record (K1-K4 on their
-tensor-core route, K5-K7, K1's weighted variant on its weight-resident
-route and its absmax variant, P1 in bf16 and int8), the card's name and
+The last three lines are the ``{"kernels": ...}`` record (K1-K5 on their
+tensor-core route, K6-K7, K1's weighted variant on its weight-resident
+route and its absmax variant on its streaming route, P1 in bf16 and int8),
+the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
 no result, when no CUDA device is present.
 """
@@ -121,7 +131,7 @@ PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "siren_tc", "siren_resident", "wire", "wire_tc", "conv3d",
+SOURCES = ("siren", "siren_tc", "siren_resident", "siren_stream", "wire", "wire_tc", "conv3d",
            "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
@@ -188,7 +198,11 @@ MASTER_ACQ = 27  # acquisitions (9, 9, 9): one K1-weighted launch each per step
 # the soft-ERD fit's K1 call: a 128 x 128 slice, SirenERD 2 -> 128x4 -> 128 -> 1
 ERD_SIDE, ERD_HIDDEN, ERD_LAYERS = 128, 128, 3
 ERD_THRESHOLD = 2e-5  # INRERDConfig.loss_threshold, the reference's
+ERD_LR = 3e-4  # INRERDConfig.pretrain_lr: phase 1's Adam
 K1_ABSMAX_TOL = 1e-5  # max |out|: the max is exact, the outputs it reads are float32 sums
+# K1-a's loss on the streaming route (bf16x3 products): within 1e-5 relative
+# (a CPU model of the split at SirenERD's init: 1.8e-7)
+K1A_LOSS_RTOL = 1e-5
 # P1 at the JAX probe's shape
 PROBE_T, PROBE_H, PROBE_REPS, PROBE_GRID = 384, 512, 8, 512
 PROBE_CALLS = 10  # timed calls of the probe CLI, after one untimed
@@ -307,7 +321,7 @@ def phase_wire_parity(P: int) -> dict:
     from mri_super_resolution_tpu_torch.ops import _build
     from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
-    errs = {"wire_forward": 0.0, "wire_loss_grads_tc": 0.0}
+    errs = {"wire_forward_tc": 0.0, "wire_loss_grads_tc": 0.0}
     stream = _build.stream_ptr()
     for H in (256, 512):
         model, x, target = _wire_inputs(P, H, 2, seed=H)
@@ -315,11 +329,22 @@ def phase_wire_parity(P: int) -> dict:
         gen = torch.Generator().manual_seed(H + 1)
         for n in (P, INFER_CHUNK, 1_120_000 % INFER_CHUNK, 280_000 % INFER_CHUNK):
             xn = x if n == P else (torch.rand(n, 4, generator=gen) * 2.0 - 1.0).cuda()
-            e, r = _rel(wk.wire_forward(xn, ws, oms), wk.wire_forward_ref(xn, ws, oms))
-            print(f"[parity] K5 wire_forward H={H} P={n}: max abs {e:.3e}, rel {r:.3e} "
-                  f"(tol rel {K5_TOL:g})")
+            before = dict(wk.LAUNCHES)
+            out = wk.wire_forward(xn, ws, oms)
+            again = wk.wire_forward(xn, ws, oms)
+            _require(wk.LAUNCHES == {**before, "wire_forward_tc": before["wire_forward_tc"] + 2},
+                     f"K5 at H={H} did not take the tensor-core route")
+            ref = wk.wire_forward_ref(xn, ws, oms)
+            e, r = _rel(out, ref)
+            r_simt = _rel(wk._launch_forward(wk._lib(), xn, ws, oms, stream), ref)[1]
+            print(f"[parity] K5 wire_forward H={H} P={n}, tensor-core route: max abs {e:.3e}, "
+                  f"rel {r:.3e} (tol rel {K5_TOL:g}); SIMT (csrc/wire.cu) rel {r_simt:.3e}")
             _require(r <= K5_TOL, f"K5 disagrees with its plain version (H={H}, P={n})")
-            errs["wire_forward"] = max(errs["wire_forward"], e)
+            _require(r_simt <= K5_TOL,
+                     f"the SIMT K5 (csrc/wire.cu) disagrees with its plain version (H={H})")
+            _require(torch.equal(out, again), "two tensor-core K5 calls differ")
+            errs["wire_forward_tc"] = max(errs["wire_forward_tc"], e)
+            del xn, out, again, ref
         _require(wk.wire_tc_route(H, 2), f"K4 at H={H} is not of the tensor-core route's class")
         for n_rows in (P, P - 1234):
             before = dict(wk.LAUNCHES)
@@ -661,31 +686,54 @@ def phase_k1_variant_parity() -> dict:
 
     worst_all = (0.0, 0.0)
     P = ERD_SIDE * ERD_SIDE
-    for bias, n_rows in ((0.05, P), (0.05, P - 1234), (-10.0, P)):
+    dims = (2,) + (ERD_HIDDEN,) * (ERD_LAYERS + 2) + (1,)
+    gen = torch.Generator().manual_seed(34)
+    sw = (torch.rand(P, 1, generator=gen) > 0.1).float().cuda()
+    for bias, n_rows, weights in ((0.05, P, None), (0.05, P - 1234, None), (0.05, P, sw),
+                                  (0.05, P - 1234, sw), (-10.0, P, None), (-10.0, P, sw)):
         model, x, target = _erd_inputs(seed=32, last_bias=bias)
         ws, acts = model.weights(), model.acts
-        before = sk.LAUNCHES["siren_loss_grads_absmax"]
-        loss, am, grads = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows,
-                                              with_out_absmax=True)
-        _require(sk.LAUNCHES["siren_loss_grads_absmax"] == before + 1,
-                 "K1-a left the SIMT kernels")
+        _require(sk.k1_route(dims, acts, weights is not None, True) == "stream",
+                 "K1-a is not of the streaming route's class")
+        key = sk.loss_grads_key(weights is not None, True, "stream")
+        before = dict(sk.LAUNCHES)
+        got = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows,
+                                  sample_weights=weights, with_out_absmax=True)
+        again = sk.siren_loss_grads(x, ws, target, acts=acts, n_rows=n_rows,
+                                    sample_weights=weights, with_out_absmax=True)
+        _require(sk.LAUNCHES == {**before, key: before[key] + 2},
+                 "K1-a did not take the streaming route")
+        simt = sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, n_rows,
+                                     _build.stream_ptr(), acts, weights, True)
         loss_r, am_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, n_rows, acts,
-                                                        None, True)
+                                                        weights, True)
         torch.cuda.synchronize()
+        loss, am, grads = got
         worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
-        am_rel = _rel(am, am_r)[1]
-        print(f"[parity] K1 absmax/ReLU P={P} n_rows={n_rows} last bias {bias:g}: loss "
-              f"{float(loss):.6e} vs {float(loss_r):.6e}; max |out| {float(am):.6e} vs "
-              f"{float(am_r):.6e} (rel {am_rel:.2e}, tol {K1_ABSMAX_TOL:g}); worst over "
-              f"loss/dW max abs {worst[0]:.3e}, rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+        loss_rel, am_rel = _rel(loss, loss_r)[1], _rel(am, am_r)[1]
+        r_simt = _worst_rel([(simt[0], loss_r), *zip(simt[2], grads_r)])[1]
+        print(f"[parity] K1 absmax/ReLU P={P} n_rows={n_rows} last bias {bias:g} "
+              f"{'weighted' if weights is not None else 'unweighted'}, streaming route: loss "
+              f"{float(loss):.6e} vs {float(loss_r):.6e} (rel {loss_rel:.2e}, tol "
+              f"{K1A_LOSS_RTOL:g}); max |out| {float(am):.6e} vs {float(am_r):.6e} (rel "
+              f"{am_rel:.2e}, tol {K1_ABSMAX_TOL:g}); worst over loss/dW max abs "
+              f"{worst[0]:.3e}, rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g}); SIMT "
+              f"(csrc/siren.cu) rel {r_simt:.3e}, max |out| {float(simt[1]):.6e}")
+        _require(all(torch.equal(a, b) for a, b in zip([loss, am, *grads],
+                                                        [again[0], again[1], *again[2]])),
+                 "two streaming K1-a calls differ: the slots are not summed in a fixed order")
         if bias < 0:
-            _require(float(am) == 0.0 and all(float(g.abs().max()) == 0.0 for g in grads),
+            _require(float(am) == 0.0 and all(float(g.abs().max()) == 0.0 for g in grads)
+                     and float(simt[1]) == 0.0,
                      "a collapsed output must give max |out| 0 and zero gradients")
         else:
-            _require(worst[1] <= K1_K2_TOL and am_rel <= K1_ABSMAX_TOL,
+            _require(worst[1] <= K1_K2_TOL and am_rel <= K1_ABSMAX_TOL
+                     and loss_rel <= K1A_LOSS_RTOL,
                      "K1 absmax disagrees with its plain version")
+            _require(r_simt <= K1_K2_TOL,
+                     "the SIMT K1-a (csrc/siren.cu) disagrees with its plain version")
             worst_all = max(worst_all, worst, (float((am - am_r).abs()), am_rel))
-    errs["siren_loss_grads_absmax"] = worst_all[0]
+    errs["siren_loss_grads_absmax_stream"] = worst_all[0]
 
     # the SIMT K3 and K2 (csrc/siren.cu), which every call off the
     # tensor-core route's class takes
@@ -1116,11 +1164,12 @@ def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
     return want, wall
 
 
-def phase_erd_main(out_dir: str, threshold: float) -> dict:
+def phase_erd_main(out_dir: str, threshold: float) -> tuple[dict, tuple]:
     """The soft-ERD fit: ``cli/inr_erd.main`` at full width (SirenERD
     128x3, 9 acquisitions synthesised from the volume, one seed) with phase
     1 stopped at ``threshold``; each case's result recorded. Every launch
-    count is set to 0 just before the run and read just after."""
+    count is set to 0 just before the run and read just after. Returns the
+    launches and phase 1's (lr, coords, target)."""
     import numpy as np
     import torch
 
@@ -1130,15 +1179,19 @@ def phase_erd_main(out_dir: str, threshold: float) -> dict:
 
     data_dir = os.path.join(out_dir, "data")
     _write_2d_volume(data_dir, seed=42, erd_map=False)
-    results = []
-    run_case = inr_erd.run_case
+    results, fits = [], []
+    run_case, fit_until = inr_erd.run_case, inr_erd.fit_until
 
     def recording(*args, **kwargs):
         res = run_case(*args, **kwargs)
         results.append(res)
         return res
 
-    inr_erd.run_case = recording
+    def recording_fit(apply_fn, lr, init_fn, coords, target, **kwargs):
+        fits.append((lr, coords, target))
+        return fit_until(apply_fn, lr, init_fn, coords, target, **kwargs)
+
+    inr_erd.run_case, inr_erd.fit_until = recording, recording_fit
     try:
         _reset_all_counts()
         torch.cuda.synchronize()
@@ -1151,9 +1204,9 @@ def phase_erd_main(out_dir: str, threshold: float) -> dict:
         wall = time.perf_counter() - t0
         launches = _all_counts()
     finally:
-        inr_erd.run_case = run_case
+        inr_erd.run_case, inr_erd.fit_until = run_case, fit_until
     (res,) = results
-    _check_only(launches, {"siren_loss_grads_absmax": res.pretrain_steps}, "soft-ERD")
+    _check_only(launches, {"siren_loss_grads_absmax_stream": res.pretrain_steps}, "soft-ERD")
     _require(res.pretrain_steps > 0, "phase 1 took no step")
     _require(res.pretrain_steps < inr_erd.PRETRAIN_MAX_STEPS,
              f"phase 1 did not reach {threshold:g} in {inr_erd.PRETRAIN_MAX_STEPS} steps")
@@ -1167,9 +1220,97 @@ def phase_erd_main(out_dir: str, threshold: float) -> dict:
     err = float(np.abs(res.mean_recon - res.mean_orig).mean())
     print(f"[main inr_erd] cli.inr_erd.main() {wall:.2f} s; phase 1 to loss <= "
           f"{threshold:g} in {res.pretrain_steps} steps; launches "
-          f"{{'siren_loss_grads_absmax': {res.pretrain_steps}}}; mean |recon - mean of the "
+          f"{{'siren_loss_grads_absmax_stream': {res.pretrain_steps}}}; mean |recon - mean of the "
           f"acquisitions| {err:.4f}; CSV {lines[1:]}")
-    return {"siren_loss_grads_absmax": launches["siren_loss_grads_absmax"]}
+    return ({"siren_loss_grads_absmax_stream": launches["siren_loss_grads_absmax_stream"]},
+            fits[0])
+
+
+def phase_erd_routes(lr: float, coords, target, threshold: float) -> None:
+    """The soft-ERD phase 1 at full width on the case's target from one
+    init (the generator of seed 0) to ``threshold``, on K1-a's streaming
+    route and on the SIMT route (``csrc/siren.cu`` through its launch
+    code), in turns (streaming, SIMT, SIMT, streaming): each run's stop
+    step, restarts, final loss and wall-clock. The routes' products differ
+    in their last bits (bf16x3 against float32), and a fit amplifies that,
+    so the stop steps and restarts are printed side by side, not required
+    equal."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.fit.engine import fit_until, plain_apply_init
+    from mri_super_resolution_tpu_torch.models import SirenERD
+    from mri_super_resolution_tpu_torch.ops import _build
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.pipelines.inr_erd import PRETRAIN_MAX_STEPS
+
+    model = SirenERD(2, ERD_HIDDEN, ERD_LAYERS, perturb=True, device="cuda")
+    omega, acts = sk._model_omega_acts(model)
+    P, stream = int(coords.shape[0]), _build.stream_ptr()
+
+    def simt(params, x, t):
+        return sk._launch_loss_grads(sk._lib(), x, params, t, omega, P, stream, acts, None, True)
+
+    routes = {"streaming": sk.make_fused_value_grad_absmax(model), "SIMT": simt}
+    runs = {}
+    for name in ("streaming", "SIMT", "SIMT", "streaming"):
+        _reset_all_counts()
+        apply_fn, init_fn = plain_apply_init(model, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_until(apply_fn, lr, init_fn, coords, target, threshold, PRETRAIN_MAX_STEPS,
+                        routes[name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = {"siren_loss_grads_absmax_stream": res.steps} if name == "streaming" else {}
+        _check_only(_all_counts(), want, f"soft-ERD phase 1 ({name})")
+        _require(res.steps < PRETRAIN_MAX_STEPS and res.loss <= threshold,
+                 f"phase 1 on the {name} route did not reach {threshold:g}")
+        runs.setdefault(name, []).append((res.steps, res.restarts, res.loss, wall))
+        print(f"[parity] soft-ERD phase 1 at full width, {name} route: stops at step "
+              f"{res.steps}, restarts at {res.restarts}, loss {res.loss:.6e}; {wall:.3f} s, "
+              f"{1e3 * wall / res.steps:.4f} ms a step")
+    same = runs["streaming"][0][:2] == runs["SIMT"][0][:2]
+    print(f"[parity] soft-ERD phase 1, streaming vs SIMT route from one init: stop steps "
+          f"{runs['streaming'][0][0]} vs {runs['SIMT'][0][0]}, restarts "
+          f"{runs['streaming'][0][1]} vs {runs['SIMT'][0][1]} "
+          f"({'the same' if same else 'they differ'}); each route repeats itself: "
+          f"{runs['streaming'][0][:3] == runs['streaming'][1][:3]}, "
+          f"{runs['SIMT'][0][:3] == runs['SIMT'][1][:3]}")
+    _require(runs["streaming"][0][:3] == runs["streaming"][1][:3],
+             "two streaming-route phase-1 runs from one init differ")
+
+
+def phase_k1a_trace() -> None:
+    """K1_TRACE_STEPS Adam steps at phase 1's lr (3e-4) at the soft-ERD
+    fit's shape from one init, K1-a on its streaming route against the plain
+    K1-a on the card; the losses step by step."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.fit.optim import Adam
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    model, x, target = _erd_inputs(seed=35, last_bias=0.05)
+    ws, acts = model.weights(), model.acts
+    vags = {"kernel": lambda p: sk.siren_loss_grads(x, p, target, acts=acts,
+                                                    with_out_absmax=True),
+            "plain": lambda p: sk.siren_loss_grads_ref(x, p, target, 30.0, None, acts, None,
+                                                       True)}
+    traces = {}
+    for route, vag in vags.items():
+        params = [w.clone() for w in ws]
+        opt = Adam(params, ERD_LR)
+        losses = []
+        for _ in range(K1_TRACE_STEPS):
+            loss, _, grads = vag(params)
+            losses.append(loss)
+            opt.step(grads)
+        traces[route] = torch.stack(losses).tolist()
+    k, p = traces["kernel"], traces["plain"]
+    rel = max(abs(a / b - 1.0) for a, b in zip(k, p))
+    print(f"[parity] K1-a {K1_TRACE_STEPS}-step Adam trace (lr {ERD_LR:g}) at 2 -> 128x4 -> "
+          f"128 -> 1, streaming route vs plain: loss {p[0]:.6e} -> {p[-1]:.6e} (plain), "
+          f"{k[-1]:.6e} (kernel); worst step rel {rel:.3e} (tol {K1_TRACE_RTOL:g})")
+    _require(rel <= K1_TRACE_RTOL and k[-1] < k[0], "K1-a's Adam trace departs from the plain one")
 
 
 def phase_probe_main(out_dir: str) -> dict:
@@ -1274,30 +1415,47 @@ def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
         torch.autograd.grad(torch.mean((out - target) ** 2), lib_params)
         out.detach().abs().max()
 
+    flops = 2 * P * (2 * sum(macs) + sum(macs[1:]))
+    stream_k1a = lambda: sk.siren_loss_grads(x, ws, target, acts=acts, with_out_absmax=True)
+    simt_k1a = lambda: sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, P, stream, acts,
+                                             None, True)
+    # the streaming route's bound: its bf16x3 products at the bf16 peak
     rows.append(_time_row(
-        "siren_loss_grads_absmax", "siren", "siren_kernel.py:518",
-        lambda: sk.siren_loss_grads(x, ws, target, acts=acts, with_out_absmax=True),
+        "siren_loss_grads_absmax_stream", "siren_stream", "siren_kernel.py:518", stream_k1a,
         lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, None, True),
-        lib_absmax, 2 * P * (2 * sum(macs) + sum(macs[1:])),
-        4 * x.numel() + 2 * wbytes + 4 * P + 8, f"P={P}", errs, launches))
-    vag = sk.make_fused_value_grad_absmax(model)
+        lib_absmax, 3 * flops, 4 * x.numel() + 2 * wbytes + 4 * P + 8, f"P={P}", errs,
+        launches, peak=PEAK_BF16_TC))
+    new_ms, simt_ms = _best_alternating(stream_k1a, simt_k1a, 50, 2)
+    print(f"[times] K1-absmax at P={P}, routes in turns (CUDA events, 50 calls, best of 2): "
+          f"streaming {new_ms:.4f} ms ({3 * flops / new_ms / 1e9:.1f} TFLOP/s of bf16 "
+          f"products; bound {3 * flops / PEAK_BF16_TC * 1e3:.4f} ms), SIMT (csrc/siren.cu) "
+          f"{simt_ms:.4f} ms (f32 bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
+    _passes("K1-absmax (streaming)", stream_k1a, calls=20)
+    _passes("K1-absmax (SIMT)", simt_k1a, calls=20)
+    omega, _ = sk._model_omega_acts(model)
+    vags = {"streaming": sk.make_fused_value_grad_absmax(model),
+            "SIMT": lambda params, xx, t: sk._launch_loss_grads(sk._lib(), xx, params, t, omega,
+                                                                P, stream, acts, None, True)}
     steps = {}
-    for readback in (False, True, False, True):
-        params = [w.clone() for w in ws]
-        opt = Adam(params, 3e-4)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            loss, am, g = vag(params, x, target)
-            opt.step(g)
-            if readback:
-                torch.stack([loss, am]).tolist()
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / 200
-        steps[readback] = min(steps.get(readback, float("inf")), ms)
-    print(f"[times] soft-ERD phase-1 step (K1-absmax + Adam, 200 in a row, best of 2): "
-          f"{steps[False]:.3f} ms without the per-step read-back, {steps[True]:.3f} ms with "
-          f"it: the read-back costs {steps[True] - steps[False]:.3f} ms a step")
+    for route in ("streaming", "SIMT", "SIMT", "streaming"):
+        for readback in (False, True):
+            params = [w.clone() for w in ws]
+            opt = Adam(params, ERD_LR)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                loss, am, g = vags[route](params, x, target)
+                opt.step(g)
+                if readback:
+                    torch.stack([loss, am]).tolist()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 200
+            steps[route, readback] = min(steps.get((route, readback), float("inf")), ms)
+    for route in ("streaming", "SIMT"):
+        print(f"[times] soft-ERD phase-1 step on the {route} route (K1-absmax + Adam, 200 in a "
+              f"row, best of 2, routes in turns): {steps[route, False]:.3f} ms without the "
+              f"per-step read-back, {steps[route, True]:.3f} ms with it: the read-back costs "
+              f"{steps[route, True] - steps[route, False]:.3f} ms a step")
     return rows
 
 
@@ -1816,7 +1974,7 @@ def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
     odd = sum(e % 2 for e in range(n1, epochs))
     pn_steps = 75 * (pn_epochs - odd)
     if inr_model == "wire":
-        return {"wire_loss_grads_tc": n1 + odd, "wire_forward": 7}
+        return {"wire_loss_grads_tc": n1 + odd, "wire_forward_tc": 7}
     return {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd_tc": pn_steps,
             "siren_forward_tc": pn_steps + 7}
 
@@ -2000,10 +2158,20 @@ def phase_wire_times(P: int, errs: dict, launches: dict) -> list[dict]:
             def lib_forward(xn=xn):
                 model(xn)
 
+            # the tensor-core route's bound: its bf16x3 products at the bf16 peak
+            tc5 = lambda xn=xn: wk.wire_forward(xn, ws, oms)
             frow = _time_row(
-                "wire_forward", "wire", "wire_kernel.py:146",
-                lambda xn=xn: wk.wire_forward(xn, ws, oms), plain_forward, lib_forward,
-                2 * n * fwd, 4 * xn.numel() + wbytes + 4 * n, f"P={n}", errs, launches)
+                "wire_forward_tc", "wire_tc", "wire_kernel.py:146", tc5, plain_forward,
+                lib_forward, 3 * 2 * n * fwd, 4 * xn.numel() + wbytes + 4 * n, f"P={n}", errs,
+                launches, peak=PEAK_BF16_TC, reps=5)
+            tc_ms, simt_ms = _best_alternating(
+                tc5, lambda xn=xn: wk._launch_forward(wk._lib(), xn, ws, oms, stream), 5, 2)
+            print(f"[times] K5 at P={n} H={H}, routes in turns (best of 2): tensor-core "
+                  f"{tc_ms:.3f} ms ({6 * n * fwd / tc_ms / 1e9:.1f} TFLOP/s of bf16 products; "
+                  f"bound {6 * n * fwd / PEAK_BF16_TC * 1e3:.3f} ms), SIMT {simt_ms:.3f} ms "
+                  f"(its f32 bound {2 * n * fwd / PEAK_F32_FLOPS * 1e3:.3f} ms)")
+            if record and n == INFER_CHUNK:
+                _passes("K5 at the inference chunk (tensor-core route)", tc5)
         if record:
             rows += [row, frow]  # K5 at the inference chunk, as the path runs it
         print(f"[times] the rows above: width {H}x2")
@@ -2126,6 +2294,7 @@ def main(argv=None) -> int:
     errs = phase_parity(P, dims)
     phase_k1_trace(P, dims)
     phase_k4_trace(P)
+    phase_k1a_trace()
     phase_pn_trace(P, dims)
     errs.update(phase_k1_variant_parity())
     errs.update(phase_probe_parity())
@@ -2149,7 +2318,9 @@ def main(argv=None) -> int:
         master_launches, _ = phase_master_main(out_dir, args.master_steps, args.master_seg)
         launches.update(master_launches)
     with tempfile.TemporaryDirectory() as out_dir:
-        launches.update(phase_erd_main(out_dir, ERD_THRESHOLD))
+        erd_launches, (erd_lr, erd_coords, erd_target) = phase_erd_main(out_dir, ERD_THRESHOLD)
+        launches.update(erd_launches)
+    phase_erd_routes(erd_lr, erd_coords, erd_target, ERD_THRESHOLD)
     with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_probe_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:

@@ -48,7 +48,7 @@
 //        -Xcompiler -fPIC -o libsiren_resident.so siren_resident.cu
 //        (see ops/_build.py)
 
-#include "common.cuh"
+#include "slots.cuh"
 
 namespace {
 
@@ -58,8 +58,6 @@ constexpr int RES_WARPS = RES_NT / 32;
 constexpr int RES_TQ = 2;     // column quads a thread takes in the forward and chain
 constexpr int RES_MAX_LAYERS = 16;
 constexpr int RES_SMEM_MAX = 232448;  // the route's plans: an H100 block's opt-in shared memory
-
-enum Act { ACT_NONE = 0, ACT_SINE = 1, ACT_RELU = 2 };
 
 // Where everything lives, from the widths alone (floats; every offset a
 // multiple of 4, so float4 accesses stay 16-byte aligned).
@@ -150,24 +148,6 @@ __device__ __forceinline__ void put_quad(float* p, const float v[4]) {
   q.z = v[2];
   q.w = v[3];
   *reinterpret_cast<float4*>(p) = q;
-}
-
-// a = act(z) and its factor act'(z) (omega cos(omega z) for sine, the step
-// z > 0 for ReLU, 1 for none), as the SIMT epilogues compute them
-__device__ __forceinline__ void act_and_factor(int act, float omega, float z, float& a,
-                                               float& f) {
-  if (act == ACT_SINE) {
-    float s, c;
-    sincosf(omega * z, &s, &c);
-    a = s;
-    f = omega * c;
-  } else if (act == ACT_RELU) {
-    a = z > 0.f ? z : 0.f;
-    f = z > 0.f ? 1.f : 0.f;
-  } else {
-    a = z;
-    f = 1.f;
-  }
 }
 
 // rows r0 .. r0 + 31 of x into buf (RES_ROWS x S), zero past P and past d_0
@@ -439,26 +419,6 @@ __global__ void __launch_bounds__(RES_NT, 1) siren_resident_kernel(Plan pl, Args
   }
 }
 
-// out[i] = the sum over the blocks' slots in block order (i < n_params: the
-// grads; n_params: the loss, times inv_n) or their max (n_params + 1: max |out|)
-__global__ void resident_reduce_kernel(const float* __restrict__ partial, int blocks,
-                                       int n_params, float inv_n, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int count = n_params + 2;
-  if (i >= count) return;
-  float s = 0.f;
-  if (i == n_params + 1) {
-    for (int z = 0; z < blocks; ++z) {
-      const float v = partial[(long long)z * count + i];
-      s = v > s ? v : s;
-    }
-  } else {
-    for (int z = 0; z < blocks; ++z) s += partial[(long long)z * count + i];
-    if (i == n_params) s *= inv_n;
-  }
-  out[i] = s;
-}
-
 // Blocks a call of P rows takes: one a row tile, at most one an SM of the
 // current device (0 when the device cannot be asked).
 int resident_blocks(int P) {
@@ -523,7 +483,7 @@ int siren_loss_grads_resident(const float* x, int P, int n_rows, const int* dims
   a.partial = work;
   LAUNCH_SMEM(siren_resident_kernel, blocks, RES_NT, smem, stream)(pl, a);
   CHECK_LAUNCH();
-  LAUNCH(resident_reduce_kernel, cdiv(pl.n_params + 2, 256), 256, stream)(
+  LAUNCH(slot_reduce_kernel, cdiv(pl.n_params + 2, 256), 256, stream)(
       work, blocks, pl.n_params, inv_n, out);
   CHECK_LAUNCH();
   return 0;

@@ -7,7 +7,11 @@
 //   K4 wire_loss_grads (:302, pallas_call at :340): one-pass forward, masked
 //      MSE and hand-derived backward, giving the loss and the gradient of
 //      every weight (omega/sigma are read, never differentiated).
-// csrc/wire.cu's SIMT kernels keep every other K4 call and K5.
+// It also runs K5 for the same widths:
+//   K5 wire_forward (:146, pallas_call at :164): the network's output,
+// with the forward passes below alone (wire_forward_tc): no pre-activation
+// stash S, the activations in two alternating hi/lo slots, a forward-only
+// last layer. csrc/wire.cu's SIMT kernels keep every other K4 and K5 call.
 //
 // The network and its contract are csrc/wire.cu's: paired-real complex
 // Gabor layers, weights in the JAX kernel's flat order in torch (out, in)
@@ -24,12 +28,15 @@
 // the bf16x3 split of csrc/siren_tc.cu (x = hi + lo, both bf16 rounded to
 // nearest even; hi hi + hi lo + lo hi on mma.sync m16n8k16, float32 sums):
 // 3 x 440.4 GFLOP of bf16 products, 1.336 ms at the 989 TFLOP/s bf16 peak.
+// K5 at the inference chunk (262,144 rows) is 551 GFLOP of forward
+// products: 8.225 ms at the float32 FMA peak, 1.67 ms as bf16x3.
 //
 // Design: each product is one pass of wire_gemm_kernel, the main loop of
 // csrc/gemm3.cuh that siren_tc.cu's K1-K3 run too (128 x 128 block tiles of
 // 8 warps, two cp.async stages of hi/lo planes, ldmatrix fragments, three
 // mma a tile and k16 step; two blocks an SM), with WIRE's epilogues:
-//   FWD  S = A Wblk^T + bias with the Gabor activation fused: the block
+//   FWD  S = A Wblk^T + bias with the Gabor activation fused (S is not
+//        written when null: K5): the block
 //        matrix's output columns are ordered so that one thread's
 //        accumulators hold all four pre-activations of a hidden unit u.
 //        Column c = 16 (u / 4) + 8 t + 2 (u % 4) + e holds component
@@ -164,11 +171,13 @@ __global__ void __launch_bounds__(TC_NT, 2) wire_gemm_kernel(Planes A, int lda, 
           const float si = acc[i][2 * jj][2 * h + 1] + epi.bias[c + 1];
           const float s2r = acc[i][2 * jj + 1][2 * h] + epi.bias[c + 8];
           const float s2i = acc[i][2 * jj + 1][2 * h + 1] + epi.bias[c + 9];
-          float* s = epi.S + (long long)row * 4 * H + c;
-          s[0] = sr;
-          s[1] = si;
-          s[8] = s2r;
-          s[9] = s2i;
+          if (epi.S != nullptr) {
+            float* s = epi.S + (long long)row * 4 * H + c;
+            s[0] = sr;
+            s[1] = si;
+            s[8] = s2r;
+            s[9] = s2i;
+          }
           float hr, hi;
           gabor(om, sg2, sr, si, s2r, s2i, hr, hi);
           const long long off = (long long)row * 2 * H + 2 * u;
@@ -211,8 +220,9 @@ __global__ void __launch_bounds__(TC_NT, 2) wire_gemm_kernel(Planes A, int lda, 
     }
 }
 
-// The first layer: S0 = [x W^T + b | x Wo^T + bo] (P x 2H) and the Gabor
-// activation of each unit into columns 2u, 2u + 1 of the first planes.
+// The first layer: S0 = [x W^T + b | x Wo^T + bo] (P x 2H; not written when
+// null) and the Gabor activation of each unit into columns 2u, 2u + 1 of
+// the first planes.
 __global__ void first_forward_kernel(const float* __restrict__ x, int P, int d, int H,
                                      const float* __restrict__ W, const float* __restrict__ b,
                                      const float* __restrict__ Wo,
@@ -232,8 +242,10 @@ __global__ void first_forward_kernel(const float* __restrict__ x, int P, int d, 
     }
     sr += b[u];
     s2r += bo[u];
-    S0[p * 2 * H + u] = sr;
-    S0[p * 2 * H + H + u] = s2r;
+    if (S0 != nullptr) {
+      S0[p * 2 * H + u] = sr;
+      S0[p * 2 * H + H + u] = s2r;
+    }
     const float m = expf(-sg2 * (sr * sr + s2r * s2r));
     float sn, cs;
     sincosf(om * sr, &sn, &cs);
@@ -323,6 +335,24 @@ __global__ void __launch_bounds__(ROWDOT_WARPS * 32) last_layer_kernel(
     float t = 0.f;
     for (int i = 0; i < ROWDOT_WARPS; ++i) t += red[i];
     loss_partial[blockIdx.x] = t;
+  }
+}
+
+// K5's last layer, one warp a row: out = hr Kr^T - hi Ki^T + br over the
+// last hidden output A (P x 2H float32, interleaved).
+__global__ void __launch_bounds__(ROWDOT_WARPS * 32) last_forward_kernel(
+    const float* __restrict__ A, int P, int H, const float* __restrict__ Kr,
+    const float* __restrict__ Ki, const float* __restrict__ br, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (long long row = (long long)blockIdx.x * ROWDOT_WARPS + warp; row < P;
+       row += (long long)gridDim.x * ROWDOT_WARPS) {
+    const float* h = A + row * 2 * H;
+    float s = 0.f;
+    for (int k = lane; k < 2 * H; k += 32) s = fmaf(h[k], (k & 1) ? -Ki[k >> 1] : Kr[k >> 1], s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) out[row] = s + br[0];
   }
 }
 
@@ -460,6 +490,38 @@ Work carve(char* base, int P, int d, int H, int nh) {
   return w;
 }
 
+// K5's workspace: the block matrices and biases, then two activation
+// slots (P x 2H hi/lo planes; the last hidden layer's float32 output takes
+// the slot it does not read), every piece 256-byte aligned.
+struct FwdWork {
+  std::vector<Planes> wblk;
+  std::vector<float*> bias;
+  Planes slot[2] = {};
+  long long bytes = 0;
+};
+
+FwdWork carve_forward(char* base, int P, int H, int nh) {
+  FwdWork w;
+  long long at = 0;
+  auto take = [&](long long bytes) {
+    char* p = base ? base + at : nullptr;
+    at += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  auto planes = [&](long long n) {
+    uint16_t* p = reinterpret_cast<uint16_t*>(take(4 * n));
+    return Planes{p, p ? p + n : nullptr};
+  };
+  for (int l = 0; l < nh; ++l) {
+    w.wblk.push_back(planes(8LL * H * H));
+    w.bias.push_back(reinterpret_cast<float*>(take(4 * 4LL * H)));
+  }
+  w.slot[0] = planes((long long)P * 2 * H);
+  w.slot[1] = planes((long long)P * 2 * H);
+  w.bytes = at;
+  return w;
+}
+
 }  // namespace
 
 extern "C" {
@@ -578,6 +640,63 @@ int wire_loss_grads_tc(const float* x, int P, int n_rows, int d_in, int H, int n
   if (rc) return rc;
   LAUNCH(unpack_ends_kernel, ew_blocks((long long)H * d), EW_THREADS, stream)(
       W.gfirst, W.gbias, W.gfin, d, H, dw[0], dw[1], dw[2], dw[3], dw[fin], dw[fin + 1]);
+  CHECK_LAUNCH();
+  return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// Bytes of workspace wire_forward_tc needs, or -1 when the route does not
+// take the widths (those of wire_tc_workspace_bytes).
+long long wire_forward_tc_workspace_bytes(int P, int d_in, int H, int n_hidden) {
+  if (!supported(P, d_in, H, n_hidden)) return -1;
+  return carve_forward(nullptr, P, H, n_hidden).bytes;
+}
+
+// K5 on the tensor cores: out (P) = WIRE(x) with K4's forward passes: the
+// block matrices, the first layer, a wire_gemm<MODE_FWD> pass a hidden
+// layer (no S), the last layer. oms: (n_hidden + 1, 2) on the device; work:
+// wire_forward_tc_workspace_bytes bytes. 2 n_hidden + 2 launches.
+int wire_forward_tc(const float* x, int P, int d_in, int H, int n_hidden,
+                    const float* const* w, const float* oms, void* work, float* out,
+                    cudaStream_t stream) {
+  if (!supported(P, d_in, H, n_hidden)) return -1;
+  const int nh = n_hidden;
+  const FwdWork W = carve_forward(static_cast<char*>(work), P, H, nh);
+  const int fin = 4 + 8 * nh;
+  for (int l = 0; l < nh; ++l) {
+    HiddenWeights k;
+    for (int i = 0; i < 8; ++i) k.w[i] = w[4 + 8 * l + i];
+    LAUNCH(pack_block_kernel, ew_blocks(8LL * H * H), EW_THREADS, stream)(
+        k, H, const_cast<uint16_t*>(W.wblk[l].hi), const_cast<uint16_t*>(W.wblk[l].lo),
+        W.bias[l]);
+    CHECK_LAUNCH();
+  }
+  LAUNCH(first_forward_kernel, ew_blocks((long long)P * H), EW_THREADS, stream)(
+      x, P, d_in, H, w[0], w[1], w[2], w[3], oms, nullptr,
+      const_cast<uint16_t*>(W.slot[0].hi), const_cast<uint16_t*>(W.slot[0].lo));
+  CHECK_LAUNCH();
+  for (int l = 0; l < nh; ++l) {
+    const Planes in = W.slot[l & 1], next = W.slot[(l + 1) & 1];
+    WireEpi e{};
+    e.H = H;
+    e.bias = W.bias[l];
+    e.om_sg = oms + 2 * (l + 1);
+    if (l + 1 < nh) {
+      e.out_hi = const_cast<uint16_t*>(next.hi);
+      e.out_lo = const_cast<uint16_t*>(next.lo);
+    } else {
+      e.out_f32 = reinterpret_cast<float*>(const_cast<uint16_t*>(next.hi));
+    }
+    const int rc = wire_gemm<MODE_FWD>(in, 2 * H, W.wblk[l], 2 * H, P, 4 * H, 2 * H, 1, 2 * H,
+                                       e, stream);
+    if (rc) return rc;
+  }
+  LAUNCH(last_forward_kernel, rowdot_blocks(P), ROWDOT_WARPS * 32, stream)(
+      reinterpret_cast<const float*>(W.slot[nh & 1].hi), P, H, w[fin], w[fin + 1],
+      w[fin + 2], out);
   CHECK_LAUNCH();
   return 0;
 }

@@ -1,6 +1,6 @@
 """SIREN kernels K1-K3: wrappers over the hand-written CUDA kernels of
-``csrc/siren.cu``, ``csrc/siren_tc.cu`` and ``csrc/siren_resident.cu`` and
-their plain PyTorch versions.
+``csrc/siren.cu``, ``csrc/siren_tc.cu``, ``csrc/siren_resident.cu`` and
+``csrc/siren_stream.cu`` and their plain PyTorch versions.
 
 Counterpart of ``mri_super_resolution_tpu/ops/pallas/siren_kernel.py``:
 
@@ -28,8 +28,9 @@ hidden layer or one per hidden layer (read only on sine layers).
 A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
-both, and per variant on the weight-resident route (``*_resident``); each
-kernel's tensor-core route under its own ``*_tc`` key). The
+both, and per variant on the weight-resident route (``*_resident``) and on
+the streaming route (``*_stream``); each kernel's tensor-core route under
+its own ``*_tc`` key). The
 plain versions run on either device and are what the CPU tests and
 ``chip_smoke.py`` hold the kernels against.
 
@@ -45,8 +46,15 @@ off the tensor-core route whose weights and one 32-row tile's working set
 fit in one block's shared memory (:func:`resident_route`: the 2-D
 ensemble's 2 -> 64x7 -> 1 and other small MLPs, with any of K1's options)
 runs on the weight-resident kernel of ``csrc/siren_resident.cu``: two
-launches a call instead of about one a layer and pass. No route is a
-fallback: a launch that fails raises.
+launches a call instead of about one a layer and pass; and a K1 call that
+neither takes whose hidden widths are equal multiples of 64 and whose plan
+fits one block (:func:`stream_route`: the soft-ERD fit's SirenERD 2 ->
+128x4 -> 128 -> 1 with ReLU codes and max |out|, with any of K1's options)
+runs on the streaming tensor-core kernel of ``csrc/siren_stream.cu``: a
+block a 128-row tile, the hidden layers' bf16x3 products on the tensor
+cores, the weights streamed through shared memory, three launches a call.
+:func:`k1_route` gives the order. No route is a fallback: a launch that
+fails raises.
 """
 from __future__ import annotations
 
@@ -68,13 +76,20 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_resident": 0,
                             "siren_loss_grads_weighted_resident": 0,
                             "siren_loss_grads_absmax_resident": 0,
-                            "siren_loss_grads_weighted_absmax_resident": 0}
+                            "siren_loss_grads_weighted_absmax_resident": 0,
+                            "siren_loss_grads_stream": 0,
+                            "siren_loss_grads_weighted_stream": 0,
+                            "siren_loss_grads_absmax_stream": 0,
+                            "siren_loss_grads_weighted_absmax_stream": 0}
 
 ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
 TC_TILE = 128  # csrc/siren_tc.cu's block tile: every width but the output's a multiple
 # csrc/siren_resident.cu: rows a tile, layers at most, and the shared memory
 # a block may use on an H100 (bytes)
 RES_ROWS, RES_MAX_LAYERS, RES_SMEM_MAX = 32, 16, 232_448
+# csrc/siren_stream.cu: rows a tile (a block), W rows a ring stage, ring
+# stages, the hidden width's step and layers at most
+ST_TM, ST_RING, ST_STAGES, ST_H_STEP, ST_MAX_LAYERS = 128, 32, 2, 64, 16
 
 
 def reset_launches() -> None:
@@ -82,11 +97,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def loss_grads_key(weighted: bool, absmax: bool, resident: bool = False) -> str:
-    """The :data:`LAUNCHES` key of a K1 variant on the SIMT or the
-    weight-resident route."""
+def loss_grads_key(weighted: bool, absmax: bool, route: str = "simt") -> str:
+    """The :data:`LAUNCHES` key of a K1 variant on the ``"simt"``, the
+    ``"resident"`` or the ``"stream"`` route."""
     return ("siren_loss_grads" + ("_weighted" if weighted else "")
-            + ("_absmax" if absmax else "") + ("_resident" if resident else ""))
+            + ("_absmax" if absmax else "") + ("" if route == "simt" else f"_{route}"))
 
 
 # --------------------------------------------------------------------------
@@ -179,6 +194,43 @@ def resident_route(dims: Sequence[int]) -> bool:
     codes) do not matter."""
     return (3 <= len(dims) <= RES_MAX_LAYERS + 1 and dims[-1] == 1
             and resident_smem_bytes(dims) <= RES_SMEM_MAX)
+
+
+def stream_smem_bytes(dims: Sequence[int]) -> int:
+    """Bytes of shared memory a block of K1's streaming route takes for
+    ``dims`` (input, hidden widths..., 1): two buffers of hi and lo bf16
+    planes of :data:`ST_TM` rows and :data:`ST_STAGES` ring stages of hi and
+    lo planes of :data:`ST_RING` rows, each row of the hidden width H plus 8
+    halves, and three floats a row; ``csrc/siren_stream.cu``'s
+    ``stream_plan``."""
+    S = dims[1] + 8
+    return 8 * S * ST_TM + 4 * ST_STAGES * ST_RING * S + 12 * ST_TM
+
+
+def stream_route(dims: Sequence[int]) -> bool:
+    """Whether a K1 call that neither the tensor-core nor the
+    weight-resident route takes runs on the streaming route: 3 to
+    :data:`ST_MAX_LAYERS` layers, one output, every hidden width the same
+    multiple of :data:`ST_H_STEP`, and :func:`stream_smem_bytes` within one
+    block's :data:`RES_SMEM_MAX` (hidden widths of 64 and 128). The options
+    (sample weights, max |out|, the act codes) do not matter."""
+    hidden = set(dims[1:-1])
+    return (4 <= len(dims) <= ST_MAX_LAYERS + 1 and dims[-1] == 1 and dims[0] >= 1
+            and len(hidden) == 1 and dims[1] % ST_H_STEP == 0 and dims[1] > 0
+            and stream_smem_bytes(dims) <= RES_SMEM_MAX)
+
+
+def k1_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
+             absmax: bool = False) -> str:
+    """The route of a K1 call on the card, from the shapes alone, in this
+    order: ``"tc"`` (:func:`tc_route`), ``"resident"``
+    (:func:`resident_route`), ``"stream"`` (:func:`stream_route`), else
+    ``"simt"`` (``csrc/siren.cu``)."""
+    if tc_route(dims, acts, weighted, absmax):
+        return "tc"
+    if resident_route(dims):
+        return "resident"
+    return "stream" if stream_route(dims) else "simt"
 
 
 # --------------------------------------------------------------------------
@@ -354,6 +406,20 @@ def _res_lib() -> ctypes.CDLL:
     return _build.library("siren_resident", _res_declare)
 
 
+def _stream_declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.siren_stream_smem_bytes.argtypes = [p, i]
+    lib.siren_stream_smem_bytes.restype = ctypes.c_longlong
+    lib.siren_stream_work_floats.argtypes = [i, p, i]
+    lib.siren_stream_work_floats.restype = ctypes.c_longlong
+    lib.siren_loss_grads_stream.argtypes = [p, i, i, p, i, p, p, p, p, p, f, p, p, p]
+    lib.siren_loss_grads_stream.restype = i
+
+
+def _stream_lib() -> ctypes.CDLL:
+    return _build.library("siren_stream", _stream_declare)
+
+
 class _Args:
     """ctypes views of the shared arguments; keeps the arrays alive."""
 
@@ -445,12 +511,13 @@ def _launch_loss_grads_tc(lib, x, weights, target, omega, n_rows, stream):
     return loss, grads
 
 
-class _ResidentCall:
-    """The ctypes arguments of weight-resident K1 calls of one shape and
-    one set of codes and omegas, built once; each call fills in the
-    weights' pointers."""
+class _SlotCall:
+    """The ctypes arguments of K1 calls on a route that sums per-block
+    slots (``route``: ``"resident"`` or ``"stream"``) of one shape and one
+    set of codes and omegas, built once; each call fills in the weights'
+    pointers."""
 
-    def __init__(self, lib, P: int, dims: tuple, codes: tuple, omegas: tuple):
+    def __init__(self, lib, route: str, P: int, dims: tuple, codes: tuple, omegas: tuple):
         L = len(dims) - 1
         self.L = L
         self._arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_int * L)(*codes),
@@ -458,9 +525,10 @@ class _ResidentCall:
         self.dims, self.codes, self.omegas, self.ptrs_arg = (ctypes.cast(a, ctypes.c_void_p)
                                                              for a in self._arrays)
         self.ptrs = self._arrays[3]  # the weights' pointers, filled in each call
-        self.work = int(lib.siren_resident_work_floats(P, self.dims, L))
+        self.work = int(getattr(lib, f"siren_{route}_work_floats")(P, self.dims, L))
         if self.work < 0:
-            raise ValueError(f"the weight-resident K1 does not take widths {list(dims)}")
+            raise ValueError(f"K1's {route} route does not take widths {list(dims)}")
+        self.launch = getattr(lib, f"siren_loss_grads_{route}")
         # each grad's (shape, stride, offset) in the output buffer: W0, b0, W1, b1, ...
         self.views, at = [], 0
         for l in range(L):
@@ -470,33 +538,45 @@ class _ResidentCall:
         self.n_params = at
 
 
-_RESIDENT_CALLS: dict[tuple, _ResidentCall] = {}
+_SLOT_CALLS: dict[tuple, _SlotCall] = {}
 
 
-def _launch_loss_grads_resident(lib, x, weights, target, omega, n_rows, stream, acts=None,
-                                sample_weights=None, with_out_absmax=False):
-    """K1 on the weight-resident route (the widths :func:`resident_route`
-    takes): one workspace and one output buffer a call, whose views are the
-    returned loss, max |out| and grads."""
+def _launch_loss_grads_slots(route, lib, x, weights, target, omega, n_rows, stream, acts=None,
+                             sample_weights=None, with_out_absmax=False):
+    """K1 on the weight-resident or the streaming route (``route``; the
+    widths :func:`resident_route` or :func:`stream_route` takes): one
+    workspace and one output buffer a call, whose views are the returned
+    loss, max |out| and grads."""
     n = len(weights) // 2
     dims = tuple(int(s) for s in x.shape[1:]) + tuple(int(w.shape[0]) for w in weights[0::2])
     key = (int(x.shape[0]), dims, tuple(ACT_CODES[a] for a in _acts(acts, n)),
            tuple(_omegas(omega, n - 1)))
-    call = _RESIDENT_CALLS.get((key, x.device))  # blocks a call: one an SM of the device
+    # the resident route's blocks a call: one an SM of the device
+    call = _SLOT_CALLS.get((route, id(lib), key, x.device))
     if call is None:
-        call = _RESIDENT_CALLS[key, x.device] = _ResidentCall(lib, *key)
+        call = _SLOT_CALLS[route, id(lib), key, x.device] = _SlotCall(lib, route, *key)
     call.ptrs[:] = [w.data_ptr() for w in weights]
     work = torch.empty(call.work, dtype=x.dtype, device=x.device)
     out = torch.empty(call.n_params + 2, dtype=x.dtype, device=x.device)
-    rc = lib.siren_loss_grads_resident(
+    rc = call.launch(
         x.data_ptr(), key[0], int(n_rows), call.dims, call.L, call.codes,
         call.ptrs_arg, call.omegas, target.data_ptr(),
         None if sample_weights is None else sample_weights.data_ptr(),
         1.0 / (n_rows * target.shape[-1]), work.data_ptr(), out.data_ptr(), stream)
-    _build.raise_on(rc, "siren_loss_grads_resident")
+    _build.raise_on(rc, f"siren_loss_grads_{route}")
     grads = [out.as_strided(*v) for v in call.views]
     loss = out[call.n_params]
     return (loss, out[call.n_params + 1], grads) if with_out_absmax else (loss, grads)
+
+
+def _launch_loss_grads_resident(lib, *args, **kwargs):
+    """K1 on the weight-resident route (``csrc/siren_resident.cu``)."""
+    return _launch_loss_grads_slots("resident", lib, *args, **kwargs)
+
+
+def _launch_loss_grads_stream(lib, *args, **kwargs):
+    """K1 on the streaming tensor-core route (``csrc/siren_stream.cu``)."""
+    return _launch_loss_grads_slots("stream", lib, *args, **kwargs)
 
 
 def _launch_forward_tc(lib, x, weights, omega, stream) -> torch.Tensor:
@@ -579,8 +659,8 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     ``sample_weights`` (P, 1) weighs each squared residual (the mean stays
     over ``n_rows``); ``with_out_absmax`` returns ``(loss, out_absmax,
     grads)`` with ``out_absmax`` = max |MLP(x)| over those rows. On the
-    weight-resident route the loss, max |out| and grads are views of one
-    buffer that the call allocates."""
+    weight-resident and the streaming routes the loss, max |out| and grads
+    are views of one buffer that the call allocates."""
     weights = list(weights)
     dims = _layer_dims(x, weights)
     acts = _acts(acts, len(weights) // 2)
@@ -598,16 +678,21 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
                                     sample_weights, with_out_absmax)
     weighted = sample_weights is not None
     weights = [w.detach() for w in weights]
-    if tc_route(dims, acts, weighted, with_out_absmax):
+    route = k1_route(dims, acts, weighted, with_out_absmax)
+    if route == "tc":
         out = _launch_loss_grads_tc(_tc_lib(), x, weights, target, omega, n_rows,
                                     _build.stream_ptr())
         LAUNCHES["siren_loss_grads_tc"] += 1
         return out
-    resident = resident_route(dims)
-    launch = _launch_loss_grads_resident if resident else _launch_loss_grads
-    out = launch(_res_lib() if resident else _lib(), x, weights, target, omega, n_rows,
-                 _build.stream_ptr(), acts, sample_weights, with_out_absmax)
-    LAUNCHES[loss_grads_key(weighted, with_out_absmax, resident)] += 1
+    if route == "simt":
+        out = _launch_loss_grads(_lib(), x, weights, target, omega, n_rows,
+                                 _build.stream_ptr(), acts, sample_weights, with_out_absmax)
+    else:
+        lib = _res_lib() if route == "resident" else _stream_lib()
+        out = _launch_loss_grads_slots(route, lib, x, weights, target, omega, n_rows,
+                                       _build.stream_ptr(), acts, sample_weights,
+                                       with_out_absmax)
+    LAUNCHES[loss_grads_key(weighted, with_out_absmax, route)] += 1
     return out
 
 

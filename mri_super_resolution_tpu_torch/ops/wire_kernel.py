@@ -22,14 +22,15 @@ tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES`. The TPU kernel's VMEM gate (``wire_kernel_fits``) has no
 counterpart: the CUDA kernels take any width.
 
-The route, chosen from the shapes alone (:func:`wire_tc_route`): a K4 call
-with a hidden width H that is a multiple of 64 (:data:`WIRE_TC_STEP`) and at
-least one hidden layer (the reference's 4 -> 256x2 -> 1) runs on the tensor
-cores (``csrc/wire_tc.cu``: bf16x3 split products, float32 accumulation,
-the Gabor activation and its backward fused into the products' epilogues)
-under the ``wire_loss_grads_tc`` key; every other K4 call and every K5 call
-on the SIMT kernels of ``csrc/wire.cu``. The route is not a fallback: a
-tensor-core launch that fails raises.
+The route, chosen from the shapes alone (:func:`wire_tc_route`): a K4 or
+K5 call with a hidden width H that is a multiple of 64
+(:data:`WIRE_TC_STEP`) and at least one hidden layer (the reference's 4 ->
+256x2 -> 1) runs on the tensor cores (``csrc/wire_tc.cu``: bf16x3 split
+products, float32 accumulation, the Gabor activation and its backward fused
+into the products' epilogues) under the ``wire_loss_grads_tc`` and
+``wire_forward_tc`` keys (K5 runs K4's forward passes alone); every other
+call on the SIMT kernels of ``csrc/wire.cu``. The route is not a fallback:
+a tensor-core launch that fails raises.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ from mri_super_resolution_tpu_torch.models.wire import FINAL_N, FIRST_N, HIDDEN_
 from mri_super_resolution_tpu_torch.ops import _build
 
 # one count per wrapper, bumped once per kernel launch on a CUDA tensor
-LAUNCHES: dict[str, int] = {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 0}
+LAUNCHES: dict[str, int] = {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 0,
+                            "wire_forward_tc": 0}
 
 WIRE_TC_STEP = 64  # csrc/wire_tc.cu: H a multiple of it, so 2H and 4H fill 128-wide tiles
 
@@ -84,7 +86,7 @@ def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], *others) -> str:
 
 
 def wire_tc_route(H: int, n_hidden: int) -> bool:
-    """Whether a K4 call on the card runs on the tensor-core route: a hidden
+    """Whether a K4 or K5 call on the card runs on the tensor-core route: a hidden
     width that is a multiple of :data:`WIRE_TC_STEP` and at least one hidden
     layer (whose block products the route runs on the tensor cores)."""
     return H > 0 and H % WIRE_TC_STEP == 0 and n_hidden >= 1
@@ -213,6 +215,10 @@ def _tc_declare(lib: ctypes.CDLL) -> None:
     lib.wire_tc_workspace_bytes.restype = ctypes.c_longlong
     lib.wire_loss_grads_tc.argtypes = [p, i, i, i, i, i, p, p, p, f, p, p, p, p]
     lib.wire_loss_grads_tc.restype = i
+    lib.wire_forward_tc_workspace_bytes.argtypes = [i, i, i, i]
+    lib.wire_forward_tc_workspace_bytes.restype = ctypes.c_longlong
+    lib.wire_forward_tc.argtypes = [p, i, i, i, i, p, p, p, p, p]
+    lib.wire_forward_tc.restype = i
 
 
 def _tc_lib() -> ctypes.CDLL:
@@ -232,6 +238,21 @@ def _launch_forward(lib, x, weights, omegas, stream) -> torch.Tensor:
         out.data_ptr(), packed.data_ptr(), S.data_ptr(), buf0.data_ptr(),
         buf1.data_ptr(), stream)
     _build.raise_on(rc, "wire_forward")
+    return out
+
+
+def _launch_forward_tc(lib, x, weights, omegas, stream) -> torch.Tensor:
+    """K5 on the tensor-core route (the shapes :func:`wire_tc_route` takes)."""
+    d, H, nh = _shapes(x, weights, omegas)
+    P = int(x.shape[0])
+    nbytes = int(lib.wire_forward_tc_workspace_bytes(P, d, H, nh))
+    if nbytes < 0:
+        raise ValueError(f"the tensor-core K5 does not take width {H} with {nh} hidden layers")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    out = torch.empty(P, 1, dtype=x.dtype, device=x.device)
+    rc = lib.wire_forward_tc(x.data_ptr(), P, d, H, nh, _build.ptr_array(weights),
+                             omegas.data_ptr(), work.data_ptr(), out.data_ptr(), stream)
+    _build.raise_on(rc, "wire_forward_tc")
     return out
 
 
@@ -285,12 +306,14 @@ def wire_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                  omegas: torch.Tensor) -> torch.Tensor:
     """K5: the WIRE output (P, 1)."""
     weights = list(weights)
-    _shapes(x, weights, omegas)
+    _, H, n_hidden = _shapes(x, weights, omegas)
     if _check(x, weights, omegas) == "cpu":
         return wire_forward_ref(x, weights, omegas)
-    out = _launch_forward(_lib(), x, [w.detach() for w in weights], omegas.detach(),
-                          _build.stream_ptr())
-    LAUNCHES["wire_forward"] += 1
+    tc = wire_tc_route(H, n_hidden)
+    launch = _launch_forward_tc if tc else _launch_forward
+    out = launch(_tc_lib() if tc else _lib(), x, [w.detach() for w in weights],
+                 omegas.detach(), _build.stream_ptr())
+    LAUNCHES["wire_forward_tc" if tc else "wire_forward"] += 1
     return out
 
 

@@ -168,7 +168,7 @@ def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
     dx_r, dws_r = tk.siren_fused_bwd_ref(x, ws, g, acts=acts)
     for a, b in zip([dx, *dws], [dx_r, *dws_r]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-7)
-    key = tk.loss_grads_key(weighted, absmax, resident=True)
+    key = tk.loss_grads_key(weighted, absmax, "resident")
     assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, key: 1, "siren_forward": 1,
                            "siren_fused_bwd": 1}
 
@@ -200,7 +200,8 @@ def test_k1_resident_route_at_the_ensemble_shape(card, P, n_rows):
 @pytest.mark.cuda
 def test_k1_absmax_off_the_resident_route(card):
     """K1-a at the soft-ERD trunk's widths (about 270 KB of weights) does
-    not fit one block and keeps the SIMT kernels."""
+    not fit one block of the resident route and takes the streaming
+    tensor-core route."""
     gen = torch.Generator().manual_seed(3)
     model = SirenERD(2, 128, 3, generator=gen).to(card)
     ws, acts = [w.detach() for w in model.weights()], model.acts
@@ -208,7 +209,46 @@ def test_k1_absmax_off_the_resident_route(card):
     t = torch.rand(500, 1, generator=gen).to(card)
     tk.reset_launches()
     tk.siren_loss_grads(x, ws, t, acts=acts, with_out_absmax=True)
-    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_absmax": 1}
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_absmax_stream": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n_rows,weighted,last_bias", [
+    (16384, 16384, False, 0.05),  # the soft-ERD fit's call
+    (16384, 15150, True, 0.05),  # masked rows, sample weights
+    (3000, 2999, False, 0.05),  # a ragged last tile
+    (16384, 16384, False, -10.0),  # a collapsed output
+])
+def test_k1a_stream_route_at_the_soft_erd_shape(card, P, n_rows, weighted, last_bias):
+    """K1-a on the streaming route at SirenERD(2, 128, 3) (2 -> 128x4 -> 128
+    -> 1, ReLU codes, max |out|): the loss and max |out| within 1e-5
+    relative of the plain version, each dW/db within 1e-3 of its largest
+    magnitude (bf16x3 products); max |out| and every gradient exactly 0 on a
+    collapsed output; bits that repeat; one launch a call under its key."""
+    gen = torch.Generator().manual_seed(P + n_rows)
+    model = SirenERD(2, 128, 3, generator=gen).to(card)
+    with torch.no_grad():
+        model.final.bias.fill_(last_bias)
+    ws, acts = [w.detach() for w in model.weights()], model.acts
+    x = (torch.rand(P, 2, generator=gen) * 2 - 1).to(card)
+    t = torch.rand(P, 1, generator=gen).to(card)
+    sw = (torch.rand(P, 1, generator=gen) > 0.1).float().to(card) if weighted else None
+    tk.reset_launches()
+    got = tk.siren_loss_grads(x, ws, t, acts=acts, n_rows=n_rows, sample_weights=sw,
+                              with_out_absmax=True)
+    again = tk.siren_loss_grads(x, ws, t, acts=acts, n_rows=n_rows, sample_weights=sw,
+                                with_out_absmax=True)
+    want = tk.siren_loss_grads_ref(x, ws, t, 30.0, n_rows, acts, sw, True)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    for a, b in zip(got[2], want[2]):
+        assert float((a - b).abs().max()) <= 1e-3 * max(float(b.abs().max()), 1e-30)
+    if last_bias < 0:
+        assert float(got[1]) == 0.0 and all(float(g.abs().max()) == 0.0 for g in got[2])
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], again[:2]))
+    assert all(torch.equal(a, b) for a, b in zip(got[2], again[2]))
+    key = tk.loss_grads_key(weighted, True, "stream")
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, key: 2}
 
 
 @pytest.mark.cuda
@@ -278,7 +318,8 @@ def test_wire_kernels_launch_and_match_plain(card, P, H, nh, n_rows):
     torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
     for a, b in zip(grads, grads_r):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5 * float(b.abs().max()))
-    assert wk.LAUNCHES == {"wire_forward": 1, "wire_loss_grads": 1, "wire_loss_grads_tc": 0}
+    assert wk.LAUNCHES == {"wire_forward": 1, "wire_loss_grads": 1, "wire_loss_grads_tc": 0,
+                           "wire_forward_tc": 0}
 
 
 @pytest.mark.cuda
@@ -298,26 +339,75 @@ def test_wire_tc_route_launches_and_matches_plain(card, P, H, nh, n_rows):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
     loss2, grads2 = wk.wire_loss_grads(x, ws, oms, target, n_rows=n_rows)
     assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
-    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 2}
+    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 2,
+                           "wire_forward_tc": 0}
 
 
 @pytest.mark.cuda
-def test_wire_engine_adapters_on_card(card):
+@pytest.mark.parametrize("P,H,nh", [(1000, 64, 2), (777, 128, 1), (17_856, 256, 2),
+                                    (71_424, 256, 2), (262_144, 256, 2)])
+def test_wire_forward_tc_route_launches_and_matches_plain(card, P, H, nh):
+    """K5 at a width of the tensor-core route's class (the WIRE path's
+    inference chunk and its tails among them) launches once under its
+    ``_tc`` key (none on the SIMT route), agrees with its plain version
+    within chip_smoke.py's K5_TOL of its largest magnitude and repeats bit
+    for bit; through the engine's adapter it reads omega/sigma from the
+    params on the device (a moved omega gives the plain version's moved
+    output)."""
+    model, x, _ = _wire(card, P, H, nh)
+    ws, _, oms = wk.split_params(model.params(), nh)
+    wk.reset_launches()
+    out = wk.wire_forward(x, ws, oms)
+    ref = wk.wire_forward_ref(x, ws, oms)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(out, wk.wire_forward(x, ws, oms))
+    params = model.params()
+    with torch.no_grad():
+        params[-2] += 0.25
+    moved = wk.make_wire_fused_apply(nh)(params, x)
+    ref = wk.wire_forward_ref(x, ws, wk.split_params(params, nh)[2])
+    assert float((moved - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert not torch.allclose(moved, out)
+    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 0,
+                           "wire_forward_tc": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,tc", [(64, True), (96, False)])
+def test_wire_engine_adapters_on_card(card, H, tc):
     """The engine's adapters launch the kernels and read omega/sigma from
-    the params on the device (a moved omega changes the output)."""
-    model, x, target = _wire(card, 500, 64, 2)
+    the params on the device (a moved omega changes the output), against
+    the nn.Module before and after the move. H = 64 takes the tensor-core
+    route (K5 and K4 on ``wire_tc.cu``): its bf16x3 products are held to
+    chip_smoke.py's K5_TOL, 1e-4 of max |model(x)|. H = 96 takes the SIMT
+    kernels, held to the module element by element."""
+    model, x, target = _wire(card, 500, H, 2)
+
+    def check(out):
+        want = model(x)
+        if tc:
+            assert float((out - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        else:
+            torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-6)
+
     params = model.params()
     apply = wk.make_wire_fused_apply(2)
     wk.reset_launches()
     base = apply(params, x)
+    check(base)
     with torch.no_grad():
         params[-2] += 0.25
     moved = apply(params, x)
     assert not torch.allclose(base, moved)
-    torch.testing.assert_close(moved, model(x), rtol=1e-4, atol=1e-6)
+    check(moved)
     loss, grads = wk.make_wire_value_and_grad(2)(params, x, target)
     assert len(grads) == len(params) and all(float(g) == 0 for g in grads[-6:])
-    assert wk.LAUNCHES == {"wire_forward": 2, "wire_loss_grads": 0, "wire_loss_grads_tc": 1}
+    if tc:
+        assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0,
+                               "wire_loss_grads_tc": 1, "wire_forward_tc": 2}
+    else:
+        assert wk.LAUNCHES == {"wire_forward": 2, "wire_loss_grads": 1,
+                               "wire_loss_grads_tc": 0, "wire_forward_tc": 0}
 
 
 @pytest.mark.cuda

@@ -126,7 +126,10 @@ def test_cpu_runs_plain_versions_without_launching(setup):
                                 "siren_loss_grads_resident",
                                 "siren_loss_grads_weighted_resident",
                                 "siren_loss_grads_absmax_resident",
-                                "siren_loss_grads_weighted_absmax_resident"}
+                                "siren_loss_grads_weighted_absmax_resident",
+                                "siren_loss_grads_stream", "siren_loss_grads_weighted_stream",
+                                "siren_loss_grads_absmax_stream",
+                                "siren_loss_grads_weighted_absmax_stream"}
     assert not any(tk.LAUNCHES.values())
 
 

@@ -107,6 +107,63 @@ def test_resident_route_rule(dims, route):
     assert tk.resident_smem_bytes((2,) + (64,) * 7 + (1,)) == 189_328
 
 
+@pytest.mark.parametrize("dims,route", [
+    ((2, 128, 128, 128, 128, 128, 1), True),  # K1-a: the soft-ERD trunk 2 -> 128x4 -> 128 -> 1
+    ((2, 64, 64, 1), True), ((3,) + (128,) * 15 + (1,), True),
+    ((256, 512, 512, 512, 512, 1), False),  # the flagship: 512 is over one block's plan
+    ((2, 192, 192, 1), False),  # 192 needs 257,536 bytes of shared memory
+    ((2, 96, 96, 1), False),  # not a multiple of 64
+    ((2, 128, 64, 1), False),  # unequal hidden widths
+    ((2, 64, 1), False),  # no hidden layer on the tensor cores
+    ((2,) + (64,) * 16 + (1,), False),  # more layers than the kernel's plan holds
+])
+def test_stream_route_rule(dims, route):
+    """K1's streaming route is chosen from the widths alone: equal hidden
+    widths of a multiple of 64 whose plan fits one block's shared memory;
+    the plan of K1-a's widths is 175,616 bytes of the H100's 232,448."""
+    assert tk.stream_route(dims) is route
+    assert tk.stream_smem_bytes((2, 128, 128, 128, 128, 128, 1)) == 175_616
+
+
+def test_k1_route_order_of_the_models():
+    """The routes in order: the 3-D pipeline's Siren takes the tensor-core
+    route, the 2-D ensemble's Siren the weight-resident one, the soft-ERD
+    SirenERD trunk with max |out| (K1-a) the streaming one, with or without
+    sample weights; widths no hand route takes keep the SIMT kernels."""
+    def dims_of(model, d_in):
+        return (d_in,) + tuple(int(w.shape[0]) for w in model.weights()[0::2])
+
+    ref, master, erd = Siren(256, 512, 3), Siren(2, 64, 6), SirenERD(2, 128, 3)
+    assert tk.k1_route(dims_of(ref, 256), ref.acts) == "tc"
+    assert tk.k1_route(dims_of(master, 2), master.acts, weighted=True) == "resident"
+    assert tk.stream_route(dims_of(master, 2))  # resident_route comes first
+    for weighted in (False, True):
+        assert tk.k1_route(dims_of(erd, 2), erd.acts, weighted, absmax=True) == "stream"
+    assert tk.k1_route((2, 192, 192, 1), ("sine", "sine", "none")) == "simt"
+    assert tk.loss_grads_key(False, True, "stream") == "siren_loss_grads_absmax_stream"
+    assert tk.loss_grads_key(True, True, "stream") in tk.LAUNCHES
+
+
+def test_k1a_wrapper_sends_a_card_call_to_the_streaming_route(monkeypatch):
+    """The wrapper's dispatch for a CUDA tensor (the launch itself stubbed
+    out, this machine has no card): K1-a at SirenERD's widths goes to the
+    streaming launch and counts one under its ``_stream`` key, no other."""
+    model = SirenERD(2, 128, 3)
+    ws, acts = [w.detach() for w in model.weights()], model.acts
+    x, t = torch.zeros(300, 2), torch.zeros(300, 1)
+    calls = []
+    monkeypatch.setattr(tk, "_check", lambda *a: "cuda")
+    monkeypatch.setattr(tk, "_stream_lib", lambda: "stream-lib")
+    monkeypatch.setattr(tk._build, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(tk, "_launch_loss_grads_slots",
+                        lambda route, lib, *a: calls.append((route, lib)) or "out")
+    tk.reset_launches()
+    assert tk.siren_loss_grads(x, ws, t, acts=acts, with_out_absmax=True) == "out"
+    assert calls == [("stream", "stream-lib")]
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_absmax_stream": 1}
+    tk.reset_launches()
+
+
 def test_resident_route_of_the_models():
     """The 2-D ensemble's Siren(2, 64, 6) takes the weight-resident route;
     the soft-ERD SirenERD(2, 128, 3) trunk and the 3-D pipeline's Siren do

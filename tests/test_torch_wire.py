@@ -193,7 +193,8 @@ def test_cpu_runs_plain_versions_without_launching(setup):
     x, t = torch.as_tensor(setup["x"]), torch.as_tensor(setup["target"])
     wk.wire_forward(x, setup["ws"], setup["oms"])
     wk.wire_loss_grads(x, setup["ws"], setup["oms"], t)
-    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 0}
+    assert wk.LAUNCHES == {"wire_forward": 0, "wire_loss_grads": 0, "wire_loss_grads_tc": 0,
+                           "wire_forward_tc": 0}
 
 
 @pytest.mark.parametrize("H,n_hidden,route", [
@@ -205,6 +206,29 @@ def test_cpu_runs_plain_versions_without_launching(setup):
 def test_wire_tc_route_rule(H, n_hidden, route):
     """K4's tensor-core route is chosen from the shapes alone."""
     assert wk.wire_tc_route(H, n_hidden) is route
+
+
+def test_k5_wrapper_sends_a_full_width_card_call_to_the_tc_key(monkeypatch):
+    """The wrapper's dispatch for a CUDA tensor (the launches stubbed out,
+    this machine has no card): K5 at the WIRE path's 4 -> 256x2 -> 1 goes to
+    the tensor-core forward and counts under ``wire_forward_tc``; a width
+    off the route keeps the SIMT forward and its key."""
+    calls = []
+    monkeypatch.setattr(wk, "_check", lambda *a: "cuda")
+    monkeypatch.setattr(wk, "_tc_lib", lambda: "tc-lib")
+    monkeypatch.setattr(wk, "_lib", lambda: "simt-lib")
+    monkeypatch.setattr(wk._build, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(wk, "_launch_forward_tc", lambda lib, *a: calls.append(lib) or "tc")
+    monkeypatch.setattr(wk, "_launch_forward", lambda lib, *a: calls.append(lib) or "simt")
+    wk.reset_launches()
+    for H, want in ((256, "tc"), (96, "simt")):
+        model = Wire(4, H, 2)
+        ws, _, oms = wk.split_params(model.params(), 2)
+        assert wk.wire_forward(torch.zeros(10, 4), ws, oms) == want
+    assert calls == ["tc-lib", "simt-lib"]
+    assert wk.LAUNCHES == {"wire_forward": 1, "wire_loss_grads": 0, "wire_loss_grads_tc": 0,
+                           "wire_forward_tc": 1}
+    wk.reset_launches()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(setup):
