@@ -4,7 +4,8 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--epochs 40] [--pn_epochs 4] [--master_steps 300]
-        [--master_seg 30]
+        [--master_seg 30] [--hybrid_epochs 40] [--fast_epochs 40]
+        [--pia_steps 300]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``,
@@ -17,11 +18,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    their tensor-core route (``csrc/siren_tc.cu``) and the SIMT kernels of
    ``csrc/siren.cu`` at the same shapes for the record: K3
    ``siren_forward`` at the SIREN flagship (P = 70,000 rows, 256 -> 512x4
-   -> 1), the inference chunk (262,144 rows) and its ragged tails (71,424
-   and 17,856 rows); K1 ``siren_loss_grads`` with and without masked rows;
+   -> 1), the inference chunk (262,144 rows) and its ragged tails (71,424,
+   17,856 and the hybrid inference grid's 39,936 rows); K1 ``siren_loss_grads`` with and without masked rows;
    K2 ``siren_fused_bwd`` with and without dW; two calls of each giving the
    same bits; a 20-step Adam fit at the flagship from one init, K1's
-   tensor-core route against the plain K1, loss by loss; a 10-step
+   tensor-core route against the plain K1, loss by loss, and the same at
+   the hybrid fit's P = 100,800 rows, where K1 is also held to its plain
+   version once (twice for the same bits); a 10-step
    PerturbNet Adam trace over 3 acquisitions through the frozen flagship
    INR, K3/K2 on the tensor cores against autograd through the plain
    forward, loss by loss; K1's sample-weighted variant on its
@@ -59,7 +62,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of the path launched exactly as often as the schedule says (K1 and K4 on
    every mean step, K3 on every inference chunk and PN step and K2 on every
    PN step, K5 on every inference chunk, K1-K5 on their tensor-core route
-   and the SIMT ones never) and no other kernel did; then ``pipelines.misr.run`` on
+   and the SIMT ones never) and no other kernel did; then the hybrid tissue
+   fit: ``pipelines.hybrid.fit_all_te`` at full width (four SIRENs 256 ->
+   512x4 -> 1, ROI 35:95 -> 30x30x28x4 = 100,800 LR rows a TE) on a seeded
+   three-compartment patient (``hybrid_from_tissue`` of the same blob) for
+   ``--hybrid_epochs``, then ``tissue_maps`` with the NLLS (40 iterations)
+   on slice 14 on the card: exactly 4 x epochs K1 launches on the
+   tensor-core route and 4 x 7 K3 inference chunks, no other kernel, the
+   per-TE losses falling, the maps finite, within the fit's bounds and v
+   summing to 1; then ``make_pia_fitter`` pretraining ``--pia_steps`` on
+   the card and ``tissue_maps`` with it (no kernel); then the grid INR:
+   ``superres3d.run`` on the 3-D patient at the ``quality`` preset
+   (``--epochs``, ``--pn_epochs``) and the ``fast`` preset
+   (``--fast_epochs``, no PN epochs), no kernel launched, and a 20-epoch
+   quality trace from one init on the card against the CPU, loss by loss,
+   with a control run on TF32 products that its bars must catch;
+   then ``pipelines.misr.run`` on
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
    ``conv_kernel=True``: DICOMs, timings.json, finite (384, 384) outputs in
@@ -108,7 +126,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    under ``torch.profiler`` for the device's busy time and idle share.
 
 The last three lines are the ``{"kernels": ...}`` record (K1-K5 on their
-tensor-core route, K6-K7, K1's weighted variant on its weight-resident
+tensor-core route, K1 also at the hybrid's shape, K6-K7, K1's weighted
+variant on its weight-resident
 route and its absmax variant on its streaming route, P1 in bf16 and int8),
 the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
@@ -203,6 +222,22 @@ K1_ABSMAX_TOL = 1e-5  # max |out|: the max is exact, the outputs it reads are fl
 # K1-a's loss on the streaming route (bf16x3 products): within 1e-5 relative
 # (a CPU model of the split at SirenERD's init: 1.8e-7)
 K1A_LOSS_RTOL = 1e-5
+# the hybrid tissue fit (superresHybrid): ROI 35:95 of a (128, 128, 28)
+# patient, its ::2 LR grid 30 x 30 x 28 x 4 a TE, four per-TE SIRENs at the
+# flagship widths; inference on the (120, 120, 28, 4) grid, the tissue maps
+# on the middle slice
+HYBRID_P, HYBRID_SLICE = 30 * 30 * 28 * 4, 14
+HYBRID_INFER = 120 * 120 * 28 * 4
+BVALS = (0.0, 150.0, 1000.0, 1500.0)
+PIA_STEPS = 300  # noise-range pretraining steps of the PIA fitter
+# the grid INR's mean steps and PerturbNet steps on the card against the
+# CPU from one init, loss by loss, and the recon: float32 sums in other
+# orders (the gather backward's atomics among them), through Adam. Measured
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W): 2.9e-6 worst step rel and 2.2e-4
+# max abs on the recon, so bars of 1e-4 and 5e-4. A control run with TF32
+# products must exceed one of them: the bars see TF32 left on
+GRID_TRACE_STEPS, GRID_TRACE_PN = 20, 4
+GRID_TRACE_RTOL, GRID_RECON_ATOL = 1e-4, 5e-4
 # P1 at the JAX probe's shape
 PROBE_T, PROBE_H, PROBE_REPS, PROBE_GRID = 384, 512, 8, 512
 PROBE_CALLS = 10  # timed calls of the probe CLI, after one untimed
@@ -390,12 +425,15 @@ def phase_parity(P: int, dims) -> dict:
              "the flagship is not of the tensor-core route's class")
 
     # K3 on its tensor-core route at the PerturbNet's P rows, the inference
-    # chunk and the ragged tails of the 2x grid (1,120,000 rows) and the HR
-    # grid (280,000 rows); the SIMT K3 at the same shapes for the record
+    # chunk and the ragged tails of the 2x grid (1,120,000 rows), the HR
+    # grid (280,000 rows) and the hybrid fit's inference grid (HYBRID_INFER
+    # rows a TE); the SIMT K3 at the same shapes for the record
     xc, wsc, _, _ = _flagship_inputs(INFER_CHUNK, dims, seed=2)
     before = dict(sk.LAUNCHES)
     e = 0.0
-    for n in (P, INFER_CHUNK, 1_120_000 % INFER_CHUNK, 280_000 % INFER_CHUNK):
+    shapes = (P, INFER_CHUNK, 1_120_000 % INFER_CHUNK, 280_000 % INFER_CHUNK,
+              HYBRID_INFER % INFER_CHUNK)
+    for n in shapes:
         xn, wn = (x, ws) if n == P else (xc[:n], wsc)
         out = sk.siren_forward(xn, wn)
         simt = sk._launch_forward(sk._lib(), xn, wn, 30.0, _build.stream_ptr())
@@ -411,7 +449,7 @@ def phase_parity(P: int, dims) -> dict:
             _require(torch.equal(out, sk.siren_forward(xn, wn)),
                      "two tensor-core K3 calls differ")
     del xc, wsc
-    _require(sk.LAUNCHES["siren_forward_tc"] == before["siren_forward_tc"] + 5
+    _require(sk.LAUNCHES["siren_forward_tc"] == before["siren_forward_tc"] + len(shapes) + 1
              and sk.LAUNCHES["siren_forward"] == before["siren_forward"],
              "K3 at the flagship's widths did not take the tensor-core route")
     errs["siren_forward_tc"] = e
@@ -543,9 +581,11 @@ def phase_pn_trace(P: int, dims) -> None:
 
 
 def phase_k1_trace(P: int, dims) -> None:
-    """K1_TRACE_STEPS Adam steps (lr 1e-4, the mean fit's) at the
-    flagship from one init, K1 on its tensor-core route against the plain
-    K1 on the card; the losses step by step."""
+    """K1_TRACE_STEPS Adam steps (lr 1e-4, the mean fit's) at P rows of the
+    flagship's widths from one init, K1 on its tensor-core route against
+    the plain K1 on the card; the losses step by step. The plain K1 in
+    float64 runs the same steps for the record: the float32 plain K1's gap
+    to it says how far the fit itself spreads float32 rounding."""
     import torch
 
     from mri_super_resolution_tpu_torch.fit.optim import Adam
@@ -553,21 +593,57 @@ def phase_k1_trace(P: int, dims) -> None:
 
     x, ws, target, _ = _flagship_inputs(P, dims, seed=3)
     traces = {}
-    for route, vag in (("kernel", sk.siren_loss_grads), ("plain", sk.siren_loss_grads_ref)):
-        params = [w.clone() for w in ws]
+    for route, vag, dtype in (("kernel", sk.siren_loss_grads, torch.float32),
+                              ("plain", sk.siren_loss_grads_ref, torch.float32),
+                              ("float64", sk.siren_loss_grads_ref, torch.float64)):
+        params = [w.to(dtype, copy=True) for w in ws]
         opt = Adam(params, 1e-4)
         losses = []
         for _ in range(K1_TRACE_STEPS):
-            loss, grads = vag(x, params, target)
-            losses.append(loss)
+            loss, grads = vag(x.to(dtype), params, target.to(dtype))
+            losses.append(loss.double())
             opt.step(grads)
         traces[route] = torch.stack(losses).tolist()
+
+    def step_rel(a, b):
+        return [abs(u / v - 1.0) for u, v in zip(traces[a], traces[b])]
+
+    by_step = step_rel("kernel", "plain")
+    rel = max(by_step)
     k, p = traces["kernel"], traces["plain"]
-    rel = max(abs(a / b - 1.0) for a, b in zip(k, p))
-    print(f"[parity] K1 {K1_TRACE_STEPS}-step Adam trace at the flagship, tensor-core route "
+    print(f"[parity] K1 {K1_TRACE_STEPS}-step Adam trace at P={P}, tensor-core route "
           f"vs plain: loss {p[0]:.6e} -> {p[-1]:.6e} (plain), {k[-1]:.6e} (kernel); worst "
-          f"step rel {rel:.3e} (tol {K1_TRACE_RTOL:g})")
+          f"step rel {rel:.3e} (tol {K1_TRACE_RTOL:g}); against the plain K1 in float64: "
+          f"kernel {max(step_rel('kernel', 'float64')):.3e}, plain float32 "
+          f"{max(step_rel('plain', 'float64')):.3e}; kernel vs plain by step "
+          f"{', '.join(f'{r:.1e}' for r in by_step)}")
     _require(rel <= K1_TRACE_RTOL and k[-1] < k[0], "K1's Adam trace departs from the plain one")
+
+
+def phase_k1_hybrid_parity(P: int, dims) -> dict:
+    """K1 on its tensor-core route at the hybrid fit's P rows (ragged
+    against the 128-row tile) against the plain K1, twice for the same
+    bits; returns its max abs error."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    x, ws, target, _ = _flagship_inputs(P, dims, seed=5)
+    before = sk.LAUNCHES["siren_loss_grads_tc"]
+    loss, grads = sk.siren_loss_grads(x, ws, target)
+    loss2, grads2 = sk.siren_loss_grads(x, ws, target)
+    loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target)
+    torch.cuda.synchronize()
+    _require(sk.LAUNCHES["siren_loss_grads_tc"] == before + 2,
+             "K1 at the hybrid's shape did not take the tensor-core route")
+    worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
+    print(f"[parity] K1 siren_loss_grads at the hybrid's P={P} ({P % sk.TC_TILE} rows in "
+          f"the last tile), tensor-core route: worst over loss/dW/db max abs {worst[0]:.3e}, "
+          f"rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+    _require(worst[1] <= K1_K2_TOL, "K1 at the hybrid's shape disagrees with its plain version")
+    _require(torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+             "two tensor-core K1 calls at the hybrid's shape differ")
+    return {"siren_loss_grads_tc_hybrid": worst[0]}
 
 
 def phase_k4_trace(P: int) -> None:
@@ -1979,31 +2055,38 @@ def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
             "siren_forward_tc": pn_steps + 7}
 
 
-def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
-    """The pipeline's run() on a full-width synthetic patient; returns the
-    launches of this path's kernels, counted from 0 over this run only."""
+def _b0_volume(seed: int = 7):
+    """A seeded smooth (128, 128, 28) blob of about 1000, float32."""
     import numpy as np
-    import torch
 
-    from mri_super_resolution_tpu_torch.config import SupperresDWIConfig
-    from mri_super_resolution_tpu_torch.data import synthetic
-    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
-    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
-    from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
-    from mri_super_resolution_tpu_torch.pipelines import superres3d
-
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     x, y, z = np.meshgrid(np.linspace(-1, 1, 128), np.linspace(-1, 1, 128),
                           np.linspace(-1, 1, 28), indexing="ij")
-    b0 = (1000.0 * (np.exp(-(x ** 2 / 0.5 + y ** 2 / 0.3 + z ** 2))
-                    + 0.05 * rng.random((128, 128, 28)))).astype(np.float32)
+    return (1000.0 * (np.exp(-(x ** 2 / 0.5 + y ** 2 / 0.3 + z ** 2))
+                      + 0.05 * rng.random((128, 128, 28)))).astype(np.float32)
+
+
+def _reference_patient(what: str):
+    """The 3-D pipeline's synthetic patient: a mono-exponential hybrid of
+    the (128, 128, 28) blob, acquisitions (1, 3, 5, 5); and its b-values."""
+    import numpy as np
+
+    from mri_super_resolution_tpu_torch.data import synthetic
+
     t0 = time.perf_counter()
-    hybrid = synthetic.hybrid_from_b0(b0, acq_counts=(1, 3, 5, 5), seed=7)
-    bv = np.asarray([0.0, 150.0, 1000.0, 1500.0])
-    print(f"[main {inr_model}] synthetic patient (128, 128, 28), acq (1, 3, 5, 5) "
+    hybrid = synthetic.hybrid_from_b0(_b0_volume(), acq_counts=(1, 3, 5, 5), seed=7)
+    print(f"[main {what}] synthetic patient (128, 128, 28), acq (1, 3, 5, 5) "
           f"in {time.perf_counter() - t0:.1f} s")
-    cfg = SupperresDWIConfig(number_of_epochs=epochs, perturbation_epochs=pn_epochs,
-                             inr_model=inr_model)
+    return hybrid, np.asarray(BVALS)
+
+
+def _run_keep(cfg, hybrid, bv, out_dir: str):
+    """``superres3d.run`` on one patient with every launch count set to 0
+    just before it; returns the patient's result, the wall seconds and the
+    counts read just after."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.pipelines import superres3d
 
     results = []
     run_patient = superres3d.run_patient
@@ -2013,19 +2096,25 @@ def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
         results.append(r)
         return r
 
-    superres3d.run_patient = recording  # keep the result for the checks below
+    superres3d.run_patient = recording  # keep the result for the checks
     try:
-        for mod in (sk, wk, ck):
-            mod.reset_launches()
+        _reset_all_counts()
         t0 = time.perf_counter()
         superres3d.run([(0, hybrid, bv)], cfg, out_dir, seed=0, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**sk.LAUNCHES, **wk.LAUNCHES, **ck.LAUNCHES}
+        launches = _all_counts()
     finally:
         superres3d.run_patient = run_patient
-
     (res,) = results
+    return res, wall, launches
+
+
+def _check_patient(res, out_dir: str, epochs: int, pn_epochs: int) -> np.ndarray:
+    """run()'s CSV and timings.json, the volumes' shapes, finite clamped
+    values, and a falling mean-fit loss; returns the SSIM rows."""
+    import numpy as np
+
     csv_path = os.path.join(out_dir, "pat0", "ssim_scores.csv")
     timings_path = os.path.join(out_dir, "timings.json")
     _require(os.path.isfile(csv_path) and os.path.isfile(timings_path),
@@ -2044,6 +2133,21 @@ def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
     n1 = epochs - pn_epochs
     _require(np.isfinite(res.losses).all() and res.losses[n1 - 1] < res.losses[0],
              f"mean-fit loss did not fall: {res.losses[0]} -> {res.losses[n1 - 1]}")
+    _require(json.load(open(timings_path))["platform"] == "cuda", "timings.json platform")
+    return ssim
+
+
+def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
+    """The pipeline's run() on a full-width synthetic patient; returns the
+    launches of this path's kernels, counted from 0 over this run only."""
+    from mri_super_resolution_tpu_torch.config import SupperresDWIConfig
+
+    hybrid, bv = _reference_patient(inr_model)
+    cfg = SupperresDWIConfig(number_of_epochs=epochs, perturbation_epochs=pn_epochs,
+                             inr_model=inr_model)
+    res, wall, launches = _run_keep(cfg, hybrid, bv, out_dir)
+    ssim = _check_patient(res, out_dir, epochs, pn_epochs)
+    n1 = epochs - pn_epochs
     want = _expected_launches(inr_model, epochs, pn_epochs)
     for name, n in launches.items():
         _require(n == want.get(name, 0),
@@ -2051,13 +2155,188 @@ def phase_main_path(inr_model: str, epochs: int, pn_epochs: int, out_dir: str):
                  f"{want.get(name, 0)}")
     for name in want:
         _require(launches[name] > 0, f"kernel {name} was not launched on the main path")
-    timings = json.load(open(timings_path))
-    _require(timings["platform"] == "cuda", "timings.json platform")
+    timings = json.load(open(os.path.join(out_dir, "timings.json")))
+    launches = {k: v for k, v in launches.items() if v}
     print(f"[main {inr_model}] run() {wall:.1f} s; launches {launches}; loss "
           f"{res.losses[0]:.4e} -> {res.losses[n1 - 1]:.4e}; mean SSIM spline "
           f"{ssim[:, 0].mean():.4f}, SR {ssim[:, 1].mean():.4f}")
     print(f"[main {inr_model}] phases {json.dumps(timings['patients'][0])}")
     return {name: launches[name] for name in want}
+
+
+def _check_maps(maps, what: str) -> None:
+    """Tissue maps of the (120, 120) slice: finite, D and T2 within the
+    NLLS bounds, v summing to 1, the ADC finite, a boolean cancer map."""
+    import numpy as np
+
+    from mri_super_resolution_tpu_torch.ops.nlls import HI, LO
+
+    for name, a in (("D", maps.D), ("T2", maps.T2), ("v", maps.v)):
+        _require(a.shape == (120, 120, 3) and np.isfinite(a).all(), f"{what} {name} map")
+    lo, hi = LO - 1e-5, HI + 1e-5
+    _require(((maps.D >= lo[:3]) & (maps.D <= hi[:3])).all()
+             and ((maps.T2 >= lo[3:6]) & (maps.T2 <= hi[3:6])).all(),
+             f"{what} D/T2 outside the fit's bounds")
+    _require(np.abs(maps.v.sum(-1) - 1.0).max() < 1e-5 and (maps.v[..., :2] >= -1e-6).all(),
+             f"{what} v does not sum to 1")
+    _require(np.isfinite(maps.adc).all() and maps.cancer.dtype == bool, f"{what} ADC/cancer")
+
+
+def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
+    """The hybrid tissue fit at full width: ``fit_all_te`` (four SIRENs
+    256 -> 512x4 -> 1 on P = 100,800 rows each, K1 on every step, K3 for
+    inference) then ``tissue_maps`` with the NLLS (40 iterations) on the
+    card, on a seeded three-compartment patient; returns the K1 launches
+    (under the kernels line's hybrid name), the fit's result, the maps and
+    the ground truth."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.data import synthetic
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+
+    t0 = time.perf_counter()
+    hybrid_all, gt = synthetic.hybrid_from_tissue(_b0_volume(), seed=7)
+    hybrid = hy.mean_over_acquisitions(hybrid_all)
+    print(f"[main hybrid] synthetic tissue patient (128, 128, 28), acq (1, 3, 5, 5) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = hy.HybridConfig(number_of_epochs=epochs)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    res = hy.fit_all_te(hybrid, cfg, seed=0, device="cuda")
+    t1 = time.perf_counter()
+    maps = hy.tissue_maps(res, np.asarray(BVALS), _slice=HYBRID_SLICE,
+                          nlls_iters=cfg.nlls_iters, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _all_counts()
+    chunks = -(-HYBRID_INFER // INFER_CHUNK)
+    want = {"siren_loss_grads_tc": 4 * epochs, "siren_forward_tc": 4 * chunks}
+    _check_only(launches, want, "hybrid")
+    _require(res.timings["lr_voxels_per_te"] == HYBRID_P, "hybrid LR voxels")
+    rh = res.recon_hybrid
+    _require(rh.shape == (120, 120, 28, 4, 4) and np.isfinite(rh).all() and (rh >= 0).all(),
+             "recon_hybrid shape, finite and >= 0")
+    _require(np.isfinite(res.losses).all() and (res.losses[:, -1] < res.losses[:, 0]).all(),
+             f"a per-TE loss did not fall: {res.losses[:, 0]} -> {res.losses[:, -1]}")
+    _check_maps(maps, "NLLS")
+    # the ground truth of the slice on the ROI, against the 2x maps at ::2
+    v_gt = gt["v"][35:95, 35:95, HYBRID_SLICE]
+    err = np.median(np.abs(maps.v[::2, ::2] - v_gt), axis=(0, 1))
+    print(f"[main hybrid] fit_all_te {t1 - t0:.1f} s (phases {json.dumps(res.timings)}), "
+          f"tissue_maps (NLLS, {cfg.nlls_iters} iterations, 14,400 voxels) {t2 - t1:.2f} s; "
+          f"launches {want}; per-TE loss {res.losses[:, 0].round(5).tolist()} -> "
+          f"{res.losses[:, -1].round(6).tolist()}; median |v - v_true| per compartment "
+          f"{err.round(4).tolist()}; cancer-map fraction {float(maps.cancer.mean()):.4f}")
+    return {"siren_loss_grads_tc_hybrid": launches["siren_loss_grads_tc"]}, res, maps, gt
+
+
+def phase_pia(res, nlls_maps, gt, steps: int) -> None:
+    """``make_pia_fitter`` pretrains ``steps`` steps on the card, then
+    ``tissue_maps`` runs with it on the hybrid's result; no kernel."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    fitter = hy.make_pia_fitter(train_steps=steps, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    maps = hy.tissue_maps(res, np.asarray(BVALS), _slice=HYBRID_SLICE, fitter=fitter,
+                          device="cuda")
+    t2 = time.perf_counter()
+    _check_only(_all_counts(), {}, "pia")
+    _check_maps(maps, "PIA")
+    v_gt = gt["v"][35:95, 35:95, HYBRID_SLICE]
+    err = np.median(np.abs(maps.v[::2, ::2] - v_gt), axis=(0, 1))
+    gap = np.median(np.abs(maps.v - nlls_maps.v), axis=(0, 1))
+    print(f"[main pia] make_pia_fitter {steps} steps {t1 - t0:.2f} s "
+          f"({(t1 - t0) / steps * 1e3:.2f} ms a step), tissue_maps with it {t2 - t1:.3f} s; "
+          f"median |v - v_true| {err.round(4).tolist()}, median |v - v_NLLS| "
+          f"{gap.round(4).tolist()}")
+
+
+def _grid_cfg(preset: str, epochs: int, pn_epochs: int):
+    """The 3-D pipeline's config at ``preset``'s settings and the given
+    schedule."""
+    from mri_super_resolution_tpu_torch.config import PRESETS, SupperresDWIConfig
+
+    fields = {k: v for k, v in PRESETS[preset].items()
+              if k in SupperresDWIConfig.__dataclass_fields__}
+    return SupperresDWIConfig(number_of_epochs=epochs, perturbation_epochs=pn_epochs, **fields)
+
+
+def phase_grid(preset: str, epochs: int, pn_epochs: int, out_dir: str) -> None:
+    """``superres3d.run`` with the grid INR at ``preset``'s settings
+    (``quality`` and ``fast``: GridINR L4, base 6, F 4, hidden 64, z_divisor
+    1, restart_adam(5e-3, 250)) for ``epochs`` of which ``pn_epochs``
+    alternate, on the reference phase's patient: the CSV, timings.json, the
+    volumes, and no kernel launched."""
+    hybrid, bv = _reference_patient(f"grid {preset}")
+    cfg = _grid_cfg(preset, epochs, pn_epochs)
+    _require(cfg.inr_model == "grid" and cfg.inr_restart_every == 250, "preset fields")
+    res, wall, launches = _run_keep(cfg, hybrid, bv, out_dir)
+    _check_only(launches, {}, f"grid {preset}")
+    ssim = _check_patient(res, out_dir, epochs, pn_epochs)
+    timings = json.load(open(os.path.join(out_dir, "timings.json")))
+    _require(timings["config"]["inr_model"] == "grid", "timings.json inr_model")
+    print(f"[main grid {preset}] run() {wall:.1f} s ({epochs} epochs, {pn_epochs} alternating); "
+          f"no kernel launched; loss {res.losses[0]:.4e} -> {res.losses[-1]:.4e}; mean SSIM "
+          f"spline {ssim[:, 0].mean():.4f}, SR {ssim[:, 1].mean():.4f}")
+    print(f"[main grid {preset}] phases {json.dumps(timings['patients'][0])}")
+
+
+def phase_grid_trace() -> None:
+    """GRID_TRACE_STEPS epochs (GRID_TRACE_PN alternating) at the quality
+    preset from one init on the card and on the CPU, loss by loss, and the
+    recon; then on the card with TF32 products, which must break the bars."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch import set_float32_precision
+    from mri_super_resolution_tpu_torch.core.coords import fourier_matrix
+    from mri_super_resolution_tpu_torch.models import PerturbNet
+    from mri_super_resolution_tpu_torch.pipelines import superres3d
+
+    hybrid, bv = _reference_patient("grid trace")
+    cfg = _grid_cfg("quality", GRID_TRACE_STEPS, GRID_TRACE_PN)
+    gen = torch.Generator().manual_seed(11)
+    init = {"B": fourier_matrix(gen, cfg.mapping_size, 4).numpy(),
+            "inr": superres3d._grid_model(cfg, gen).state_dict(),
+            "pn": PerturbNet(4, cfg.pn_dim, 4, generator=gen).state_dict()}
+    def gaps(run):
+        return (float(np.max(np.abs(run.losses / cpu.losses - 1.0))),
+                float(np.abs(run.recon_2x - cpu.recon_2x).max()))
+
+    t0 = time.perf_counter()
+    card = superres3d.run_patient(hybrid, bv, cfg, device="cuda", init=init)
+    t1 = time.perf_counter()
+    cpu = superres3d.run_patient(hybrid, bv, cfg, device="cpu", init=init)
+    t2 = time.perf_counter()
+    # the control: the same fit on the card as if run_patient left TF32 on
+    def tf32_on():
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    superres3d.set_float32_precision = tf32_on
+    try:
+        tf32 = superres3d.run_patient(hybrid, bv, cfg, device="cuda", init=init)
+    finally:
+        superres3d.set_float32_precision = set_float32_precision
+        set_float32_precision()
+    rel, err = gaps(card)
+    rel_tf32, err_tf32 = gaps(tf32)
+    print(f"[parity] grid quality {GRID_TRACE_STEPS}-epoch trace ({GRID_TRACE_PN} alternating) "
+          f"card vs CPU from one init: loss {cpu.losses[0]:.6e} -> {cpu.losses[-1]:.6e} (CPU), "
+          f"{card.losses[-1]:.6e} (card); worst step rel {rel:.3e} (tol {GRID_TRACE_RTOL:g}); "
+          f"recon max abs {err:.3e} (tol {GRID_RECON_ATOL:g}); card {t1 - t0:.1f} s, CPU "
+          f"{t2 - t1:.1f} s; control with TF32 on: worst step rel {rel_tf32:.3e}, recon max "
+          f"abs {err_tf32:.3e}")
+    _require(rel <= GRID_TRACE_RTOL and err <= GRID_RECON_ATOL,
+             "the grid fit on the card departs from the CPU's")
+    _require(rel_tf32 > GRID_TRACE_RTOL or err_tf32 > GRID_RECON_ATOL,
+             "the grid trace's bars do not see TF32 products")
 
 
 def _best_alternating(kern, lib, reps: int, rounds: int) -> tuple[float, float]:
@@ -2180,18 +2459,59 @@ def phase_wire_times(P: int, errs: dict, launches: dict) -> list[dict]:
     return rows
 
 
-def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
+def _siren_module(dims, ws):
+    """The plain ``Siren`` module on the card holding the weights ``ws``."""
     import torch
 
     from mri_super_resolution_tpu_torch.models import Siren
-    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
-    x, ws, target, g = _flagship_inputs(P, dims, seed=1)
-    n_sine = len(dims) - 2
-    module = Siren(dims[0], dims[1], n_sine - 1, device="cuda")
+    module = Siren(dims[0], dims[1], len(dims) - 3, device="cuda")
     with torch.no_grad():
         for p, w in zip(module.weights(), ws):
             p.copy_(w)
+    return module
+
+
+def _k1_work(P: int, dims, ws) -> tuple[int, int]:
+    """K1's tensor-core route at P rows: its bf16x3 products (three bf16
+    products for each float32 one: forward, weight gradients, the delta
+    chain) and its compulsory bytes (x, the weights and their gradients,
+    the target, the loss)."""
+    macs = _layer_macs(dims)
+    fwd, chain = sum(macs), sum(macs[1:])
+    weight_bytes = 4 * sum(w.numel() for w in ws)
+    return 3 * 2 * P * (2 * fwd + chain), 4 * P * dims[0] + 2 * weight_bytes + 4 * P + 4
+
+
+def phase_k1_hybrid_time(P: int, dims, errs: dict, launches: dict) -> dict:
+    """K1 on its tensor-core route at the hybrid fit's P rows, beside the
+    plain K1 and eager autograd of the Siren module."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    x, ws, target, _ = _flagship_inputs(P, dims, seed=5)
+    module = _siren_module(dims, ws)
+    params = module.weights()
+
+    def lib_loss_grads():
+        loss = torch.mean((module(x) - target) ** 2)
+        torch.autograd.grad(loss, params)
+
+    flops, nbytes = _k1_work(P, dims, ws)
+    return _time_row("siren_loss_grads_tc_hybrid", "siren_tc", "siren_kernel.py:518",
+                     lambda: sk.siren_loss_grads(x, ws, target),
+                     lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads, flops,
+                     nbytes, f"P={P} (hybrid)", errs, launches, peak=PEAK_BF16_TC)
+
+
+def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    x, ws, target, g = _flagship_inputs(P, dims, seed=1)
+    module = _siren_module(dims, ws)
     params = module.weights()
 
     def lib_forward():
@@ -2202,8 +2522,7 @@ def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
         loss = torch.mean((module(x) - target) ** 2)
         torch.autograd.grad(loss, params)
 
-    module_frozen = Siren(dims[0], dims[1], n_sine - 1, device="cuda")
-    module_frozen.load_state_dict(module.state_dict())
+    module_frozen = _siren_module(dims, ws)
     module_frozen.requires_grad_(False)
     xr = x.clone().requires_grad_()
 
@@ -2222,8 +2541,7 @@ def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
          lambda: sk.siren_forward_ref(x, ws), lib_forward,
          3 * 2 * P * fwd, in_bytes + weight_bytes + 4 * P),
         ("siren_loss_grads_tc", "siren_tc", ":518", lambda: sk.siren_loss_grads(x, ws, target),
-         lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads,
-         3 * 2 * P * (2 * fwd + chain), in_bytes + 2 * weight_bytes + 4 * P + 4),
+         lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads, *_k1_work(P, dims, ws)),
         # as the main path calls it: dx for the PerturbNet step, no dW
         ("siren_fused_bwd_tc", "siren_tc", ":377",
          lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False),
@@ -2275,6 +2593,12 @@ def main(argv=None) -> int:
                     help="steps of the 2-D ensemble's main run (3000 in the reference)")
     ap.add_argument("--master_seg", type=int, default=30,
                     help="its ensemble tail (150 in the reference)")
+    ap.add_argument("--hybrid_epochs", type=int, default=40,
+                    help="epochs of the hybrid fit's four SIRENs (2500 in the reference)")
+    ap.add_argument("--fast_epochs", type=int, default=40,
+                    help="epochs of the fast-preset grid patient (600 in the preset)")
+    ap.add_argument("--pia_steps", type=int, default=PIA_STEPS,
+                    help="pretraining steps of the PIA fitter (4000 in the pipeline)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2293,6 +2617,8 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_parity(P, dims)
     phase_k1_trace(P, dims)
+    phase_k1_trace(HYBRID_P, dims)
+    errs.update(phase_k1_hybrid_parity(HYBRID_P, dims))
     phase_k4_trace(P)
     phase_k1a_trace()
     phase_pn_trace(P, dims)
@@ -2312,6 +2638,15 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as out_dir:
             launches.update(phase_main_path(inr_model, args.epochs, args.pn_epochs,
                                             out_dir))
+    hybrid_launches, hybrid_res, nlls_maps, gt = phase_hybrid(args.hybrid_epochs)
+    launches.update(hybrid_launches)
+    phase_pia(hybrid_res, nlls_maps, gt, args.pia_steps)
+    del hybrid_res
+    for preset, epochs, pn_epochs in (("quality", args.epochs, args.pn_epochs),
+                                      ("fast", args.fast_epochs, 0)):
+        with tempfile.TemporaryDirectory() as out_dir:
+            phase_grid(preset, epochs, pn_epochs, out_dir)
+    phase_grid_trace()
     with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_misr_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:
@@ -2327,6 +2662,7 @@ def main(argv=None) -> int:
         train_launches, train_data = phase_train_main(out_dir)
         launches.update(train_launches)
         rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
+        rows.append(phase_k1_hybrid_time(HYBRID_P, dims, errs, launches))
         rows.append(phase_k6_times(k6_err, launches))
         rows.append(phase_k7_times(k7_err, launches))
         rows += phase_2d_times(errs, launches)

@@ -6,9 +6,10 @@ flags as the JAX package's ``cli/superres_dwi.py`` plus ``--device``
 (default ``cuda``; raises when no card is present). Loads master.mat files
 when given, else synthesizes hybrid acquisitions from the mean-b0 volumes
 under ``$MRI_SR_DATA_DIR`` (default ``anon_data``). Runs ``--inr_model
-siren`` (the reference) and ``--inr_model wire`` (the complex-Gabor INR on
-the raw coordinates, ``--wire_*`` flags); the grid model and
-``--export_artifact`` are not ported yet and raise.
+siren`` (the reference), ``--inr_model wire`` (the complex-Gabor INR on
+the raw coordinates, ``--wire_*`` flags) and ``--inr_model grid`` (the
+multiresolution dense-grid INR, ``--grid_*`` flags; ``--preset quality`` and
+``--preset fast``); ``--export_artifact`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ def main(argv=None):
                    help="Adam moment restarts every N INR steps (0 = flat Adam)")
     p.add_argument("--inr_model", choices=("siren", "grid", "wire"), default="siren",
                    help="volume INR family: 'siren' (reference FF-SIREN), 'wire' "
-                   "(complex Gabor on raw coordinates); 'grid' is not ported yet")
+                   "(complex Gabor on raw coordinates), 'grid' (multiresolution "
+                   "dense grids)")
     p.add_argument("--wire_hidden", type=int, default=256)
     p.add_argument("--wire_layers", type=int, default=2)
     p.add_argument("--wire_lr", type=float, default=1e-3)

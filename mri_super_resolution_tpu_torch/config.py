@@ -3,9 +3,7 @@
 Counterpart of ``mri_super_resolution_tpu/config.py`` (``Master2DConfig``,
 ``SupperresDWIConfig``, ``PRESETS``, ``add_preset_arg``, ``INRERDConfig``,
 ``RAMSConfig``, ``TrainerConfig``), copied so the port imports nothing of
-the JAX package. The config accepts ``inr_model="grid"`` and its
-knobs; the port's pipeline runs ``"siren"`` and ``"wire"`` and raises
-``NotImplementedError`` for ``"grid"``.
+the JAX package.
 """
 from __future__ import annotations
 
@@ -155,7 +153,7 @@ class TrainerConfig:
 
 
 # "reference": exact reference behavior (FF-SIREN, flat Adam, 2500 epochs).
-# "quality" / "fast": the grid INR arms (not ported yet: the pipeline raises).
+# "quality" / "fast": the grid INR arms.
 # Keys are CLI flag dests; explicit flags always beat the preset.
 PRESETS: dict[str, dict] = {
     "reference": {},
@@ -182,7 +180,7 @@ def add_preset_arg(parser, argv=None) -> None:
     parser.add_argument(
         "--preset", choices=sorted(PRESETS), default="reference",
         help="config preset: 'reference' = exact reference behavior; "
-        "'quality'/'fast' = grid INR arms (not ported yet)",
+        "'quality'/'fast' = grid INR arms",
     )
     args = sys.argv[1:] if argv is None else list(argv)
     pre, _ = parser.parse_known_args(

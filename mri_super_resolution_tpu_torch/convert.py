@@ -4,8 +4,10 @@ The JAX package keeps flax param trees; handed over as nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, params)``), they become ``state_dict``s of
 the port's :class:`~mri_super_resolution_tpu_torch.models.Siren`,
 :class:`~mri_super_resolution_tpu_torch.models.SirenERD`,
-:class:`~mri_super_resolution_tpu_torch.models.Wire` and
-:class:`~mri_super_resolution_tpu_torch.models.PerturbNet`. flax
+:class:`~mri_super_resolution_tpu_torch.models.Wire`,
+:class:`~mri_super_resolution_tpu_torch.models.PerturbNet`,
+:class:`~mri_super_resolution_tpu_torch.models.GridINR` (and ``GridINR2D``)
+and :class:`~mri_super_resolution_tpu_torch.models.PIA`. flax
 ``Dense.kernel`` is (in, out); torch ``Linear.weight`` is (out, in). The
 SIREN trunk order is ``SineLayer_0..n`` then ``Dense_0``
 (``ops/pallas/siren_kernel.py:606-625`` of the JAX package).
@@ -148,6 +150,40 @@ def wire_weights(params: dict) -> tuple[list[torch.Tensor], torch.Tensor]:
     oms = torch.stack([torch.cat([sd[f"layers.{i}.omega_0"], sd[f"layers.{i}.sigma_0"]])
                        for i in range(n_layers)])
     return flat, oms
+
+
+def _dense(sd: dict, prefix: str, d: dict) -> None:
+    sd[f"{prefix}.weight"] = _tensor(d["kernel"]).T.contiguous()
+    sd[f"{prefix}.bias"] = _tensor(d["bias"])
+
+
+def grid_inr_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``GridINR`` or ``GridINR2D`` params -> the port module's
+    ``state_dict()`` keys: ``grid_{l}`` as they are, ``b_embedding`` (3-D
+    only), and the head's ``Dense_0..2``."""
+    p = params["params"]
+    sd = {f"grids.{i}": _tensor(p[k]) for i, k in enumerate(_numbered(p, "grid_"))}
+    if "b_embedding" in p:
+        sd["b_embedding"] = _tensor(p["b_embedding"])
+    for i in range(3):
+        _dense(sd, f"head.{i}", p[f"Dense_{i}"])
+    return sd
+
+
+def pia_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``PIA`` params -> ``PIA.state_dict()`` keys: the encoder's
+    ``enc_{i}`` and each head's ``{D,T2,v}_h{i}`` and ``{D,T2,v}_out``."""
+    p = params["params"]
+    sd = {}
+    for i, k in enumerate(_numbered(p, "enc_")):
+        _dense(sd, f"enc.{i}", p[k])
+    for name in ("D", "T2", "v"):
+        hidden = sorted((k for k in p if k.startswith(f"{name}_h")),
+                        key=lambda k: int(k[len(name) + 2:]))
+        for i, k in enumerate(hidden):
+            _dense(sd, f"heads.{name}.{i}", p[k])
+        _dense(sd, f"heads.{name}.{len(hidden)}", p[f"{name}_out"])
+    return sd
 
 
 def save_params_npz(tree: dict, path: str) -> None:

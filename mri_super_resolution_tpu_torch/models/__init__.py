@@ -1,10 +1,16 @@
-"""INR models (SIREN, WIRE, the PerturbNet coordinate offset) and the RAMS
-multi-image super-resolution network."""
+"""INR models (SIREN, WIRE, the dense-grid GridINR, the PerturbNet
+coordinate offset), the RAMS multi-image super-resolution network and the
+PIA tissue autoencoder."""
 
+from mri_super_resolution_tpu_torch.models.grid_inr import (  # noqa: F401
+    GridINR,
+    GridINR2D,
+)
 from mri_super_resolution_tpu_torch.models.perturbnet import (  # noqa: F401
     PerturbNet,
     perturbnet_apply,
 )
+from mri_super_resolution_tpu_torch.models.pia import PIA  # noqa: F401
 from mri_super_resolution_tpu_torch.models.rams import (  # noqa: F401
     RAMS,
     RFAB,

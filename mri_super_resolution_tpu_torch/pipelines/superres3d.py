@@ -1,5 +1,5 @@
 """3-D volume INR + PerturbNet super-resolution (the superresDWI pipeline),
-SIREN and WIRE paths.
+SIREN, WIRE and dense-grid paths.
 
 Counterpart of ``mri_super_resolution_tpu/pipelines/superres3d.py``. Per
 patient: per-(b, TE) max normalisation -> combination mean and the cross-b
@@ -21,9 +21,21 @@ forward has no backward for the input). With ``wire_trainable`` the mean
 steps take autograd over the same module, so that omega/sigma get their
 gradients; K5 still serves inference, reading them from the params.
 
+``inr_model="grid"`` (the ``quality`` and ``fast`` presets): the
+multiresolution :class:`GridINR` on the raw coordinates. No kernel: the
+mean steps take autograd through the separable tensor-product forward on
+``mgrid`` (the JAX package's z-bucketed program, without the buckets), the
+PerturbNet steps differentiate through the gather forward
+(:func:`grid_inr_apply`), and inference is :func:`infer_tensor_grid`. The
+engine's one ``fit_alternating_pn`` call runs both of the JAX package's
+programs: ``epochs - pn_epochs`` mean steps (its ``fit_simple``), then the
+PerturbNet tail from absolute epoch ``epochs - pn_epochs`` (its
+``phase2_start``), one Adam throughout, so ``restart_adam``'s schedule
+counts across both.
+
 On the CPU the same calls run the kernels' plain PyTorch versions.
 ``cfg.use_pallas=False`` (the JAX package's XLA route) has no counterpart on
-the card and is refused there. ``inr_model="grid"`` is not ported yet.
+the card for SIREN and WIRE, and is refused there.
 """
 from __future__ import annotations
 
@@ -61,11 +73,17 @@ from mri_super_resolution_tpu_torch.fit.engine import (
 )
 from mri_super_resolution_tpu_torch.fit.optim import Adam, restart_adam
 from mri_super_resolution_tpu_torch.models import (
+    GridINR,
     PerturbNet,
     Siren,
     Wire,
     perturbnet_apply,
     wire_apply,
+)
+from mri_super_resolution_tpu_torch.models.grid_inr import (
+    grid_inr_apply,
+    infer_tensor_grid,
+    make_tensor_value_and_grad,
 )
 from mri_super_resolution_tpu_torch.ops.siren_kernel import (
     siren_fused,
@@ -85,7 +103,7 @@ class SR3DResult:
     maxes: np.ndarray  # (4, 4) per-(b, TE) normalisation maxes
     bvalues: np.ndarray
     ssim_rows: list[tuple]
-    inr: Siren | Wire  # fitted INR (its parameters are the fit's result)
+    inr: Siren | Wire | GridINR  # fitted INR (its parameters are the fit's result)
     pn: PerturbNet
     B: np.ndarray
     losses: np.ndarray  # per-epoch loss trace
@@ -158,11 +176,23 @@ def _identity(x):
     return x
 
 
+def _grid_model(cfg: SupperresDWIConfig, gen: torch.Generator | None = None,
+                dev=None) -> GridINR:
+    """The pipeline's GridINR from its config (``_grid_model`` of the JAX
+    package)."""
+    return GridINR(num_levels=cfg.grid_levels, base_resolution=cfg.grid_base_resolution,
+                   features_per_level=cfg.grid_features, hidden=cfg.grid_hidden,
+                   z_divisor=cfg.grid_z_divisor, generator=gen, device=dev)
+
+
 def _inr_model(cfg: SupperresDWIConfig, dim: int, gen: torch.Generator,
-               dev: torch.device) -> Siren | Wire:
-    """The INR of ``cfg.inr_model``: WIRE reads the raw ``dim``-D coordinates
-    (the Gabor layer is its own frequency lift), SIREN their ``2 m``-wide
+               dev: torch.device) -> Siren | Wire | GridINR:
+    """The INR of ``cfg.inr_model``: WIRE and the grid read the raw
+    ``dim``-D coordinates (the Gabor layer is its own frequency lift, the
+    multiresolution grids are the encoding), SIREN their ``2 m``-wide
     Fourier encoding."""
+    if cfg.inr_model == "grid":
+        return _grid_model(cfg, gen, dev)
     if cfg.inr_model == "wire":
         return Wire(dim, cfg.wire_hidden, cfg.wire_layers,
                     omega_0=cfg.wire_omega, sigma_0=cfg.wire_sigma,
@@ -176,37 +206,46 @@ class _Route:
     """How the pipeline fits and samples one INR."""
     params: list[torch.Tensor]
     apply: Callable  # differentiable in its input (the PerturbNet steps)
-    value_and_grad: Callable | None  # one-pass kernel of the mean steps; None: autograd
-    infer_apply: Callable  # the inference forward
+    value_and_grad: Callable | None  # the mean steps' (loss, grads); None: autograd
+    infer: Callable  # (grid shape, clamp_min=None) -> host (P, out) array
     lr: float
     fourier_B: torch.Tensor | None  # encodes the INR's input; None: raw coordinates
     pn_encode: Callable | None  # PerturbNet output -> INR input; None: re-encode with B
 
 
-def _route(cfg: SupperresDWIConfig, inr: Siren | Wire, B: torch.Tensor) -> _Route:
+def _route(cfg: SupperresDWIConfig, inr: Siren | Wire | GridINR, B: torch.Tensor,
+           fit_shape: Sequence[int] | None = None) -> _Route:
+    """``fit_shape``: the LR grid of the grid INR's tensor-path mean steps."""
+    if isinstance(inr, GridINR):
+        params = inr.params()
+        return _Route(
+            params=params, apply=grid_inr_apply,
+            value_and_grad=None if fit_shape is None else make_tensor_value_and_grad(fit_shape),
+            infer=functools.partial(infer_tensor_grid, params), lr=cfg.grid_lr,
+            fourier_B=None, pn_encode=_identity)
     if isinstance(inr, Wire):
         nh = inr.hidden_layers
+        params = inr.params()
         return _Route(
-            params=inr.params(),
+            params=params,
             apply=functools.partial(wire_apply, n_hidden=nh, trainable=inr.trainable),
             value_and_grad=None if inr.trainable else make_wire_value_and_grad(nh),
-            infer_apply=make_wire_fused_apply(nh), lr=cfg.wire_lr, fourier_B=None,
-            pn_encode=_identity)
+            infer=functools.partial(infer_dense_grid, make_wire_fused_apply(nh), params),
+            lr=cfg.wire_lr, fourier_B=None, pn_encode=_identity)
     apply = functools.partial(_kernel_apply, inr.omegas)
+    params = inr.weights()
     return _Route(
-        params=inr.weights(), apply=apply,
+        params=params, apply=apply,
         value_and_grad=functools.partial(_kernel_value_and_grad, inr.omegas),
-        infer_apply=apply, lr=cfg.inr_lr, fourier_B=B, pn_encode=None)
+        infer=functools.partial(infer_dense_grid, apply, params, fourier_B=B),
+        lr=cfg.inr_lr, fourier_B=B, pn_encode=None)
 
 
 def _check_model(cfg: SupperresDWIConfig, device: str | torch.device) -> None:
-    if cfg.inr_model == "grid":
-        raise NotImplementedError(
-            "inr_model='grid' is not ported to PyTorch yet (ROADMAP Queue 1, item "
-            "15); the port runs inr_model='siren' and 'wire'")
-    if cfg.inr_model not in ("siren", "wire"):
+    if cfg.inr_model not in ("siren", "wire", "grid"):
         raise ValueError(f"unknown inr_model {cfg.inr_model!r}")
-    if not cfg.use_pallas and torch.device(device).type == "cuda":
+    if (not cfg.use_pallas and cfg.inr_model != "grid"
+            and torch.device(device).type == "cuda"):
         raise ValueError(
             "use_pallas=False: the port has no plain route on the card; its INR "
             "steps and inference always run the kernels there (K1-K3 for SIREN, "
@@ -246,10 +285,10 @@ def run_patient(
     """Fit one patient volume and compute the evaluation protocol.
 
     ``init`` optionally fixes the fit's starting point: ``{"B": (m, 4) numpy
-    Fourier matrix, "inr": Siren or Wire state_dict, "pn": PerturbNet
-    state_dict}`` (``convert.py`` makes the last two from the JAX package's
-    params). B is drawn for WIRE too, as the JAX pipeline draws it, and
-    unused there.
+    Fourier matrix, "inr": Siren, Wire or GridINR state_dict, "pn":
+    PerturbNet state_dict}`` (``convert.py`` makes the last two from the JAX
+    package's params). B is drawn for WIRE and the grid too, as the JAX
+    pipeline draws it, and unused there.
     Without it, B and the initial weights are drawn from a generator seeded
     with ``seed``."""
     _check_model(cfg, device)
@@ -286,7 +325,7 @@ def run_patient(
     if init is not None:
         inr.load_state_dict(init["inr"])
     inr.requires_grad_(False)
-    route = _route(cfg, inr, B)
+    route = _route(cfg, inr, B, lr_mean.shape)
     ff = fourier_encode(lr_coords, route.fourier_B)  # the INR's input
     pn = PerturbNet(in_features=ff.shape[1], hidden_features=cfg.pn_dim,
                     dimension=dim, generator=gen, device=dev)
@@ -308,10 +347,8 @@ def run_patient(
 
     hr_shape = hr_mean.shape
     test_shape = (hr_shape[0] * 2, hr_shape[1] * 2, hr_shape[2], hr_shape[3])
-    recon = infer_dense_grid(route.infer_apply, route.params, test_shape,
-                             clamp_min=0.0, fourier_B=route.fourier_B).reshape(test_shape)
-    sr_hr = infer_dense_grid(route.infer_apply, route.params, hr_shape, clamp_min=0.0,
-                             fourier_B=route.fourier_B).reshape(hr_shape)
+    recon = route.infer(test_shape, clamp_min=0.0).reshape(test_shape)
+    sr_hr = route.infer(hr_shape, clamp_min=0.0).reshape(hr_shape)
     t_infer = time.perf_counter()
 
     ssim_sp, ssim_sr = _ssim_table(hr_mean, sr_hr, dev)
@@ -375,15 +412,13 @@ def coronal_recon(result: SR3DResult, cfg: SupperresDWIConfig,
                   transverse_length: int = 100) -> np.ndarray:
     """Coronal dense-grid pass (superresDWI.py:217-241): the INR on a
     (2sx, 2sy, transverse_length, 1) grid (Fourier-encoded for SIREN, raw
-    coordinates for WIRE)."""
+    coordinates for WIRE, the tensor path for the grid)."""
     dev = next(result.inr.parameters()).device
     _check_model(cfg, dev)
     route = _route(cfg, result.inr, torch.as_tensor(result.B, device=dev))
     ts = result.recon_2x.shape
     coronal_shape = (ts[0], ts[1], transverse_length, 1)
-    rec = infer_dense_grid(route.infer_apply, route.params, coronal_shape,
-                           fourier_B=route.fourier_B)
-    return rec.reshape(coronal_shape)
+    return route.infer(coronal_shape).reshape(coronal_shape)
 
 
 def export_triplets(results: Sequence[SR3DResult], cfg: SupperresDWIConfig,
@@ -462,6 +497,9 @@ def run(
                     "inr_model": cfg.inr_model,
                     "wire_hidden": cfg.wire_hidden,
                     "wire_layers": cfg.wire_layers,
+                    "grid_levels": cfg.grid_levels,
+                    "grid_hidden": cfg.grid_hidden,
+                    "inr_restart_every": cfg.inr_restart_every,
                 },
                 "patients": [dict(r.timings, pt_id=str(p[0]))
                              for r, p in zip(results, patients)],

@@ -3,8 +3,10 @@ imports, and short CPU fits of the SIREN and WIRE paths, a tiny MISR run
 (the K6 route, its plain version on the CPU), a two-step tiny MISR
 training run (K6 and K7 routes, their plain versions), a two-step
 ``fit_ensemble`` and ``fit_until`` (K1's weighted and absmax variants,
-their plain versions) and the P1 probe's plain version run, in a process
-where both are blocked, launching nothing."""
+their plain versions), the P1 probe's plain version, a two-step GridINR
+fit, a two-epoch hybrid fit in its SIREN and grid arms and a 2-iteration
+NLLS ``hybrid_fit`` run, in a process where both are blocked, launching
+nothing."""
 import os
 import subprocess
 import sys
@@ -94,6 +96,28 @@ assert fu.steps == 2 and len(fu.losses) == 2
 from mri_super_resolution_tpu_torch.ops import mma_probe as mp
 assert mp.mma_probe(torch.ones(4, 8, dtype=torch.int8), torch.ones(8, 8, dtype=torch.int8),
                     2, 3).shape == (2, 8)
+from mri_super_resolution_tpu_torch.models import GridINR
+from mri_super_resolution_tpu_torch.models.grid_inr import make_tensor_value_and_grad
+gi = GridINR(num_levels=2, base_resolution=4, features_per_level=2, hidden=8, z_divisor=1,
+             generator=g)
+gi.requires_grad_(False)
+res = fit_simple(None, Adam(gi.params(), 5e-3), mgrid((4, 3, 2, 4)), torch.rand(96, 1, generator=g),
+                 2, value_and_grad_fn=make_tensor_value_and_grad((4, 3, 2, 4)))
+assert res.losses.shape == (2,) and bool(torch.isfinite(res.losses).all())
+from mri_super_resolution_tpu_torch.data import synthetic
+from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+h = hy.mean_over_acquisitions(synthetic.hybrid_from_b0(
+    rng.uniform(0.5, 1.5, (12, 12, 2)).astype(np.float32), acq_counts=(1, 2, 2, 2), seed=0))
+for arm in ("siren", "grid"):
+    r = hy.fit_all_te(h, hy.HybridConfig(number_of_epochs=2, hidden_dim=16, num_layers=1,
+                                         mapping_size=4, roi_start_x=2, roi_end_x=10,
+                                         roi_start_y=2, roi_end_y=10, inr_model=arm,
+                                         grid_levels=2, grid_base_resolution=4,
+                                         grid_hidden=8), device="cpu")
+    assert r.recon_hybrid.shape == (16, 16, 2, 4, 4) and r.losses.shape == (4, 2)
+from mri_super_resolution_tpu_torch.ops.nlls import hybrid_fit
+D, T2, v = hybrid_fit(torch.rand(5, 16, generator=g) * 1000, iters=2)
+assert D.shape == T2.shape == v.shape == (5, 3)
 assert not any(sk.LAUNCHES.values()) and not any(mp.LAUNCHES.values())
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "orbax",
                                            "mri_super_resolution_tpu."))

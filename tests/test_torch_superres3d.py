@@ -156,10 +156,6 @@ def test_cuda_requested_without_a_card_raises(both):
 
 
 def test_unported_options_raise(both, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsr.run_patient(both["hybrid"], BVALUES,
-                        dataclasses.replace(both["tcfg"], inr_model="grid"),
-                        device="cpu")
     with pytest.raises(ValueError, match="unknown inr_model"):
         tsr.run_patient(both["hybrid"], BVALUES,
                         dataclasses.replace(both["tcfg"], inr_model="mlp"),
