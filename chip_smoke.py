@@ -36,8 +36,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    without sample weights and with a collapsed output (max |out| exactly
    0), twice for the same bits, the SIMT K1-a for the record; a 20-step Adam
    fit at phase 1's lr (3e-4) of that network from one init, K1-a's route
-   against the plain K1-a, loss by loss; and the SIMT K2/K3 with the ReLU
-   codes;
+   against the plain K1-a, loss by loss; K1-a again at the half-res quality
+   harness's LR slice, 64 x 64 = 4,096 rows (32 row tiles) and 63 x 63 =
+   3,969 (a last tile of one row), with the output on and collapsed, twice
+   for the same bits, and a 20-step Adam trace at 4,096 rows; and the SIMT
+   K2/K3 with the ReLU codes;
    P1 ``mma_probe`` (``wgmma``) at one and three steps of its full shape,
    int8 exact and bf16 within float32 rounding; K5 ``wire_forward`` and K4 ``wire_loss_grads``
    at the WIRE path's 4 -> 256x2 -> 1 and at 512x2, on 70,000 rows, the
@@ -101,7 +104,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch on the streaming route per phase-1 step and no other kernel (none
    of the SIMT K1-a); then phase 1 on that case's target from one init on
    the streaming and the SIMT route in turns: both stop steps, restart
-   lists and wall-clocks printed side by side; then the P1 probe,
+   lists and wall-clocks printed side by side; then the half-res quality
+   harness, ``cli/superres_lowres.main`` at full width (SirenERD 128x3, 9
+   acquisitions, the cancer slice of a seeded 128 x 128 volume, phase 1 on
+   the 64 x 64 LR slice to 2e-5, 500 phase-2 steps) with the reference and
+   the split protocol: the CSV, a (128, 128) SR, phase 1 before its step
+   bound, exactly one K1-a launch on the streaming route a phase-1 step and
+   no other kernel, phase 1's and phase 2's wall-clocks; then short runs of
+   ``cli/david.main``, ``cli/inr_toy.main`` (500 steps) and
+   ``cli/automate_inr.main --use_pn`` (200 epochs) on the card, no kernel
+   launched, their outputs checked; then the P1 probe,
    ``cli/int8_mma_probe.main`` at its full shape (T 384, H 512, REPS 8,
    GRID 512): the JAX probe's JSON keys and 11 launches per type;
 4. times: each kernel at its main path's shapes with CUDA events, beside
@@ -118,7 +130,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    shape; P1 also at GRID 256, whose time must be about half; the
    per-update costs of the two 2-D paths (a K1 call on either route, an
    Adam step, a whole update, ``fit_until``'s per-step read-back, the
-   soft-ERD step on both K1-a routes); the
+   soft-ERD step on both K1-a routes); K1-a at the half-res LR slice beside
+   its plain version, eager autograd and its bound, by pass; the
    25-draw RAMS forward on both
    routes; one full training step at batch 32 on both routes, whose losses
    over the same three steps from the same init differ by at most twice the
@@ -128,7 +141,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The last three lines are the ``{"kernels": ...}`` record (K1-K5 on their
 tensor-core route, K1 also at the hybrid's shape, K6-K7, K1's weighted
 variant on its weight-resident
-route and its absmax variant on its streaming route, P1 in bf16 and int8),
+route and its absmax variant on its streaming route, also at the half-res
+LR slice, P1 in bf16 and int8),
 the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
 no result, when no CUDA device is present.
@@ -222,6 +236,11 @@ K1_ABSMAX_TOL = 1e-5  # max |out|: the max is exact, the outputs it reads are fl
 # K1-a's loss on the streaming route (bf16x3 products): within 1e-5 relative
 # (a CPU model of the split at SirenERD's init: 1.8e-7)
 K1A_LOSS_RTOL = 1e-5
+# the half-res quality harness (superres-lowres): phase 1's K1-a on the 0.5x
+# LR slice of a 128 x 128 slice, 64 x 64 = 4,096 rows (32 row tiles of the
+# streaming route, on 132 SMs), and of an odd side's 63 x 63 = 3,969 rows
+# (31 tiles and a last tile of one row)
+LOWRES_SIDE, LOWRES_RAGGED_SIDE = 64, 63
 # the hybrid tissue fit (superresHybrid): ROI 35:95 of a (128, 128, 28)
 # patient, its ::2 LR grid 30 x 30 x 28 x 4 a TE, four per-TE SIRENs at the
 # flagship widths; inference on the (120, 120, 28, 4) grid, the tissue maps
@@ -697,10 +716,11 @@ def _master_inputs(seed: int):
     return model, x, target, sw
 
 
-def _erd_inputs(seed: int, last_bias: float | None = None):
+def _erd_inputs(seed: int, last_bias: float | None = None, side: int = ERD_SIDE):
     """The soft-ERD fit's K1 call on the card: a seeded SirenERD(2 -> 128x3,
     ReLU head) at its init (``last_bias`` overrides the output bias), the
-    128 x 128 grid and a target in [0, 1]."""
+    ``side`` x ``side`` grid (128 x 128, the half-res harness's LR slice 64 x
+    64) and a target in [0, 1]."""
     import torch
 
     from mri_super_resolution_tpu_torch.core.coords import mgrid
@@ -711,8 +731,8 @@ def _erd_inputs(seed: int, last_bias: float | None = None):
     model.requires_grad_(False)
     if last_bias is not None:
         model.final.bias.fill_(last_bias)
-    x = mgrid((ERD_SIDE, ERD_SIDE), device="cuda")
-    target = torch.rand(ERD_SIDE * ERD_SIDE, 1, generator=gen).cuda()
+    x = mgrid((side, side), device="cuda")
+    target = torch.rand(side * side, 1, generator=gen).cuda()
     return model, x, target
 
 
@@ -1356,16 +1376,167 @@ def phase_erd_routes(lr: float, coords, target, threshold: float) -> None:
              "two streaming-route phase-1 runs from one init differ")
 
 
-def phase_k1a_trace() -> None:
+def phase_lowres_main(out_dir: str) -> dict:
+    """The half-res quality harness: ``cli/superres_lowres.main`` at full
+    width (SirenERD 128x3, 9 acquisitions synthesised from a seeded 128 x
+    128 volume, the cancer slice, phase 1 to 2e-5, 500 phase-2 steps), once
+    with the reference protocol and once with ``--split_protocol``. Every
+    launch count is set to 0 just before each run and read just after:
+    exactly one K1-a launch on the streaming route a phase-1 step, no other
+    kernel. Phase 1 (``fit_until``) and phase 2 with the soft-ERD weights
+    (to the SR's ``recon_mean``) are timed on the host clock, synchronised.
+    Returns the reference run's launches under the kernels line's name."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli import superres_lowres as lowres_cli
+    from mri_super_resolution_tpu_torch.pipelines import lowres_qual
+
+    data_dir = os.path.join(out_dir, "data")
+    _write_2d_volume(data_dir, seed=43, erd_map=False)
+    run_slice, fit_until, recon_mean = (lowres_qual.run_slice, lowres_qual.fit_until,
+                                        lowres_qual.recon_mean)
+    steps = {}
+    for protocol in ("reference", "split"):
+        results, marks = [], {}
+
+        def recording(*args, **kwargs):
+            res = run_slice(*args, **kwargs)
+            results.append(res)
+            return res
+
+        def timed_fit(*args, **kwargs):
+            torch.cuda.synchronize()
+            marks["fit"] = time.perf_counter()
+            res = fit_until(*args, **kwargs)
+            torch.cuda.synchronize()
+            marks["phase2"] = time.perf_counter()
+            return res
+
+        def timed_recon(*args, **kwargs):
+            torch.cuda.synchronize()
+            marks["sr"] = time.perf_counter()
+            return recon_mean(*args, **kwargs)
+
+        out_csv = os.path.join(out_dir, f"lowres_{protocol}.csv")
+        lowres_qual.run_slice, lowres_qual.fit_until, lowres_qual.recon_mean = (
+            recording, timed_fit, timed_recon)
+        try:
+            _reset_all_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lowres_cli.main([
+                "--limit_cases", "1", "--num_acq", "9", "--cancer_slice_only",
+                "--loss_threshold", str(ERD_THRESHOLD), "--out_csv", out_csv, "--data_dir",
+                data_dir, "--device", "cuda", *(["--split_protocol"] if protocol == "split"
+                                                else [])])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _all_counts()
+        finally:
+            lowres_qual.run_slice, lowres_qual.fit_until, lowres_qual.recon_mean = (
+                run_slice, fit_until, recon_mean)
+        (res,) = results
+        cfg = lowres_qual.LowresQualConfig()
+        _check_only(launches, {"siren_loss_grads_absmax_stream": res.pretrain_steps},
+                    f"half-res quality ({protocol})")
+        _require(0 < res.pretrain_steps < cfg.max_pretrain_steps,
+                 f"phase 1 did not reach {ERD_THRESHOLD:g} in {cfg.max_pretrain_steps} steps")
+        _require(res.sr.shape == (ERD_SIDE, ERD_SIDE) and bool(np.isfinite(res.sr).all()),
+                 "half-res SR shape")
+        _require(res.lr.shape == (LOWRES_SIDE, LOWRES_SIDE), "half-res LR shape")
+        rows = [ln.split(",") for ln in open(out_csv).read().splitlines()]
+        _require(rows[0] == list(lowres_qual.LOWRES_QUAL_HEADER) and len(rows) == 2,
+                 f"the half-res CSV has {len(rows)} lines")
+        values = np.asarray([float(v) for v in rows[1][2:]])
+        _require(bool(np.isfinite(values).all()), "non-finite half-res metrics")
+        phase1 = marks["phase2"] - marks["fit"]
+        phase2 = marks["sr"] - marks["phase2"]
+        steps[protocol] = res.pretrain_steps
+        print(f"[main lowres {protocol}] cli.superres_lowres.main() {wall:.2f} s; phase 1 to "
+              f"loss <= {ERD_THRESHOLD:g} in {res.pretrain_steps} steps on {LOWRES_SIDE}x"
+              f"{LOWRES_SIDE} = {LOWRES_SIDE ** 2} rows, {phase1:.3f} s "
+              f"({1e3 * phase1 / res.pretrain_steps:.3f} ms a step); phase 2 "
+              f"({cfg.phase2_steps} steps, soft-ERD weights included) {phase2:.3f} s "
+              f"({1e3 * phase2 / cfg.phase2_steps:.3f} ms a step); launches "
+              f"{{'siren_loss_grads_absmax_stream': {res.pretrain_steps}}}; CSV {rows[1]}")
+    return {"siren_loss_grads_absmax_stream_lowres": steps["reference"]}
+
+
+def phase_small_clis(out_dir: str) -> None:
+    """Short runs of ``cli/david.main`` (one synthetic case, AutoERD on the
+    card), ``cli/inr_toy.main`` (500 steps at its full width) and
+    ``cli/automate_inr.main --use_pn`` (200 epochs, 100 on the mean, at its
+    full width) on the card, none of which launches a kernel; each one's
+    output checked and its wall-clock printed."""
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli import automate_inr as automate_cli
+    from mri_super_resolution_tpu_torch.cli import david as david_cli
+    from mri_super_resolution_tpu_torch.cli import inr_toy as toy_cli
+    from mri_super_resolution_tpu_torch.pipelines import erd_stats
+
+    data_dir = os.path.join(out_dir, "data")
+    _write_2d_volume(data_dir, seed=44, erd_map=True)
+    walls = {}
+    previous = os.environ.get("MRI_SR_DATA_DIR")
+    os.environ["MRI_SR_DATA_DIR"] = data_dir
+    try:
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        path = david_cli.main(["--limit_cases", "1", "--out_folder",
+                               os.path.join(out_dir, "david"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        walls["david"] = time.perf_counter() - t0
+    finally:
+        if previous is None:
+            del os.environ["MRI_SR_DATA_DIR"]
+        else:
+            os.environ["MRI_SR_DATA_DIR"] = previous
+    _check_only(_all_counts(), {}, "david")
+    rows = [ln.split(",") for ln in open(path).read().splitlines()]
+    _require(rows[0] == list(erd_stats.HEADER) and len(rows) == 1 + 3 * (9 * 4 + 8),
+             f"the david CSV has {len(rows)} lines")
+    _require(bool(np.isfinite([float(r[5]) for r in rows[1:]]).all()), "non-finite david rows")
+
+    toy_out = os.path.join(out_dir, "toy", "toy_model.pt")
+    t0 = time.perf_counter()
+    mse = toy_cli.main(["--max_steps", "500", "--out", toy_out, "--device", "cuda"])
+    walls["inr_toy"] = time.perf_counter() - t0
+    _check_only(_all_counts(), {}, "inr_toy")
+    _require(os.path.isfile(toy_out) and np.isfinite(mse), "inr_toy wrote no model")
+    torch.load(toy_out)
+
+    mat = os.path.join(out_dir, "automate.mat")
+    t0 = time.perf_counter()
+    automate_cli.main(["--epochs", "200", "--mean_epochs", "100", "--use_pn", "--out", mat,
+                       "--device", "cuda"])
+    walls["automate_inr"] = time.perf_counter() - t0
+    _check_only(_all_counts(), {}, "automate_inr")
+    saved = sio.loadmat(mat)
+    _require({"recon", "sr_epochs"} <= set(saved) and saved["recon"].shape == (256, 256)
+             and saved["sr_epochs"].shape == (256, 256, 2)
+             and bool(np.isfinite(saved["sr_epochs"]).all()),
+             "automate_inr's .mat keys or snapshot count")
+    print(f"[main small CLIs] cli.david.main() {walls['david']:.2f} s ({len(rows) - 1} rows); "
+          f"cli.inr_toy.main() 500 steps at 128x128 {walls['inr_toy']:.2f} s, final mse "
+          f"{mse:.3e}; cli.automate_inr.main() --use_pn 200 epochs (100 on the mean, 256x256, "
+          f"50 acquisitions) {walls['automate_inr']:.2f} s, 2 snapshots; no kernel launched")
+
+
+def phase_k1a_trace(side: int = ERD_SIDE) -> None:
     """K1_TRACE_STEPS Adam steps at phase 1's lr (3e-4) at the soft-ERD
-    fit's shape from one init, K1-a on its streaming route against the plain
-    K1-a on the card; the losses step by step."""
+    fit's shape (or on the ``side`` x ``side`` grid) from one init, K1-a on
+    its streaming route against the plain K1-a on the card; the losses step
+    by step."""
     import torch
 
     from mri_super_resolution_tpu_torch.fit.optim import Adam
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
-    model, x, target = _erd_inputs(seed=35, last_bias=0.05)
+    model, x, target = _erd_inputs(seed=35, last_bias=0.05, side=side)
     ws, acts = model.weights(), model.acts
     vags = {"kernel": lambda p: sk.siren_loss_grads(x, p, target, acts=acts,
                                                     with_out_absmax=True),
@@ -1384,9 +1555,63 @@ def phase_k1a_trace() -> None:
     k, p = traces["kernel"], traces["plain"]
     rel = max(abs(a / b - 1.0) for a, b in zip(k, p))
     print(f"[parity] K1-a {K1_TRACE_STEPS}-step Adam trace (lr {ERD_LR:g}) at 2 -> 128x4 -> "
-          f"128 -> 1, streaming route vs plain: loss {p[0]:.6e} -> {p[-1]:.6e} (plain), "
-          f"{k[-1]:.6e} (kernel); worst step rel {rel:.3e} (tol {K1_TRACE_RTOL:g})")
+          f"128 -> 1 on {side * side} rows, streaming route vs plain: loss {p[0]:.6e} -> "
+          f"{p[-1]:.6e} (plain), {k[-1]:.6e} (kernel); worst step rel {rel:.3e} (tol "
+          f"{K1_TRACE_RTOL:g})")
     _require(rel <= K1_TRACE_RTOL and k[-1] < k[0], "K1-a's Adam trace departs from the plain one")
+
+
+def phase_k1a_lowres_parity() -> dict:
+    """K1-a on its streaming route at the half-res harness's LR slice: 64 x
+    64 = 4,096 rows (32 row tiles, so 32 slots in the fixed-order sum) and
+    63 x 63 = 3,969 rows (a last tile of one row), against the plain K1-a:
+    at SirenERD's init with the output bias at 0.05, then with a collapsed
+    output (bias -10: max |out| and every gradient exactly 0); twice for the
+    same bits; then a K1_TRACE_STEPS-step Adam trace at 4,096 rows. Returns
+    its max abs error."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    worst_all = (0.0, 0.0)
+    dims = (2,) + (ERD_HIDDEN,) * (ERD_LAYERS + 2) + (1,)
+    key = sk.loss_grads_key(False, True, "stream")
+    for side in (LOWRES_SIDE, LOWRES_RAGGED_SIDE):
+        P = side * side
+        for bias in (0.05, -10.0):
+            model, x, target = _erd_inputs(seed=32, last_bias=bias, side=side)
+            ws, acts = model.weights(), model.acts
+            _require(sk.k1_route(dims, acts, False, True) == "stream",
+                     "K1-a at the LR slice is not of the streaming route's class")
+            before = dict(sk.LAUNCHES)
+            loss, am, grads = sk.siren_loss_grads(x, ws, target, acts=acts, with_out_absmax=True)
+            again = sk.siren_loss_grads(x, ws, target, acts=acts, with_out_absmax=True)
+            loss_r, am_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts,
+                                                            None, True)
+            torch.cuda.synchronize()
+            _require(sk.LAUNCHES == {**before, key: before[key] + 2},
+                     "K1-a at the LR slice did not take the streaming route")
+            worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
+            loss_rel, am_rel = _rel(loss, loss_r)[1], _rel(am, am_r)[1]
+            print(f"[parity] K1 absmax/ReLU at the half-res LR slice P={P} ({P // sk.ST_TM} full "
+                  f"tiles + {P % sk.ST_TM} rows) last bias {bias:g}, streaming route: loss "
+                  f"{float(loss):.6e} vs {float(loss_r):.6e} (rel {loss_rel:.2e}, tol "
+                  f"{K1A_LOSS_RTOL:g}); max |out| {float(am):.6e} vs {float(am_r):.6e} (rel "
+                  f"{am_rel:.2e}, tol {K1_ABSMAX_TOL:g}); worst over loss/dW max abs "
+                  f"{worst[0]:.3e}, rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+            _require(all(torch.equal(a, b) for a, b in zip([loss, am, *grads],
+                                                            [again[0], again[1], *again[2]])),
+                     "two streaming K1-a calls at the LR slice differ")
+            if bias < 0:
+                _require(float(am) == 0.0 and all(float(g.abs().max()) == 0.0 for g in grads),
+                         "a collapsed output must give max |out| 0 and zero gradients")
+            else:
+                _require(worst[1] <= K1_K2_TOL and am_rel <= K1_ABSMAX_TOL
+                         and loss_rel <= K1A_LOSS_RTOL,
+                         "K1-a at the LR slice disagrees with its plain version")
+                worst_all = max(worst_all, worst, (float((am - am_r).abs()), am_rel))
+    phase_k1a_trace(LOWRES_SIDE)
+    return {"siren_loss_grads_absmax_stream_lowres": worst_all[0]}
 
 
 def phase_probe_main(out_dir: str) -> dict:
@@ -1408,6 +1633,38 @@ def phase_probe_main(out_dir: str) -> dict:
     print(f"[main probe] cli.int8_mma_probe.main(): {json.dumps(rec['cases'])}; launches "
           f"{want}")
     return {k: launches[k] for k in want}
+
+
+def phase_k1a_lowres_time(errs: dict, launches: dict) -> dict:
+    """K1-a on its streaming route at the half-res harness's 4,096 LR rows,
+    beside the plain K1-a, eager autograd of the same loss with max |out|
+    and its bound (the route's bf16x3 products at the bf16 peak); its
+    device time by pass under ``torch.profiler``."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    model, x, target = _erd_inputs(seed=53, last_bias=0.05, side=LOWRES_SIDE)
+    ws, acts = model.weights(), model.acts
+    P = LOWRES_SIDE * LOWRES_SIDE
+    dims = (2,) + (ERD_HIDDEN,) * (ERD_LAYERS + 2) + (1,)
+    macs = _layer_macs(dims)
+    lib_params = [w.clone().requires_grad_() for w in ws]
+
+    def lib_absmax():
+        out = sk.siren_forward_ref(x, lib_params, 30.0, acts)
+        torch.autograd.grad(torch.mean((out - target) ** 2), lib_params)
+        out.detach().abs().max()
+
+    flops = 2 * P * (2 * sum(macs) + sum(macs[1:]))
+    kern = lambda: sk.siren_loss_grads(x, ws, target, acts=acts, with_out_absmax=True)
+    row = _time_row(
+        "siren_loss_grads_absmax_stream_lowres", "siren_stream", "siren_kernel.py:518", kern,
+        lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, None, True),
+        lib_absmax, 3 * flops, 4 * x.numel() + 8 * sum(w.numel() for w in ws) + 4 * P + 8,
+        f"P={P} (half-res LR slice)", errs, launches, peak=PEAK_BF16_TC, reps=50, rounds=2)
+    _passes("K1-absmax (streaming) at the LR slice", kern, calls=20)
+    return row
 
 
 def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
@@ -2623,6 +2880,7 @@ def main(argv=None) -> int:
     phase_k1a_trace()
     phase_pn_trace(P, dims)
     errs.update(phase_k1_variant_parity())
+    errs.update(phase_k1a_lowres_parity())
     errs.update(phase_probe_parity())
     errs.update(phase_wire_parity(P))
     k6_err = phase_k6_parity()
@@ -2657,6 +2915,10 @@ def main(argv=None) -> int:
         launches.update(erd_launches)
     phase_erd_routes(erd_lr, erd_coords, erd_target, ERD_THRESHOLD)
     with tempfile.TemporaryDirectory() as out_dir:
+        launches.update(phase_lowres_main(out_dir))
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_small_clis(out_dir)
+    with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_probe_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_data = phase_train_main(out_dir)
@@ -2666,6 +2928,7 @@ def main(argv=None) -> int:
         rows.append(phase_k6_times(k6_err, launches))
         rows.append(phase_k7_times(k7_err, launches))
         rows += phase_2d_times(errs, launches)
+        rows.append(phase_k1a_lowres_time(errs, launches))
         rows += phase_probe_times(errs, launches)
         phase_rams_forward_times()
         phase_train_step_times(train_data, out_dir)

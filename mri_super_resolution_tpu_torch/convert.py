@@ -4,6 +4,7 @@ The JAX package keeps flax param trees; handed over as nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, params)``), they become ``state_dict``s of
 the port's :class:`~mri_super_resolution_tpu_torch.models.Siren`,
 :class:`~mri_super_resolution_tpu_torch.models.SirenERD`,
+:class:`~mri_super_resolution_tpu_torch.models.SirenToy`,
 :class:`~mri_super_resolution_tpu_torch.models.Wire`,
 :class:`~mri_super_resolution_tpu_torch.models.PerturbNet`,
 :class:`~mri_super_resolution_tpu_torch.models.GridINR` (and ``GridINR2D``)
@@ -87,6 +88,18 @@ def siren_erd_state_dict(params: dict) -> dict[str, torch.Tensor]:
     for name, k in (("head", "Dense_0"), ("final", "Dense_1")):
         sd[f"{name}.weight"] = _tensor(p[k]["kernel"]).T.contiguous()
         sd[f"{name}.bias"] = _tensor(p[k]["bias"])
+    return sd
+
+
+def siren_toy_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``SirenToy`` params -> ``SirenToy.state_dict()`` keys: the
+    ``Siren`` trunk and, when present, the ``perturb`` branch."""
+    sd = siren_state_dict(params)
+    if "perturb" in params["params"]:
+        for i in range(2):
+            d = params["params"]["perturb"][f"Dense_{i}"]
+            sd[f"perturb.fc{i}.weight"] = _tensor(d["kernel"]).T.contiguous()
+            sd[f"perturb.fc{i}.bias"] = _tensor(d["bias"])
     return sd
 
 

@@ -1,8 +1,8 @@
 """Image-quality and contrast metrics. Counterpart of
 ``mri_super_resolution_tpu/core/metrics.py``: ``minmax_normalize`` (:28),
 ``contrast_cnr`` (:43-73), ``cnr_snr_log10`` (:84-107), ``ssim``
-(:118-149), ``masked_ssim_protocol`` (:159-169). The SSIM functions take a
-leading batch of 2-D images."""
+(:118-149), ``psnr`` (:153-157), ``masked_ssim_protocol`` (:159-169). The
+SSIM functions take a leading batch of 2-D images."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -117,6 +117,13 @@ def ssim(im1: torch.Tensor, im2: torch.Tensor, data_range: float = 1.0,
     B1, B2 = ux ** 2 + uy ** 2 + C1, vx + vy + C2
     S = (A1 * A2) / (B1 * B2)
     return S.mean(dim=(-2, -1))
+
+
+def psnr(im1: torch.Tensor, im2: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio (skimage ``peak_signal_noise_ratio``) over
+    the whole of both tensors, in float32."""
+    mse = torch.mean((im1.float() - im2.float()) ** 2)
+    return 10.0 * torch.log10(data_range ** 2 / mse)
 
 
 def masked_ssim_protocol(hr: torch.Tensor, other: torch.Tensor,

@@ -24,4 +24,5 @@ from mri_super_resolution_tpu_torch.data.io import (  # noqa: F401
     MetricsCSV,
     load_mat,
     save_dicom,
+    save_mat,
 )

@@ -2,8 +2,8 @@
 
 Copy of the parts of ``mri_super_resolution_tpu/data/io.py`` the pipelines
 use (numpy only): ``load_mat`` (v5 through scipy, v7.3 through h5py),
-``save_dicom`` and ``MetricsCSV`` with ``CONTRAST_HEADER``, ``SSIM_HEADER``
-and ``CNR_SNR_HEADER`` (:299-301). The C++
+``save_mat`` (:105-109), ``save_dicom`` and ``MetricsCSV`` with
+``CONTRAST_HEADER``, ``SSIM_HEADER`` and ``CNR_SNR_HEADER`` (:299-301). The C++
 reader route (``prefer_native``) is not ported yet.
 """
 from __future__ import annotations
@@ -75,6 +75,14 @@ def load_mat(path: str, key: str | None = None):
             )
         return data[key]
     return data
+
+
+def save_mat(path: str, arrays: dict) -> None:
+    """Write ``arrays`` as a MATLAB v5 file with scipy."""
+    import scipy.io as sio
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    sio.savemat(path, arrays)
 
 
 # --------------------------------------------------------------------------

@@ -137,6 +137,14 @@ def fit_ensemble(
     return EnsembleResult(params, losses, acc1 / seg, acc2 / seg)
 
 
+def plain_apply(model):
+    """``apply_fn(params, x)``: the plain forward of a port ``Siren`` (or
+    ``SirenToy``'s trunk) over the weights ``params`` (``model.weights()``
+    order), differentiable; for the autograd fits of the toy CLIs."""
+    omegas, acts = model.omegas, model.acts
+    return lambda params, x: siren_forward_ref(x, params, omegas, acts)
+
+
 def plain_apply_init(model, generator: torch.Generator | None = None):
     """``(apply_fn, init_fn)`` of a perturbation-style model (``SirenERD``)
     with the perturbation off, for :func:`fit_until`:

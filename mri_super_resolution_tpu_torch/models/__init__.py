@@ -1,6 +1,6 @@
-"""INR models (SIREN, WIRE, the dense-grid GridINR, the PerturbNet
-coordinate offset), the RAMS multi-image super-resolution network and the
-PIA tissue autoencoder."""
+"""INR models (SIREN and its ERD and toy variants, WIRE, the dense-grid
+GridINR, the PerturbNet coordinate offset), the RAMS multi-image
+super-resolution network and the PIA tissue autoencoder."""
 
 from mri_super_resolution_tpu_torch.models.grid_inr import (  # noqa: F401
     GridINR,
@@ -23,6 +23,7 @@ from mri_super_resolution_tpu_torch.models.siren import (  # noqa: F401
     SineLayer,
     Siren,
     SirenERD,
+    SirenToy,
 )
 from mri_super_resolution_tpu_torch.models.wire import (  # noqa: F401
     ComplexDense,

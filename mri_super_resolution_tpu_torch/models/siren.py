@@ -1,11 +1,12 @@
 """SIREN coordinate MLPs with the reference's initialisation.
 
 Counterpart of ``mri_super_resolution_tpu/models/siren.py`` (``SineLayer``,
-``Siren`` :100-136, ``PerturbHead`` and ``SirenERD`` :139-193, inits
+``Siren`` :100-136, ``PerturbHead`` and ``SirenERD`` :139-193, ``SirenToy``
+:196-230, inits
 :54-89): ``sin(omega_0 * (W x + b))`` with first layer W ~ U(+-1/in), hidden
 and final W ~ U(+-sqrt(6/in)/omega_0), and every bias at torch
-``nn.Linear``'s U(+-1/sqrt(in)). ``SirenERD``'s ReLU head and its
-perturbation branch start from flax's ``lecun_normal`` (a normal of variance
+``nn.Linear``'s U(+-1/sqrt(in)). ``SirenERD``'s ReLU head and the
+perturbation branches start from flax's ``lecun_normal`` (a normal of variance
 1/in truncated at two standard deviations) where the JAX package uses it.
 
 Each model's ``weights()`` lists its trunk in the kernels' order and
@@ -162,3 +163,31 @@ class SirenERD(nn.Module):
                                      coords.shape[:-1] + (1,))
             coords = coords + self.perturb(torch.cat([coords, acq], dim=-1), eps)
         return self.trunk(coords)
+
+
+class SirenToy(Siren):
+    """The inr_toy.py Siren: the plain :class:`Siren` trunk and, with
+    ``perturb``, a :class:`PerturbHead` ``(in + 1) -> (in + 1) -> in``
+    (lecun_normal weights) on concat(coords, acq id) whose output is added
+    to the coordinates."""
+
+    def __init__(self, in_features: int = 2, hidden_features: int = 128,
+                 hidden_layers: int = 3, out_features: int = 1,
+                 first_omega_0: float = 30.0, hidden_omega_0: float = 30.0,
+                 perturb: bool = False, generator: torch.Generator | None = None,
+                 device=None):
+        # flax creates the perturbation branch first (it runs first)
+        head = (PerturbHead(in_features + 1, in_features + 1, in_features, None, generator,
+                            device) if perturb else None)
+        super().__init__(in_features, hidden_features, hidden_layers, out_features,
+                         first_omega_0, hidden_omega_0, generator, device)
+        self.perturb = head
+
+    def forward(self, coords: torch.Tensor, sample: float | torch.Tensor = 0.0,
+                eps: float = 0.0) -> torch.Tensor:
+        if self.perturb is not None:
+            acq = torch.broadcast_to(torch.as_tensor(sample, dtype=coords.dtype,
+                                                     device=coords.device),
+                                     coords.shape[:-1] + (1,))
+            coords = coords + self.perturb(torch.cat([coords, acq], dim=-1), eps)
+        return super().forward(coords)

@@ -1,1 +1,2 @@
-"""Checkpoints and the TensorBoard scalar writer of the MISR trainer."""
+"""Checkpoints and the TensorBoard scalar writer of the MISR trainer, and
+the analysis of experiment CSVs."""

@@ -4,9 +4,11 @@ imports, and short CPU fits of the SIREN and WIRE paths, a tiny MISR run
 training run (K6 and K7 routes, their plain versions), a two-step
 ``fit_ensemble`` and ``fit_until`` (K1's weighted and absmax variants,
 their plain versions), the P1 probe's plain version, a two-step GridINR
-fit, a two-epoch hybrid fit in its SIREN and grid arms and a 2-iteration
-NLLS ``hybrid_fit`` run, in a process where both are blocked, launching
-nothing."""
+fit, a two-epoch hybrid fit in its SIREN and grid arms, a 2-iteration
+NLLS ``hybrid_fit`` run and a two-step half-res quality slice
+(``lowres_qual.run_slice``), in a process where both are blocked,
+launching nothing. The CSV analysis and the LR panel CLI also import with
+pandas, matplotlib and seaborn blocked (the card's machine has none)."""
 import os
 import subprocess
 import sys
@@ -118,6 +120,15 @@ for arm in ("siren", "grid"):
 from mri_super_resolution_tpu_torch.ops.nlls import hybrid_fit
 D, T2, v = hybrid_fit(torch.rand(5, 16, generator=g) * 1000, iters=2)
 assert D.shape == T2.shape == v.shape == (5, 3)
+from mri_super_resolution_tpu_torch.pipelines import inr_erd, lowres_qual
+b0 = rng.uniform(0.8, 1.6, (12, 12, 1)).astype(np.float32)
+erd_case = inr_erd.ERDCase(pt_id="pat-1", b=(0.0, 150.0, 1000.0, 1500.0), cancer_loc=(6, 6),
+                           contralateral_loc=(4, 4), noise=(8, 8), cancer_slice=0, b0=b0,
+                           b3=np.stack([0.5 * b0] * 3, -1))
+lq = lowres_qual.run_slice(erd_case, 0, lowres_qual.LowresQualConfig(
+    hidden_features=16, hidden_layers=1, loss_threshold=0.0, max_pretrain_steps=2,
+    phase2_steps=2), device="cpu")
+assert lq.pretrain_steps == 2 and lq.sr.shape == (12, 12) and np.isfinite(lq.metrics).all()
 assert not any(sk.LAUNCHES.values()) and not any(mp.LAUNCHES.values())
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "orbax",
                                            "mri_super_resolution_tpu."))
@@ -147,3 +158,20 @@ def test_chip_smoke_imports_no_jax():
         assert not (mod == "jax" or mod.startswith(("jax.", "flax", "optax"))
                     or mod == "mri_super_resolution_tpu"
                     or mod.startswith("mri_super_resolution_tpu.")), ln
+
+
+def test_analysis_imports_without_plotting_libraries():
+    """utils/analysis.py and the two CPU-only CLIs import their plotting and
+    table libraries inside the functions that use them."""
+    script = (
+        "import importlib, sys\n"
+        "for name in ('pandas', 'matplotlib', 'seaborn', 'jax', 'mri_super_resolution_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "for m in ('utils.analysis', 'cli.select_lrs', 'cli.analyze_results'):\n"
+        "    importlib.import_module('mri_super_resolution_tpu_torch.' + m)\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=120, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK"
