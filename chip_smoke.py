@@ -115,7 +115,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``cli/automate_inr.main --use_pn`` (200 epochs) on the card, no kernel
    launched, their outputs checked; then the P1 probe,
    ``cli/int8_mma_probe.main`` at its full shape (T 384, H 512, REPS 8,
-   GRID 512): the JAX probe's JSON keys and 11 launches per type;
+   GRID 512): the JAX probe's JSON keys and 11 launches per type; then
+   ``core/autodiff.py``'s gradient and Laplacian of the flagship SIREN
+   (behind a 128-mapping encoding of 4-D coordinates) at 4,096 points, card
+   against CPU; then ``serve.py`` at full width: a SIREN 256 -> 512x4 -> 1
+   with its Fourier B, a WIRE 4 -> 256x2 -> 1, a GridINR at the quality
+   preset's widths, a PIA (S = 16) and the committed RAMS at 96 x 96 in
+   bf16, each exported on the card (a cuda and a cpu program), loaded back
+   on both devices and served (batch 1 included) against the live module
+   at the export CLI's bars, the cuda program against the cpu one; the
+   served SIREN on a 262,144-row chunk timed against the live plain SIREN
+   and K3, the served RAMS's 25-draw forward against the live library route
+   and the K6 route; then ``superres3d.run(export_artifact=True)`` at the
+   ``reference`` and ``quality`` presets (``--epochs``, ``--pn_epochs``):
+   the launches exactly as without the export, the artifact served on the
+   HR grid against the fitted INR on K3 (SIREN) or the tensor path (grid);
+   then the blinded qualitative study, ``qual_study.build_panel`` at full
+   width (one synthetic 128 x 128 case, 9 acquisitions, SirenERD 128x3,
+   phase 1 to 2e-5 on the 64 x 64 LR rows, 500 fine-tune steps): exactly
+   one streaming K1-a launch a phase-1 step and no other kernel, phase 1,
+   the fine-tune, the reconstruction and the scoring timed, the panel's
+   perceptual scores on the card against the CPU's;
 4. times: each kernel at its main path's shapes with CUDA events, beside
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
@@ -263,6 +283,26 @@ PROBE_CALLS = 10  # timed calls of the probe CLI, after one untimed
 # bf16 P1 against its plain version: float32 sums of 4,096 exact products in
 # another order (and the tensor cores' own), within 1e-5 of the largest
 PROBE_BF16_TOL = 1e-5
+# serving (serve.py): a served artifact against its live module at the
+# export CLI's --check bars (max error over the largest magnitude): 1e-4 for
+# the float32 kinds (SIREN, WIRE, GridINR, PIA), 2e-2 for the bf16 RAMS; an
+# artifact's cuda program against its cpu program at the same bars (cuBLAS
+# and cuDNN against the CPU's libraries, float32 sums and bf16 roundings in
+# other orders)
+SERVE_TOL, SERVE_RAMS_TOL = 1e-4, 2e-2
+SERVE_RAMS_SIDE, SERVE_RAMS_DRAWS = 96, 25  # the export CLI's patch, the 25-draw ensemble
+# superres3d.run(export_artifact=True): the served artifact on the HR grid
+# against the fitted INR on the pipeline's own inference route (K3 on the
+# card for SIREN, the tensor path for the grid), the CLI's 1e-4
+EXPORT_TOL = 1e-4
+# the blinded qualitative study: a panel's scores on the card against the
+# CPU's, float64 keys relative, the float32 SSIM keys absolute
+QUAL_SEED, QUAL_FINE_TUNE = 291, 500
+PERCEPTUAL_RTOL, PERCEPTUAL_SSIM_ATOL = 1e-9, 1e-5
+# core/autodiff.py: the flagship SIREN's gradient and Laplacian at 4,096
+# 4-D points on the card against the CPU, max error over the largest
+# magnitude (float32 sums in other orders through omega 30)
+AUTODIFF_P, AUTODIFF_TOL = 4096, 1e-4
 
 
 def _require(cond: bool, what: str) -> None:
@@ -2337,7 +2377,7 @@ def _reference_patient(what: str):
     return hybrid, np.asarray(BVALS)
 
 
-def _run_keep(cfg, hybrid, bv, out_dir: str):
+def _run_keep(cfg, hybrid, bv, out_dir: str, export_artifact: bool = False):
     """``superres3d.run`` on one patient with every launch count set to 0
     just before it; returns the patient's result, the wall seconds and the
     counts read just after."""
@@ -2357,7 +2397,8 @@ def _run_keep(cfg, hybrid, bv, out_dir: str):
     try:
         _reset_all_counts()
         t0 = time.perf_counter()
-        superres3d.run([(0, hybrid, bv)], cfg, out_dir, seed=0, device="cuda")
+        superres3d.run([(0, hybrid, bv)], cfg, out_dir, seed=0, device="cuda",
+                       export_artifact=export_artifact)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _all_counts()
@@ -2594,6 +2635,304 @@ def phase_grid_trace() -> None:
              "the grid fit on the card departs from the CPU's")
     _require(rel_tf32 > GRID_TRACE_RTOL or err_tf32 > GRID_RECON_ATOL,
              "the grid trace's bars do not see TF32 products")
+
+
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_autodiff() -> None:
+    """``core/autodiff.py`` on the flagship SIREN (256 -> 512x4 -> 1 behind a
+    128-mapping Fourier encoding of 4-D coordinates): the gradient and the
+    Laplacian at AUTODIFF_P points on the card against the CPU."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.autodiff import gradient, laplace
+    from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix
+    from mri_super_resolution_tpu_torch.models import Siren
+
+    gen = torch.Generator().manual_seed(71)
+    B = fourier_matrix(gen, 128, 4)
+    siren = Siren(256, 512, 3, generator=gen).requires_grad_(False)
+    coords = torch.rand(AUTODIFF_P, 4, generator=gen) * 2 - 1
+    out, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        model, Bd, c = siren.to(dev), B.to(dev), coords.to(dev)
+        f = lambda x: model(fourier_encode(x, Bd))  # noqa: E731
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev] = (gradient(f, c), laplace(f, c))
+        torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+    rels = [_rel(a.cpu(), b)[1] for a, b in zip(out["cuda"], out["cpu"])]
+    print(f"[parity] autodiff of the flagship SIREN at {AUTODIFF_P} points, card vs CPU: "
+          f"gradient rel {rels[0]:.3e}, Laplacian rel {rels[1]:.3e} (tol {AUTODIFF_TOL:g}); "
+          f"card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s")
+    _require(max(rels) <= AUTODIFF_TOL, "the INR operators on the card depart from the CPU's")
+
+
+def phase_serve(out_dir: str) -> None:
+    """``serve.py`` at full width on the card: a SIREN 256 -> 512x4 -> 1
+    behind a 128-mapping Fourier encoding of 4-D coordinates, a WIRE 4 ->
+    256x2 -> 1, a GridINR at the quality preset's widths, a PIA (S = 16) and
+    the committed RAMS at 96 x 96 in bf16, each exported on the card (a cuda
+    and a cpu program), loaded back on both devices and served: against the
+    live module on the card at the CLI's bars (batch 1 included), the cuda
+    program against the cpu one. Then the served SIREN on a 262,144-row
+    chunk against the live plain SIREN and K3 on the same chunk, and the
+    served RAMS's 25-draw forward against the live library route and the
+    K6 route, with CUDA events."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch import convert, serve
+    from mri_super_resolution_tpu_torch.config import RAMSConfig
+    from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix
+    from mri_super_resolution_tpu_torch.models import PIA, Siren, Wire
+    from mri_super_resolution_tpu_torch.models.grid_inr import infer_tensor_grid
+    from mri_super_resolution_tpu_torch.models.rams import fold_weight_norm
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.pipelines import superres3d
+    from mri_super_resolution_tpu_torch.pipelines.misr import build_rams
+
+    gen = torch.Generator().manual_seed(61)
+    B = fourier_matrix(gen, 128, 4, device="cuda")
+    siren = Siren(256, 512, 3, generator=gen, device="cuda")
+    wire = Wire(4, 256, 2, generator=gen, device="cuda")
+    grid = superres3d._grid_model(_grid_cfg("quality", 1, 0), gen, "cuda")
+    pia = PIA(generator=gen, device="cuda")
+    rams_sd = fold_weight_norm(convert.rams_state_dict(
+        convert.load_params_npz(convert.RAMS_PARAMS_NPZ)))
+    rams, rams_k6 = (build_rams(RAMSConfig(conv_kernel=k), device="cuda") for k in (False, True))
+    for m in (rams, rams_k6):
+        m.load_state_dict(rams_sd)
+    for m in (siren, wire, grid, pia, rams, rams_k6):
+        m.requires_grad_(False)
+    with torch.no_grad():  # the grids start in [0, 1e-4): spread them over the output
+        for g in grid.grids:
+            g.mul_(1e4)
+    uniform = lambda *shape, lo=-1.0, hi=1.0: (  # noqa: E731
+        lo + (hi - lo) * torch.rand(*shape, generator=gen)).cuda()
+    hr_axes = [torch.as_tensor(np.linspace(-1, 1, n), dtype=torch.float32, device="cuda")
+               for n in (50, 50, 28)]
+    x2_axes = [torch.as_tensor(np.linspace(-1, 1, n), dtype=torch.float32, device="cuda")
+               for n in (100, 100, 28)]
+    one_axes = [torch.zeros(1, device="cuda")] * 3
+    S = SERVE_RAMS_SIDE
+    x25 = uniform(SERVE_RAMS_DRAWS, S, S, 9, lo=0.0, hi=5000.0)
+    def grid_live(*axes):
+        shape = [len(a) for a in axes] + [4]
+        return torch.as_tensor(infer_tensor_grid(grid.params(), shape, clamp_min=0.0)
+                               ).reshape(*shape, 1)
+
+    pts = {d: [[uniform(1, d, lo=lo, hi=hi)], [uniform(4099, d, lo=lo, hi=hi)]]
+           for d, lo, hi in ((4, -1.0, 1.0), (16, 0.0, 1000.0))}
+    # kind: (export, live module, inputs on the card, inputs for the cpu program, bar);
+    # the RAMS's cpu program at one draw (bf16 convs on the host are slow)
+    kinds = {
+        "siren": (lambda: serve.export_inr(siren, 4, os.path.join(out_dir, "siren"),
+                                           fourier_B=B, device="cuda",
+                                           model_desc="siren 512x3 FF128"),
+                  lambda c: siren(fourier_encode(c, B)), pts[4], pts[4], SERVE_TOL),
+        "wire": (lambda: serve.export_inr(wire, 4, os.path.join(out_dir, "wire"), device="cuda"),
+                 wire,
+                 pts[4], pts[4], SERVE_TOL),
+        "grid": (lambda: serve.export_grid_inr(grid, os.path.join(out_dir, "grid"),
+                                                device="cuda"),
+                 grid_live, [one_axes, hr_axes, x2_axes], [one_axes, hr_axes], SERVE_TOL),
+        "pia": (lambda: serve.export_pia(pia, os.path.join(out_dir, "pia"), device="cuda"),
+                pia.encode,
+                pts[16], pts[16], SERVE_TOL),
+        "rams": (lambda: serve.export_rams(rams, os.path.join(out_dir, "rams"), height=S,
+                                           width=S, device="cuda"),
+                 rams, [[x25[:1]], [x25]], [[x25[:1]]], SERVE_RAMS_TOL),
+    }
+
+    def rel(got, want):
+        pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+        return max(_rel(g.float().cpu(), w.float().cpu())[1] for g, w in pairs)
+
+    served = {}
+    for kind, (export, live, inputs, cpu_inputs, tol) in kinds.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manifest = export()
+        t_export = time.perf_counter() - t0
+        _require(manifest["platforms"] == ["cuda", "cpu"], f"{kind} artifact platforms")
+        on = {dev: serve.load(os.path.join(out_dir, kind), device=dev) for dev in ("cuda", "cpu")}
+        served[kind] = on["cuda"]
+        with torch.no_grad():
+            live_errs = [rel(on["cuda"](*args), live(*args)) for args in inputs]
+            xdev_errs = [rel(on["cuda"](*args), on["cpu"](*(a.cpu() for a in args)))
+                         for args in cpu_inputs]
+        shapes = [list(a.shape) for a in inputs[-1]]
+        print(f"[parity] served {kind}: export {t_export:.2f} s (cuda + cpu programs); "
+              f"in {manifest['in_avals']} -> out {manifest['out_avals']}; served vs live on "
+              f"the card at batches {[a[0].shape[0] for a in inputs]} (last {shapes}): worst "
+              f"rel {max(live_errs):.3e}; cuda vs cpu program {max(xdev_errs):.3e} (tol "
+              f"{tol:g})")
+        _require(max(live_errs) <= tol, f"the served {kind} departs from the live module")
+        _require(max(xdev_errs) <= tol, f"the {kind} artifact's cuda and cpu programs differ")
+
+    chunk = uniform(INFER_CHUNK, 4)
+    ws = siren.weights()
+    with torch.no_grad():
+        t_served = _time_ms(lambda: served["siren"](chunk), 10)
+        t_live = _time_ms(lambda: siren(fourier_encode(chunk, B)), 10)
+        t_k3 = _time_ms(lambda: sk.siren_forward(fourier_encode(chunk, B), ws), 10)
+        k3_err = _rel(served["siren"](chunk), sk.siren_forward(fourier_encode(chunk, B), ws))[1]
+        r_served = _time_ms(lambda: served["rams"](x25), 5)
+        r_live = _time_ms(lambda: rams(x25), 5)
+        r_k6 = _time_ms(lambda: rams_k6(x25), 5)
+    card = _card()
+    print(f"[times] served SIREN (256 -> 512x4 -> 1, 128 mappings, encoding included) on "
+          f"{INFER_CHUNK} rows: served {t_served:.3f} ms, live plain {t_live:.3f} ms, K3 "
+          f"{t_k3:.3f} ms (served/K3 {t_served / t_k3:.2f}; served vs K3 rel {k3_err:.2e}); "
+          f"{card}")
+    print(f"[times] served RAMS ({SERVE_RAMS_DRAWS} draws, {S} x {S}, bf16): served "
+          f"{r_served:.3f} ms, live library route {r_live:.3f} ms, K6 route {r_k6:.3f} ms "
+          f"(served/K6 {r_served / r_k6:.2f}); {card}")
+
+
+def phase_export_main(epochs: int, pn_epochs: int) -> None:
+    """``superres3d.run`` with ``export_artifact=True`` on the reference
+    patient at the ``reference`` and ``quality`` presets (``epochs``,
+    ``pn_epochs``): the launches exactly as without the export (it adds
+    none), then ``pat0/artifact`` loaded on the card and served on the HR
+    grid against the fitted INR on the pipeline's inference route (K3 for
+    SIREN, the tensor path for the grid)."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch import serve
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.pipelines import superres3d
+
+    hybrid, bv = _reference_patient("export")
+    for preset in ("reference", "quality"):
+        cfg = _grid_cfg(preset, epochs, pn_epochs)
+        with tempfile.TemporaryDirectory() as out_dir:
+            res, wall, launches = _run_keep(cfg, hybrid, bv, out_dir, export_artifact=True)
+            want = ({} if cfg.inr_model == "grid"
+                    else _expected_launches(cfg.inr_model, epochs, pn_epochs))
+            _check_only(launches, want, f"{preset} export")
+            served = serve.load(os.path.join(out_dir, "pat0", "artifact"), device="cuda")
+            hr_shape = res.sr_hr_grid.shape
+            with torch.no_grad():
+                if cfg.inr_model == "grid":
+                    axes = [torch.as_tensor(np.linspace(-1, 1, n), dtype=torch.float32,
+                                            device="cuda") for n in hr_shape[:3]]
+                    got = served(*axes).reshape(-1, 1)
+                    ref = res.sr_hr_grid.reshape(-1, 1)
+                    route = "the tensor path"
+                else:
+                    got = served(mgrid(hr_shape, device="cuda"))
+                    ref = superres3d._route(cfg, res.inr, torch.as_tensor(
+                        res.B, device="cuda")).infer(hr_shape)  # K3, unclamped as served
+                    route = "K3"
+            err = _rel(got.cpu(), torch.as_tensor(ref))[1]
+        print(f"[main export {preset}] run(export_artifact=True) {wall:.1f} s; artifact "
+              f"{served.manifest['kind']} {served.manifest['in_avals']}; served on the HR grid "
+              f"{list(hr_shape)} vs {route}: rel {err:.3e} (tol {EXPORT_TOL:g}); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        _require(err <= EXPORT_TOL, f"the {preset} artifact departs from the fitted INR")
+        _require(served.manifest["maxes"] == np.asarray(res.maxes).tolist(), "manifest maxes")
+
+
+def phase_qual(out_dir: str) -> None:
+    """``qual_study.build_panel`` at full width on the card: one synthetic
+    128 x 128 case of 9 acquisitions (``cli/inr_erd.build_cases``),
+    SirenERD 128x3, phase 1 to 2e-5 on the 64 x 64 LR rows, 500 fine-tune
+    steps; every launch count set to 0 just before and read just after:
+    one streaming K1-a a phase-1 step, no other kernel. Phase 1, the
+    fine-tune, the reconstruction and the scoring timed on the host clock,
+    synchronised; the panel scored on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli.inr_erd import build_cases
+    from mri_super_resolution_tpu_torch.ops.perceptual import score_panel
+    from mri_super_resolution_tpu_torch.pipelines import qual_study
+
+    data_dir = os.path.join(out_dir, "data")
+    _write_2d_volume(data_dir, seed=45, erd_map=False)
+    (case,) = build_cases(1, 9, data_dir)
+    fit_until, recon_mean = qual_study.fit_until, qual_study.recon_mean
+    marks, steps = {}, []
+
+    def timed_fit(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["fit"] = time.perf_counter()
+        res = fit_until(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks["tune"] = time.perf_counter()
+        steps.append(res.steps)
+        return res
+
+    def timed_recon(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["recon"] = time.perf_counter()
+        return recon_mean(*args, **kwargs)
+
+    qual_study.fit_until, qual_study.recon_mean = timed_fit, timed_recon
+    try:
+        _reset_all_counts()
+        panel = qual_study.build_panel(case, case.cancer_slice, seed=QUAL_SEED,
+                                       fine_tune_steps=QUAL_FINE_TUNE, device="cuda")
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = _all_counts()
+    finally:
+        qual_study.fit_until, qual_study.recon_mean = fit_until, recon_mean
+    (n1,) = steps
+    _check_only(launches, {"siren_loss_grads_absmax_stream": n1}, "qual panel")
+    _require(0 < n1 < qual_study.PRETRAIN_MAX_STEPS, "the panel's phase 1 did not converge")
+    _require(panel.low.shape == (LOWRES_SIDE, LOWRES_SIDE)
+             and panel.sr.shape == (ERD_SIDE, ERD_SIDE), "panel shapes")
+    _require(all(np.isfinite(getattr(panel, k)).all() for k in
+                 ("low", "interpolated", "sr", "base", "adc_low", "adc_interpolated",
+                  "adc_sr", "adc_base")), "non-finite panel arrays")
+    _require(sorted(panel.order) == sorted(qual_study.ARMS), "arm order")
+
+    peak = panel.base.max() + 1e-7
+    quads = [panel.base * 255.0 / peak, panel.interpolated * 255.0 / peak,
+             panel.sr * 255.0 / peak]
+    scores, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        score_panel(*quads, device=dev)  # first-call set-up out of the timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores[dev] = score_panel(*quads, device=dev)
+        torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+    worst64 = max(abs(scores["cuda"][k] - scores["cpu"][k]) / max(abs(scores["cpu"][k]), 1e-30)
+                  for k in scores["cpu"] if not k.startswith("SSIM"))
+    worst_ssim = max(abs(scores["cuda"][k] - scores["cpu"][k]) for k in scores["cpu"]
+                     if k.startswith("SSIM"))
+    csv = qual_study.score_panels({QUAL_SEED: panel}, os.path.join(out_dir, "scores.csv"),
+                                  device="cuda")
+    rows = open(csv).read().splitlines()
+    _require(len(rows) == 2 and rows[0].split(",")[0] == "file", "scores CSV")
+    phase1, tune = marks["tune"] - marks["fit"], marks["recon"] - marks["tune"]
+    recon = t_end - marks["recon"]
+    print(f"[main qual] build_panel at 128 x 128, 9 acquisitions: phase 1 to loss <= "
+          f"{ERD_THRESHOLD:g} in {n1} steps on {LOWRES_SIDE * LOWRES_SIDE} rows, {phase1:.3f} s "
+          f"({1e3 * phase1 / n1:.3f} ms a step); fine-tune {QUAL_FINE_TUNE} steps "
+          f"{tune:.3f} s ({1e3 * tune / QUAL_FINE_TUNE:.3f} ms a step, soft-ERD weights "
+          f"included); reconstruction and ADC {recon:.3f} s; launches "
+          f"{{'siren_loss_grads_absmax_stream': {n1}}}; order {[str(a) for a in panel.order]}; "
+          f"{_card()}")
+    print(f"[parity] qual panel scores, card vs CPU: float64 keys worst rel {worst64:.3e} (tol "
+          f"{PERCEPTUAL_RTOL:g}), SSIM keys worst abs {worst_ssim:.3e} (tol "
+          f"{PERCEPTUAL_SSIM_ATOL:g}); score_panel {walls['cuda']:.3f} s on the card, "
+          f"{walls['cpu']:.3f} s on the CPU; FSIM_SR {scores['cuda']['FSIM_SR']:.5f}, "
+          f"FSIM_interp {scores['cuda']['FSIM_interp']:.5f}")
+    _require(worst64 <= PERCEPTUAL_RTOL and worst_ssim <= PERCEPTUAL_SSIM_ATOL,
+             "the panel's scores on the card depart from the CPU's")
 
 
 def _best_alternating(kern, lib, reps: int, rounds: int) -> tuple[float, float]:
@@ -2918,6 +3257,12 @@ def main(argv=None) -> int:
         launches.update(phase_lowres_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:
         phase_small_clis(out_dir)
+    phase_autodiff()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_serve(out_dir)
+    phase_export_main(args.epochs, args.pn_epochs)
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_qual(out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_probe_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:
@@ -2932,10 +3277,7 @@ def main(argv=None) -> int:
         rows += phase_probe_times(errs, launches)
         phase_rams_forward_times()
         phase_train_step_times(train_data, out_dir)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

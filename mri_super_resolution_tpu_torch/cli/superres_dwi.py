@@ -9,7 +9,10 @@ under ``$MRI_SR_DATA_DIR`` (default ``anon_data``). Runs ``--inr_model
 siren`` (the reference), ``--inr_model wire`` (the complex-Gabor INR on
 the raw coordinates, ``--wire_*`` flags) and ``--inr_model grid`` (the
 multiresolution dense-grid INR, ``--grid_*`` flags; ``--preset quality`` and
-``--preset fast``); ``--export_artifact`` is not ported yet and raises.
+``--preset fast``). ``--export_artifact`` writes each patient's fitted INR
+as a ``torch.export`` serving artifact under ``<out>/pat<id>/artifact``
+(``serve.py``; the plain module, as the JAX package's artifact holds plain
+XLA).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ def main(argv=None):
     p.add_argument("--export_npz", action="store_true",
                    help="export zero-shot LR/GT/SR triplets (forbagci.py variant)")
     p.add_argument("--export_artifact", action="store_true",
-                   help="serving export (not ported yet: raises)")
+                   help="export each patient's fitted INR as a serving artifact")
     p.add_argument("--synthetic_model", choices=("mono", "tissue"), default="mono",
                    help="synthetic hybrid physics when master.mat is absent")
     p.add_argument("--inr_lr", type=float, default=1e-4)

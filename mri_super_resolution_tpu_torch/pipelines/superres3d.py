@@ -447,6 +447,37 @@ def export_triplets(results: Sequence[SR3DResult], cfg: SupperresDWIConfig,
     return out_path
 
 
+def export_artifact_of(result: SR3DResult, cfg: SupperresDWIConfig, out_dir: str,
+                       pt_id: str | int = 0, device: str | torch.device = "cuda") -> dict:
+    """The patient's fitted volume INR as a serving artifact (``serve.py``),
+    its output the (b, te0)-normalised volume and the manifest holding the
+    ``maxes`` that de-normalise it (physical = output * maxes[b][te]) and
+    the b-values. The grid INR exports through ``export_grid_inr`` (three
+    axis-coordinate vectors in, every axis length symbolic: one artifact
+    serves the LR, HR and 2x grids); SIREN (its Fourier B baked in) and WIRE
+    through ``export_inr`` on raw 4-D coordinates (x, y, z, b axis) in
+    [-1, 1]. The artifact holds the plain module, not K3 or K5."""
+    from mri_super_resolution_tpu_torch import serve
+
+    extra = {"maxes": np.asarray(result.maxes).tolist(),
+             "bvalues": np.asarray(result.bvalues).tolist()}
+    note = "; output is the (b, te0)-normalized volume: de-normalize with manifest['maxes'][b][te]"
+    if cfg.inr_model == "grid":
+        desc = (f"sr3d pat{pt_id}: grid_inr L{cfg.grid_levels} R{cfg.grid_base_resolution}"
+                f" h{cfg.grid_hidden}")
+        return serve.export_grid_inr(result.inr, out_dir, device=device,
+                                     model_desc=desc + note, extra_manifest=extra)
+    if cfg.inr_model == "wire":
+        B = None
+        desc = (f"sr3d pat{pt_id}: wire {cfg.wire_hidden}x{cfg.wire_layers}"
+                f" w{cfg.wire_omega} s{cfg.wire_sigma}")
+    else:
+        B = torch.as_tensor(result.B)
+        desc = f"sr3d pat{pt_id}: siren {cfg.hidden_dim}x{cfg.num_layers} FF{cfg.mapping_size}"
+    return serve.export_inr(result.inr, 4, out_dir, fourier_B=B, device=device,
+                            model_desc=desc + note, extra_manifest=extra)
+
+
 def run(
     patients: Sequence[tuple[str | int, object, np.ndarray]],
     cfg: SupperresDWIConfig,
@@ -460,12 +491,10 @@ def run(
 ) -> str:
     """Driver over (pt_id, hybrid_raw, bvalues) tuples: writes
     ``pat<id>/ssim_scores.csv`` per patient and ``timings.json``; optionally
-    PNG panels with ADC maps and the zero-shot triplet npz. ``init`` is
-    passed to every :func:`run_patient`."""
-    if export_artifact:
-        raise NotImplementedError(
-            "export_artifact: serving export is not ported to PyTorch yet "
-            "(ROADMAP Queue 1, item 24)")
+    PNG panels with ADC maps, the zero-shot triplet npz and, with
+    ``export_artifact``, each patient's fitted INR as a serving artifact
+    (``pat<id>/artifact/``, :func:`export_artifact_of`). ``init`` is passed
+    to every :func:`run_patient`."""
     _check_model(cfg, device)
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
@@ -479,6 +508,8 @@ def run(
         results.append(result)
         if save_panels:
             _save_panels(result, cfg, pdir)
+        if export_artifact:
+            export_artifact_of(result, cfg, os.path.join(pdir, "artifact"), pt_id, dev)
     if export_npz:
         export_triplets(results, cfg, os.path.join(out_dir, "zero_shot_dwi.npz"))
     with open(os.path.join(out_dir, "timings.json"), "w") as f:

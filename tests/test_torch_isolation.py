@@ -8,7 +8,12 @@ fit, a two-epoch hybrid fit in its SIREN and grid arms, a 2-iteration
 NLLS ``hybrid_fit`` run and a two-step half-res quality slice
 (``lowres_qual.run_slice``), in a process where both are blocked,
 launching nothing. The CSV analysis and the LR panel CLI also import with
-pandas, matplotlib and seaborn blocked (the card's machine has none)."""
+pandas, matplotlib and seaborn blocked (the card's machine has none). With
+JAX, the JAX package and matplotlib blocked, a blinded qualitative-study
+panel (``qual_study.build_panel``, two fine-tune steps) is built and
+scored, a SIREN is exported, loaded and served, and the INR differential
+operators run; ``save_panel``, the one user of matplotlib, raises, and the
+``prepare_qual_images`` CLI stops before its first fit, naming matplotlib."""
 import os
 import subprocess
 import sys
@@ -175,3 +180,66 @@ def test_analysis_imports_without_plotting_libraries():
                           timeout=120, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"
+
+
+QUAL_SERVE_SCRIPT = r"""
+import sys, tempfile
+for name in ("jax", "flax", "optax", "orbax", "mri_super_resolution_tpu", "matplotlib"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from mri_super_resolution_tpu_torch import serve
+from mri_super_resolution_tpu_torch.config import INRERDConfig
+from mri_super_resolution_tpu_torch.core.autodiff import gradient, laplace
+from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix
+from mri_super_resolution_tpu_torch.models import Siren
+from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+from mri_super_resolution_tpu_torch.pipelines import inr_erd, qual_study
+rng = np.random.default_rng(0)
+b0 = rng.uniform(0.8, 1.6, (16, 16, 1)).astype(np.float32)
+case = inr_erd.ERDCase(pt_id="pat-1", b=(0.0, 150.0, 1000.0, 1500.0), cancer_loc=(8, 8),
+                       contralateral_loc=(4, 4), noise=(10, 10), cancer_slice=0, b0=b0,
+                       b3=np.stack([0.5 * b0 + 0.01 * rng.normal(size=b0.shape)] * 3,
+                                   -1).astype(np.float32))
+panel = qual_study.build_panel(case, 0, INRERDConfig(hidden_features=16, hidden_layers=1,
+                                                     loss_threshold=1.0),
+                               fine_tune_steps=2, device="cpu")
+assert panel.sr.shape == (16, 16) and sorted(panel.order) == sorted(qual_study.ARMS)
+with tempfile.TemporaryDirectory() as out:
+    path = qual_study.score_panels({1: panel}, out + "/s.csv", device="cpu")
+    assert len(open(path).read().splitlines()) == 2
+    try:
+        qual_study.save_panel(panel, out + "/p.png")
+        raise AssertionError("save_panel drew without matplotlib")
+    except ImportError:
+        pass
+    from mri_super_resolution_tpu_torch.cli import prepare_qual_images
+    try:
+        prepare_qual_images.main(["--data_dir", out, "--device", "cpu", "--out_dir", out])
+        raise AssertionError("prepare_qual_images ran without matplotlib")
+    except ImportError as e:
+        assert "matplotlib" in str(e)
+    g = torch.Generator().manual_seed(0)
+    B = fourier_matrix(g, 4, 2)
+    inr = Siren(8, 16, 1, generator=g)
+    serve.export_inr(inr, 2, out + "/a", fourier_B=B, device="cpu")
+    c = torch.rand(5, 2, generator=g) * 2 - 1
+    with torch.no_grad():
+        assert torch.equal(serve.load(out + "/a", device="cpu")(c), inr(fourier_encode(c, B)))
+f = lambda x: inr(fourier_encode(x, B))
+assert gradient(f, c).shape == (5, 2) and laplace(f, c).shape == (5,)
+assert not any(sk.LAUNCHES.values())
+assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "orbax", "matplotlib",
+                                           "mri_super_resolution_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print("OK")
+"""
+
+
+def test_qual_study_and_serving_run_without_jax_or_matplotlib():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", QUAL_SERVE_SCRIPT], capture_output=True,
+                          text=True, timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")

@@ -160,9 +160,10 @@ def test_unported_options_raise(both, tmp_path):
         tsr.run_patient(both["hybrid"], BVALUES,
                         dataclasses.replace(both["tcfg"], inr_model="mlp"),
                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsr.run([(1, both["hybrid"], BVALUES)], both["tcfg"], str(tmp_path),
-                device="cpu", export_artifact=True)
+    # export_artifact was refused until the serving port; now it writes one
+    out = tsr.run([(1, both["hybrid"], BVALUES)], both["tcfg"], str(tmp_path),
+                  device="cpu", init=both["init"], export_artifact=True)
+    assert os.path.isfile(os.path.join(out, "pat1", "artifact", "program_cpu.pt2"))
 
 
 def test_odd_roi_and_plain_route(both):
