@@ -135,7 +135,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    phase 1 to 2e-5 on the 64 x 64 LR rows, 500 fine-tune steps): exactly
    one streaming K1-a launch a phase-1 step and no other kernel, phase 1,
    the fine-tune, the reconstruction and the scoring timed, the panel's
-   perceptual scores on the card against the CPU's;
+   perceptual scores on the card against the CPU's; then the loaders: a v5
+   file (numeric, cell, struct, char) through ``load_mat(prefer_native=True)``
+   and the C++ prefetch pool against scipy, and ``load_cases`` of four
+   registry cases (whether the C++ reader was used is printed); then the
+   cohort runner, ``cli.cohort_run.main`` at full width (four registry
+   cases, Siren 64x6, ROI 40:100, 1000 steps, uncut): every loss falls,
+   finite recons, no kernel launched, and a 20-step trace from one injected
+   init on the card against the CPU; then the parallel layer on two gloo
+   ranks sharing the card (``parallel.distributed.spawn_ranks``): the
+   flagship SIREN's data-parallel fit on K1 (70,000 rows, 35,000 a rank, 5
+   steps, exactly 5 tensor-core K1 launches a rank), the ragged fit (69,997
+   rows padded to 69,998), the tensor-parallel fit (3 steps, width 512 over
+   the two ranks, no kernel), each against one rank loss by loss; a sharded
+   checkpoint round trip (``torch.distributed.checkpoint``); and
+   ``train_misr.main --data_parallel --conv_kernel`` at full-width RAMS
+   (batch 32, 16 a rank, 2 steps; exactly 34 K6 + 34 K7 launches a step on
+   each rank) against one rank's two step losses; ms a step on two ranks and
+   on one printed;
 4. times: each kernel at its main path's shapes with CUDA events, beside
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
@@ -159,7 +176,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    under ``torch.profiler`` for the device's busy time and idle share.
 
 The last three lines are the ``{"kernels": ...}`` record (K1-K5 on their
-tensor-core route, K1 also at the hybrid's shape, K6-K7, K1's weighted
+tensor-core route, K1 also at the hybrid's shape and at a shard's 35,000
+rows, K6-K7, K1's weighted
 variant on its weight-resident
 route and its absmax variant on its streaming route, also at the half-res
 LR slice, P1 in bf16 and int8),
@@ -303,6 +321,22 @@ PERCEPTUAL_RTOL, PERCEPTUAL_SSIM_ATOL = 1e-9, 1e-5
 # 4-D points on the card against the CPU, max error over the largest
 # magnitude (float32 sums in other orders through omega 30)
 AUTODIFF_P, AUTODIFF_TOL = 4096, 1e-4
+
+
+# the cohort runner (BASELINE config 5): four registry cases, Siren 64x6 on
+# the 60 x 60 ROI, 1000 steps; a 20-step trace from one injected init on the
+# card against the CPU, loss by loss (float32 sums in other orders through
+# Adam, the grid trace's bar)
+COHORT_CASES, COHORT_STEPS = 4, 1000
+COHORT_TRACE_STEPS, COHORT_TRACE_RTOL = 20, 1e-4
+# the parallel layer on two gloo ranks sharing the card: the data-parallel
+# and ragged K1 fits (5 steps) and the tensor-parallel fit (3 steps) against
+# one rank, loss by loss, at the JAX dry run's 1e-4 (reduction orders
+# differ between one rank and two); the trainer's two steps at batch 32
+# over two ranks against one rank within 1e-3 relative, a quarter of bf16's
+# 2^-8 (K7 sums the batch's dW in halves; the bf16 activations round after
+# the params part by Adam's sign flips of near-zero gradient components)
+SHARD_STEPS, TP_STEPS, SHARD_RTOL, TRAIN_DP_RTOL = 5, 3, 1e-4, 1e-3
 
 
 def _require(cond: bool, what: str) -> None:
@@ -2935,6 +2969,394 @@ def phase_qual(out_dir: str) -> None:
              "the panel's scores on the card depart from the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# the cohort runner, the parallel layer and the loaders
+# ---------------------------------------------------------------------------
+
+
+def _write_cohort_volumes(data_dir: str, n: int = COHORT_CASES) -> list[str]:
+    """``n`` seeded (128, 128, 24) mean-b0 volumes, unit-scaled, with ERD
+    maps, as the first ``n`` CASE_TABLE patients' files (scipy, v5); returns
+    the paths written."""
+    import numpy as np
+    import scipy.io as sio
+
+    from mri_super_resolution_tpu_torch.data import CASE_TABLE
+
+    os.makedirs(data_dir, exist_ok=True)
+    paths = []
+    for seed, row in enumerate(CASE_TABLE[:n], start=31):
+        no = row["pt_id"].split("-")[-1]
+        b0 = _b0_blob(seed)
+        paths.append(os.path.join(data_dir, f"pat{no}_mean_b0.mat"))
+        sio.savemat(paths[-1], {"data_mean_b0": b0 / float(b0.max())})
+        paths.append(os.path.join(data_dir, f"pat{no}_ERD.mat"))
+        sio.savemat(paths[-1], {"ADC_alldata_mm_ERD": np.random.default_rng(seed).uniform(
+            0, 3, b0.shape).astype(np.float32)})
+    return paths
+
+
+def phase_loaders(out_dir: str) -> None:
+    """The loaders on this machine: a v5 file (numeric, cell, struct, char)
+    through ``load_mat(prefer_native=True)`` against scipy, its decode on
+    the prefetch pool, and ``load_cases`` over the cohort's registry files
+    against scipy. Prints whether the C++ reader was used (without g++ or
+    zlib the loaders read with scipy, the JAX package's host-IO fallback)."""
+    import numpy as np
+    import scipy.io as sio
+
+    from mri_super_resolution_tpu_torch.data import load_cases, load_mat, native_io
+
+    rng = np.random.default_rng(41)
+    cell = np.empty((1, 2), dtype=object)
+    cell[0, 0], cell[0, 1] = rng.normal(size=(4, 3)), np.arange(8.0).reshape(2, 2, 2)
+    vol = rng.normal(size=(128, 128, 24)).astype(np.float32)
+    path = os.path.join(out_dir, "loaders.mat")
+    sio.savemat(path, {"vol": vol, "cell": cell, "rec": {"a": np.eye(3)}, "name": "dwi"})
+    used = native_io.available()
+    t0 = time.perf_counter()
+    got = load_mat(path, prefer_native=True)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = sio.loadmat(path)
+    t_scipy = time.perf_counter() - t0
+    _require(np.array_equal(np.asarray(got["vol"], np.float32), ref["vol"]), "vol differs")
+    _require(np.array_equal(np.asarray(got["cell"][0][0], np.float64), ref["cell"][0, 0]),
+             "cell differs")
+    _require(np.array_equal(np.asarray(got["rec"]["a"][0, 0], np.float64), np.eye(3)),
+             "struct differs")
+    _require(str(np.asarray(got["name"]).reshape(-1)[0]) == "dwi", "char differs")
+    data_dir = os.path.join(out_dir, "registry")
+    paths = _write_cohort_volumes(data_dir)
+    if used:
+        pf = native_io.Prefetcher()
+        for p, h in [(p, pf.submit(p)) for p in paths]:
+            arrays = pf.get(h)
+            for k, v in sio.loadmat(p).items():
+                if not k.startswith("__"):
+                    _require(np.array_equal(arrays[k], v.astype(np.float64)), f"{p}: {k}")
+    t0 = time.perf_counter()
+    cases = load_cases(data_dir=data_dir)
+    t_cases = time.perf_counter() - t0
+    _require(len(cases) == COHORT_CASES, f"{len(cases)} cases loaded")
+    for case in cases:
+        want = sio.loadmat(os.path.join(data_dir, f"pat{case.pt_no}_mean_b0.mat"))
+        _require(np.array_equal(case.b0, want["data_mean_b0"]), f"{case.pt_id}: b0 differs")
+    print(f"[loaders] native reader {'used' if used else 'unavailable: scipy read'}; "
+          f"a (128, 128, 24) volume + cell + struct + char: load_mat(prefer_native=True) "
+          f"{t_native * 1e3:.1f} ms, scipy {t_scipy * 1e3:.1f} ms, equal; load_cases of "
+          f"{len(cases)} cases{' through the prefetch pool' if used else ''} "
+          f"{t_cases * 1e3:.1f} ms, equal to scipy")
+
+
+def phase_cohort(out_dir: str) -> None:
+    """``cli.cohort_run.main`` at full width (Siren 64x6, ROI 40:100, 1000
+    steps, uncut) on four synthetic registry cases on the card: every case's
+    loss falls, every recon is finite, no kernel launches (the cohort fit is
+    plain autodiff, as in the JAX package); then a 20-step trace of the same
+    cases from one injected init on the card against the CPU, loss by loss."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.cli import cohort_run
+    from mri_super_resolution_tpu_torch.data import load_cases, native_io
+    from mri_super_resolution_tpu_torch.models import Siren
+    from mri_super_resolution_tpu_torch.pipelines import cohort
+
+    data_dir = os.path.join(out_dir, "cohort")
+    _write_cohort_volumes(data_dir)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    res = cohort_run.main(["--steps", str(COHORT_STEPS), "--data_dir", data_dir,
+                           "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    _check_only(_all_counts(), {}, "cohort")
+    _require(res.losses.shape == (COHORT_CASES, COHORT_STEPS), f"losses {res.losses.shape}")
+    _require(res.recons.shape == (COHORT_CASES, 60, 60) and bool(np.isfinite(res.recons).all()),
+             "recons not finite or of the wrong shape")
+    _require(bool((res.losses[:, -1] < res.losses[:, 0]).all()),
+             f"a case's loss did not fall: {res.losses[:, [0, -1]].tolist()}")
+    cases = load_cases(data_dir=data_dir)
+    init = []
+    for s in cohort.case_seeds(0, len(cases)):
+        m = Siren(2, 64, 6, 1, generator=torch.Generator().manual_seed(s))
+        init.append([w.detach() for w in m.weights()])
+    kw = dict(num_steps=COHORT_TRACE_STEPS, init_params=init)
+    card = cohort.run_cohort(cases, device="cuda", **kw)
+    cpu = cohort.run_cohort(cases, device="cpu", **kw)
+    rel = float(np.max(np.abs(card.losses - cpu.losses) / np.abs(cpu.losses)))
+    _require(rel <= COHORT_TRACE_RTOL, f"cohort trace card vs CPU: worst step rel {rel:.3e}")
+    print(f"[cohort] cohort_run.main() {wall:.2f} s: {COHORT_CASES} cases x {COHORT_STEPS} "
+          f"steps on mesh {res.mesh_shape}, {res.voxels_per_sec:,.0f} voxels/s; losses "
+          f"{res.losses[:, 0].round(5).tolist()} -> {res.losses[:, -1].round(6).tolist()}; "
+          f"no kernel launched; native reader {'used' if native_io.available() else 'unavailable'}"
+          f"; {COHORT_TRACE_STEPS}-step trace card vs CPU worst step rel {rel:.2e} (bar "
+          f"{COHORT_TRACE_RTOL:g}); card {card.voxels_per_sec:,.0f} voxels/s, CPU "
+          f"{cpu.voxels_per_sec:,.0f}")
+
+
+def _train_dp_args(out_dir: str, tag: str) -> list:
+    return ["--conv_kernel", "--batch_size", str(TRAIN_BATCH), "--hr_size", "96",
+            "--epochs", "1", "--evaluate_every", "2", "--ckpt_dir",
+            os.path.join(out_dir, f"ckpt_{tag}"), "--log_dir", os.path.join(out_dir, f"logs_{tag}"),
+            "--device", "cuda", "--seed", "0"]
+
+
+def _sharded_rank(P: int, dims, out_dir: str) -> dict:
+    """One rank of ``phase_sharded`` (two ranks share the card over gloo):
+    each program on this rank's shard, the one-rank references on rank 0,
+    each program's launches counted from 0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mri_super_resolution_tpu_torch import set_float32_precision
+    from mri_super_resolution_tpu_torch.cli import train_misr
+    from mri_super_resolution_tpu_torch.fit.optim import Adam
+    from mri_super_resolution_tpu_torch.fit.trainer import Trainer
+    from mri_super_resolution_tpu_torch.ops.siren_kernel import make_fused_value_and_grad
+    from mri_super_resolution_tpu_torch.parallel import (make_mesh, make_sharded_fit,
+                                                         make_tp_fit, make_tp_mesh,
+                                                         pad_to_multiple, restore_sharded,
+                                                         save_sharded, shard_batch,
+                                                         siren_tp_specs)
+    from mri_super_resolution_tpu_torch.parallel.distributed import device_mesh, shard_leaf
+    from mri_super_resolution_tpu_torch.parallel.tp_fit import shard_params
+
+    set_float32_precision()
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    x, ws, target, _ = _flagship_inputs(P, dims, seed=1)
+    module = _siren_module(dims, ws)
+    module.requires_grad_(False)
+    vag = make_fused_value_and_grad(module)
+    flat, one = make_mesh(case=1), make_mesh(1, 1, ranks=[rank])
+    adam = lambda p: Adam(p, 1e-4)  # noqa: E731
+
+    def timed(fn, reps=1):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) / reps
+
+    # K1 on each rank's 35,000 rows
+    fit2 = make_sharded_fit(None, adam, flat, SHARD_STEPS, value_and_grad_fn=vag)
+    xs, ts = shard_batch(x, flat), shard_batch(target, flat)
+    _reset_all_counts()
+    res = fit2(ws, xs, ts)
+    out["k1_launches"] = _all_counts()
+    out["k1_rows"] = int(xs.shape[0])
+    out["k1_losses"] = res.losses.cpu().numpy()
+    _, out["k1_s"] = timed(lambda: fit2(ws, xs, ts), 2)
+    # the ragged batch: 69,997 rows padded to 69,998, K1 on each rank's real rows
+    xp, n_rows = pad_to_multiple(x[:P - 3], 2)
+    tp, _ = pad_to_multiple(target[:P - 3], 2)
+    _reset_all_counts()
+    res = make_sharded_fit(None, adam, flat, SHARD_STEPS, value_and_grad_fn=vag,
+                           n_rows=n_rows)(ws, shard_batch(xp, flat), shard_batch(tp, flat))
+    out["ragged_launches"] = _all_counts()
+    out["ragged_losses"] = res.losses.cpu().numpy()
+    # tensor parallelism: the width over the two ranks, the whole batch on each
+    specs = siren_tp_specs(module)
+    tp_mesh = make_tp_mesh(data=1, model=2)
+    tp2 = make_tp_fit(module, adam, tp_mesh, TP_STEPS, specs)
+    _reset_all_counts()
+    res_tp, out["tp_s"] = timed(lambda: tp2(ws, x, target))
+    out["tp_launches"] = _all_counts()
+    out["tp_losses"] = res_tp.losses.cpu().numpy()
+    # a sharded checkpoint of the tensor-parallel shards (DTensor leaves)
+    dmesh = device_mesh(tp_mesh, "cpu")
+    shards = [s.cpu() for s in shard_params(res_tp.params, specs, tp_mesh)]
+    tree = {f"w{i}": shard_leaf(s, dmesh, sp) for i, (s, sp) in enumerate(zip(shards, specs))}
+    tree["step"] = torch.tensor(TP_STEPS)
+    path = os.path.join(out_dir, "sharded_ckpt")
+    t0 = time.perf_counter()
+    save_sharded(path, tree)
+    back = restore_sharded(path, {k: v * 0 for k, v in tree.items()})
+    out["ckpt_s"] = time.perf_counter() - t0
+    out["ckpt_equal"] = (all(torch.equal(back[k].to_local(), tree[k].to_local())
+                             for k in tree if k != "step") and int(back["step"]) == TP_STEPS)
+    # the MISR trainer, batch 32 over the two ranks
+    steps, train_step = [], Trainer.train_step
+
+    def rec_step(self, micro):
+        before = _all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, psnr = train_step(self, micro)
+        torch.cuda.synchronize()
+        steps.append((float(loss), {k: v - before[k] for k, v in _all_counts().items()},
+                      int(micro[0][3].shape[0]), time.perf_counter() - t0))
+        return loss, psnr
+
+    os.environ["MRI_SR_DATA_DIR"] = os.path.join(out_dir, "train_data")
+    Trainer.train_step = rec_step
+    try:
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        trainer = train_misr.main(_train_dp_args(out_dir, "dp") + ["--data_parallel"])
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["train_launches"] = _all_counts()
+        out["train_steps"] = list(steps)
+        out["train_val_batches"] = -(-len(train_misr.split_dataset(*train_misr.build_dataset(
+            hr_size=96))[1][0]) // TRAIN_BATCH)
+        out["train_step"] = trainer.state.step
+        dist.barrier()
+        if rank == 0:  # the one-rank references
+            out["k1_ref_losses"] = make_sharded_fit(None, adam, one, SHARD_STEPS,
+                                                    value_and_grad_fn=vag)(
+                ws, x, target).losses.cpu().numpy()
+            fit1 = make_sharded_fit(None, adam, one, SHARD_STEPS, value_and_grad_fn=vag)
+            _, out["k1_ref_s"] = timed_local(lambda: fit1(ws, x, target), 2)
+            out["ragged_ref_losses"] = make_sharded_fit(None, adam, one, SHARD_STEPS,
+                                                        value_and_grad_fn=vag)(
+                ws, x[:P - 3], target[:P - 3]).losses.cpu().numpy()
+            tp1 = make_tp_fit(module, adam, make_tp_mesh(1, 1, ranks=[rank]), TP_STEPS, specs)
+            res1, out["tp_ref_s"] = timed_local(lambda: tp1(ws, x, target))
+            out["tp_ref_losses"] = res1.losses.cpu().numpy()
+            del steps[:]
+            t0 = time.perf_counter()
+            train_misr.main(_train_dp_args(out_dir, "one"))
+            torch.cuda.synchronize()
+            out["train_ref_s"] = time.perf_counter() - t0
+            out["train_ref_steps"] = list(steps)
+    finally:
+        Trainer.train_step = train_step
+    dist.barrier()
+    return out
+
+
+def timed_local(fn, reps: int = 1):
+    """(the last result, seconds a call) of ``reps`` calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) / reps
+
+
+def _trace_rel(a, b) -> float:
+    import numpy as np
+
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
+
+
+def phase_sharded(P: int, dims, out_dir: str) -> dict:
+    """The parallel layer at full width on two gloo ranks sharing the card
+    (``parallel/distributed.py:spawn_ranks``): the flagship SIREN's
+    data-parallel fit on K1 (35,000 rows a rank, 5 steps), the ragged fit
+    (69,997 rows padded to 69,998, K1 on each rank's real rows), the
+    tensor-parallel fit (3 steps, width 512 over the two), a sharded
+    checkpoint round trip, and ``train_misr --data_parallel --conv_kernel``
+    at full-width RAMS (batch 32, 16 a rank, 2 steps); each against one
+    rank, each rank's launches asserted. Returns the K1 launches of the
+    data-parallel fit, summed over the ranks."""
+    import numpy as np
+
+    from mri_super_resolution_tpu_torch.parallel.distributed import spawn_ranks
+
+    _write_b0_volumes(os.path.join(out_dir, "train_data"))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_sharded_rank, 2, P, dims, out_dir, device="cuda", timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        _check_only(r["k1_launches"], {"siren_loss_grads_tc": SHARD_STEPS},
+                    f"sharded K1 (rank {r['rank']})")
+        _require(r["k1_rows"] == P // 2, f"rank {r['rank']}: {r['k1_rows']} rows")
+        _check_only(r["ragged_launches"], {"siren_loss_grads_tc": SHARD_STEPS},
+                    f"ragged K1 (rank {r['rank']})")
+        _check_only(r["tp_launches"], {}, f"tensor-parallel (rank {r['rank']})")
+        _require(r["ckpt_equal"], f"rank {r['rank']}: the sharded checkpoint differs")
+        _require(r["train_step"] == 2 and len(r["train_steps"]) == 2,
+                 f"rank {r['rank']}: {r['train_step']} trainer steps")
+        for i, (_, d, rows, _) in enumerate(r["train_steps"]):
+            _require(rows <= TRAIN_BATCH // 2, f"rank {r['rank']} step {i + 1}: {rows} rows")
+            _check_only(d, {"conv3d_rfab": K6_PER_FORWARD, "conv3d_rfab_bwd": K6_PER_FORWARD},
+                        f"trainer step {i + 1} (rank {r['rank']})")
+        _check_only(r["train_launches"], {
+            "conv3d_rfab": K6_PER_FORWARD * (2 + 2 * r["train_val_batches"]),
+            "conv3d_rfab_bwd": K6_PER_FORWARD * 2}, f"trainer (rank {r['rank']})")
+        for key in ("k1_losses", "ragged_losses", "tp_losses"):
+            _require(np.array_equal(r[key], r0[key]), f"{key}: the ranks disagree")
+    rel_k1 = _trace_rel(r0["k1_losses"], r0["k1_ref_losses"])
+    rel_ragged = _trace_rel(r0["ragged_losses"], r0["ragged_ref_losses"])
+    rel_tp = _trace_rel(r0["tp_losses"], r0["tp_ref_losses"])
+    train = [step[0] for step in r0["train_steps"]]
+    train_ref = [step[0] for step in r0["train_ref_steps"]]
+    rel_train = _trace_rel(train, train_ref)
+    _require(rel_k1 <= SHARD_RTOL, f"sharded K1 fit vs one rank: {rel_k1:.3e}")
+    _require(rel_ragged <= SHARD_RTOL, f"ragged fit vs one rank unpadded: {rel_ragged:.3e}")
+    _require(rel_tp <= SHARD_RTOL, f"tensor-parallel fit vs one rank: {rel_tp:.3e}")
+    _require(rel_train <= TRAIN_DP_RTOL, f"trainer batch-DP vs one rank: {rel_train:.3e}")
+    step2, step1 = r0["k1_s"] / SHARD_STEPS, r0["k1_ref_s"] / SHARD_STEPS
+    print(f"[sharded] 2 gloo ranks on one card, {wall:.1f} s of phase; K1 data-parallel: "
+          f"{SHARD_STEPS} steps on {P // 2} rows a rank, {SHARD_STEPS} tensor-core launches a "
+          f"rank, losses {r0['k1_losses'].tolist()} vs one rank on {P} rows worst rel "
+          f"{rel_k1:.2e}; ragged {P - 3} rows padded to {P - 2}: worst rel {rel_ragged:.2e}; "
+          f"tensor-parallel {TP_STEPS} steps (width 512 over 2): worst rel {rel_tp:.2e}; "
+          f"trainer batch {TRAIN_BATCH} over 2 ranks, 2 steps: losses {train} vs one rank "
+          f"{train_ref} worst rel {rel_train:.2e} (bar {TRAIN_DP_RTOL:g}); sharded "
+          f"checkpoint round trip {r0['ckpt_s']:.2f} s, equal (bars: {SHARD_RTOL:g})")
+    print(f"[sharded] times: K1 fit step {step2 * 1e3:.3f} ms on two ranks vs "
+          f"{step1 * 1e3:.3f} ms on one ({step2 / step1:.2f}x); tensor-parallel fit "
+          f"{r0['tp_s'] / TP_STEPS * 1e3:.3f} ms a step vs {r0['tp_ref_s'] / TP_STEPS * 1e3:.3f}"
+          f" ms on one; trainer step 2 (batch {TRAIN_BATCH}, the first after warm-up) "
+          f"{r0['train_steps'][1][3] * 1e3:.1f} ms on two ranks vs "
+          f"{r0['train_ref_steps'][1][3] * 1e3:.1f} ms on one; train_misr.main() "
+          f"{r0['train_s']:.2f} s on two ranks vs {r0['train_ref_s']:.2f} s on one")
+    return {"siren_loss_grads_tc_shard": sum(r["k1_launches"]["siren_loss_grads_tc"]
+                                             for r in ranks)}
+
+
+def phase_k1_shard_time(P: int, dims, errs: dict, launches: dict) -> dict:
+    """K1 on its tensor-core route at a shard's P / 2 rows: parity against
+    the plain K1 (twice for the same bits), then timed beside the plain K1
+    and eager autograd."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    n = P // 2
+    x, ws, target, _ = _flagship_inputs(P, dims, seed=1)
+    x, target = x[:n].contiguous(), target[:n].contiguous()
+    loss, grads = sk.siren_loss_grads(x, ws, target)
+    loss_b, grads_b = sk.siren_loss_grads(x, ws, target)
+    _require(bool(torch.equal(loss, loss_b)) and all(torch.equal(a, b) for a, b in
+                                                      zip(grads, grads_b)),
+             "K1 (shard): two calls differ")
+    ref_loss, ref_grads = sk.siren_loss_grads_ref(x, ws, target)
+    worst = _rel(loss, ref_loss)[1]
+    err = _rel(loss, ref_loss)[0]
+    for g, r in zip(grads, ref_grads):
+        worst = max(worst, _rel(g, r)[1])
+        err = max(err, _rel(g, r)[0])
+    _require(worst <= K1_K2_TOL, f"K1 (shard) rel {worst:.3e}")
+    errs["siren_loss_grads_tc_shard"] = err
+    print(f"[parity] K1 tensor-core at a shard's P={n}: worst rel {worst:.2e}, two calls "
+          f"bit-equal")
+    module = _siren_module(dims, ws)
+    params = module.weights()
+
+    def lib_loss_grads():
+        torch.autograd.grad(torch.mean((module(x) - target) ** 2), params)
+
+    flops, nbytes = _k1_work(n, dims, ws)
+    return _time_row("siren_loss_grads_tc_shard", "siren_tc", "siren_kernel.py:518",
+                     lambda: sk.siren_loss_grads(x, ws, target),
+                     lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads, flops,
+                     nbytes, f"P={n} (a shard of 2)", errs, launches, peak=PEAK_BF16_TC)
+
+
 def _best_alternating(kern, lib, reps: int, rounds: int) -> tuple[float, float]:
     """Best of ``rounds`` timings of the kernel and the library call, taken
     in turns (kernel, library, kernel, library, ...)."""
@@ -3266,10 +3688,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_probe_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:
+        phase_loaders(out_dir)
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_cohort(out_dir)
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches.update(phase_sharded(P, dims, out_dir))
+    with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_data = phase_train_main(out_dir)
         launches.update(train_launches)
         rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
         rows.append(phase_k1_hybrid_time(HYBRID_P, dims, errs, launches))
+        rows.append(phase_k1_shard_time(P, dims, errs, launches))
         rows.append(phase_k6_times(k6_err, launches))
         rows.append(phase_k7_times(k7_err, launches))
         rows += phase_2d_times(errs, launches)

@@ -1,8 +1,7 @@
 """Train the RAMS multi-image SR network on DWI acquisitions, on PyTorch.
 
 Run as ``python -m mri_super_resolution_tpu_torch.cli.train_misr``. Same
-flags as the JAX package's ``cli/train_misr.py`` (``--data_parallel``
-raises: data parallelism is ROADMAP item 25), plus ``--device`` (default
+flags as the JAX package's ``cli/train_misr.py``, plus ``--device`` (default
 ``cuda``; raises without a card), ``--conv_kernel`` (the 3x3x3 32-channel
 convs on K6 forward and K7 backward), ``--compute_dtype`` (default
 bfloat16, as ``RAMSConfig``) and ``--log_dir`` (the scalar CSV and
@@ -12,6 +11,13 @@ is built as the JAX package builds it: HR patches of the mean-b0 volumes in
 synthetic acquisitions at 1/scale resolution. The initial params are drawn
 from ``--seed``; checkpoints (the port's own format) go to ``--ckpt_dir``
 and serve through ``cli/misr_master.py --ckpt <dir>``.
+
+``--data_parallel``: batch data parallelism over every rank of a
+multi-process run (``fit/trainer.py``'s ``mesh``), the process group
+started from ``MRI_SR_COORDINATOR`` / ``MRI_SR_NUM_PROCESSES`` /
+``MRI_SR_PROCESS_ID`` or torchrun's variables; one process is a mesh of
+one. Every rank builds the same dataset and model from ``--seed``; with
+``--conv_kernel`` each rank runs K6/K7 on its batch shard.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from mri_super_resolution_tpu_torch.config import RAMSConfig, TrainerConfig
 from mri_super_resolution_tpu_torch.data import (available_patients, default_data_dir,
                                                  load_mat, synthetic)
 from mri_super_resolution_tpu_torch.fit.trainer import Trainer
+from mri_super_resolution_tpu_torch.parallel import distributed
 from mri_super_resolution_tpu_torch.pipelines.misr import build_rams
 from mri_super_resolution_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -105,16 +112,14 @@ def main(argv=None) -> Trainer:
     p.add_argument("--split", choices=("patient", "sequential"), default="patient")
     p.add_argument("--holdout_patients", type=int, default=1)
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: raises (ROADMAP item 25)")
+                   help="shard each batch over the ranks of a multi-process run "
+                        "(torch.distributed; one process: a mesh of one)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--conv_kernel", action="store_true",
                    help="run the 3x3x3 convs with 8k channels on K6 and K7")
     p.add_argument("--compute_dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported to PyTorch yet (ROADMAP Queue 1, item 25)")
 
     X, Y, M, pids = build_dataset(hr_size=args.hr_size, limit_patients=args.limit_patients,
                                   patches_per_slice=args.patches_per_slice, seed=args.seed)
@@ -150,7 +155,12 @@ def main(argv=None) -> Trainer:
         lr_schedule=args.lr_schedule, ema_decay=args.ema_decay, grad_accum=args.grad_accum,
         decay_steps=restored_step + args.epochs * steps_per_epoch,
     )
-    trainer = Trainer(model, cfg, device=args.device)
+    mesh = None
+    if args.data_parallel:
+        distributed.init_distributed(auto=True, device=args.device)
+        mesh = distributed.global_mesh(case=1)
+        print(f"data-parallel over {mesh.size} rank(s)")
+    trainer = Trainer(model, cfg, device=args.device, mesh=mesh)
     trainer.init()
     trainer.fit(Xt, (Yt, Mt), validation_data=(Xv, Yv, Mv), seed=args.seed)
     val_psnr = trainer.evaluate(Xv, Yv, Mv)
@@ -160,3 +170,4 @@ def main(argv=None) -> Trainer:
 
 if __name__ == "__main__":
     main()
+    distributed.shutdown()

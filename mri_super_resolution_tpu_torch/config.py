@@ -107,15 +107,14 @@ class RAMSConfig:
     # True: the 3x3x3 convs with channel counts divisible by 8 run K6
     # (conv3d_rfab) on a CUDA device, its plain version on the CPU
     conv_kernel: bool = False
-    # (B, H, W, T, C) activations; the committed checkpoint and K6 use it
+    # "nhwtc": (B, H, W, T, C) activations, which the committed checkpoint
+    # and K6 use; "nthwc": (B, T, H, W, C), the same math with each 3-D
+    # kernel's spatial axes read as (T, H, W) (checkpoints are layout-specific;
+    # conv_kernel is off under it)
     layout: str = "nhwtc"
 
     def __post_init__(self):
-        if self.layout == "nthwc":
-            raise NotImplementedError(
-                "layout='nthwc' is not ported to PyTorch yet (ROADMAP Queue 1, item 17); "
-                "the port runs layout='nhwtc'")
-        if self.layout != "nhwtc":
+        if self.layout not in ("nhwtc", "nthwc"):
             raise ValueError(f"unknown layout {self.layout!r}")
 
 

@@ -1,7 +1,8 @@
 """Coordinate grids and Fourier-feature encodings.
 
 Counterpart of ``mri_super_resolution_tpu/core/coords.py`` (``mgrid``
-:24-42, ``fourier_matrix`` :50-59, ``fourier_encode`` :62-75).
+:24-42, ``mgrid_square`` :45, ``fourier_matrix`` :50-59, ``fourier_encode``
+:62-75, ``chunked_coords`` :84-91).
 """
 from __future__ import annotations
 
@@ -22,6 +23,19 @@ def mgrid(shape: Sequence[int], device: str | torch.device = "cpu",
     grids = np.meshgrid(*axes, indexing="ij")
     out = np.stack(grids, axis=-1).reshape(-1, len(shape))
     return torch.as_tensor(out.astype(np.float32), device=device).to(dtype)
+
+
+def mgrid_square(sidelen: int, dim: int = 2, device: str | torch.device = "cpu",
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The ``get_mgrid(sidelen, dim)`` variant: a square (cubic, ...) grid."""
+    return mgrid((sidelen,) * dim, device=device, dtype=dtype)
+
+
+def chunked_coords(shape: Sequence[int], chunk: int) -> list[np.ndarray]:
+    """The dense grid of ``shape`` as host-side float32 row chunks of at most
+    ``chunk`` rows, for memory-bounded inference."""
+    full = mgrid(shape).numpy()
+    return [full[i:i + chunk] for i in range(0, full.shape[0], chunk)]
 
 
 def fourier_matrix(generator: torch.Generator, mapping_size: int, dim: int,

@@ -1,6 +1,14 @@
 """Spline-baseline rescale. Counterpart of
 ``mri_super_resolution_tpu/core/interp.py`` (``_gaussian_kernel1d``,
-``_gaussian_blur2d`` and ``rescale`` :24-60)."""
+``_gaussian_blur2d`` and ``rescale`` :24-60).
+
+``rescale`` resizes as ``jax.image.resize`` does: ``order=1`` through
+``F.interpolate`` (bilinear, half-pixel centres), ``order=0`` with its
+nearest rule, and ``order=3`` with Keys' cubic kernel at a = -0.5 whose
+weights are renormalised over the taps inside the image. ``F.interpolate``'s
+``bicubic`` takes a = -0.75 and clamps the border, another function, so the
+cubic weights are formed here as one matrix an axis.
+"""
 from __future__ import annotations
 
 import torch
@@ -28,9 +36,43 @@ def _gaussian_blur2d(img: torch.Tensor, sigma: float) -> torch.Tensor:
     return x.reshape(img.shape)
 
 
-def rescale(img: torch.Tensor, scale: float, anti_aliasing: bool = False) -> torch.Tensor:
-    """Resize the last two axes to ``int(n * scale)`` with linear
-    interpolation (``jax.image.resize(..., 'linear')``: half-pixel centres).
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel at a = -0.5 of |x|."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize(..., 'cubic')`` along one
+    axis: half-pixel sample positions, the kernel widened by 1 / scale when
+    downscaling (``antialias``), each column divided by its sum, columns
+    whose sample lies outside the input zeroed."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    w = _keys_cubic(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image.resize(..., 'nearest')``'s source index of each output
+    sample: floor((i + 0.5) n_in / n_out), computed in float32."""
+    off = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
+    return torch.floor(off).long().to(device)
+
+
+def rescale(img: torch.Tensor, scale: float, anti_aliasing: bool = False,
+            order: int = 1) -> torch.Tensor:
+    """Resize the last two axes to ``int(n * scale)`` as
+    ``jax.image.resize`` does: ``order`` 0 nearest, 1 linear (half-pixel
+    centres), 3 cubic (see the module docstring).
 
     Upscaling takes an integer ``scale >= 1`` (bilinear ``F.interpolate``,
     edge samples held; anti-aliasing is a no-op, as in the reference).
@@ -39,6 +81,8 @@ def rescale(img: torch.Tensor, scale: float, anti_aliasing: bool = False) -> tor
     ``(1 / scale - 1) / 2``, then the resize, which like ``jax.image.resize``
     spreads its triangle kernel over ``1 / scale`` input pixels and
     renormalises the weights at the edges (``antialias=True``)."""
+    if order not in (0, 1, 3):
+        raise ValueError(f"order must be 0, 1 or 3; got {order}")
     h, w = img.shape[-2:]
     lead = img.shape[:-2]
     if scale < 1:
@@ -50,6 +94,13 @@ def rescale(img: torch.Tensor, scale: float, anti_aliasing: bool = False) -> tor
     elif int(scale) != scale:
         raise ValueError(f"rescale upscales by an integer scale >= 1; got {scale}")
     size = (int(h * scale), int(w * scale))
+    if order == 0:
+        return img[..., _nearest_index(h, size[0], img.device)[:, None],
+                   _nearest_index(w, size[1], img.device)[None, :]]
+    if order == 3:
+        wy = _cubic_weights(h, size[0], img.device).to(img.dtype)
+        wx = _cubic_weights(w, size[1], img.device).to(img.dtype)
+        return torch.einsum("...hw,hy,wx->...yx", img, wy, wx)
     out = F.interpolate(img.reshape(-1, 1, h, w), size=size, mode="bilinear",
                         align_corners=False, antialias=scale < 1)
     return out.reshape(*lead, *size)

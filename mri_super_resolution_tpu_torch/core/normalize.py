@@ -1,5 +1,6 @@
 """Normalisation. Counterpart of ``mri_super_resolution_tpu/core/normalize.py``
-(``to_tensor_normalize`` :21, ``max_normalize`` :41, ``rayleigh_noise_std``
+(``to_tensor_normalize`` :21, ``from_tensor_normalize`` :26,
+``per_bte_max_normalize`` :31, ``max_normalize`` :41, ``rayleigh_noise_std``
 :46)."""
 from __future__ import annotations
 
@@ -12,6 +13,18 @@ def to_tensor_normalize(img):
     """torchvision's ``Normalize(mean=0.5, std=0.5)`` on an already-float
     image, ``(img - 0.5) / 0.5`` (numpy arrays and tensors alike)."""
     return (img - 0.5) / 0.5
+
+
+def from_tensor_normalize(img):
+    """Inverse of :func:`to_tensor_normalize`, ``img * 0.5 + 0.5``."""
+    return img * 0.5 + 0.5
+
+
+def per_bte_max_normalize(hybrid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Divide a hybrid (B, TE, ...) stack by its per-(b, TE) max
+    (superresDWI.py:52-55); returns (normalised, maxes (B, TE))."""
+    maxes = hybrid.amax(dim=tuple(range(2, hybrid.dim())))
+    return hybrid / maxes[(...,) + (None,) * (hybrid.dim() - 2)], maxes
 
 
 def max_normalize(img: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,10 @@ directory holds ``pat*_mean_b0.mat`` and ``pat*_ERD.mat``; a missing
 ``pat*_alldata.mat`` is synthesised from the mean b0 with the patient number
 as seed (``synthetic.acquisitions_from_b0``), so the same files give the same
 arrays as the JAX package. The data directory defaults to
-``$MRI_SR_DATA_DIR``, else ``anon_data``, read at each call. The C++
-prefetch pool of the JAX package's ``load_cases`` is not ported
-(``load_mat`` reads each file in turn).
+``$MRI_SR_DATA_DIR``, else ``anon_data``, read at each call. ``load_cases``
+submits every case's files to the C++ prefetch pool
+(``data/native_io.py``) when the library is available, and each variable
+the pool did not decode is read with ``load_mat(prefer_native=True)``.
 """
 from __future__ import annotations
 
@@ -61,17 +62,27 @@ class Case:
         acquisitions: Sequence[int],
         data_dir: str | None = None,
         require_real: bool = False,
+        preloaded: dict | None = None,
     ) -> "Case":
+        """``preloaded``: ``{path: {variable: array}}`` decoded by the
+        prefetch pool (:func:`load_cases`); a variable missing there is read
+        with ``load_mat(prefer_native=True)``."""
         data_dir = data_dir or default_data_dir()
+
+        def var(path, name):
+            if preloaded is not None and name in preloaded.get(path, {}):
+                return preloaded[path][name]
+            return load_mat(path, name, prefer_native=True)
+
         pt_no = pt_id.split("-")[-1]
-        b0 = np.asarray(load_mat(os.path.join(data_dir, f"pat{pt_no}_mean_b0.mat"),
-                                 "data_mean_b0"), dtype=np.float32)
-        erd = np.asarray(load_mat(os.path.join(data_dir, f"pat{pt_no}_ERD.mat"),
-                                  "ADC_alldata_mm_ERD"), dtype=np.float32)
+        b0 = np.asarray(var(os.path.join(data_dir, f"pat{pt_no}_mean_b0.mat"),
+                            "data_mean_b0"), dtype=np.float32)
+        erd = np.asarray(var(os.path.join(data_dir, f"pat{pt_no}_ERD.mat"),
+                             "ADC_alldata_mm_ERD"), dtype=np.float32)
         alldata_path = os.path.join(data_dir, f"pat{pt_no}_alldata.mat")
         synthetic_dwi = False
         if os.path.exists(alldata_path):
-            dwi = np.asarray(load_mat(alldata_path, "data"), dtype=np.float32)
+            dwi = np.asarray(var(alldata_path, "data"), dtype=np.float32)
         else:
             if require_real:
                 raise FileNotFoundError(alldata_path)
@@ -118,10 +129,33 @@ def available_patients(data_dir: str | None = None) -> list[dict]:
                 data_dir, f"pat{row['pt_id'].split('-')[-1]}_mean_b0.mat"))]
 
 
+def _prefetch(paths: list[str]) -> dict | None:
+    """Every file of ``paths`` decoded on the C++ pool, or ``None`` without
+    the library; a file the pool fails on is left out (read with scipy)."""
+    from mri_super_resolution_tpu_torch.data import native_io
+
+    if not native_io.available():
+        return None
+    pf = native_io.Prefetcher()
+    handles = [(p, pf.submit(p)) for p in paths]
+    out = {}
+    for p, h in handles:
+        try:
+            out[p] = pf.get(h)
+        except (RuntimeError, TimeoutError):
+            pass
+    return out
+
+
 def load_cases(data_dir: str | None = None, limit: int | None = None) -> list[Case]:
-    """Load every available case, at most ``limit``."""
+    """Load every available case, at most ``limit``; every case's files
+    are submitted to the prefetch pool up front, so decoding overlaps the
+    assembly of earlier cases."""
     data_dir = data_dir or default_data_dir()
     rows = available_patients(data_dir)
     if limit is not None:
         rows = rows[:limit]
-    return [Case.load(data_dir=data_dir, **row) for row in rows]
+    paths = [os.path.join(data_dir, f"pat{row['pt_id'].split('-')[-1]}_{stem}.mat")
+             for row in rows for stem in ("mean_b0", "ERD", "alldata")]
+    preloaded = _prefetch([p for p in paths if os.path.exists(p)])
+    return [Case.load(data_dir=data_dir, preloaded=preloaded, **row) for row in rows]

@@ -1,7 +1,8 @@
 """Cross-b combination expansion and the combination mean, on torch.
 
 Counterpart of ``mri_super_resolution_tpu/data/combinations.py``
-(``expand_combinations`` :23-53, ``combination_mean`` :56-71). The Cartesian
+(``expand_combinations`` :23-53, ``combination_mean`` :56-71,
+``expand_from_hybrid`` :74-86). The Cartesian
 product of the acquisitions at each b-value is one broadcast; the order is
 the reference's itertools.product order, k fastest.
 """
@@ -53,3 +54,12 @@ def combination_mean(hybrid_raw_norm, te: int = 1,
             a = total / a.shape[-1]
         rows.append(a)
     return torch.stack(rows, dim=3)
+
+
+def expand_from_hybrid(hybrid_raw_norm, te: int = 1,
+                       device: str | torch.device = "cpu") -> torch.Tensor:
+    """:func:`expand_combinations` of the nested ``hybrid_raw[b][te]``
+    layout at one TE index (the reference fixes TE=70ms, SRDWI.py:145)."""
+    rows = [torch.as_tensor(np.asarray(hybrid_raw_norm[b][te]), device=device)
+            for b in range(4)]
+    return expand_combinations(*rows)

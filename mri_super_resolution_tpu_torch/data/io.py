@@ -1,10 +1,12 @@
 """File IO: MATLAB volumes in, DICOM and CSV artifacts out.
 
 Copy of the parts of ``mri_super_resolution_tpu/data/io.py`` the pipelines
-use (numpy only): ``load_mat`` (v5 through scipy, v7.3 through h5py),
-``save_mat`` (:105-109), ``save_dicom`` and ``MetricsCSV`` with
-``CONTRAST_HEADER``, ``SSIM_HEADER`` and ``CNR_SNR_HEADER`` (:299-301). The C++
-reader route (``prefer_native``) is not ported yet.
+use (numpy only): ``load_mat`` (v5 through scipy, v7.3 through h5py, or the
+C++ v5 reader of ``data/native_io.py`` with ``prefer_native``),
+``save_mat`` (:105-109), ``save_dicom`` and ``read_dicom_pixels`` (:252-277)
+and ``MetricsCSV`` with ``CONTRAST_HEADER``, ``SSIM_HEADER`` and
+``CNR_SNR_HEADER`` (:299-301). ``save_mat73`` (:112) has no caller in the
+port.
 """
 from __future__ import annotations
 
@@ -41,13 +43,28 @@ def _from_h5(obj, f):
     return data.T
 
 
-def load_mat(path: str, key: str | None = None):
+def load_mat(path: str, key: str | None = None, prefer_native: bool = False):
     """Load a MATLAB file; v5 via scipy, v7.3 (HDF5) via h5py.
 
     Covers every schema the reference loads (nn_mri.py:46-54,
     INR_ERD.py:89-95, superresHybrid.py:44-50): plain numeric arrays, cell
     arrays (v5 object ndarrays / v7.3 reference datasets), char arrays and
-    structs. Unknown layouts raise with the offending key named."""
+    structs. Unknown layouts raise with the offending key named.
+
+    ``prefer_native``: read v5 files with the C++ reader
+    (``data/native_io.py``) first, and fall back to scipy or h5py when it is
+    unavailable or cannot parse the file (a v7.3 file, an unsupported
+    variable). The native route returns float64 data and a ``str`` for a
+    char row vector: use it where the caller casts anyway, as
+    ``Case.load`` does."""
+    if prefer_native:
+        from mri_super_resolution_tpu_torch.data import native_io
+
+        if native_io.available():
+            try:
+                return native_io.load_mat_native(path, key)
+            except RuntimeError:
+                pass  # v7.3, an unsupported layout or a corrupt file: scipy/h5py
     import scipy.io as sio
 
     try:
@@ -172,6 +189,35 @@ def save_dicom(img: np.ndarray, filename: str, series_desc: str = "mri-sr-tpu") 
         f.write(b"\x00" * 128 + b"DICM")
         f.write(group_len + meta_body)
         f.write(ds)
+
+
+def read_dicom_pixels(filename: str) -> np.ndarray:
+    """The int16 pixel array of a file written by :func:`save_dicom`."""
+    with open(filename, "rb") as f:
+        buf = f.read()
+    if buf[128:132] != b"DICM":
+        raise ValueError(f"{filename}: not a DICOM part-10 file")
+    pos = 132
+    rows = cols = None
+    pixels = None
+    while pos < len(buf):
+        group, elem = struct.unpack_from("<HH", buf, pos)
+        vr = buf[pos + 4:pos + 6].decode()
+        if vr in ("OB", "OW", "SQ", "UN", "UT"):
+            (length,) = struct.unpack_from("<I", buf, pos + 8)
+            value_off = pos + 12
+        else:
+            (length,) = struct.unpack_from("<H", buf, pos + 6)
+            value_off = pos + 8
+        value = buf[value_off:value_off + length]
+        if (group, elem) == (0x0028, 0x0010):
+            (rows,) = struct.unpack("<H", value)
+        elif (group, elem) == (0x0028, 0x0011):
+            (cols,) = struct.unpack("<H", value)
+        elif (group, elem) == (0x7FE0, 0x0010):
+            pixels = np.frombuffer(value, dtype="<i2")
+        pos = value_off + length
+    return pixels.reshape(rows, cols)
 
 
 # --------------------------------------------------------------------------

@@ -25,9 +25,19 @@ What differs: the model is an ``nn.Module`` that arrives with its
 parameters (drawn from a ``torch.Generator`` or loaded); the trainer runs it
 on an explicit device (``cuda`` by default, raising without a card).
 Shuffling and augmentation draw from a ``torch.Generator`` seeded from
-``seed``, never compared with the JAX package's ``jax.random`` draws. There
-is no ``mesh``: data parallelism is ROADMAP item 25. Checkpoints are the
-port's own files (``utils/checkpoint.py``).
+``seed``, never compared with the JAX package's ``jax.random`` draws.
+Checkpoints are the port's own files (``utils/checkpoint.py``).
+
+``mesh`` (a ``parallel/mesh.py`` mesh; the JAX package's :80-87,
+:223-291): batch data parallelism over the mesh's ``data`` ranks. Every rank
+draws the same shuffled global batch from the same seeded generator, pads a
+ragged one to a multiple of the data size with copies of its first sample
+at w = 0 (``_pad_shard`` there), and takes its contiguous slice. Each rank
+computes the sums of per-image loss and cPSNR times w, the sum of w and
+the gradient of its weighted loss; one ``all_reduce`` sums them over the
+data group and the step divides once, so the step equals one on the whole
+batch. The non-finite check reads the reduced loss: every rank steps or
+skips together. Only the mesh's first rank writes checkpoints and logs.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from torch import nn
 from mri_super_resolution_tpu_torch import resolve_device
 from mri_super_resolution_tpu_torch.config import TrainerConfig
 from mri_super_resolution_tpu_torch.ops.shift_metrics import shift_l1_loss, shift_psnr
+from mri_super_resolution_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, local_slice
 from mri_super_resolution_tpu_torch.utils.checkpoint import CheckpointManager
 from mri_super_resolution_tpu_torch.utils.tbevents import EventWriter
 
@@ -76,9 +87,11 @@ class Trainer:
 
     def __init__(self, model: nn.Module, cfg: TrainerConfig,
                  loss_fn: Callable = shift_l1_loss, metric_fn: Callable = shift_psnr,
-                 name: str = "RAMS", device: str | torch.device = "cuda"):
+                 name: str = "RAMS", device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         """``metric_fn`` must take ``reduce=False`` and return per-image
-        values (``shift_psnr`` does)."""
+        values (``shift_psnr`` does). ``mesh``: batch data parallelism over
+        its ``data`` axis (module docstring)."""
         if cfg.lr_schedule == "cosine":
             if cfg.decay_steps <= 0:
                 raise ValueError("lr_schedule='cosine' needs decay_steps > 0")
@@ -92,6 +105,10 @@ class Trainer:
         self.loss_fn = loss_fn
         self.metric_fn = metric_fn
         self.name = name
+        self.mesh = mesh
+        self._n_shard = 1 if mesh is None else mesh.axis_size("data")
+        # the rank that writes checkpoints and logs
+        self._lead = mesh is None or mesh.rank == mesh.ranks[0]
         self._ema = cfg.ema_decay > 0.0
         self._accum = max(1, int(cfg.grad_accum))
         self.manager = CheckpointManager(cfg.checkpoint_dir, cfg.max_to_keep)
@@ -102,7 +119,7 @@ class Trainer:
         # (training.py:128-129); additive to the CSV
         self._tb_train: EventWriter | None = None
         self._tb_test: EventWriter | None = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and self._lead:
             self._tb_train = EventWriter(os.path.join(cfg.log_dir, f"train_{name}"))
             self._tb_test = EventWriter(os.path.join(cfg.log_dir, f"test_{name}"))
 
@@ -153,6 +170,8 @@ class Trainer:
         return TrainState(self.model, optimizer, int(tree["step"]), ema)
 
     def _save(self, psnr: float) -> bool:
+        if not self._lead:
+            return False
         tree = {"params": self.model.state_dict(),
                 "opt_state": self.state.optimizer.state_dict(),
                 "step": self.state.step, "psnr": float(psnr)}
@@ -163,11 +182,25 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _batch(self, idx, x, hr, mask) -> Batch:
+        """This rank's part of the batch ``idx``: padded to a multiple of the
+        data size with copies of its first sample at w = 0, then sliced (one
+        process: the whole batch, w = 1)."""
+        arrays = (x[idx], hr[idx], mask[idx])
+        w = np.ones(len(idx), np.float32)
+        pad = (-len(idx)) % self._n_shard
+        if pad:
+            arrays = tuple(np.concatenate([a, np.repeat(a[:1], pad, axis=0)]) for a in arrays)
+            w = np.concatenate([w, np.zeros(pad, np.float32)])
+        if self.mesh is not None:
+            sl = local_slice(len(w), self.mesh, "data")
+            arrays, w = tuple(a[sl] for a in arrays), w[sl]
         dev = self.device
-        return (torch.as_tensor(x[idx], dtype=torch.float32, device=dev),
-                torch.as_tensor(hr[idx], dtype=torch.float32, device=dev),
-                torch.as_tensor(mask[idx], dtype=torch.float32, device=dev),
-                torch.ones(len(idx), dtype=torch.float32, device=dev))
+        return (*(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays),
+                torch.as_tensor(w, device=dev))
+
+    def _reduce(self, tensors: list) -> list:
+        """Sums over the mesh's data ranks (one process: as they are)."""
+        return tensors if self.mesh is None else all_reduce_sum(tensors, self.mesh, "data")
 
     def _per_image(self, batch: Batch, params=None):
         """(per-image loss, sr) of one batch, through ``params`` if given."""
@@ -182,7 +215,7 @@ class Trainer:
         update; the EMA moves in either case."""
         state = self.state
         state.optimizer.zero_grad(set_to_none=True)
-        wsum = sum(b[3].sum() for b in micro_batches)
+        wsum = self._reduce([sum(b[3].sum() for b in micro_batches)])[0]
         loss_sum = psnr_sum = 0.0
         for batch in micro_batches:
             per, sr = self._per_image(batch)
@@ -196,9 +229,14 @@ class Trainer:
                                           reduce=False)
             loss_sum = loss_sum + part.detach()
             psnr_sum = psnr_sum + (per_psnr * w).sum()
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        if self.mesh is not None:
+            loss_sum, psnr_sum, *grads = self._reduce([loss_sum, psnr_sum,
+                                                       *(p.grad for p in params)])
+            for p, g in zip(params, grads):
+                p.grad.copy_(g)
         loss = loss_sum / wsum
         if bool(torch.isfinite(loss)):
-            params = [p for p in self.model.parameters() if p.grad is not None]
             if len(micro_batches) > 1:
                 for p in params:
                     p.grad.div_(wsum)
@@ -258,8 +296,9 @@ class Trainer:
                         self._tb_train.flush()
                         self._tb_test.flush()
                     self._save(val_psnr)
-            print(f"Epoch {epoch + 1}/{epochs}: loss {np.mean(train_loss):.2f} "
-                  f"PSNR {np.mean(train_psnr):.2f}")
+            if self._lead:
+                print(f"Epoch {epoch + 1}/{epochs}: loss {np.mean(train_loss):.2f} "
+                      f"PSNR {np.mean(train_psnr):.2f}")
         if validation_data is None:
             self._save(float(np.mean(train_psnr)) if train_psnr else 0.0)
         self._flush_logs()
@@ -271,7 +310,8 @@ class Trainer:
         if self._tb_train is not None:
             self._tb_train.flush()
             self._tb_test.flush()
-        if not self.log_rows:
+        if not self.log_rows or not self._lead:
+            self.log_rows.clear()
             return
         os.makedirs(self.cfg.log_dir, exist_ok=True)
         path = os.path.join(self.cfg.log_dir, f"{self.name}_scalars.csv")
@@ -293,13 +333,16 @@ class Trainer:
         losses, psnrs, weights = [], [], []
         bs = self.cfg.batch_size
         for i in range(0, len(x_val), bs):
-            batch = self._batch(np.arange(i, min(i + bs, len(x_val))), x_val, y_val, mask_val)
+            idx = np.arange(i, min(i + bs, len(x_val)))
+            batch = self._batch(idx, x_val, y_val, mask_val)
             per, sr = self._per_image(batch, params)
             w = batch[3]
             per_psnr = self.metric_fn(batch[1], sr, batch[2], self.cfg.hr_size, reduce=False)
-            losses.append(float((per * w).sum() / w.sum()))
-            psnrs.append(float((per_psnr * w).sum() / w.sum()))
-            weights.append(len(w))
+            loss_sum, psnr_sum, wsum = self._reduce([(per * w).sum(), (per_psnr * w).sum(),
+                                                     w.sum()])
+            losses.append(float(loss_sum / wsum))
+            psnrs.append(float(psnr_sum / wsum))
+            weights.append(len(idx))
         if not losses:
             raise ValueError("evaluate() called with an empty validation set")
         self._last_val_loss = float(np.average(losses, weights=weights))

@@ -18,6 +18,11 @@ shape ``(kh, kw, kt, Cin, Cout)`` (2-D: ``(kh, kw, Cin, Cout)``), so
 ``compute_dtype``; the parameters, the attention gates' pooled features and
 the final sum stay float32.
 
+``layout="nthwc"`` (the JAX package's :218-242) runs the 5-D path as ``(B,
+T, H, W, C)``: the math is the same and so are the parameter shapes, but a
+3-D kernel's spatial axes are read as (T, H, W), so checkpoints are
+layout-specific; ``conv_kernel`` is off under it, as in the JAX package.
+
 Convolutions: with ``conv_kernel=True`` a 3x3x3 SAME or VALID conv whose
 channel counts are multiples of 8 runs K6 forward and K7 backward
 (``ops/conv3d_kernel.py:conv3d_rfab_trainable``: float32 sums, the float32
@@ -193,13 +198,17 @@ class RAMS(nn.Module):
     def __init__(self, scale: int = 3, filters: int = 32, kernel_size: int = 3,
                  channels: int = 9, r: int = 8, N: int = 12, mean: float = MEAN,
                  std: float = STD, compute_dtype: str = "float32",
-                 conv_kernel: bool = False, generator: torch.Generator | None = None,
-                 device=None):
+                 conv_kernel: bool = False, layout: str = "nhwtc",
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
+        if layout not in ("nhwtc", "nthwc"):
+            raise ValueError(f"unknown layout {layout!r}")
         self.scale, self.mean, self.std = scale, mean, std
         self.compute_dtype = getattr(torch, compute_dtype)
+        self.layout = layout
         k3 = (kernel_size,) * 3
-        ck = dict(conv_kernel=conv_kernel, device=device)
+        # K6/K7 flatten dims 1-2 and loop dim 3: nhwtc only (rams.py:242 there)
+        ck = dict(conv_kernel=conv_kernel and layout == "nhwtc", device=device)
         self.head = WNConv(1, filters, k3, **ck)
         self.rfabs = nn.ModuleList(RFAB(filters, kernel_size, r, **ck) for _ in range(N))
         self.body_conv = WNConv(filters, filters, k3, **ck)
@@ -218,14 +227,18 @@ class RAMS(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = normalize(x, self.mean, self.std).to(self.compute_dtype)
         global_res = x  # (B, H, W, T)
-        x = self.head(reflect_pad_hw(x[..., None]))
+        if self.layout == "nthwc":
+            x, hw_axes, t_axis = x.permute(0, 3, 1, 2)[..., None], (2, 3), 1
+        else:
+            x, hw_axes, t_axis = x[..., None], (1, 2), 3
+        x = self.head(reflect_pad_hw(x, axes=hw_axes))
         res = x
         for blk in self.rfabs:
             x = blk(x)
         x = self.body_conv(x) + res
         for blk, conv in zip(self.reduce_rfabs, self.reduce_convs):
-            x = torch.relu(conv(blk(reflect_pad_hw(x))))
-        x = depth_to_space(self.to_scale(x).squeeze(3), self.scale)  # T is 1 here
+            x = torch.relu(conv(blk(reflect_pad_hw(x, axes=hw_axes))))
+        x = depth_to_space(self.to_scale(x).squeeze(t_axis), self.scale)  # T is 1 here
         g = self.global_conv(self.rtab(reflect_pad_hw(global_res)))
         g = depth_to_space(g, self.scale)
         return denormalize(x.float() + g.float(), self.mean, self.std)

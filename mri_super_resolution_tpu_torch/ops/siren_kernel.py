@@ -764,6 +764,22 @@ def _model_omega_acts(model) -> tuple[float, tuple[str, ...]]:
     return hidden, tuple(model.acts)
 
 
+def make_fused_value_and_grad(model):
+    """``vag(params, x, target, n_rows=None) -> (loss, grads)``: the MSE
+    gradient of a plain Siren in one K1 pass
+    (``make_fused_value_and_grad`` of the JAX package; the kernel takes any
+    width, so no padding; ``n_rows``: the loss and gradient of the first
+    rows alone). At the tensor-core route's widths (multiples of
+    :data:`TC_TILE`, the flagship 256 -> 512xN -> 1) it runs there.
+    ``params`` in ``model.weights()`` order."""
+    omega, acts = _model_omega_acts(model)
+
+    def vag(params, x, target, n_rows=None):
+        return siren_loss_grads(x, params, target, omega, n_rows=n_rows, acts=acts)
+
+    return vag
+
+
 def make_fused_weighted_value_and_grad(model):
     """``vag(params, x, target, sample_weights) -> (loss, grads)``: the
     acceptance-weighted MSE of the 2-D directional ensemble in one K1 pass

@@ -36,7 +36,7 @@ def build_rams(cfg: RAMSConfig, generator: torch.Generator | None = None,
     return RAMS(scale=cfg.scale, filters=cfg.filters, kernel_size=cfg.kernel_size,
                 channels=cfg.channels, r=cfg.r, N=cfg.N, mean=cfg.mean, std=cfg.std,
                 compute_dtype=cfg.compute_dtype, conv_kernel=cfg.conv_kernel,
-                generator=generator, device=device)
+                layout=cfg.layout, generator=generator, device=device)
 
 
 def predict_case(apply_fn: Callable, case: Case, cfg: RAMSConfig, sample_size: int = 25,

@@ -5,9 +5,11 @@ training run (K6 and K7 routes, their plain versions), a two-step
 ``fit_ensemble`` and ``fit_until`` (K1's weighted and absmax variants,
 their plain versions), the P1 probe's plain version, a two-step GridINR
 fit, a two-epoch hybrid fit in its SIREN and grid arms, a 2-iteration
-NLLS ``hybrid_fit`` run and a two-step half-res quality slice
-(``lowres_qual.run_slice``), in a process where both are blocked,
-launching nothing. The CSV analysis and the LR panel CLI also import with
+NLLS ``hybrid_fit`` run, a two-step half-res quality slice
+(``lowres_qual.run_slice``) and a two-step cohort fit
+(``cohort.run_cohort``), in a process where both are blocked, launching
+nothing; the parallel layer, the loaders and the profiling helpers are
+among the modules imported. The CSV analysis and the LR panel CLI also import with
 pandas, matplotlib and seaborn blocked (the card's machine has none). With
 JAX, the JAX package and matplotlib blocked, a blinded qualitative-study
 panel (``qual_study.build_panel``, two fine-tune steps) is built and
@@ -30,6 +32,10 @@ import mri_super_resolution_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+for m in ("parallel.mesh", "parallel.sharded_fit", "parallel.tp_fit", "parallel.distributed",
+          "parallel.dryrun", "pipelines.cohort", "cli.cohort_run", "data.native_io",
+          "data.preprocessing", "data.tfckpt", "utils.profiling"):
+    assert pkg.__name__ + "." + m in mods, m
 from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix, mgrid
 from mri_super_resolution_tpu_torch.fit.engine import fit_simple
 from mri_super_resolution_tpu_torch.fit.optim import Adam
@@ -134,7 +140,12 @@ lq = lowres_qual.run_slice(erd_case, 0, lowres_qual.LowresQualConfig(
     hidden_features=16, hidden_layers=1, loss_threshold=0.0, max_pretrain_steps=2,
     phase2_steps=2), device="cpu")
 assert lq.pretrain_steps == 2 and lq.sr.shape == (12, 12) and np.isfinite(lq.metrics).all()
+from mri_super_resolution_tpu_torch.pipelines import cohort
+cr = cohort.run_cohort([case, case], num_steps=2, hidden_features=8, hidden_layers=1,
+                       roi=(1, 7), device="cpu")
+assert cr.losses.shape == (2, 2) and cr.recons.shape == (2, 6, 6)
 assert not any(sk.LAUNCHES.values()) and not any(mp.LAUNCHES.values())
+assert not any(ck.LAUNCHES.values()) and not any(wk.LAUNCHES.values())
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "orbax",
                                            "mri_super_resolution_tpu."))
                for k, v in sys.modules.items() if v is not None)

@@ -246,8 +246,15 @@ def test_k6_gate_follows_the_jax_package():
 
 
 def test_nthwc_layout_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        RAMSConfig(layout="nthwc")
+    """The name predates the port of ``layout="nthwc"``: the layout now
+    builds (its forward is held to the JAX package's in
+    ``tests/test_torch_helpers.py``), with K6 off; an unknown one raises."""
+    assert RAMSConfig(layout="nthwc").layout == "nthwc"
+    model = trams.RAMS(filters=8, N=1, layout="nthwc", conv_kernel=True)
+    assert model.layout == "nthwc" and not any(
+        getattr(m, "use_k6", False) for m in model.modules())
+    with pytest.raises(ValueError, match="unknown layout"):
+        RAMSConfig(layout="nchw")
 
 
 # ---------------------------------------------------------------------------

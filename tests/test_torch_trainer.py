@@ -474,5 +474,11 @@ def test_train_misr_cli_then_serve(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "o" / "sr2" / "07" / "DWI" / "mean.dcm").exists()
     timings = json.loads((tmp_path / "o" / "sr2" / "timings.json").read_text())
     assert timings["platform"] == "cpu" and timings["filters"] == 8
-    with pytest.raises(NotImplementedError, match="item 25"):
-        train_misr.main(["--data_parallel", "--device", "cpu"])
+    # --data_parallel in one process: a mesh of one rank, the same step
+    tr_dp = train_misr.main([
+        "--epochs", "1", "--batch_size", "4", "--hr_size", str(HR), "--filters", "8",
+        "--N", "1", "--patches_per_slice", "2", "--evaluate_every", "1", "--ckpt_dir",
+        str(tmp_path / "ck_dp"), "--log_dir", str(tmp_path / "logs_dp"), "--device", "cpu",
+        "--compute_dtype", "float32", "--data_parallel"])
+    assert "data-parallel over 1 rank(s)" in capsys.readouterr().out
+    assert tr_dp.mesh.shape == {"case": 1, "data": 1} and tr_dp.state.step == 2
