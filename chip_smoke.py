@@ -30,7 +30,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    forward, loss by loss; K1's sample-weighted variant on its
    weight-resident route (``csrc/siren_resident.cu``) at the 2-D ensemble's
    3,600 rows (2 -> 64x7 -> 1), twice for the same bits, with the SIMT K1-w
-   for the record, and its absmax/ReLU variant K1-a on its streaming
+   for the record; the batched K1 (K1 under ``jax.vmap`` in the JAX
+   package, one launch over stacked MLPs) on both its kernels, each against
+   its plain batched version and against D unbatched kernel calls, twice
+   for the same bits: the tensor-core ``siren_loss_grads_tc_batched`` at the
+   hybrid's four TEs on 100,800 rows and the weight-resident
+   ``siren_loss_grads_resident_batched`` at the 2-D ensemble's three
+   directions on 3,600 rows with one padded (all-zero-weight) slot; and its
+   absmax/ReLU variant K1-a on its streaming
    tensor-core route (``csrc/siren_stream.cu``) at the soft-ERD fit's 16,384
    rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with ragged row counts, with and
    without sample weights and with a collapsed output (max |out| exactly
@@ -70,8 +77,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    512x4 -> 1, ROI 35:95 -> 30x30x28x4 = 100,800 LR rows a TE) on a seeded
    three-compartment patient (``hybrid_from_tissue`` of the same blob) for
    ``--hybrid_epochs``, then ``tissue_maps`` with the NLLS (40 iterations)
-   on slice 14 on the card: exactly 4 x epochs K1 launches on the
-   tensor-core route and 4 x 7 K3 inference chunks, no other kernel, the
+   on slice 14 on the card: exactly epochs batched K1 launches (the four
+   TEs' SIRENs a launch) on the tensor-core route and 4 x 7 K3 inference
+   chunks, no other kernel, the
    per-TE losses falling, the maps finite, within the fit's bounds and v
    summing to 1; then ``make_pia_fitter`` pretraining ``--pia_steps`` on
    the card and ``tissue_maps`` with it (no kernel); then the grid INR:
@@ -96,8 +104,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ROI 40:100, scale 3, AutoERD mode 1) on one seeded synthetic case (b0
    (128, 128, 24), 27 acquisitions (9, 9, 9)) with the steps cut to
    ``--master_steps`` and ``--master_seg``: CSV, DICOMs, finite outputs and
-   exactly steps x 27 K1-weighted launches on the weight-resident route and
-   no other kernel (none of the SIMT K1-w); then the
+   exactly steps x 9 batched K1-weighted launches (the three directions a
+   launch, one a acquisition slot) on the weight-resident route and no
+   other kernel (none of the SIMT or unbatched K1-w); then the
    soft-ERD fit, ``cli/inr_erd.main`` at full width (SirenERD 128x3, 9
    acquisitions, one seed) on the same kind of volume with phase 1 run to
    the reference's 2e-5 (about 700 steps): CSV, checkpoints, and exactly one K1-absmax
@@ -161,13 +170,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    SIMT K1-K5's times at the same shapes printed beside them, routes in
    turns, K3 also at the inference chunk; each one's device time by pass
    under ``torch.profiler``, K5 at the inference chunk too; K1-weighted's
-   and K1-absmax's two routes in turns and by pass);
+   and K1-absmax's two routes in turns and by pass; each batched K1 beside
+   D unbatched calls in turns, and by pass);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
    shape; P1 also at GRID 256, whose time must be about half; the
    per-update costs of the two 2-D paths (a K1 call on either route, an
    Adam step, a whole update, ``fit_until``'s per-step read-back, the
-   soft-ERD step on both K1-a routes); K1-a at the half-res LR slice beside
+   soft-ERD step on both K1-a routes; the batched 2-D update of the three
+   directions, a batched K1-w call and a stacked Adam step, beside three
+   unbatched updates); K1-a at the half-res LR slice beside
    its plain version, eager autograd and its bound, by pass; the
    25-draw RAMS forward on both
    routes; one full training step at batch 32 on both routes, whose losses
@@ -180,7 +192,10 @@ tensor-core route, K1 also at the hybrid's shape and at a shard's 35,000
 rows, K6-K7, K1's weighted
 variant on its weight-resident
 route and its absmax variant on its streaming route, also at the half-res
-LR slice, P1 in bf16 and int8),
+LR slice, P1 in bf16 and int8, and the batched K1 on its two kernels: 16
+rows; each row's launches are its own entry's on the main path, so the
+unbatched K1 row at the hybrid's shape and the unbatched K1-weighted row,
+whose paths now run the batched entries, count 0),
 the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Exits non-zero, printing
 no result, when no CUDA device is present.
@@ -265,7 +280,11 @@ TRAIN_STEPS, TRAIN_VAL_PASSES = 4, 3  # 2 epochs of 2 steps; val at steps 2, 4 a
 INFER_CHUNK = 262_144  # rows per inference chunk (fit/engine.py:infer_dense_grid)
 # the 2-D ensemble's K1 call: the 60 x 60 ROI, Siren 2 -> 64x7 -> 1
 MASTER_P, MASTER_HIDDEN, MASTER_LAYERS = 3600, 64, 6
-MASTER_ACQ = 27  # acquisitions (9, 9, 9): one K1-weighted launch each per step
+MASTER_ACQ = 27  # acquisitions (9, 9, 9)
+# the 2-D ensemble's acquisition slots a step (the most of one direction):
+# one batched K1-weighted launch each over the three directions
+MASTER_SLOTS, MASTER_DIRS = 9, 3
+HYBRID_TES = 4  # the hybrid fit's per-TE SIRENs: one batched K1 launch a step
 # the soft-ERD fit's K1 call: a 128 x 128 slice, SirenERD 2 -> 128x4 -> 128 -> 1
 ERD_SIDE, ERD_HIDDEN, ERD_LAYERS = 128, 128, 3
 ERD_THRESHOLD = 2e-5  # INRERDConfig.loss_threshold, the reference's
@@ -739,6 +758,110 @@ def phase_k1_hybrid_parity(P: int, dims) -> dict:
     return {"siren_loss_grads_tc_hybrid": worst[0]}
 
 
+def _stacked_inputs(P: int, dims, D: int, seed: int):
+    """D seeded problems of :func:`_flagship_inputs`' scale on one x: x, the
+    stacked weights (each W (D, out, in), b (D, out)) and targets (D, P,
+    1)."""
+    import torch
+
+    probs = [_flagship_inputs(P, dims, seed + s) for s in range(D)]
+    ws = [torch.stack([p[1][i] for p in probs]) for i in range(len(probs[0][1]))]
+    return probs[0][0], ws, torch.stack([p[2] for p in probs])
+
+
+def _batched_check(what: str, got, ref, singles, again) -> float:
+    """Hold a batched K1's (loss (D,), grads) against its plain batched
+    version and against D unbatched kernel calls, slot by slot, at
+    K1_K2_TOL, and two calls for the same bits; returns the max abs error
+    against the plain version."""
+    import torch
+
+    D = got[0].shape[0]
+    worst_ref, worst_one, same = (0.0, 0.0), (0.0, 0.0), True
+    for s in range(D):
+        pairs = [(got[0][s], ref[0][s]), *((a[s], b[s]) for a, b in zip(got[1], ref[1]))]
+        worst_ref = max(worst_ref, _worst_rel(pairs))
+        one = [(got[0][s], singles[s][0]), *((a[s], b) for a, b in zip(got[1], singles[s][1]))]
+        worst_one = max(worst_one, _worst_rel(one))
+        same = same and all(torch.equal(a, b) for a, b in one)
+    print(f"[parity] {what}: against the plain batched version worst over loss/dW/db max abs "
+          f"{worst_ref[0]:.3e}, rel {worst_ref[1]:.3e}; against {D} unbatched kernel calls "
+          f"max abs {worst_one[0]:.3e}, rel {worst_one[1]:.3e} (tol rel {K1_K2_TOL:g}); "
+          f"every slot bit-equal to its unbatched call: {same}")
+    _require(worst_ref[1] <= K1_K2_TOL, f"{what} disagrees with its plain batched version")
+    _require(worst_one[1] <= K1_K2_TOL, f"{what} disagrees with {D} unbatched calls")
+    _require(torch.equal(got[0], again[0])
+             and all(torch.equal(a, b) for a, b in zip(got[1], again[1])),
+             f"two calls of {what} differ")
+    return worst_ref[0]
+
+
+def phase_k1_batched_parity(P: int, dims) -> dict:
+    """The batched K1 on its tensor-core route at the hybrid fit's shape,
+    D = 4 stacked 256 -> 512x4 -> 1 SIRENs on P = 100,800 rows (one launch
+    of csrc/siren_tc.cu's siren_loss_grads_tc_batched), against its plain
+    batched version and four unbatched tensor-core K1 calls, twice for the
+    same bits; returns its max abs error."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    x, ws, target = _stacked_inputs(P, dims, HYBRID_TES, seed=61)
+    before = dict(sk.LAUNCHES)
+    got = sk.siren_loss_grads_batched(x, ws, target)
+    again = sk.siren_loss_grads_batched(x, ws, target)
+    singles = [sk.siren_loss_grads(x, [w[s] for w in ws], target[s]) for s in range(HYBRID_TES)]
+    torch.cuda.synchronize()
+    _require(sk.LAUNCHES == {**before,
+                             "siren_loss_grads_tc_batched": before["siren_loss_grads_tc_batched"] + 2,
+                             "siren_loss_grads_tc": before["siren_loss_grads_tc"] + HYBRID_TES},
+             "the batched K1 did not take its tensor-core kernel")
+    ref = sk.siren_loss_grads_batched_ref(x, ws, target)
+    err = _batched_check(f"K1 batched x{HYBRID_TES} at the hybrid's P={P}, tensor-core route",
+                            got, ref, singles, again)
+    return {"siren_loss_grads_tc_batched": err}
+
+
+def phase_k1w_batched_parity() -> dict:
+    """The batched K1-w on its weight-resident route at the 2-D ensemble's
+    shape, D = 3 stacked 2 -> 64x7 -> 1 Sirens on P = 3,600 rows with
+    sample weights, slot 2 a padded acquisition slot (every weight 0: its
+    loss and grads exactly 0), all rows and a ragged count, against its
+    plain batched version and three unbatched resident K1-w calls, twice
+    for the same bits; returns its max abs error."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    models, x, targets, sws = zip(*(_master_inputs(seed=71 + d) for d in range(MASTER_DIRS)))
+    x, acts = x[0], models[0].acts
+    ws = [torch.stack(t) for t in zip(*(m.weights() for m in models))]
+    target, sw = torch.stack(targets), torch.stack(sws)
+    sw[MASTER_DIRS - 1] = 0.0
+    err = 0.0
+    for n_rows in (MASTER_P, MASTER_P - 123):
+        before = dict(sk.LAUNCHES)
+        kw = dict(n_rows=n_rows, acts=acts, sample_weights=sw)
+        got = sk.siren_loss_grads_batched(x, ws, target, **kw)
+        again = sk.siren_loss_grads_batched(x, ws, target, **kw)
+        singles = [sk.siren_loss_grads(x, [w[s] for w in ws], target[s], n_rows=n_rows,
+                                       acts=acts, sample_weights=sw[s])
+                   for s in range(MASTER_DIRS)]
+        torch.cuda.synchronize()
+        key, one = "siren_loss_grads_weighted_resident_batched", "siren_loss_grads_weighted_resident"
+        _require(sk.LAUNCHES == {**before, key: before[key] + 2, one: before[one] + MASTER_DIRS},
+                 "the batched K1-w did not take its weight-resident kernel")
+        ref = sk.siren_loss_grads_batched_ref(x, ws, target, 30.0, n_rows, acts, sw)
+        e = _batched_check(f"K1-w batched x{MASTER_DIRS} P={MASTER_P} n_rows={n_rows}, "
+                              f"weight-resident route, slot {MASTER_DIRS - 1} padded",
+                              got, ref, singles, again)
+        _require(float(got[0][-1]) == 0.0 and all(float(g[-1].abs().max()) == 0.0
+                                                  for g in got[1]),
+                 "the padded slot's loss or grads are not exactly 0")
+        err = max(err, e)
+    return {"siren_loss_grads_weighted_resident_batched": err}
+
+
 def phase_k4_trace(P: int) -> None:
     """K1_TRACE_STEPS Adam steps (lr K4_TRACE_LR, the WIRE fit's) at the
     WIRE path's 4 -> 256x2 -> 1 on P rows from one init, K4 on its
@@ -989,12 +1112,15 @@ def phase_small_2d() -> None:
         sk.reset_launches()
         outs[dev] = master2d.run_case(case, cfg, 0, device=dev)
         if dev == "cuda":
-            launches = sk.LAUNCHES["siren_loss_grads_weighted_resident"]
+            launches = dict(sk.LAUNCHES)
     err = max(float(np.abs(outs["cuda"][d].superres - outs["cpu"][d].superres).max())
               for d in outs["cpu"])
-    print(f"[parity] small 2-D ensemble case, card K1-weighted (resident) vs CPU plain: "
-          f"superres max abs {err:.3e} (tol {E2E_ATOL:g}); K1-weighted launches {launches}")
-    _require(err <= E2E_ATOL and launches == 6 * 27, "small 2-D ensemble case disagrees")
+    batched = launches["siren_loss_grads_weighted_resident_batched"]
+    print(f"[parity] small 2-D ensemble case, card batched K1-weighted (resident, the three "
+          f"directions a launch) vs CPU plain: superres max abs {err:.3e} (tol {E2E_ATOL:g}); "
+          f"batched K1-weighted launches {batched}")
+    _require(err <= E2E_ATOL and batched == 6 * MASTER_SLOTS
+             and sum(launches.values()) == batched, "small 2-D ensemble case disagrees")
 
     runs = {}
     target = torch.rand(24 * 24, 1, generator=torch.Generator().manual_seed(4)) * 0.5 + 0.2
@@ -1316,7 +1442,7 @@ def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _all_counts()
-    want = {"siren_loss_grads_weighted_resident": steps * MASTER_ACQ}
+    want = {"siren_loss_grads_weighted_resident_batched": steps * MASTER_SLOTS}
     _check_only(launches, want, "2-D ensemble")
     rows = [ln.split(",") for ln in open(csv_path).read().splitlines()]
     _require(rows[0] == list(CONTRAST_HEADER) and len(rows) == 1 + 4 * 8 * 3,
@@ -1327,11 +1453,15 @@ def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
         _require(len(os.listdir(os.path.join(out_dir, "img", "sr2", "07", sub))) == n,
                  f"{sub} DICOMs of the 2-D ensemble")
     superres = {r[2]: float(r[5]) for r in rows[1:] if r[3] == "superres" and r[4] == "C"}
-    updates = steps * MASTER_ACQ
+    updates = steps * MASTER_SLOTS
     print(f"[main master] cli.master.main() {wall:.1f} s for {steps} steps (seg {seg}) x "
-          f"{MASTER_ACQ} acquisitions = {updates} updates, {1e3 * wall / updates:.3f} ms an "
-          f"update end to end; launches {want}; superres contrast C by direction {superres}")
-    return want, wall
+          f"{MASTER_SLOTS} acquisition slots = {updates} batched updates of the "
+          f"{MASTER_DIRS} directions, {1e3 * wall / updates:.3f} ms a batched update end to "
+          f"end ({1e3 * wall / (steps * MASTER_ACQ):.3f} ms a direction's update); launches "
+          f"{want}; superres contrast C by direction {superres}")
+    # the unbatched K1-w row's count is its own key's: 0, the path is batched
+    return {**want, "siren_loss_grads_weighted_resident":
+            launches["siren_loss_grads_weighted_resident"]}, wall
 
 
 def phase_erd_main(out_dir: str, threshold: float) -> tuple[dict, tuple]:
@@ -2518,9 +2648,9 @@ def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
     """The hybrid tissue fit at full width: ``fit_all_te`` (four SIRENs
     256 -> 512x4 -> 1 on P = 100,800 rows each, K1 on every step, K3 for
     inference) then ``tissue_maps`` with the NLLS (40 iterations) on the
-    card, on a seeded three-compartment patient; returns the K1 launches
-    (under the kernels line's hybrid name), the fit's result, the maps and
-    the ground truth."""
+    card, on a seeded three-compartment patient; returns the launches of
+    the two K1 rows at this shape (batched, and the unbatched one's 0), the
+    fit's result, the maps and the ground truth."""
     import numpy as np
     import torch
 
@@ -2543,7 +2673,7 @@ def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
     t2 = time.perf_counter()
     launches = _all_counts()
     chunks = -(-HYBRID_INFER // INFER_CHUNK)
-    want = {"siren_loss_grads_tc": 4 * epochs, "siren_forward_tc": 4 * chunks}
+    want = {"siren_loss_grads_tc_batched": epochs, "siren_forward_tc": HYBRID_TES * chunks}
     _check_only(launches, want, "hybrid")
     _require(res.timings["lr_voxels_per_te"] == HYBRID_P, "hybrid LR voxels")
     rh = res.recon_hybrid
@@ -2560,7 +2690,10 @@ def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
           f"launches {want}; per-TE loss {res.losses[:, 0].round(5).tolist()} -> "
           f"{res.losses[:, -1].round(6).tolist()}; median |v - v_true| per compartment "
           f"{err.round(4).tolist()}; cancer-map fraction {float(maps.cancer.mean()):.4f}")
-    return {"siren_loss_grads_tc_hybrid": launches["siren_loss_grads_tc"]}, res, maps, gt
+    # the hybrid's K1 rows, each from its own key: the batched entry, and
+    # the unbatched entry at this shape (0, the path is batched)
+    return ({"siren_loss_grads_tc_batched": launches["siren_loss_grads_tc_batched"],
+             "siren_loss_grads_tc_hybrid": launches["siren_loss_grads_tc"]}, res, maps, gt)
 
 
 def phase_pia(res, nlls_maps, gt, steps: int) -> None:
@@ -3523,6 +3656,133 @@ def phase_k1_hybrid_time(P: int, dims, errs: dict, launches: dict) -> dict:
                      nbytes, f"P={P} (hybrid)", errs, launches, peak=PEAK_BF16_TC)
 
 
+def _batched_lib(x, ws, target, sw=None, acts=None):
+    """The library yardstick of a batched K1: eager autograd of the D
+    slots' (weighted) MSEs through the plain batched forward (``einsum``
+    and ``torch.bmm`` over the stacked weights)."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    leaves = [w.clone().requires_grad_() for w in ws]
+
+    def lib():
+        sq = (sk.siren_forward_batched_ref(x, leaves, 30.0, acts) - target) ** 2
+        loss = (sq if sw is None else sw * sq).mean(dim=(1, 2))
+        torch.autograd.grad(loss.sum(), leaves)
+
+    return lib
+
+
+def phase_k1_batched_time(P: int, dims, errs: dict, launches: dict) -> dict:
+    """The batched K1 on its tensor-core route at the hybrid fit's shape (D
+    = 4 on P = 100,800 rows) beside its plain batched version and eager
+    autograd over ``torch.bmm``; then the batched call and four unbatched
+    tensor-core K1 calls in turns, and the batched call by pass."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    x, ws, target = _stacked_inputs(P, dims, HYBRID_TES, seed=62)
+    flops, nbytes = _k1_work(P, dims, [w[0] for w in ws])
+    batched = lambda: sk.siren_loss_grads_batched(x, ws, target)
+    singles = [([w[s].contiguous() for w in ws], target[s].contiguous())
+               for s in range(HYBRID_TES)]
+
+    def in_turn():
+        for w1, t1 in singles:
+            sk.siren_loss_grads(x, w1, t1)
+
+    # the bound: four slots' bf16x3 products at the bf16 peak, x read once
+    row = _time_row("siren_loss_grads_tc_batched", "siren_tc", "siren_kernel.py:518", batched,
+                    lambda: sk.siren_loss_grads_batched_ref(x, ws, target),
+                    _batched_lib(x, ws, target), HYBRID_TES * flops,
+                    HYBRID_TES * nbytes - (HYBRID_TES - 1) * 4 * x.numel(),
+                    f"P={P}, D={HYBRID_TES} (hybrid)", errs, launches, peak=PEAK_BF16_TC,
+                    reps=5)
+    b_ms, t_ms = _best_alternating(batched, in_turn, 5, 2)
+    print(f"[times] K1 at the hybrid's P={P}, batched over {HYBRID_TES} TEs vs {HYBRID_TES} "
+          f"unbatched calls in turn (CUDA events, best of 2): batched {b_ms:.3f} ms, in turn "
+          f"{t_ms:.3f} ms ({t_ms / HYBRID_TES:.3f} ms a call); batched / in turn "
+          f"{b_ms / t_ms:.3f}")
+    _passes(f"K1 batched x{HYBRID_TES} (tensor-core)", batched, calls=2)
+    del x, ws, target, singles
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_k1w_batched_time(errs: dict, launches: dict) -> dict:
+    """The batched K1-w on its weight-resident route at the 2-D ensemble's
+    shape (D = 3 on P = 3,600 rows) beside its plain batched version and
+    eager autograd over ``torch.bmm``; the batched call and three unbatched
+    resident calls in turns; and on the host clock the 2-D update's costs
+    per batched update: the call, the stacked Adam step over the three
+    directions' (3, 25,217) buffer, and both, beside three unbatched
+    updates with three Adams."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.fit.optim import Adam, StackedAdam
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    models, x, targets, sws = zip(*(_master_inputs(seed=81 + d) for d in range(MASTER_DIRS)))
+    x, acts = x[0], models[0].acts
+    ws = [torch.stack(t) for t in zip(*(m.weights() for m in models))]
+    target, sw = torch.stack(targets), torch.stack(sws)
+    dims = (2,) + (MASTER_HIDDEN,) * (MASTER_LAYERS + 1) + (1,)
+    macs = _layer_macs(dims)
+    wbytes = 4 * sum(w.numel() for w in ws)
+    flops = MASTER_DIRS * 2 * MASTER_P * (2 * sum(macs) + sum(macs[1:]))
+    batched = lambda: sk.siren_loss_grads_batched(x, ws, target, acts=acts, sample_weights=sw)
+    singles = [([w[s].contiguous() for w in ws], target[s].contiguous(), sw[s].contiguous())
+               for s in range(MASTER_DIRS)]
+
+    def in_turn():
+        for w1, t1, s1 in singles:
+            sk.siren_loss_grads(x, w1, t1, acts=acts, sample_weights=s1)
+
+    row = _time_row(
+        "siren_loss_grads_weighted_resident_batched", "siren_resident", "siren_kernel.py:518",
+        batched, lambda: sk.siren_loss_grads_batched_ref(x, ws, target, 30.0, None, acts, sw),
+        _batched_lib(x, ws, target, sw, acts), flops,
+        4 * x.numel() + 2 * wbytes + 2 * 4 * MASTER_DIRS * MASTER_P + 4 * MASTER_DIRS,
+        f"P={MASTER_P}, D={MASTER_DIRS}", errs, launches, reps=100, rounds=2)
+    b_ms, t_ms = _best_alternating(batched, in_turn, 100, 2)
+    print(f"[times] K1-weighted at P={MASTER_P}, batched over {MASTER_DIRS} directions vs "
+          f"{MASTER_DIRS} unbatched calls in turn (CUDA events, 100 calls, best of 2): batched "
+          f"{b_ms:.4f} ms, in turn {t_ms:.4f} ms; f32 bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
+    _passes(f"K1-weighted batched x{MASTER_DIRS} (weight-resident)", batched, calls=20)
+    opt = StackedAdam(ws, 3e-4)
+    grads = batched()[1]
+    opts = [Adam([w.clone() for w in w1], 3e-4) for w1, _, _ in singles]
+    grads1 = [sk.siren_loss_grads(x, w1, t1, acts=acts, sample_weights=s1)[1]
+              for w1, t1, s1 in singles]
+
+    def update():
+        opt.step(sk.siren_loss_grads_batched(x, opt.params, target, acts=acts,
+                                             sample_weights=sw)[1])
+
+    def updates_in_turn():
+        for o, (_, t1, s1) in zip(opts, singles):
+            o.step(sk.siren_loss_grads(x, o.params, t1, acts=acts, sample_weights=s1)[1])
+
+    host = {}
+    for what, fn in (("batched call", batched), ("stacked Adam step", lambda: opt.step(grads)),
+                     ("batched update", update),
+                     ("3 Adam steps", lambda: [o.step(g) for o, g in zip(opts, grads1)]),
+                     ("3 updates in turn", updates_in_turn)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(300):
+            fn()
+        torch.cuda.synchronize()
+        host[what] = 1e3 * (time.perf_counter() - t0) / 300
+    print("[times] 2-D ensemble update of the three directions on the host clock (300 in a "
+          "row): " + ", ".join(f"{k} {v:.4f} ms" for k, v in host.items())
+          + f"; batched kernel alone {row['ms']:.4f} ms (CUDA events)")
+    return row
+
+
 def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
     import torch
 
@@ -3637,10 +3897,12 @@ def main(argv=None) -> int:
     phase_k1_trace(P, dims)
     phase_k1_trace(HYBRID_P, dims)
     errs.update(phase_k1_hybrid_parity(HYBRID_P, dims))
+    errs.update(phase_k1_batched_parity(HYBRID_P, dims))
     phase_k4_trace(P)
     phase_k1a_trace()
     phase_pn_trace(P, dims)
     errs.update(phase_k1_variant_parity())
+    errs.update(phase_k1w_batched_parity())
     errs.update(phase_k1a_lowres_parity())
     errs.update(phase_probe_parity())
     errs.update(phase_wire_parity(P))
@@ -3698,10 +3960,12 @@ def main(argv=None) -> int:
         launches.update(train_launches)
         rows = phase_times(P, dims, errs, launches) + phase_wire_times(P, errs, launches)
         rows.append(phase_k1_hybrid_time(HYBRID_P, dims, errs, launches))
+        rows.append(phase_k1_batched_time(HYBRID_P, dims, errs, launches))
         rows.append(phase_k1_shard_time(P, dims, errs, launches))
         rows.append(phase_k6_times(k6_err, launches))
         rows.append(phase_k7_times(k7_err, launches))
         rows += phase_2d_times(errs, launches)
+        rows.append(phase_k1w_batched_time(errs, launches))
         rows.append(phase_k1a_lowres_time(errs, launches))
         rows += phase_probe_times(errs, launches)
         phase_rams_forward_times()

@@ -70,6 +70,15 @@ def siren_stack_weights(params_stack: dict) -> list[list[torch.Tensor]]:
     return [siren_weights(pick(params_stack, d)) for d in range(np.asarray(leaf).shape[0])]
 
 
+def siren_batched_weights(params_stack: dict) -> list[torch.Tensor]:
+    """A flax ``Siren`` params tree whose leaves carry a leading axis of D
+    models (``jax.vmap(model.init)`` of the 2-D ensemble's directions, or
+    the hybrid fit's ``tree_map(stack)`` of its four TEs) -> the batched
+    kernels' stacked list ``[W0, b0, ...]``, each W (D, out, in) and b (D,
+    out) (``ops/siren_kernel.siren_loss_grads_batched``)."""
+    return [torch.stack(ws) for ws in zip(*siren_stack_weights(params_stack))]
+
+
 def siren_erd_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """flax ``SirenERD`` params -> ``SirenERD.state_dict()`` keys: the
     ``perturb`` branch (when present), ``SineLayer_0..n``, then ``Dense_0``

@@ -12,8 +12,10 @@
 // length lda / ldb, read with ldmatrix; row-contiguous ones are (K, cols)
 // arrays, read with ldmatrix.trans. Rows of A past M and depth past this
 // block's range read as zeros. Grid: x = column tile, y = row tile, z =
-// split of the depth (k_split a multiple of TK). Shared rows are padded by
-// 16 bytes, so the eight rows of an ldmatrix matrix fall in distinct banks.
+// split of the depth (k_split a multiple of TK; siren_tc.cu's batched K1
+// folds a slot index into z and hands gemm3_products the split alone).
+// Shared rows are padded by 16 bytes, so the eight rows of an ldmatrix
+// matrix fall in distinct banks.
 
 #pragma once
 
@@ -55,19 +57,20 @@ __device__ __forceinline__ void store_planes(uint16_t* hi, uint16_t* lo, long lo
   *reinterpret_cast<unsigned*>(lo + off) = l0 | (l1 << 16);
 }
 
-// acc[i][j][2 h + e] = the block tile's sum of Aop Bop at row wm + 16 i +
-// lane / 4 + 8 h, column wn + 8 j + 2 (lane % 4) + e, where warp = tid / 32,
-// wm = (warp / 4) * 64 and wn = (warp % 4) * 32; smem3: TC_SMEM bytes.
+// acc[i][j][2 h + e] = the block tile's sum of Aop Bop over split kz of the
+// depth at row wm + 16 i + lane / 4 + 8 h, column wn + 8 j + 2 (lane % 4) +
+// e, where warp = tid / 32, wm = (warp / 4) * 64 and wn = (warp % 4) * 32;
+// smem3: TC_SMEM bytes.
 template <bool A_KC, bool B_KC>
 __device__ __forceinline__ void gemm3_products(Planes A, int lda, Planes B, int ldb, int M,
-                                               int N, int K, int k_split, uint16_t* smem3,
-                                               float (&acc)[4][4][4]) {
+                                               int N, int K, int k_split, int kz,
+                                               uint16_t* smem3, float (&acc)[4][4][4]) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int m0 = blockIdx.y * TC_TILE;
   const int n0 = blockIdx.x * TC_TILE;
-  const int kb = blockIdx.z * k_split;
+  const int kb = kz * k_split;
   const int ke = min(K, kb + k_split);
   const int wm = (warp >> 2) * 64;
   const int wn = (warp & 3) * 32;

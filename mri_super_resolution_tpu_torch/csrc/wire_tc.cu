@@ -137,8 +137,8 @@ __global__ void __launch_bounds__(TC_NT, 2) wire_gemm_kernel(Planes A, int lda, 
   emu_poison_shared(smem3, sizeof smem3);
 #endif
   float acc[4][4][4];
-  gemm3_products<MODE != MODE_DW, MODE == MODE_FWD>(A, lda, B, ldb, M, N, K, k_split, smem3,
-                                                    acc);
+  gemm3_products<MODE != MODE_DW, MODE == MODE_FWD>(A, lda, B, ldb, M, N, K, k_split,
+                                                    blockIdx.z, smem3, acc);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m0 = blockIdx.y * TC_TILE;

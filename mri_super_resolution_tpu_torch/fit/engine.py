@@ -1,9 +1,15 @@
 """INR fit loops and chunked dense-grid inference.
 
 Counterpart of ``mri_super_resolution_tpu/fit/engine.py``: ``fit_simple``
-(:57-95), ``fit_ensemble`` (:116-200), ``plain_apply_init`` and
-``fit_until`` (:208-291), ``fit_alternating_pn`` (:322-449), ``infer_grid``
-(:479-524) and ``infer_dense_grid`` (:566-616). The JAX loops are one
+(:57-95), ``plain_apply_init`` and ``fit_until`` (:208-291),
+``fit_alternating_pn`` (:322-449), ``infer_grid`` (:479-524) and
+``infer_dense_grid`` (:566-616); :func:`fit_simple_batched` and
+:func:`fit_ensemble_batched` are ``fit_simple`` and ``fit_ensemble``
+(:116-200) under ``jax.vmap`` (the hybrid fit's four TEs, the 2-D
+ensemble's three directions; one model is D = 1), the batch axis written
+out: one batched K1 call and one
+:class:`~mri_super_resolution_tpu_torch.fit.optim.StackedAdam` step an
+update for every slot. The JAX loops are one
 scanned program; here they are Python loops over eager steps. All but
 ``fit_until`` never wait for the device: each step's loss is written into a
 preallocated device tensor, and nothing reads a value back inside a loop.
@@ -17,7 +23,6 @@ grads)`` replaces autograd for the INR-on-mean steps (the one-pass kernel K1).
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Callable, NamedTuple, Sequence
 
@@ -25,8 +30,8 @@ import numpy as np
 import torch
 
 from mri_super_resolution_tpu_torch.core.coords import fourier_encode
-from mri_super_resolution_tpu_torch.fit.losses import mse, weighted_mse
-from mri_super_resolution_tpu_torch.fit.optim import Adam
+from mri_super_resolution_tpu_torch.fit.losses import mse
+from mri_super_resolution_tpu_torch.fit.optim import Adam, StackedAdam
 from mri_super_resolution_tpu_torch.ops.siren_kernel import siren_forward_ref
 
 
@@ -60,14 +65,12 @@ class AlternatingResult(NamedTuple):
 
 
 def autodiff_value_and_grad(apply_fn: Callable, params: Sequence[torch.Tensor],
-                            coords: torch.Tensor, target: torch.Tensor,
-                            weights: torch.Tensor | None = None):
-    """``(mse(apply_fn(params, coords), target), grads)`` by autograd; with
-    ``weights``, the weighted MSE instead."""
+                            coords: torch.Tensor, target: torch.Tensor):
+    """``(mse(apply_fn(params, coords), target), grads)`` by autograd."""
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in params]
         out = apply_fn(leaves, coords)
-        loss = mse(out, target) if weights is None else weighted_mse(out, target, weights)
+        loss = mse(out, target)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
 
@@ -88,53 +91,101 @@ def fit_simple(apply_fn: Callable, opt: Adam, coords: torch.Tensor,
     return FitResult(opt.params, opt, losses)
 
 
-def fit_ensemble(
+def _batched_autodiff(apply_fn: Callable, params: Sequence[torch.Tensor],
+                      coords: torch.Tensor, target: torch.Tensor,
+                      weights: torch.Tensor | None = None):
+    """``(loss (D,), grads)`` of D stacked models by autograd:
+    ``apply_fn(params, coords)`` is (D, P, out), each slot's loss the MSE
+    (with ``weights``, the weighted MSE) of its output and ``target[s]``."""
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_() for p in params]
+        sq = (apply_fn(leaves, coords) - target) ** 2
+        loss = (sq if weights is None else weights * sq).mean(dim=(1, 2))
+        grads = torch.autograd.grad(loss.sum(), leaves)
+    return loss.detach(), list(grads)
+
+
+def fit_simple_batched(opt: StackedAdam, coords: torch.Tensor, targets: torch.Tensor,
+                       num_steps: int, value_and_grad_fn: Callable) -> FitResult:
+    """``fit_simple`` over D slots at once (``jax.vmap`` of the JAX
+    ``fit_simple``, as the hybrid fit runs its four TEs): ``num_steps``
+    full-batch MSE steps of the stacked params ``opt`` holds, slot s on
+    (coords -> ``targets[s]``). ``value_and_grad_fn(params, coords, targets)
+    -> (loss (D,), grads)`` is the batched K1
+    (:func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_value_and_grad_batched`).
+    The loss trace is (num_steps, D)."""
+    D = targets.shape[0]
+    losses = torch.empty(num_steps, D, dtype=torch.float32, device=coords.device)
+    for i in range(num_steps):
+        loss, grads = value_and_grad_fn(opt.params, coords, targets)
+        opt.step(grads)
+        losses[i] = loss
+    return FitResult(opt.params, opt, losses)
+
+
+def fit_ensemble_batched(
     apply_fn: Callable,
-    opt: Adam,
+    opt: StackedAdam,
     coords: torch.Tensor,  # (P, d) shared grid
-    pixels: torch.Tensor,  # (A, P, 1) per-acquisition targets
-    weights: torch.Tensor,  # (A, P, 1) acceptance weights
+    pixels: torch.Tensor,  # (D, A, P, 1) per-direction, per-acquisition targets
+    weights: torch.Tensor,  # (D, A, P, 1) acceptance weights
     eval_coords_1x: torch.Tensor,  # (P, d)
     eval_coords_scale: torch.Tensor,  # (P s^2, d)
     total_steps: int,
     seg: int,
-    valid: Sequence[bool] | None = None,  # (A,) real acquisition slots
+    valid: np.ndarray | None = None,  # (D, A) real acquisition slots
     weighted_value_and_grad_fn: Callable | None = None,
 ) -> EnsembleResult:
-    """The master.py:137-160 loop over the parameters ``opt`` holds: each
-    step does one Adam update per real acquisition slot (weighted MSE), the
-    Adam state carried across acquisitions and steps; the last ``seg`` steps
-    also evaluate ``apply_fn`` on the 1x and scale-x grids and accumulate the
-    predictions, averaged on return. A slot with ``valid`` False is skipped,
-    so it leaves the params and the Adam count untouched, as the JAX
-    package's masked slots do. A step's loss is the sum of its slots'
-    losses over the number of real slots.
+    """The master.py:137-160 loop (``fit_ensemble`` of the JAX package)
+    over D directions at once, as the JAX package runs it under ``jax.vmap``
+    (pipelines/master2d.py:157): each step runs acquisition slots a = 0 ..
+    A - 1, each one batched update of the D stacked models ``opt`` holds on
+    ``pixels[:, a]`` and ``weights[:, a]``, the Adam state carried across
+    acquisitions and steps.
+    A direction whose slot a is not ``valid`` (padded: fewer acquisitions
+    than the longest direction) is still computed, as under ``vmap``, but
+    its loss counts 0 and ``opt.step``'s mask leaves its params, moments
+    and count untouched. A step's loss per direction is the sum of its real
+    slots' losses over their number. The last ``seg`` steps accumulate
+    ``apply_fn(params, x) -> (D, P, out)`` on the 1x and scale-x grids.
 
-    ``weighted_value_and_grad_fn(params, coords, target, w) -> (loss,
-    grads)`` replaces autograd for the per-acquisition update (one K1 pass,
-    :func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_weighted_value_and_grad`)."""
-    params = opt.params
+    ``weighted_value_and_grad_fn(params, coords, targets, w) -> (loss (D,),
+    grads)`` is the batched K1 with sample weights
+    (:func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_weighted_value_and_grad_batched`),
+    else autograd through ``apply_fn`` (``use_pallas=False``, the CPU's
+    plain route). Returns the stacked params, the (total_steps, D) loss
+    trace and (D, P, out) predictions."""
     dev = coords.device
-    slots = [a for a in range(pixels.shape[0]) if valid is None or bool(valid[a])]
-    n_valid = max(len(slots), 1)
+    D, A = pixels.shape[:2]
+    valid = np.ones((D, A), dtype=bool) if valid is None else np.asarray(valid, dtype=bool)
+    n_valid = torch.as_tensor(np.maximum(valid.sum(1), 1), dtype=torch.float32, device=dev)
+    valid_t = torch.as_tensor(valid, device=dev)
+    # slot a of every direction contiguous, as the kernels take targets
+    pixels = pixels.transpose(0, 1).contiguous()
+    weights = weights.transpose(0, 1).contiguous()
+    slots = [a for a in range(A) if valid[:, a].any()]
     out_f = pixels.shape[-1]
-    losses = torch.empty(total_steps, dtype=torch.float32, device=dev)
-    acc1 = torch.zeros(eval_coords_1x.shape[0], out_f, dtype=torch.float32, device=dev)
-    acc2 = torch.zeros(eval_coords_scale.shape[0], out_f, dtype=torch.float32, device=dev)
+    losses = torch.empty(total_steps, D, dtype=torch.float32, device=dev)
+    acc1 = torch.zeros(D, eval_coords_1x.shape[0], out_f, dtype=torch.float32, device=dev)
+    acc2 = torch.zeros(D, eval_coords_scale.shape[0], out_f, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     for step in range(total_steps):
-        total = torch.zeros((), dtype=torch.float32, device=dev)
+        total = torch.zeros(D, dtype=torch.float32, device=dev)
         for a in slots:
-            vag = weighted_value_and_grad_fn or functools.partial(
-                autodiff_value_and_grad, apply_fn)
-            loss, grads = vag(params, coords, pixels[a], weights[a])
-            opt.step(grads)
-            total += loss
+            if weighted_value_and_grad_fn is not None:
+                loss, grads = weighted_value_and_grad_fn(opt.params, coords, pixels[a],
+                                                         weights[a])
+            else:
+                loss, grads = _batched_autodiff(apply_fn, opt.params, coords, pixels[a],
+                                                weights[a])
+            opt.step(grads, valid[:, a])
+            total += torch.where(valid_t[:, a], loss, zero)
         losses[step] = total / n_valid
         if step >= total_steps - seg:
             with torch.no_grad():
-                acc1 += apply_fn(params, eval_coords_1x)
-                acc2 += apply_fn(params, eval_coords_scale)
-    return EnsembleResult(params, losses, acc1 / seg, acc2 / seg)
+                acc1 += apply_fn(opt.params, eval_coords_1x)
+                acc2 += apply_fn(opt.params, eval_coords_scale)
+    return EnsembleResult(opt.params, losses, acc1 / seg, acc2 / seg)
 
 
 def plain_apply(model):

@@ -15,7 +15,13 @@ Counterpart of ``mri_super_resolution_tpu/ops/pallas/siren_kernel.py``:
   as a ``torch.autograd.Function``;
 - :func:`make_fused_weighted_value_and_grad` and
   :func:`make_fused_value_grad_absmax` <- the JAX adapters of the same names
-  (the 2-D ensemble's and the soft-ERD fit's per-step gradients).
+  (the 2-D ensemble's and the soft-ERD fit's per-step gradients);
+- :func:`siren_loss_grads_batched` (K1 with a batch axis) <- ``jax.vmap``
+  over ``siren_loss_grads``, which adds a batch axis to the Pallas kernel's
+  grid: one launch over D stacked MLPs that share x (the hybrid fit's four
+  per-TE SIRENs, the 2-D ensemble's three directions), with the adapters
+  :func:`make_fused_value_and_grad_batched` and
+  :func:`make_fused_weighted_value_and_grad_batched`.
 
 Weights are a flat list ``[W0, b0, ..., W_last, b_last]`` in torch
 ``nn.Linear`` layout: ``W_l`` is (out, in); the last layer has one output.
@@ -30,7 +36,7 @@ tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
 both, and per variant on the weight-resident route (``*_resident``) and on
 the streaming route (``*_stream``); each kernel's tensor-core route under
-its own ``*_tc`` key). The
+its own ``*_tc`` key; batched K1 under ``*_batched`` keys). The
 plain versions run on either device and are what the CPU tests and
 ``chip_smoke.py`` hold the kernels against.
 
@@ -80,7 +86,10 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_stream": 0,
                             "siren_loss_grads_weighted_stream": 0,
                             "siren_loss_grads_absmax_stream": 0,
-                            "siren_loss_grads_weighted_absmax_stream": 0}
+                            "siren_loss_grads_weighted_absmax_stream": 0,
+                            "siren_loss_grads_tc_batched": 0,
+                            "siren_loss_grads_resident_batched": 0,
+                            "siren_loss_grads_weighted_resident_batched": 0}
 
 ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
 TC_TILE = 128  # csrc/siren_tc.cu's block tile: every width but the output's a multiple
@@ -259,6 +268,28 @@ def siren_forward_ref(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return _act(h @ weights[-2].T + weights[-1], acts[-1], 1.0)
 
 
+def _stacked_linear(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h W^T + b for D stacked layers W (D, out, in), b (D, out): h is the
+    shared (P, in) input or the slots' (D, P, in) activations."""
+    z = torch.einsum("pi,doi->dpo", h, W) if h.dim() == 2 else torch.bmm(h, W.transpose(1, 2))
+    return z + b[:, None, :]
+
+
+def siren_forward_batched_ref(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                              omega: float | Sequence[float] = 30.0,
+                              acts: Sequence[str] | None = None) -> torch.Tensor:
+    """Plain K3 over D stacked MLPs (each W (D, out, in), b (D, out)) on one
+    x (P, d_in): the (D, P, 1) outputs, ``einsum``/``bmm`` over the stacked
+    weights (differentiable); ``jax.vmap`` of the forward."""
+    n = len(weights) // 2
+    omegas = _omegas(omega, n - 1) + [1.0]
+    acts = _acts(acts, n)
+    h = x
+    for l in range(n):
+        h = _act(_stacked_linear(h, weights[2 * l], weights[2 * l + 1]), acts[l], omegas[l])
+    return h
+
+
 def _stash_forward(x, weights, omegas, acts):
     """Forward through the hidden layers, keeping each layer's input and its
     factor act'(z): omega cos(omega z) for sine, the step z > 0 for ReLU,
@@ -329,6 +360,81 @@ def siren_loss_grads_ref(x, weights, target, omega=30.0, n_rows=None, acts=None,
     return loss, grads
 
 
+def _batched_dims(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> tuple[list[int], int]:
+    """(the layer widths, D) of stacked weights ``[W0, b0, ...]``, each W
+    (D, out, in) and b (D, out), over a shared x (P, d_in)."""
+    if len(weights) % 2 or len(weights) < 4:
+        raise ValueError("weights must be [W0, b0, ..., W_last, b_last] with at "
+                         f"least one hidden layer; got {len(weights)} tensors")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (P, d_in); got shape {tuple(x.shape)}")
+    D = int(weights[0].shape[0]) if weights[0].dim() == 3 else 0
+    dims = [int(x.shape[1])]
+    for l in range(len(weights) // 2):
+        W, b = weights[2 * l], weights[2 * l + 1]
+        if (W.dim() != 3 or W.shape[0] != D or W.shape[2] != dims[-1]
+                or b.shape != (D, W.shape[1])):
+            raise ValueError(
+                f"layer {l}: W {tuple(W.shape)} / b {tuple(b.shape)} are not D = {D} stacked "
+                f"layers continuing width {dims[-1]} (W is (D, out, in), b is (D, out))")
+        dims.append(int(W.shape[1]))
+    if D < 1 or dims[-1] != 1:
+        raise ValueError(f"need D >= 1 slots and one output; got D = {D}, {dims[-1]} outputs")
+    return dims, D
+
+
+@torch.no_grad()
+def siren_loss_grads_batched_ref(x, weights, target, omega=30.0, n_rows=None, acts=None,
+                                 sample_weights=None):
+    """Plain batched K1: ``(loss (D,), grads)`` of D stacked MLPs on one x,
+    slot s being :func:`siren_loss_grads_ref` of ``[w[s] for w in weights]``,
+    ``target[s]`` and ``sample_weights[s]`` (``target``, ``sample_weights``
+    (D, P, 1)); the grads stacked as ``weights``. The batch is written out
+    as ``einsum``/``bmm`` over the stacked weights."""
+    P = x.shape[0]
+    n = len(weights) // 2
+    n_rows = P if n_rows is None else int(n_rows)
+    inv_n = 1.0 / (n_rows * target.shape[-1])
+    acts = _acts(acts, n)
+    omegas = _omegas(omega, n - 1)
+    # forward, keeping each layer's input and its factor act'(z)
+    inputs, factors, h = [x], [], x
+    for l in range(n):
+        z = _stacked_linear(h, weights[2 * l], weights[2 * l + 1])
+        if l == n - 1:
+            break
+        if acts[l] == "sine":
+            z = omegas[l] * z
+            h = torch.sin(z)
+            factors.append(omegas[l] * torch.cos(z))
+        elif acts[l] == "relu":
+            h = torch.relu(z)
+            factors.append((z > 0).to(z.dtype))
+        else:
+            h = z
+            factors.append(None)
+        inputs.append(h)
+    out = _act(z, acts[-1], 1.0)
+    real = torch.arange(P, device=x.device)[None, :, None] < n_rows
+    r = torch.where(real, out - target, torch.zeros_like(out))
+    wr = r if sample_weights is None else sample_weights * r
+    loss = (wr * r).sum(dim=(1, 2)) * inv_n
+    delta = (2.0 * inv_n) * wr
+    if acts[-1] == "relu":
+        delta = delta * (z > 0).to(z.dtype)
+    grads = [None] * len(weights)
+    for l in reversed(range(n)):
+        a = inputs[l]
+        grads[2 * l] = (torch.einsum("dpo,pi->doi", delta, a) if a.dim() == 2
+                        else torch.bmm(delta.transpose(1, 2), a))
+        grads[2 * l + 1] = delta.sum(1)
+        if l > 0:
+            delta = torch.bmm(delta, weights[2 * l])
+            if factors[l - 1] is not None:
+                delta = delta * factors[l - 1]
+    return loss, grads
+
+
 @torch.no_grad()
 def siren_fused_bwd_ref(x, weights, g, omega=30.0, need_dw=True, need_dx=True,
                         acts=None):
@@ -388,6 +494,11 @@ def _tc_declare(lib: ctypes.CDLL) -> None:
     lib.siren_fused_bwd_tc_workspace_bytes.restype = ctypes.c_longlong
     lib.siren_fused_bwd_tc.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p]
     lib.siren_fused_bwd_tc.restype = i
+    lib.siren_tc_batched_workspace_bytes.argtypes = [i, p, i, i]
+    lib.siren_tc_batched_workspace_bytes.restype = ctypes.c_longlong
+    lib.siren_loss_grads_tc_batched.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, f, p, p, p,
+                                                ctypes.c_longlong, p, p]
+    lib.siren_loss_grads_tc_batched.restype = i
 
 
 def _tc_lib() -> ctypes.CDLL:
@@ -400,6 +511,11 @@ def _res_declare(lib: ctypes.CDLL) -> None:
     lib.siren_resident_work_floats.restype = ctypes.c_longlong
     lib.siren_loss_grads_resident.argtypes = [p, i, i, p, i, p, p, p, p, p, f, p, p, p]
     lib.siren_loss_grads_resident.restype = i
+    lib.siren_resident_batched_work_floats.argtypes = [i, p, i, i]
+    lib.siren_resident_batched_work_floats.restype = ctypes.c_longlong
+    lib.siren_loss_grads_resident_batched.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, f, p,
+                                                      p, p]
+    lib.siren_loss_grads_resident_batched.restype = i
 
 
 def _res_lib() -> ctypes.CDLL:
@@ -579,6 +695,94 @@ def _launch_loss_grads_stream(lib, *args, **kwargs):
     return _launch_loss_grads_slots("stream", lib, *args, **kwargs)
 
 
+def _slot_strides(weights: Sequence[torch.Tensor]):
+    """The floats between two slots' copies of each stacked tensor, as a C
+    array (the kernels read slot s of tensor i at its slot 0 + s stride);
+    each slot's copy must be contiguous."""
+    strides = []
+    for w in weights:
+        inner = w[0]
+        if not inner.is_contiguous():
+            raise ValueError("each slot of a stacked weight must be contiguous")
+        strides.append(int(w.stride(0)))
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _stacked_views(buf: torch.Tensor, dims: Sequence[int]) -> list[torch.Tensor]:
+    """The stacked grads ``[dW0, db0, ...]`` as views of one buffer (D, n)
+    holding each slot's grads one after another in that order."""
+    views, at, D, row = [], 0, buf.shape[0], buf.stride(0)
+    for l in range(len(dims) - 1):
+        for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
+            views.append(buf.as_strided((D, *shape), (row, *stride),
+                                        buf.storage_offset() + at))
+            at += int(torch.Size(shape).numel())
+    return views
+
+
+def _n_params(dims: Sequence[int]) -> int:
+    return sum(dims[l + 1] * (dims[l] + 1) for l in range(len(dims) - 1))
+
+
+def _launch_loss_grads_tc_batched(lib, x, weights, target, omega, n_rows, stream):
+    """Batched K1 on the tensor-core route (``siren_loss_grads_tc_batched``):
+    ``(loss (D,), grads)``, the grads views of one (D, n_params) buffer."""
+    dims, D = _batched_dims(x, weights)
+    n = len(dims) - 1
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    cast = lambda a: ctypes.cast(a, ctypes.c_void_p)
+    nbytes = lib.siren_tc_batched_workspace_bytes(int(x.shape[0]), cast(c_dims), n, D)
+    if nbytes < 0:
+        raise ValueError(f"the tensor-core K1 does not take widths {dims}")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    strides = _slot_strides(weights)
+    w_slot = (ctypes.c_longlong * n)(*strides[0::2])
+    b_slot = (ctypes.c_longlong * n)(*strides[1::2])
+    omegas = _omegas(omega, n - 1)
+    c_om = (ctypes.c_float * len(omegas))(*omegas)
+    buf = torch.empty(D, _n_params(dims), dtype=x.dtype, device=x.device)
+    grads = _stacked_views(buf, dims)
+    loss = torch.empty(D, dtype=x.dtype, device=x.device)
+    rc = lib.siren_loss_grads_tc_batched(
+        x.data_ptr(), int(x.shape[0]), int(n_rows), cast(c_dims), n, D,
+        _build.ptr_array(weights[0::2]), _build.ptr_array(weights[1::2]), cast(w_slot),
+        cast(b_slot), cast(c_om), target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
+        work.data_ptr(), _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2]),
+        buf.stride(0), loss.data_ptr(), stream)
+    _build.raise_on(rc, "siren_loss_grads_tc_batched")
+    return loss, grads
+
+
+def _launch_loss_grads_resident_batched(lib, x, weights, target, omega, n_rows, stream,
+                                        acts=None, sample_weights=None):
+    """Batched K1 on the weight-resident route
+    (``siren_loss_grads_resident_batched``): ``(loss (D,), grads)``, views of
+    one (D, n_params + 2) buffer whose row s holds slot s's grads, loss and
+    max |out|."""
+    dims, D = _batched_dims(x, weights)
+    n = len(dims) - 1
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    cast = lambda a: ctypes.cast(a, ctypes.c_void_p)
+    P = int(x.shape[0])
+    work_n = lib.siren_resident_batched_work_floats(P, cast(c_dims), n, D)
+    if work_n < 0:
+        raise ValueError(f"K1's resident route does not take widths {dims}")
+    codes = [ACT_CODES[a] for a in _acts(acts, n)]
+    c_codes = (ctypes.c_int * n)(*codes)
+    omegas = _omegas(omega, n - 1)
+    c_om = (ctypes.c_float * len(omegas))(*omegas)
+    work = torch.empty(int(work_n), dtype=x.dtype, device=x.device)
+    n_params = _n_params(dims)
+    out = torch.empty(D, n_params + 2, dtype=x.dtype, device=x.device)
+    rc = lib.siren_loss_grads_resident_batched(
+        x.data_ptr(), P, int(n_rows), cast(c_dims), n, D, cast(c_codes),
+        _build.ptr_array(weights), cast(_slot_strides(weights)), cast(c_om), target.data_ptr(),
+        None if sample_weights is None else sample_weights.data_ptr(),
+        1.0 / (n_rows * target.shape[-1]), work.data_ptr(), out.data_ptr(), stream)
+    _build.raise_on(rc, "siren_loss_grads_resident_batched")
+    return out[:, n_params], _stacked_views(out, dims)
+
+
 def _launch_forward_tc(lib, x, weights, omega, stream) -> torch.Tensor:
     """K3 on the tensor-core route (the shapes :func:`tc_route` takes)."""
     a = _Args(x, weights, omega, None)
@@ -696,6 +900,68 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return out
 
 
+def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                             target: torch.Tensor, omega: float | Sequence[float] = 30.0,
+                             n_rows: int | None = None, acts: Sequence[str] | None = None,
+                             sample_weights: torch.Tensor | None = None):
+    """Batched K1, the counterpart of ``jax.vmap`` over ``siren_loss_grads``:
+    ``(loss (D,), grads)`` of D stacked MLPs on one shared ``x`` (P, d_in).
+    ``weights`` is the flat list with a leading slot axis, each W (D, out,
+    in) and b (D, out) (each slot's copy contiguous; the slots may lie any
+    stride apart, as views of one parameter buffer do); ``target`` and
+    ``sample_weights`` are (D, P, 1); the grads are stacked like ``weights``.
+    Slot s is :func:`siren_loss_grads` of slot s's inputs.
+
+    On the card the route follows from the shapes as for K1
+    (:func:`k1_route`): the tensor-core route (the hybrid fit's 256 ->
+    512x4 -> 1) and the weight-resident route (the 2-D ensemble's 2 -> 64x7
+    -> 1 with sample weights) have batched kernels, one call a step for the
+    D slots, counted under their route's key with ``_batched`` appended
+    (``siren_loss_grads_tc_batched``,
+    ``siren_loss_grads_weighted_resident_batched``); their grads are views
+    of one (D, n_params) buffer (plus the loss and max |out| on the resident
+    route). The routes with no batched kernel (SIMT widths, the streaming
+    route) run the slots in turn through :func:`siren_loss_grads`, counted
+    under its keys."""
+    weights = list(weights)
+    dims, D = _batched_dims(x, weights)
+    acts = _acts(acts, len(weights) // 2)
+    P = x.shape[0]
+    if target.shape != (D, P, 1):
+        raise ValueError(f"target must be ({D}, {P}, 1); got {tuple(target.shape)}")
+    if sample_weights is not None and sample_weights.shape != (D, P, 1):
+        raise ValueError(f"sample_weights must be ({D}, {P}, 1); got "
+                         f"{tuple(sample_weights.shape)}")
+    n_rows = P if n_rows is None else int(n_rows)
+    if not 0 < n_rows <= P:
+        raise ValueError(f"n_rows {n_rows} outside (0, {P}]")
+    extra = [] if sample_weights is None else [sample_weights]
+    dev = _build.check_tensors("SIREN", x, [target, *extra], (torch.float32,))
+    for w in weights:
+        _build.check_tensors("SIREN", x, [w[0]], (torch.float32,))
+    if dev == "cpu":
+        return siren_loss_grads_batched_ref(x, weights, target, omega, n_rows, acts,
+                                            sample_weights)
+    weighted = sample_weights is not None
+    weights = [w.detach() for w in weights]
+    route = k1_route(dims, acts, weighted, False)
+    if route == "tc":
+        out = _launch_loss_grads_tc_batched(_tc_lib(), x, weights, target, omega, n_rows,
+                                            _build.stream_ptr())
+    elif route == "resident":
+        out = _launch_loss_grads_resident_batched(_res_lib(), x, weights, target, omega,
+                                                  n_rows, _build.stream_ptr(), acts,
+                                                  sample_weights)
+    else:
+        slots = [siren_loss_grads(x, [w[s] for w in weights], target[s], omega, n_rows, acts,
+                                  None if sample_weights is None else sample_weights[s])
+                 for s in range(D)]
+        return (torch.stack([loss for loss, _ in slots]),
+                [torch.stack(g) for g in zip(*(grads for _, grads in slots))])
+    LAUNCHES[loss_grads_key(weighted, False, route) + "_batched"] += 1
+    return out
+
+
 def siren_fused_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     g: torch.Tensor, omega: float | Sequence[float] = 30.0,
                     need_dw: bool = True, need_dx: bool = True,
@@ -791,6 +1057,37 @@ def make_fused_weighted_value_and_grad(model):
     def vag(params, x, target, sample_weights):
         return siren_loss_grads(x, params, target, omega, acts=acts,
                                 sample_weights=sample_weights)
+
+    return vag
+
+
+def make_fused_value_and_grad_batched(model):
+    """``vag(params, x, targets, n_rows=None) -> (loss (D,), grads)``: the
+    MSE gradients of D stacked plain Sirens of ``model``'s widths in one
+    batched K1 call (:func:`siren_loss_grads_batched`; ``jax.vmap`` of
+    ``make_fused_value_and_grad``'s adapter in the JAX package). ``params``
+    stacked in ``model.weights()`` order, ``targets`` (D, P, 1)."""
+    omega, acts = _model_omega_acts(model)
+
+    def vag(params, x, targets, n_rows=None):
+        return siren_loss_grads_batched(x, params, targets, omega, n_rows=n_rows, acts=acts)
+
+    return vag
+
+
+def make_fused_weighted_value_and_grad_batched(model):
+    """``vag(params, x, targets, sample_weights) -> (loss (D,), grads)``:
+    the acceptance-weighted MSE of D stacked Sirens of ``model``'s widths in
+    one batched K1 call (``jax.vmap`` of
+    ``make_fused_weighted_value_and_grad``'s adapter, as the JAX package's
+    2-D ensemble runs it over its directions). ``params`` stacked in
+    ``model.weights()`` order, ``targets`` and ``sample_weights`` (D, P,
+    1)."""
+    omega, acts = _model_omega_acts(model)
+
+    def vag(params, x, targets, sample_weights):
+        return siren_loss_grads_batched(x, params, targets, omega, acts=acts,
+                                        sample_weights=sample_weights)
 
     return vag
 

@@ -13,12 +13,15 @@ polyfit ADC; cancer map (v_ep > 0.4) & (v_lu <= 0.2) without objects under
 12 pixels.
 
 ``inr_model="siren"`` (the reference): four FF-SIRENs, one per TE, each with
-its own Adam. On a CUDA device each step is one K1 (``siren_loss_grads``)
-launch through ``superres3d._kernel_value_and_grad`` and inference runs K3
-(``siren_forward``); there is no autograd route on the card. The JAX
-package vmaps the four fits into one program (four K1s in one
-``pallas_call`` on the TPU); here they run in turn, which gives the same
-numbers. ``"grid"``: four :class:`GridINR` fits on the tensor path;
+its own Adam state. The JAX package vmaps the four fits into one program
+(four K1s in one ``pallas_call`` on the TPU), and so does the port: the four
+SIRENs are stacked, each step is one batched K1
+(``siren_loss_grads_batched``; on a CUDA device one launch of the
+tensor-core kernel over the four TEs) and one
+:class:`~mri_super_resolution_tpu_torch.fit.optim.StackedAdam` step, and
+inference runs K3 (``siren_forward``) per TE; there is no autograd route on
+the card. ``"grid"``: four :class:`GridINR` fits on the tensor path, in
+turn;
 ``"grid_shared"``: one GridINR over all 16 (b, TE) channels as a 16-slot
 embedding (a change beyond the reference, which fits each TE alone). The
 grid arms are plain PyTorch everywhere, and unpadded where the JAX package
@@ -40,18 +43,22 @@ from mri_super_resolution_tpu_torch.core.coords import (
     fourier_matrix,
     mgrid,
 )
-from mri_super_resolution_tpu_torch.fit.engine import fit_simple, infer_dense_grid
-from mri_super_resolution_tpu_torch.fit.optim import restart_adam
+from mri_super_resolution_tpu_torch.fit.engine import (
+    fit_simple,
+    fit_simple_batched,
+    infer_dense_grid,
+)
+from mri_super_resolution_tpu_torch.fit.optim import StackedAdam, restart_adam
 from mri_super_resolution_tpu_torch.models import PIA, GridINR, Siren
 from mri_super_resolution_tpu_torch.models.grid_inr import (
     infer_tensor_grid,
     make_tensor_value_and_grad,
 )
 from mri_super_resolution_tpu_torch.ops.nlls import hybrid_fit
+from mri_super_resolution_tpu_torch.ops.siren_kernel import make_fused_value_and_grad_batched
 from mri_super_resolution_tpu_torch.pipelines import pia_train
 from mri_super_resolution_tpu_torch.pipelines.superres3d import (
     _kernel_apply,
-    _kernel_value_and_grad,
     _sync,
     normalize_hybrid,
 )
@@ -200,19 +207,25 @@ def fit_all_te(hybrid_raw, cfg: HybridConfig, seed: int = 0,
     coords = mgrid(lr_shape, device=dev)
     if cfg.inr_model == "grid":
         models = [_hybrid_grid_model(cfg, 4, gen, dev) for _ in range(4)]
-        vag, lr, x = make_tensor_value_and_grad(lr_shape), cfg.grid_lr, coords
     else:
         models = [Siren(2 * cfg.mapping_size, cfg.hidden_dim, cfg.num_layers,
                         generator=gen, device=dev) for _ in range(4)]
-        vag = functools.partial(_kernel_value_and_grad, models[0].omegas)
-        lr, x = cfg.lr, fourier_encode(coords, B)
-    losses = []
     for te, model in enumerate(models):
         if init is not None:
             model.load_state_dict(init["inr"][te])
         model.requires_grad_(False)
-        params = model.params() if isinstance(model, GridINR) else model.weights()
-        losses.append(_fit(params, lr, cfg, x, targets[te], vag))
+    if cfg.inr_model == "grid":
+        vag = make_tensor_value_and_grad(lr_shape)
+        losses = torch.stack([_fit(m.params(), cfg.grid_lr, cfg, coords, targets[te], vag)
+                              for te, m in enumerate(models)])
+        weights = None
+    else:  # the four TEs' SIRENs stacked: one batched K1 a step
+        opt = StackedAdam([torch.stack(ws) for ws in zip(*(m.weights() for m in models))],
+                          cfg.lr, restart_every=max(int(cfg.inr_restart_every), 0))
+        losses = fit_simple_batched(opt, fourier_encode(coords, B), targets,
+                                    cfg.number_of_epochs,
+                                    make_fused_value_and_grad_batched(models[0])).losses.T
+        weights = [[p[te] for p in opt.params] for te in range(4)]
     _sync(dev)
     t_fit = time.perf_counter()
 
@@ -223,14 +236,13 @@ def fit_all_te(hybrid_raw, cfg: HybridConfig, seed: int = 0,
             rec = infer_tensor_grid(model.params(), test_shape, clamp_min=0.0)
         else:
             rec = infer_dense_grid(functools.partial(_kernel_apply, model.omegas),
-                                   model.weights(), test_shape, clamp_min=0.0,
-                                   fourier_B=B)
+                                   weights[te], test_shape, clamp_min=0.0, fourier_B=B)
         rec = rec.reshape(test_shape)
         for b in range(4):
             recon_hybrid[:, :, :, b, te] = rec[:, :, :, b] * maxes[b, te]
     t_infer = time.perf_counter()
     timings = _timings(t0, t_prep, t_fit, t_infer, cfg, int(targets.shape[1]), dev)
-    return HybridResult(recon_hybrid, maxes, timings, torch.stack(losses).cpu().numpy())
+    return HybridResult(recon_hybrid, maxes, timings, losses.cpu().numpy())
 
 
 def remove_small_objects(mask: np.ndarray, min_size: int = 12) -> np.ndarray:

@@ -8,12 +8,17 @@ steps of one Adam update per acquisition, the last ``seg`` steps' dense-grid
 predictions at 1x and scale-x averaged; normalise; ADC (log-ratio); contrast
 metrics -> CSV; across-direction means -> DICOM.
 
-The JAX package vmaps the three directions into one padded fit; here they
-are three independent fits of their own acquisitions (the same numbers: the
-JAX package's padded slots leave params and Adam state untouched). On a
-CUDA device every per-acquisition update is one K1 pass with sample weights
-(``ops/siren_kernel.make_fused_weighted_value_and_grad``); the tail's dense
-evaluations are plain PyTorch, as they are XLA in the JAX package.
+The JAX package vmaps the three directions into one padded fit, and so
+does the port: the directions are D stacked Sirens, each step runs the
+acquisition slots a = 0 .. A_max - 1, and each slot is one batched update
+of every direction (``fit/engine.fit_ensemble_batched``); a direction with
+fewer acquisitions than A_max has padded slots that leave its params and
+Adam state untouched (``fit/optim.StackedAdam``'s mask). On a CUDA device
+every such update is one batched K1 pass with sample weights
+(``ops/siren_kernel.make_fused_weighted_value_and_grad_batched``: the
+weight-resident kernel over the three directions); the tail's dense
+evaluations are a plain batched forward, as they are XLA in the JAX
+package.
 
 Kept from the JAX package (a documented deviation from the reference): the
 direction-mean DICOMs and CSV rows average the three directions; the
@@ -37,13 +42,13 @@ from mri_super_resolution_tpu_torch.core.interp import rescale
 from mri_super_resolution_tpu_torch.core.metrics import contrast_cnr, minmax_normalize
 from mri_super_resolution_tpu_torch.core.normalize import to_tensor_normalize
 from mri_super_resolution_tpu_torch.data import CONTRAST_HEADER, Case, MetricsCSV, save_dicom
-from mri_super_resolution_tpu_torch.fit.engine import fit_ensemble
-from mri_super_resolution_tpu_torch.fit.optim import Adam
+from mri_super_resolution_tpu_torch.fit.engine import fit_ensemble_batched
+from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
 from mri_super_resolution_tpu_torch.models import Siren
 from mri_super_resolution_tpu_torch.ops.erd import auto_erd
 from mri_super_resolution_tpu_torch.ops.siren_kernel import (
-    make_fused_weighted_value_and_grad,
-    siren_forward_ref,
+    make_fused_weighted_value_and_grad_batched,
+    siren_forward_batched_ref,
 )
 
 METRIC_NAMES = ("C", "CNR", "CNR2")
@@ -103,9 +108,15 @@ def fit_directions(
     device: str | torch.device = "cuda",
     params_stack: Sequence[Sequence[torch.Tensor]] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Fit every gradient direction on its own acquisitions. Returns
+    """Fit every gradient direction on its own acquisitions, the D
+    directions in one batched fit (the JAX package's vmapped one). Returns
     (pred_1x [D, H, W], pred_scale [D, H s, W s]) ensemble means in
     Normalize(0.5, 0.5) space.
+
+    Directions with fewer acquisitions than the most are padded with
+    zero-weight slots marked invalid, which leave that direction's params
+    and Adam state (its update count included) untouched, as the reference's
+    per-direction loop leaves them.
 
     ``params_stack`` gives each direction's initial weights (``Siren.weights()``
     order; ``convert.siren_stack_weights`` of the JAX package's vmapped init);
@@ -115,36 +126,38 @@ def fit_directions(
     dev = resolve_device(device)
     set_float32_precision()
     H, W, _ = roi_dwi.shape
+    D, A_max, P = len(acquisitions), max(acquisitions), H * W
     coords = mgrid((H, W), device=dev)
     coords_s = mgrid((H * cfg.scale, W * cfg.scale), device=dev)
     gen = torch.Generator().manual_seed(seed)
-    preds_1x, preds_s = [], []
+    models = [Siren(2, cfg.hidden_features, cfg.hidden_layers, 1, generator=gen)
+              for _ in range(D)]
+    inits = ([m.weights() for m in models] if params_stack is None
+             else [list(p) for p in params_stack])
+    stacked = [torch.stack([w[i].detach() for w in inits]).to(dev)
+               for i in range(len(inits[0]))]
+
+    pixels = np.zeros((D, A_max, P, 1), dtype=np.float32)
+    weights = np.zeros((D, A_max, P, 1), dtype=np.float32)
+    valid = np.zeros((D, A_max), dtype=bool)
     for d, (s, e) in enumerate(_direction_slices(acquisitions)):
-        model = Siren(2, cfg.hidden_features, cfg.hidden_layers, 1, generator=gen)
-        model.requires_grad_(False)
-        if params_stack is not None:
-            for p, w in zip(model.weights(), params_stack[d]):
-                p.copy_(w)
-        model.to(dev)
-        pixels = torch.as_tensor(np.stack(
-            [to_tensor_normalize(roi_dwi[:, :, a]).reshape(-1, 1) for a in range(s, e)]
-        ).astype(np.float32), device=dev)
-        weights = torch.as_tensor(np.stack(
-            [accept[:, :, a].reshape(-1, 1) for a in range(s, e)]).astype(np.float32),
-            device=dev)
-        omegas = model.omegas
+        for i, a in enumerate(range(s, e)):
+            pixels[d, i, :, 0] = to_tensor_normalize(roi_dwi[:, :, a]).reshape(-1)
+            weights[d, i, :, 0] = accept[:, :, a].reshape(-1)
+        valid[d, :e - s] = True
+    omegas = models[0].omegas
 
-        def apply_fn(params, x, omegas=omegas):
-            return siren_forward_ref(x, params, omegas)
+    def apply_fn(params, x):
+        return siren_forward_batched_ref(x, params, omegas)
 
-        res = fit_ensemble(
-            apply_fn, Adam(model.weights(), cfg.learning_rate), coords, pixels, weights,
-            coords, coords_s, total_steps=cfg.total_steps, seg=cfg.seg,
-            weighted_value_and_grad_fn=(make_fused_weighted_value_and_grad(model)
-                                        if cfg.use_pallas else None))
-        preds_1x.append(res.pred_1x.reshape(H, W).cpu().numpy())
-        preds_s.append(res.pred_scale.reshape(H * cfg.scale, W * cfg.scale).cpu().numpy())
-    return np.stack(preds_1x), np.stack(preds_s)
+    res = fit_ensemble_batched(
+        apply_fn, StackedAdam(stacked, cfg.learning_rate), coords,
+        torch.as_tensor(pixels, device=dev), torch.as_tensor(weights, device=dev), coords,
+        coords_s, total_steps=cfg.total_steps, seg=cfg.seg, valid=valid,
+        weighted_value_and_grad_fn=(make_fused_weighted_value_and_grad_batched(models[0])
+                                    if cfg.use_pallas else None))
+    return (res.pred_1x.reshape(D, H, W).cpu().numpy(),
+            res.pred_scale.reshape(D, H * cfg.scale, W * cfg.scale).cpu().numpy())
 
 
 def _t(a: np.ndarray) -> torch.Tensor:

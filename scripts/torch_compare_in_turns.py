@@ -6,12 +6,15 @@ timed run includes an ``nvcc`` build).
 Run from the root of the changed checkout on a machine with one H100:
 
     python3 scripts/torch_compare_in_turns.py --parent <parent checkout> \
-        [--paths wire master]
+        [--paths wire master hybrid] [--master_steps 3000 --master_seg 150]
+        [--hybrid_epochs 2500]
 
 ``wire`` is ``chip_smoke.phase_main_path("wire", 2500, 10)``: the 3-D
 pipeline's WIRE patient at the full schedule; ``siren`` the same with the
-SIREN; ``master`` is ``chip_smoke.phase_master_main(3000, 150)``: one 2-D
-directional-ensemble case. Each checkout's own ``chip_smoke.py`` drives its
+SIREN; ``master`` is ``chip_smoke.phase_master_main(master_steps,
+master_seg)``: one 2-D directional-ensemble case; ``hybrid`` is
+``chip_smoke.phase_hybrid(hybrid_epochs)``: the hybrid tissue fit's four
+TEs and the NLLS maps. Each checkout's own ``chip_smoke.py`` drives its
 own port, so both must have these phases. Prints each run's ``[main ...]``
 lines (phases, launches, wall clock) prefixed with the checkout's role.
 """
@@ -34,7 +37,9 @@ from mri_super_resolution_tpu_torch import set_float32_precision
 set_float32_precision()
 with tempfile.TemporaryDirectory() as d:
     if sys.argv[1] == "master":
-        cs.phase_master_main(d, 3000, 150)
+        cs.phase_master_main(d, int(sys.argv[2]), int(sys.argv[3]))
+    elif sys.argv[1] == "hybrid":
+        cs.phase_hybrid(int(sys.argv[2]))
     else:
         cs.phase_main_path(sys.argv[1], 2500, 10, d)
 """
@@ -58,15 +63,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="root of the parent checkout")
     ap.add_argument("--paths", nargs="+", default=["wire", "master"],
-                    choices=["wire", "siren", "master"])
+                    choices=["wire", "siren", "master", "hybrid"])
+    ap.add_argument("--master_steps", type=int, default=3000)
+    ap.add_argument("--master_seg", type=int, default=150)
+    ap.add_argument("--hybrid_epochs", type=int, default=2500)
     args = ap.parse_args(argv)
+    extra = {"master": [str(args.master_steps), str(args.master_seg)],
+             "hybrid": [str(args.hybrid_epochs)]}
     trees = {"parent": os.path.abspath(args.parent), "change": os.getcwd()}
     rc = 0
     for role, tree in trees.items():
         rc |= run(role, tree, BUILD)
     for path in args.paths:
         for role in ("parent", "change", "change", "parent"):
-            rc |= run(role, trees[role], RUN, path)
+            rc |= run(role, trees[role], RUN, path, *extra.get(path, []))
     return 1 if rc else 0
 
 

@@ -605,3 +605,76 @@ def test_tiny_train_step_on_card_matches_cpu(card, tmp_path):
     for k, g in grads["cpu"].items():
         torch.testing.assert_close(grads["cuda"][k], g, rtol=0,
                                    atol=1e-4 * float(g.abs().max()) + 1e-12, msg=k)
+
+
+def _stacked_problem(card, D, P, dims, seed):
+    probs = [_problem(card, P=P, dims=dims, seed=seed + s) for s in range(D)]
+    ws = [torch.stack([p[1][i] for p in probs]) for i in range(len(probs[0][1]))]
+    return probs[0][0], ws, torch.stack([p[2] for p in probs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,D,P,n_rows,key", [
+    ((256, 256, 256, 1), 4, 1000, 900, "siren_loss_grads_tc_batched"),
+    ((256, 256, 256, 1), 1, 777, 777, "siren_loss_grads_tc_batched"),
+    ((2, 64, 64, 64, 1), 3, 3600, 3500, "siren_loss_grads_weighted_resident_batched"),
+])
+def test_k1_batched_launches_and_matches_plain_and_unbatched(card, dims, D, P, n_rows, key):
+    """The batched K1 launches once under its key for the D slots (stacked
+    weights as a StackedAdam holds them, a parameter buffer's rows apart)
+    and agrees with its plain batched version and with D unbatched calls;
+    on the tensor-core route each slot is its unbatched call bit for bit;
+    two calls give the same bits. The resident case weighs its rows, slot
+    D - 1 all zero (a padded acquisition slot: loss and grads exactly 0)."""
+    from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
+
+    x, ws, target = _stacked_problem(card, D, P, dims, seed=P + D)
+    ws = StackedAdam(ws, 1e-4).params
+    sw = None
+    if key.endswith("resident_batched"):
+        sw = (torch.rand(D, P, 1, generator=torch.Generator().manual_seed(D)) > 0.1).float()
+        sw[-1] = 0.0
+        sw = sw.to(card)
+    tk.reset_launches()
+    loss, grads = tk.siren_loss_grads_batched(x, ws, target, n_rows=n_rows, sample_weights=sw)
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, key: 1}
+    loss_r, grads_r = tk.siren_loss_grads_batched_ref(x, ws, target, n_rows=n_rows,
+                                                      sample_weights=sw)
+    torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
+    for a, b in zip(grads, grads_r):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    for s in range(D):
+        ls, gs = tk.siren_loss_grads(x, [w[s] for w in ws], target[s], n_rows=n_rows,
+                                     sample_weights=None if sw is None else sw[s])
+        if key == "siren_loss_grads_tc_batched":
+            assert torch.equal(loss[s], ls) and all(torch.equal(a[s], b)
+                                                    for a, b in zip(grads, gs))
+        else:
+            torch.testing.assert_close(loss[s], ls, rtol=1e-5, atol=0)
+            for a, b in zip(grads, gs):
+                torch.testing.assert_close(a[s], b, rtol=1e-4, atol=1e-6)
+    if sw is not None:
+        assert float(loss[-1]) == 0.0 and all(float(g[-1].abs().max()) == 0.0 for g in grads)
+    loss2, grads2 = tk.siren_loss_grads_batched(x, ws, target, n_rows=n_rows, sample_weights=sw)
+    assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.cuda
+def test_stacked_adam_on_the_card_matches_separate_adams(card):
+    """Every slot stepping at one count, the stacked Adam divides by the
+    same Python floats as Adam: from the same grads, the same bits on the
+    card too, restarts included."""
+    from mri_super_resolution_tpu_torch.fit.optim import Adam, StackedAdam
+
+    _, ws, _ = _stacked_problem(card, 3, 10, (2, 64, 64, 1), seed=9)
+    opt = StackedAdam(ws, 1e-3, restart_every=4)
+    ref = [Adam([w[s].clone() for w in ws], 1e-3, restart_every=4) for s in range(3)]
+    gen = torch.Generator(card).manual_seed(9)
+    for _ in range(10):
+        grads = [torch.randn(w.shape, generator=gen, device=card) for w in ws]
+        opt.step(grads)
+        for s, o in enumerate(ref):
+            o.step([g[s] for g in grads])
+    for s, o in enumerate(ref):
+        assert all(torch.equal(a[s], b) for a, b in zip(opt.params, o.params))

@@ -85,3 +85,66 @@ def test_emulated_tc_refuses_widths_off_the_tile(emulated_tc):
     x, ws, target = _problem((128, 96, 1), 10, seed=0)
     with pytest.raises(ValueError):
         tk._launch_loss_grads_tc(emulated_tc, x, ws, target, 30.0, 10, 0)
+
+
+def _stacked(dims, D, P, seed):
+    """D stacked problems of :func:`_problem`'s scale on one x."""
+    probs = [_problem(dims, P, seed + s) for s in range(D)]
+    x = probs[0][0]
+    ws = [torch.stack([p[1][i] for p in probs]) for i in range(len(probs[0][1]))]
+    return x, ws, torch.stack([p[2] for p in probs])
+
+
+@pytest.mark.parametrize("dims,D,P,n_rows,strided", [
+    ((128, 128, 128, 1), 1, 300, 300, False),  # one slot, ragged rows
+    ((128, 128, 128, 1), 4, 300, 250, True),   # four slots, masked rows, a parameter buffer
+    ((128, 256, 128, 1), 3, 200, 150, False),  # a hidden layer of two column tiles
+])
+def test_emulated_tc_batched_matches_plain_and_unbatched(emulated_tc, dims, D, P, n_rows,
+                                                         strided):
+    """The batched entry (every slot's hidden-layer passes in one launch,
+    the slot in grid z) against the plain batched K1 at the route's
+    tolerances, and each slot against the unbatched entry on its inputs bit
+    for bit (the same passes in the same order). ``strided``: the weights
+    are views of one (D, n_params) buffer, a StackedAdam's, so each slot's
+    tensors lie n_params floats apart."""
+    from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
+
+    x, ws, target = _stacked(dims, D, P, seed=P + D)
+    if strided:
+        ws = StackedAdam(ws, 1e-4).params
+        assert ws[0].stride(0) == sum(dims[l + 1] * (dims[l] + 1) for l in range(len(dims) - 1))
+    omegas = [30.0] * (len(dims) - 2)
+    loss, grads = tk._launch_loss_grads_tc_batched(emulated_tc, x, ws, target, omegas, n_rows, 0)
+    loss_r, grads_r = tk.siren_loss_grads_batched_ref(x, ws, target, omegas, n_rows)
+    assert loss.shape == (D,)
+    torch.testing.assert_close(loss, loss_r, rtol=TC_LOSS_RTOL, atol=0)
+    for i, (a, b) in enumerate(zip(grads, grads_r)):
+        assert a.shape == b.shape == ws[i].shape
+        for s in range(D):
+            err = float((a[s] - b[s]).abs().max()) / float(b[s].abs().max())
+            assert err <= TC_GRAD_TOL, f"slot {s} grad {i}: {err:.3e}"
+    for s in range(D):
+        l1, g1 = tk._launch_loss_grads_tc(emulated_tc, x, [w[s].contiguous() for w in ws],
+                                          target[s].contiguous(), omegas, n_rows, 0)
+        assert torch.equal(loss[s], l1) and all(torch.equal(a[s], b) for a, b in zip(grads, g1))
+
+
+def test_emulated_tc_batched_workspace(emulated_tc):
+    """x's planes once and D slots of the rest: one slot takes the unbatched
+    call's bytes; widths off the tile and D < 1 are refused."""
+    import ctypes
+
+    def nbytes(dims, P, D=None):
+        arr = ctypes.cast((ctypes.c_int * len(dims))(*dims), ctypes.c_void_p)
+        if D is None:
+            return emulated_tc.siren_tc_workspace_bytes(P, arr, len(dims) - 1)
+        return emulated_tc.siren_tc_batched_workspace_bytes(P, arr, len(dims) - 1, D)
+
+    flag, P = (256, 512, 512, 512, 512, 1), 100_800
+    one = nbytes(flag, P)
+    x_bytes = (4 * P * 256 + 255) // 256 * 256
+    assert nbytes(flag, P, 1) == one
+    assert nbytes(flag, P, 4) == x_bytes + 4 * (one - x_bytes)
+    assert 2.0e9 < one - x_bytes < 2.2e9  # a slot's planes at the hybrid's shape
+    assert nbytes((128, 96, 1), 10, 2) == -1 and nbytes(flag, P, 0) == -1

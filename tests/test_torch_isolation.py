@@ -2,8 +2,8 @@
 imports, and short CPU fits of the SIREN and WIRE paths, a tiny MISR run
 (the K6 route, its plain version on the CPU), a two-step tiny MISR
 training run (K6 and K7 routes, their plain versions), a two-step
-``fit_ensemble`` and ``fit_until`` (K1's weighted and absmax variants,
-their plain versions), the P1 probe's plain version, a two-step GridINR
+``fit_ensemble_batched`` and ``fit_until`` (K1's batched weighted and
+absmax variants, their plain versions), the P1 probe's plain version, a two-step GridINR
 fit, a two-epoch hybrid fit in its SIREN and grid arms, a 2-iteration
 NLLS ``hybrid_fit`` run, a two-step half-res quality slice
 (``lowres_qual.run_slice``) and a two-step cohort fit
@@ -91,16 +91,20 @@ with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringI
     assert tr.fit(x, (y, np.ones_like(y))).step == 2
     assert tr.manager.latest_step() == 2
 assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
-from mri_super_resolution_tpu_torch.fit.engine import fit_ensemble, fit_until, plain_apply_init
+from mri_super_resolution_tpu_torch.fit.engine import (fit_ensemble_batched, fit_until,
+                                                      plain_apply_init)
+from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
 from mri_super_resolution_tpu_torch.models import SirenERD
 from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 s2 = Siren(2, 16, 1, generator=g)
 s2.requires_grad_(False)
 c = mgrid((5, 6))
-res = fit_ensemble(lambda p, xx: sk.siren_forward_ref(xx, p), Adam(s2.weights(), 1e-3), c,
-                   torch.rand(3, 30, 1, generator=g), torch.ones(3, 30, 1), c, mgrid((10, 12)),
-                   2, 1, weighted_value_and_grad_fn=sk.make_fused_weighted_value_and_grad(s2))
-assert res.pred_scale.shape == (120, 1) and bool(torch.isfinite(res.losses).all())
+res = fit_ensemble_batched(
+    lambda p, xx: sk.siren_forward_batched_ref(xx, p), StackedAdam([w[None] for w in s2.weights()],
+                                                                   1e-3),
+    c, torch.rand(1, 3, 30, 1, generator=g), torch.ones(1, 3, 30, 1), c, mgrid((10, 12)), 2, 1,
+    weighted_value_and_grad_fn=sk.make_fused_weighted_value_and_grad_batched(s2))
+assert res.pred_scale.shape == (1, 120, 1) and bool(torch.isfinite(res.losses).all())
 erd = SirenERD(2, 16, 1, perturb=True, generator=g)
 apply_fn, init_fn = plain_apply_init(erd, g)
 fu = fit_until(apply_fn, 1e-3, init_fn, c, torch.rand(30, 1, generator=g), 0.0, 2,

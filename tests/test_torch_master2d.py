@@ -1,5 +1,6 @@
 """The port's 2-D directional ensemble (master.py) against the JAX package's:
-``fit_ensemble`` and ``fit_directions`` from the same initial params (the
+``fit_ensemble`` (the port's ``fit_ensemble_batched`` at one direction) and
+``fit_directions`` from the same initial params (the
 JAX package's own, reproduced from master2d.py:131-132 and converted),
 ``run_case`` + ``save_case_outputs``, and ``cli/master.py`` end to end on
 the CPU.
@@ -35,8 +36,8 @@ from mri_super_resolution_tpu_torch.cli import master as master_cli
 from mri_super_resolution_tpu_torch.config import Master2DConfig
 from mri_super_resolution_tpu_torch.core.coords import mgrid
 from mri_super_resolution_tpu_torch.data import CONTRAST_HEADER, Case, MetricsCSV
-from mri_super_resolution_tpu_torch.fit.engine import fit_ensemble
-from mri_super_resolution_tpu_torch.fit.optim import Adam
+from mri_super_resolution_tpu_torch.fit.engine import fit_ensemble_batched
+from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 from mri_super_resolution_tpu_torch.pipelines import master2d
 
@@ -76,19 +77,20 @@ def test_fit_ensemble_matches_jax_with_padded_slots():
     ref = j_fit_ensemble(model.apply, optax.adam(cfg.learning_rate), params, coords,
                          jnp.asarray(pix), jnp.asarray(w), coords, coords_s,
                          total_steps=cfg.total_steps, seg=cfg.seg, valid=jnp.asarray(valid))
-    siren_w = [t.clone() for t in tws[0]]
-    res = fit_ensemble(
-        lambda p, x: tk.siren_forward_ref(x, p), Adam(siren_w, cfg.learning_rate),
-        mgrid((H, W)), torch.as_tensor(pix), torch.as_tensor(w), mgrid((H, W)),
-        mgrid((2 * H, 2 * W)), cfg.total_steps, cfg.seg, valid=valid,
-        weighted_value_and_grad_fn=lambda p, x, t, sw: tk.siren_loss_grads(
+    siren_w = [t.clone()[None] for t in tws[0]]  # one direction: D = 1
+    res = fit_ensemble_batched(
+        lambda p, x: tk.siren_forward_batched_ref(x, p), StackedAdam(siren_w, cfg.learning_rate),
+        mgrid((H, W)), torch.as_tensor(pix)[None], torch.as_tensor(w)[None], mgrid((H, W)),
+        mgrid((2 * H, 2 * W)), cfg.total_steps, cfg.seg, valid=valid[None],
+        weighted_value_and_grad_fn=lambda p, x, t, sw: tk.siren_loss_grads_batched(
             x, p, t, sample_weights=sw))
-    np.testing.assert_allclose(res.losses.numpy(), np.asarray(ref.losses), rtol=1e-5)
-    np.testing.assert_allclose(res.pred_1x.numpy(), np.asarray(ref.pred_1x), atol=1e-5)
-    np.testing.assert_allclose(res.pred_scale.numpy(), np.asarray(ref.pred_scale), atol=1e-5)
+    np.testing.assert_allclose(res.losses[:, 0].numpy(), np.asarray(ref.losses), rtol=1e-5)
+    np.testing.assert_allclose(res.pred_1x[0].numpy(), np.asarray(ref.pred_1x), atol=1e-5)
+    np.testing.assert_allclose(res.pred_scale[0].numpy(), np.asarray(ref.pred_scale),
+                               atol=1e-5)
     final = convert.siren_weights(_np(ref.params))
     for a, b in zip(res.params, final):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+        np.testing.assert_allclose(a[0].numpy(), b.numpy(), atol=1e-5)
 
 
 def test_fit_directions_matches_jax_unequal_counts():
