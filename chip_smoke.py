@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--epochs 40] [--pn_epochs 4] [--master_steps 300]
         [--master_seg 30] [--hybrid_epochs 40] [--fast_epochs 40]
-        [--pia_steps 300]
+        [--hybrid_grid_epochs 600] [--pia_steps 300]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``,
@@ -87,7 +87,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``--epochs``, ``--pn_epochs``) and the ``fast`` preset
    (``--fast_epochs``, no PN epochs), no kernel launched, and a 20-epoch
    quality trace from one init on the card against the CPU, loss by loss,
-   with a control run on TF32 products that its bars must catch;
+   with a control run on TF32 products that its bars must catch; then the
+   hybrid fit's grid arm: ``fit_all_te`` at the ``fast`` preset's settings
+   (GridINR L4, base 6, F 4, hidden 64, restart_adam(5e-3, 250),
+   ``--hybrid_grid_epochs``, 600) on the hybrid patient, the four TEs one
+   batched fit on 100,800 rows each: no kernel launched, the per-TE losses
+   falling, a finite (120, 120, 28, 4, 4) recon >= 0; a 20-epoch trace
+   (restarts every 8) from one init, card batched against CPU batched and
+   against the four TEs fitted in turn on the card, loss by loss; fit_s
+   batched against in turn, alternating, the two batched runs equal bit
+   for bit; 50 steps of each under ``torch.profiler``;
    then ``pipelines.misr.run`` on
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
@@ -314,6 +323,19 @@ PIA_STEPS = 300  # noise-range pretraining steps of the PIA fitter
 # products must exceed one of them: the bars see TF32 left on
 GRID_TRACE_STEPS, GRID_TRACE_PN = 20, 4
 GRID_TRACE_RTOL, GRID_RECON_ATOL = 1e-4, 5e-4
+# the hybrid fit's grid arm (the fast preset: four GridINRs L4, base 6, F 4,
+# hidden 64, z_divisor 1 on the 30 x 30 x 28 x 4 LR grid, restart_adam(5e-3,
+# 250), 600 epochs) as one batched fit: a HYBRID_GRID_TRACE-epoch trace from
+# one init with the moments restarted every HYBRID_GRID_RESTART steps, on
+# the card against the CPU (the loss a step relative, the recon's largest
+# gap over its largest value), and batched against the four TEs fitted in
+# turn on the card (the loss a step): float32 sums in other orders through
+# Adam, TF32 off. Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W):
+# 4.5e-6, 9.5e-4 and 1.0e-5 (2.7e-5, 1.4e-3 and 2.6e-5 before the head's
+# weight gradients were summed in row chunks), so bars of 5e-5, 5e-3 and
+# 5e-5
+HYBRID_GRID_TRACE, HYBRID_GRID_RESTART = 20, 8
+HYBRID_GRID_TRACE_RTOL, HYBRID_GRID_RECON_TOL, HYBRID_GRID_TURN_RTOL = 5e-5, 5e-3, 5e-5
 # P1 at the JAX probe's shape
 PROBE_T, PROBE_H, PROBE_REPS, PROBE_GRID = 384, 512, 8, 512
 PROBE_CALLS = 10  # timed calls of the probe CLI, after one untimed
@@ -2804,6 +2826,210 @@ def phase_grid_trace() -> None:
              "the grid trace's bars do not see TF32 products")
 
 
+def _hybrid_grid_cfg(epochs: int, restart_every: int | None = None):
+    """The hybrid fit at the ``fast`` preset's settings (the grid arm,
+    restart_adam(5e-3, 250)) for ``epochs``, the restart period optionally
+    replaced."""
+    from mri_super_resolution_tpu_torch.config import PRESETS
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+
+    fields = {k: v for k, v in PRESETS["fast"].items()
+              if k in hy.HybridConfig.__dataclass_fields__}
+    cfg = hy.HybridConfig(number_of_epochs=epochs, **fields)
+    _require(cfg.inr_model == "grid" and cfg.inr_restart_every == 250
+             and cfg.grid_lr == 5e-3 and PRESETS["fast"]["epochs"] == 600, "fast preset fields")
+    if restart_every is not None:
+        cfg.inr_restart_every = restart_every
+    return cfg
+
+
+def _hybrid_grid_init(cfg, seed: int) -> dict:
+    """One init of the four TEs' GridINRs (and the unused B), drawn on the
+    CPU from ``seed``, as ``fit_all_te``'s ``init``."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.coords import fourier_matrix
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+
+    gen = torch.Generator().manual_seed(seed)
+    return {"B": fourier_matrix(gen, cfg.mapping_size, 4).numpy(),
+            "inr": [hy._hybrid_grid_model(cfg, 4, gen).state_dict() for _ in range(HYBRID_TES)]}
+
+
+def _hybrid_grid_in_turn(hybrid, cfg, init: dict, device: str):
+    """The grid arm's plain version: the four TEs' GridINRs from ``init``
+    fitted one after another, each with its own ``restart_adam`` on the
+    unbatched tensor path (the arm before it was batched); returns the (4,
+    epochs) losses and the fit's seconds, timed as ``fit_all_te`` times its
+    fit_s (from the targets on the device to the last step's end)."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.models.grid_inr import make_tensor_value_and_grad
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+    from mri_super_resolution_tpu_torch.pipelines.superres3d import _sync, normalize_hybrid
+
+    dev = torch.device(device)
+    normed, _ = normalize_hybrid(hybrid)
+    lr_shape, targets = hy.te_targets(normed, cfg)
+    targets = torch.as_tensor(targets, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    coords = mgrid(lr_shape, device=dev)
+    vag = make_tensor_value_and_grad(lr_shape)
+    losses = []
+    for te in range(HYBRID_TES):
+        model = hy._hybrid_grid_model(cfg, 4, None, dev)
+        model.load_state_dict(init["inr"][te])
+        model.requires_grad_(False)
+        losses.append(hy._fit(model.params(), cfg.grid_lr, cfg, coords, targets[te], vag))
+    losses = torch.stack(losses)
+    _sync(dev)
+    return losses.cpu().numpy(), time.perf_counter() - t0
+
+
+def _hybrid_grid_patient():
+    """The hybrid phase's seeded three-compartment patient, averaged over
+    its acquisitions."""
+    from mri_super_resolution_tpu_torch.data import synthetic
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+
+    hybrid_all, _ = synthetic.hybrid_from_tissue(_b0_volume(), seed=7)
+    return hy.mean_over_acquisitions(hybrid_all)
+
+
+def phase_hybrid_grid(epochs: int) -> None:
+    """The hybrid fit's grid arm at full width on the card: ``fit_all_te``
+    at the ``fast`` preset's settings for ``epochs`` on the hybrid phase's
+    patient, one batched fit over the four TEs (no hand kernel; the per-TE
+    losses falling; a finite (120, 120, 28, 4, 4) recon >= 0); a
+    HYBRID_GRID_TRACE-epoch trace from one init, card batched against CPU
+    batched and against the four TEs in turn on the card; then fit_s
+    batched against in turn at ``epochs``, alternating (batched, in turn,
+    in turn, batched), the two batched runs held equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+
+    t0 = time.perf_counter()
+    hybrid = _hybrid_grid_patient()
+    print(f"[main hybrid grid] synthetic tissue patient (128, 128, 28) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = _hybrid_grid_cfg(epochs)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    res = hy.fit_all_te(hybrid, cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_only(_all_counts(), {}, "hybrid grid")
+    _require(res.timings["lr_voxels_per_te"] == HYBRID_P and res.timings["inr_model"] == "grid"
+             and res.timings["platform"] == "cuda", "hybrid grid timings")
+    rh = res.recon_hybrid
+    _require(rh.shape == (120, 120, 28, 4, 4) and np.isfinite(rh).all() and (rh >= 0).all(),
+             "hybrid grid recon_hybrid shape, finite and >= 0")
+    _require(res.losses.shape == (HYBRID_TES, epochs) and np.isfinite(res.losses).all()
+             and (res.losses[:, -1] < res.losses[:, 0]).all(),
+             f"a per-TE grid loss did not fall: {res.losses[:, 0]} -> {res.losses[:, -1]}")
+    print(f"[main hybrid grid] fit_all_te {wall:.1f} s ({epochs} epochs, fast preset, one "
+          f"batched fit over {HYBRID_TES} TEs; phases {json.dumps(res.timings)}); no kernel "
+          f"launched; per-TE loss {res.losses[:, 0].round(5).tolist()} -> "
+          f"{res.losses[:, -1].round(7).tolist()}")
+
+    tcfg = _hybrid_grid_cfg(HYBRID_GRID_TRACE, HYBRID_GRID_RESTART)
+    init = _hybrid_grid_init(tcfg, seed=13)
+    card = hy.fit_all_te(hybrid, tcfg, seed=0, device="cuda", init=init)
+    cpu = hy.fit_all_te(hybrid, tcfg, seed=0, device="cpu", init=init)
+    turn, _ = _hybrid_grid_in_turn(hybrid, tcfg, init, "cuda")
+    rel_cpu = float(np.max(np.abs(card.losses / cpu.losses - 1.0)))
+    err_cpu = float(np.abs(card.recon_hybrid - cpu.recon_hybrid).max()
+                    / np.abs(cpu.recon_hybrid).max())
+    rel_turn = float(np.max(np.abs(card.losses / turn - 1.0)))
+    print(f"[parity] hybrid grid {HYBRID_GRID_TRACE}-epoch trace (restarts every "
+          f"{HYBRID_GRID_RESTART}) from one init: loss {cpu.losses[:, 0].round(6).tolist()} -> "
+          f"{cpu.losses[:, -1].round(7).tolist()} (CPU); card batched vs CPU batched worst step "
+          f"rel {rel_cpu:.3e} (tol {HYBRID_GRID_TRACE_RTOL:g}), recon max abs over its largest "
+          f"{err_cpu:.3e} (tol {HYBRID_GRID_RECON_TOL:g}; largest "
+          f"{float(np.abs(cpu.recon_hybrid).max()):.1f}); card batched vs the four TEs in turn on the "
+          f"card worst step rel {rel_turn:.3e} (tol {HYBRID_GRID_TURN_RTOL:g})")
+    _require(rel_cpu <= HYBRID_GRID_TRACE_RTOL and err_cpu <= HYBRID_GRID_RECON_TOL,
+             "the batched grid fit on the card departs from the CPU's")
+    _require(rel_turn <= HYBRID_GRID_TURN_RTOL,
+             "the batched grid fit departs from the four TEs fitted in turn")
+
+    phase_hybrid_grid_times(hybrid, cfg)
+
+
+def phase_hybrid_grid_times(hybrid, cfg, profile_steps: int = 50) -> None:
+    """fit_s of the grid arm at ``cfg``'s schedule from one init, batched
+    (``fit_all_te``) against the four TEs in turn, alternating (batched, in
+    turn, in turn, batched); the two batched runs held equal bit for bit.
+    Then ``profile_steps`` batched steps and as many steps of each TE in
+    turn under ``torch.profiler``: device kernels a step, busy time and idle
+    share."""
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.fit.engine import fit_simple_batched
+    from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
+    from mri_super_resolution_tpu_torch.models.grid_inr import (
+        make_tensor_value_and_grad,
+        make_tensor_value_and_grad_batched,
+    )
+    from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
+    from mri_super_resolution_tpu_torch.pipelines.superres3d import normalize_hybrid
+
+    epochs = cfg.number_of_epochs
+    init = _hybrid_grid_init(cfg, seed=17)
+    batched, in_turn = [], []
+    for order in ("batched", "in turn", "in turn", "batched"):
+        if order == "batched":
+            batched.append(hy.fit_all_te(hybrid, cfg, seed=0, device="cuda", init=init))
+        else:
+            in_turn.append(_hybrid_grid_in_turn(hybrid, cfg, init, "cuda"))
+    same = (np.array_equal(batched[0].losses, batched[1].losses)
+            and np.array_equal(batched[0].recon_hybrid, batched[1].recon_hybrid))
+    rel_long = float(np.max(np.abs(batched[0].losses / in_turn[0][0] - 1.0)))
+    fit_b = [r.timings["fit_s"] for r in batched]
+    fit_t = [t for _, t in in_turn]
+    print(f"[times] hybrid grid fit_s at {epochs} epochs (fast preset's settings), batched "
+          f"{fit_b[0]:.3f} / {fit_b[1]:.3f} s against in turn {fit_t[0]:.3f} / {fit_t[1]:.3f} s "
+          f"(order batched, in turn, in turn, batched); batched / in turn "
+          f"{min(fit_b) / min(fit_t):.3f}; {1e3 * min(fit_b) / epochs:.3f} ms a batched step "
+          f"against {1e3 * min(fit_t) / epochs / HYBRID_TES:.3f} ms a TE's step in turn; "
+          f"the two batched runs equal bit for bit: {same}; batched vs in turn worst step rel "
+          f"over {epochs} epochs {rel_long:.3e} (printed, not bounded: the fits' chaos); "
+          f"{_card()}")
+    _require(same, "two batched grid fits from one init on the card differ")
+
+    normed, _ = normalize_hybrid(hybrid)
+    lr_shape, targets = hy.te_targets(normed, cfg)
+    targets = torch.as_tensor(targets, device="cuda")
+    coords = mgrid(lr_shape, device="cuda")
+    models = []
+    for sd in init["inr"]:
+        m = hy._hybrid_grid_model(cfg, 4, None, "cuda")
+        m.load_state_dict(sd)
+        m.requires_grad_(False)
+        models.append(m)
+    opt = StackedAdam([torch.stack(ps) for ps in zip(*(m.params() for m in models))],
+                      cfg.grid_lr, restart_every=cfg.inr_restart_every)
+    vag_b, vag = make_tensor_value_and_grad_batched(lr_shape), make_tensor_value_and_grad(lr_shape)
+    fit_simple_batched(opt, coords, targets, 2, vag_b)  # warm
+    _passes(f"hybrid grid batched step over {HYBRID_TES} TEs",
+            lambda: fit_simple_batched(opt, coords, targets, 1, vag_b), calls=10)
+    _passes("hybrid grid step of one TE in turn",
+            lambda: hy._fit(models[0].params(), cfg.grid_lr, _hybrid_grid_cfg(1, 0), coords,
+                            targets[0], vag), calls=10)
+    _device_busy(f"hybrid grid, {profile_steps} batched steps over {HYBRID_TES} TEs",
+                 lambda: fit_simple_batched(opt, coords, targets, profile_steps, vag_b))
+    cfg_n = _hybrid_grid_cfg(profile_steps, cfg.inr_restart_every)
+    _device_busy(f"hybrid grid, {profile_steps} steps of each of {HYBRID_TES} TEs in turn",
+                 lambda: [hy._fit(m.params(), cfg.grid_lr, cfg_n, coords, targets[te], vag)
+                          for te, m in enumerate(models)])
+
+
 def _card() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     return subprocess.run(
@@ -3875,6 +4101,9 @@ def main(argv=None) -> int:
                     help="epochs of the hybrid fit's four SIRENs (2500 in the reference)")
     ap.add_argument("--fast_epochs", type=int, default=40,
                     help="epochs of the fast-preset grid patient (600 in the preset)")
+    ap.add_argument("--hybrid_grid_epochs", type=int, default=600,
+                    help="epochs of the hybrid fit's grid arm (600 in the fast preset, "
+                         "2500 in the quality preset)")
     ap.add_argument("--pia_steps", type=int, default=PIA_STEPS,
                     help="pretraining steps of the PIA fitter (4000 in the pipeline)")
     args = ap.parse_args(argv)
@@ -3928,6 +4157,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as out_dir:
             phase_grid(preset, epochs, pn_epochs, out_dir)
     phase_grid_trace()
+    phase_hybrid_grid(args.hybrid_grid_epochs)
     with tempfile.TemporaryDirectory() as out_dir:
         launches.update(phase_misr_main(out_dir))
     with tempfile.TemporaryDirectory() as out_dir:

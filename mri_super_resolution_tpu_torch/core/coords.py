@@ -2,7 +2,9 @@
 
 Counterpart of ``mri_super_resolution_tpu/core/coords.py`` (``mgrid``
 :24-42, ``mgrid_square`` :45, ``fourier_matrix`` :50-59, ``fourier_encode``
-:62-75, ``chunked_coords`` :84-91).
+:62-75, ``chunked_coords`` :84-91), and :func:`linspace_from_zero`,
+the ``jnp.linspace(0, stop, n)`` that the grid INR's and the spline's
+sample positions are built from.
 """
 from __future__ import annotations
 
@@ -23,6 +25,18 @@ def mgrid(shape: Sequence[int], device: str | torch.device = "cpu",
     grids = np.meshgrid(*axes, indexing="ij")
     out = np.stack(grids, axis=-1).reshape(-1, len(shape))
     return torch.as_tensor(out.astype(np.float32), device=device).to(dtype)
+
+
+def linspace_from_zero(stop: float, n: int, device=None) -> torch.Tensor:
+    """``jnp.linspace(0, stop, n)`` in float32 as XLA computes it, bit for
+    bit: i times (the float32 reciprocal of n - 1 times ``stop``), the last
+    point exactly ``stop`` (``torch.linspace`` and i stop / (n - 1) round
+    some points to the other side of ``floor``)."""
+    step = float(np.float32(1.0) / np.float32(max(n - 1, 1)) * np.float32(stop))
+    out = torch.arange(n, dtype=torch.float32, device=device) * step
+    if n > 1:
+        out[-1] = float(np.float32(stop))
+    return out
 
 
 def mgrid_square(sidelen: int, dim: int = 2, device: str | torch.device = "cpu",

@@ -1,6 +1,7 @@
-"""Spline-baseline rescale. Counterpart of
-``mri_super_resolution_tpu/core/interp.py`` (``_gaussian_kernel1d``,
-``_gaussian_blur2d`` and ``rescale`` :24-60).
+"""Spline-baseline rescale and the cubic-spline resample along one axis.
+Counterpart of ``mri_super_resolution_tpu/core/interp.py``
+(``_gaussian_kernel1d``, ``_gaussian_blur2d`` and ``rescale`` :24-60,
+``_cubic_spline_coeffs`` :63, ``resize_along_axis`` :81).
 
 ``rescale`` resizes as ``jax.image.resize`` does: ``order=1`` through
 ``F.interpolate`` (bilinear, half-pixel centres), ``order=0`` with its
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from mri_super_resolution_tpu_torch.core.coords import linspace_from_zero
 
 
 def _gaussian_kernel1d(sigma: float, radius: int) -> torch.Tensor:
@@ -104,3 +107,46 @@ def rescale(img: torch.Tensor, scale: float, anti_aliasing: bool = False,
     out = F.interpolate(img.reshape(-1, 1, h, w), size=size, mode="bilinear",
                         align_corners=False, antialias=scale < 1)
     return out.reshape(*lead, *size)
+
+
+def _cubic_spline_coeffs(n: int, dtype: torch.dtype = torch.float32,
+                         device=None) -> torch.Tensor:
+    """The (n, n) not-a-knot system ``A @ m = rhs(y)`` for the second
+    derivatives m of a cubic spline through n uniform knots (spacing 1):
+    interior rows m[i-1] + 4 m[i] + m[i+1], the first and last rows the
+    third derivative continuous at the second and penultimate knots."""
+    A = torch.zeros(n, n, dtype=dtype, device=device)
+    i = torch.arange(1, n - 1, device=device)
+    A[i, i - 1] = 1.0
+    A[i, i] = 4.0
+    A[i, i + 1] = 1.0
+    A[0, :3] = A.new_tensor([1.0, -2.0, 1.0])
+    A[n - 1, n - 3:] = A.new_tensor([1.0, -2.0, 1.0])
+    return A
+
+
+def resize_along_axis(arr: torch.Tensor, new_size: int = 128, axis: int = 2) -> torch.Tensor:
+    """Cubic-spline resample along one axis (the reference's
+    ``resize_array``): a not-a-knot cubic spline through the n samples,
+    evaluated at ``new_size`` uniform positions over the same span
+    (``linspace(0, n - 1, new_size)`` in knot units, each in the interval of
+    its lower knot, clipped to [0, n - 2]), the second derivatives from a
+    dense solve. On ``arr``'s device and dtype (integers as float32)."""
+    if not arr.is_floating_point():
+        arr = arr.to(torch.float32)
+    arr = torch.movedim(arr, axis, -1)
+    n = arr.shape[-1]
+    flat = arr.reshape(-1, n)
+    A = _cubic_spline_coeffs(n, flat.dtype, flat.device)
+    rhs = torch.zeros_like(flat)
+    rhs[:, 1:-1] = 6.0 * (flat[:, :-2] - 2.0 * flat[:, 1:-1] + flat[:, 2:])
+    m = torch.linalg.solve(A, rhs.T).T  # second derivatives at the knots
+    t = linspace_from_zero(n - 1, new_size, flat.device).to(flat.dtype)
+    i0 = torch.floor(t).long().clamp(0, n - 2)
+    u = t - i0.to(t.dtype)
+    y0, y1 = flat[:, i0], flat[:, i0 + 1]
+    m0, m1 = m[:, i0], m[:, i0 + 1]
+    # the uniform-spacing (h = 1) Hermite form with second derivatives
+    vals = (y0 * (1 - u) + y1 * u + ((1 - u) ** 3 - (1 - u)) * m0 / 6.0
+            + (u ** 3 - u) * m1 / 6.0)
+    return torch.movedim(vals.reshape(*arr.shape[:-1], new_size), -1, axis)

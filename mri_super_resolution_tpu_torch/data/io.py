@@ -3,10 +3,9 @@
 Copy of the parts of ``mri_super_resolution_tpu/data/io.py`` the pipelines
 use (numpy only): ``load_mat`` (v5 through scipy, v7.3 through h5py, or the
 C++ v5 reader of ``data/native_io.py`` with ``prefer_native``),
-``save_mat`` (:105-109), ``save_dicom`` and ``read_dicom_pixels`` (:252-277)
-and ``MetricsCSV`` with ``CONTRAST_HEADER``, ``SSIM_HEADER`` and
-``CNR_SNR_HEADER`` (:299-301). ``save_mat73`` (:112) has no caller in the
-port.
+``save_mat`` (:105-109), ``save_mat73`` (:112, MATLAB v7.3 through h5py),
+``save_dicom`` and ``read_dicom_pixels`` (:252-277) and ``MetricsCSV`` with
+``CONTRAST_HEADER``, ``SSIM_HEADER`` and ``CNR_SNR_HEADER`` (:299-301).
 """
 from __future__ import annotations
 
@@ -100,6 +99,57 @@ def save_mat(path: str, arrays: dict) -> None:
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     sio.savemat(path, arrays)
+
+
+_MATLAB_CLASS = {"f8": b"double", "f4": b"single", "i2": b"int16", "u2": b"uint16",
+                 "i4": b"int32", "u4": b"uint32", "u1": b"uint8", "i1": b"int8",
+                 "i8": b"int64", "u8": b"uint64"}
+
+
+def save_mat73(path: str, arrays: dict) -> None:
+    """Write a MATLAB v7.3 (HDF5) file as MATLAB lays it out: a 512-byte
+    userblock with the "MATLAB 7.3" header and version 0x0200 (so scipy
+    routes it to the h5py path as it does a real file), column-major
+    datasets with ``MATLAB_class`` attributes, strings as uint16 code
+    points, and cell arrays (object ndarrays, nested lists) as datasets of
+    references into ``/#refs#``. h5py is imported here, not with the
+    module."""
+    import h5py
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def write_value(f, group, name, value):
+        if isinstance(value, str):
+            ds = group.create_dataset(name, data=np.array([[ord(c)] for c in value],
+                                                          np.uint16))
+            ds.attrs["MATLAB_class"] = np.bytes_(b"char")
+            return ds
+        value = np.asarray(value)
+        if value.dtype == object:
+            refs = f.require_group("#refs#")
+            out = np.empty(value.shape[::-1], dtype=h5py.ref_dtype)
+            it = np.nditer(value, flags=["multi_index", "refs_ok"])
+            for cell in it:
+                cds = write_value(f, refs, f"c{len(refs)}", cell.item())
+                out[it.multi_index[::-1]] = cds.ref
+            ds = group.create_dataset(name, data=out)
+            ds.attrs["MATLAB_class"] = np.bytes_(b"cell")
+            return ds
+        if value.ndim == 0:
+            value = value.reshape(1, 1)
+        ds = group.create_dataset(name, data=value.T)
+        ds.attrs["MATLAB_class"] = np.bytes_(_MATLAB_CLASS.get(value.dtype.str[1:], b"double"))
+        return ds
+
+    with h5py.File(path, "w", userblock_size=512) as f:
+        for k, v in arrays.items():
+            write_value(f, f, k, v)
+    header = (b"MATLAB 7.3 MAT-file, written by mri-super-resolution-tpu"
+              .ljust(116, b" ") + b"\x00" * 8)
+    with open(path, "r+b") as fh:
+        fh.write(header[:124])
+        fh.seek(124)
+        fh.write(b"\x00\x02IM")  # version 0x0200, little-endian marker
 
 
 # --------------------------------------------------------------------------

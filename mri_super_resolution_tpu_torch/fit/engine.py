@@ -7,14 +7,13 @@ Counterpart of ``mri_super_resolution_tpu/fit/engine.py``: ``fit_simple``
 :func:`fit_ensemble_batched` are ``fit_simple`` and ``fit_ensemble``
 (:116-200) under ``jax.vmap`` (the hybrid fit's four TEs, the 2-D
 ensemble's three directions; one model is D = 1), the batch axis written
-out: one batched K1 call and one
-:class:`~mri_super_resolution_tpu_torch.fit.optim.StackedAdam` step an
-update for every slot. The JAX loops are one
-scanned program; here they are Python loops over eager steps. All but
-``fit_until`` never wait for the device: each step's loss is written into a
-preallocated device tensor, and nothing reads a value back inside a loop.
-``fit_until``'s stopping rule needs each step's loss and max |out| on the
-host, one small copy a step.
+out: one batched value-and-grad call (K1's, or the grid INR's tensor path)
+and one :class:`~mri_super_resolution_tpu_torch.fit.optim.StackedAdam` step
+an update for every slot. The JAX loops are one scanned program; here they
+are Python loops over eager steps. All but ``fit_until`` never wait for the
+device: each step's loss is written into a preallocated device tensor, and
+nothing reads a value back inside a loop. ``fit_until``'s stopping rule
+needs each step's loss and max |out| on the host, one small copy a step.
 
 Parameters are lists of tensors (``Siren.weights()`` order); the optimizers
 of ``fit/optim.py`` hold them and update them in place. ``apply_fn(params,
@@ -91,9 +90,9 @@ def fit_simple(apply_fn: Callable, opt: Adam, coords: torch.Tensor,
     return FitResult(opt.params, opt, losses)
 
 
-def _batched_autodiff(apply_fn: Callable, params: Sequence[torch.Tensor],
-                      coords: torch.Tensor, target: torch.Tensor,
-                      weights: torch.Tensor | None = None):
+def batched_autodiff_value_and_grad(apply_fn: Callable, params: Sequence[torch.Tensor],
+                                    coords: torch.Tensor, target: torch.Tensor,
+                                    weights: torch.Tensor | None = None):
     """``(loss (D,), grads)`` of D stacked models by autograd:
     ``apply_fn(params, coords)`` is (D, P, out), each slot's loss the MSE
     (with ``weights``, the weighted MSE) of its output and ``target[s]``."""
@@ -112,8 +111,10 @@ def fit_simple_batched(opt: StackedAdam, coords: torch.Tensor, targets: torch.Te
     full-batch MSE steps of the stacked params ``opt`` holds, slot s on
     (coords -> ``targets[s]``). ``value_and_grad_fn(params, coords, targets)
     -> (loss (D,), grads)`` is the batched K1
-    (:func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_value_and_grad_batched`).
-    The loss trace is (num_steps, D)."""
+    (:func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_value_and_grad_batched`,
+    the SIREN arm) or the grid INR's batched tensor path
+    (:func:`~mri_super_resolution_tpu_torch.models.grid_inr.make_tensor_value_and_grad_batched`,
+    the grid arm). The loss trace is (num_steps, D)."""
     D = targets.shape[0]
     losses = torch.empty(num_steps, D, dtype=torch.float32, device=coords.device)
     for i in range(num_steps):
@@ -176,8 +177,8 @@ def fit_ensemble_batched(
                 loss, grads = weighted_value_and_grad_fn(opt.params, coords, pixels[a],
                                                          weights[a])
             else:
-                loss, grads = _batched_autodiff(apply_fn, opt.params, coords, pixels[a],
-                                                weights[a])
+                loss, grads = batched_autodiff_value_and_grad(apply_fn, opt.params, coords,
+                                                              pixels[a], weights[a])
             opt.step(grads, valid[:, a])
             total += torch.where(valid_t[:, a], loss, zero)
         losses[step] = total / n_valid

@@ -8,6 +8,10 @@ embedding of the categorical b axis, and a ReLU MLP head
 ``make_tensor_value_and_grad`` :216, ``infer_tensor_grid`` :402,
 ``GridINR2D`` :411). The JAX package wrote no Pallas kernel for it, and
 neither does the port: both paths are plain PyTorch on every device.
+:func:`grid_inr_tensor_apply_batched` and
+:func:`make_tensor_value_and_grad_batched` are the tensor path under
+``jax.vmap`` (the hybrid fit's four per-TE GridINRs, JAX
+``pipelines/hybrid.py:109-137``), the slot axis written out.
 
 Two evaluations of the same function:
 
@@ -45,7 +49,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mri_super_resolution_tpu_torch.fit.engine import autodiff_value_and_grad
+from mri_super_resolution_tpu_torch.core.coords import linspace_from_zero
+from mri_super_resolution_tpu_torch.fit.engine import (
+    autodiff_value_and_grad,
+    batched_autodiff_value_and_grad,
+)
 
 _HEAD = 6  # W0, b0, W1, b1, W2, b2 of the MLP head
 
@@ -104,29 +112,25 @@ def _mlp_head(head: Sequence[torch.Tensor], h: torch.Tensor) -> torch.Tensor:
     return h @ head[4].T + head[5]
 
 
-def _unit_linspace(n: int, device) -> torch.Tensor:
-    """``jnp.linspace(0, 1, n)`` in float32 as XLA computes it, bit for bit:
-    i times the float32 reciprocal of n - 1, the last point exactly 1
-    (``torch.linspace`` and i / (n - 1) round some knots to the other side
-    of ``floor``)."""
-    step = float(np.float32(1.0) / np.float32(max(n - 1, 1)))
-    out = torch.arange(n, dtype=torch.float32, device=device) * step
-    if n > 1:
-        out[-1] = 1.0
-    return out
-
-
 @functools.lru_cache(maxsize=256)
 def _axis_weights(n: int, R: int, device=None) -> torch.Tensor:
     """(n, R) linear-interpolation matrix from R knots to n uniform samples
     of [0, 1], with the gather path's floor/clip convention. A constant of
     (n, R, device), built once: rebuilding the twelve of a 4-level grid
     took about 300 of the 630 eager ops of a fit step."""
-    pos = _unit_linspace(n, device) * (R - 1)
+    pos = linspace_from_zero(1.0, n, device) * (R - 1)
     lo = torch.floor(pos).long().clamp(0, R - 2)
     frac = pos - lo.to(pos.dtype)
     return (F.one_hot(lo, R).to(pos.dtype) * (1.0 - frac)[:, None]
             + F.one_hot(lo + 1, R).to(pos.dtype) * frac[:, None])
+
+
+def _b_slots(nb: int, num_b: int, device) -> torch.Tensor:
+    """The embedding slot of each of the tensor path's nb b samples
+    (``linspace(0, 1, nb)`` snapped to the nearest of num_b slots, half to
+    even as ``jnp.round``)."""
+    pos = torch.round(linspace_from_zero(1.0, nb, device) * (num_b - 1)).long()
+    return pos.clamp(0, num_b - 1)
 
 
 def grid_inr_apply(params: Sequence[torch.Tensor], coords: torch.Tensor) -> torch.Tensor:
@@ -161,8 +165,7 @@ def grid_inr_tensor_apply(params: Sequence[torch.Tensor], shape: Sequence[int]) 
     xyz = torch.cat(feats, dim=-1)  # (nx, ny, nz, L F)
     b_emb = params[L]
     num_b = b_emb.shape[0]
-    b_pos = torch.round(_unit_linspace(nb, dev) * (num_b - 1)).long().clamp(0, num_b - 1)
-    b_feat = b_emb[b_pos]  # (nb, bF)
+    b_feat = b_emb[_b_slots(nb, num_b, dev)]  # (nb, bF)
     lf, bf = xyz.shape[-1], b_feat.shape[-1]
     h = torch.cat([xyz[:, :, :, None, :].expand(nx, ny, nz, nb, lf),
                    b_feat[None, None, None].expand(nx, ny, nz, nb, bf)],
@@ -188,6 +191,107 @@ def make_tensor_value_and_grad(shape: Sequence[int]):
 
     def vag(params, coords, target):
         return autodiff_value_and_grad(apply, params, coords, target)
+
+    return vag
+
+
+# the batched head's weight gradient sums each slot's N rows in this many
+# chunks, once N is at least this many rows a chunk
+_GRAM_CHUNKS, _GRAM_MIN_ROWS = 32, 256
+
+
+def _row_chunked_gram(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """(D, out, in) products g^T h of (D, N, out) and (D, N, in), summed
+    over the N rows in _GRAM_CHUNKS chunks: one batched product over D x
+    chunks, then a sum over the chunks (the last N % _GRAM_CHUNKS rows added
+    after). cuBLAS runs a batched product with a long reduction axis and a
+    small output (64 x 24 over 100,800 rows a slot) on a few thread blocks,
+    without the split of the reduction it gives an unbatched ``mm``: on an
+    H100 the head's three weight gradients took 6.7 of a batched step's 8.5
+    ms of device time that way, and a whole unbatched step 0.8 ms."""
+    D, N, out_f = g.shape
+    rows = N // _GRAM_CHUNKS
+    if rows < _GRAM_MIN_ROWS:
+        return torch.bmm(g.transpose(1, 2), h)
+    head = rows * _GRAM_CHUNKS
+    gc = g[:, :head].reshape(D * _GRAM_CHUNKS, rows, out_f)
+    hc = h[:, :head].reshape(D * _GRAM_CHUNKS, rows, h.shape[-1])
+    out = torch.bmm(gc.transpose(1, 2), hc).reshape(D, _GRAM_CHUNKS, out_f, -1).sum(1)
+    if head < N:
+        out = out + torch.bmm(g[:, head:].transpose(1, 2), h[:, head:])
+    return out
+
+
+class _BatchedLinear(torch.autograd.Function):
+    """``baddbmm(b, h, W^T)`` of D stacked layers (h (D, N, in), W (D, out,
+    in), b (D, out)); the backward's weight gradient through
+    :func:`_row_chunked_gram`."""
+
+    @staticmethod
+    def forward(ctx, h, W, b):
+        ctx.save_for_backward(h, W)
+        return torch.baddbmm(b[:, None], h, W.transpose(1, 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        h, W = ctx.saved_tensors
+        dh = torch.bmm(g, W) if ctx.needs_input_grad[0] else None
+        return dh, _row_chunked_gram(g, h), g.sum(1)
+
+
+def _mlp_head_batched(head: Sequence[torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+    """:func:`_mlp_head` of D stacked heads (each W (D, out, in), b (D, out))
+    on (D, N, in) features, as batched products."""
+    h = torch.relu(_BatchedLinear.apply(h, head[0], head[1]))
+    h = torch.relu(_BatchedLinear.apply(h, head[2], head[3]))
+    return _BatchedLinear.apply(h, head[4], head[5])
+
+
+def grid_inr_tensor_apply_batched(params: Sequence[torch.Tensor],
+                                  shape: Sequence[int]) -> torch.Tensor:
+    """:func:`grid_inr_tensor_apply` of D stacked GridINRs at once (the JAX
+    package's ``jax.vmap`` over the four per-TE fits): each parameter has a
+    leading slot axis D, in :meth:`GridINR.params` order (``grid_l`` (D, R,
+    R, Rz, F), ``b_embedding`` (D, num_b, bF), the head's W (D, out, in) and
+    b (D, out)). Returns (D, prod(shape), out), slot s the unbatched
+    function of slot s's params."""
+    nx, ny, nz, nb = (int(s) for s in shape)
+    L = len(params) - 1 - _HEAD
+    dev = params[0].device
+    D = params[0].shape[0]
+    feats = []
+    for l in range(L):
+        g = params[l]
+        _, Rx, Ry, Rz, _ = g.shape
+        t = torch.einsum("xa,dabcf->dxbcf", _axis_weights(nx, Rx, dev), g)
+        t = torch.einsum("yb,dxbcf->dxycf", _axis_weights(ny, Ry, dev), t)
+        t = torch.einsum("zc,dxycf->dxyzf", _axis_weights(nz, Rz, dev), t)
+        feats.append(t)
+    xyz = torch.cat(feats, dim=-1)  # (D, nx, ny, nz, L F)
+    b_emb = params[L]
+    num_b = b_emb.shape[1]
+    b_feat = b_emb[:, _b_slots(nb, num_b, dev)]  # (D, nb, bF)
+    lf, bf = xyz.shape[-1], b_feat.shape[-1]
+    h = torch.cat([xyz[:, :, :, :, None, :].expand(D, nx, ny, nz, nb, lf),
+                   b_feat[:, None, None, None].expand(D, nx, ny, nz, nb, bf)],
+                  dim=-1).reshape(D, nx * ny * nz * nb, lf + bf)
+    return _mlp_head_batched(params[L + 1:], h)
+
+
+def make_tensor_value_and_grad_batched(shape: Sequence[int]):
+    """``vag(params, coords, targets) -> (loss (D,), grads)`` of D stacked
+    GridINRs for ``fit_simple_batched``: slot s's loss is the MSE of its
+    tensor-path output on ``mgrid(shape)`` against ``targets[s]`` (D, P,
+    1); the grads are autograd's of the sum of the D losses, and since the
+    slots share no parameter each slot's gradient is its own loss's.
+    ``coords`` (which are that grid) is not read."""
+    shape = tuple(int(s) for s in shape)
+
+    def apply(params, coords):
+        return grid_inr_tensor_apply_batched(params, shape)
+
+    def vag(params, coords, targets):
+        return batched_autodiff_value_and_grad(apply, params, coords, targets)
 
     return vag
 

@@ -13,15 +13,18 @@ polyfit ADC; cancer map (v_ep > 0.4) & (v_lu <= 0.2) without objects under
 12 pixels.
 
 ``inr_model="siren"`` (the reference): four FF-SIRENs, one per TE, each with
-its own Adam state. The JAX package vmaps the four fits into one program
-(four K1s in one ``pallas_call`` on the TPU), and so does the port: the four
-SIRENs are stacked, each step is one batched K1
+its own Adam state; ``"grid"``: four :class:`GridINR` models, one per TE.
+The JAX package vmaps the four fits into one program (``_make_fit_stack``
+:109-137; on the TPU four K1s in one ``pallas_call``), and so does the port:
+the four models are stacked, and each epoch is one batched step and one
+:class:`~mri_super_resolution_tpu_torch.fit.optim.StackedAdam` step over
+them (``fit_simple_batched``). The SIREN arm's step is one batched K1
 (``siren_loss_grads_batched``; on a CUDA device one launch of the
-tensor-core kernel over the four TEs) and one
-:class:`~mri_super_resolution_tpu_torch.fit.optim.StackedAdam` step, and
-inference runs K3 (``siren_forward``) per TE; there is no autograd route on
-the card. ``"grid"``: four :class:`GridINR` fits on the tensor path, in
-turn;
+tensor-core kernel over the four TEs), its inference K3 (``siren_forward``)
+per TE, and there is no autograd route on the card; the grid arm's step is
+the tensor path over the stacked grids
+(``models/grid_inr.py:make_tensor_value_and_grad_batched``), its inference
+the tensor path per TE.
 ``"grid_shared"``: one GridINR over all 16 (b, TE) channels as a 16-slot
 embedding (a change beyond the reference, which fits each TE alone). The
 grid arms are plain PyTorch everywhere, and unpadded where the JAX package
@@ -53,6 +56,7 @@ from mri_super_resolution_tpu_torch.models import PIA, GridINR, Siren
 from mri_super_resolution_tpu_torch.models.grid_inr import (
     infer_tensor_grid,
     make_tensor_value_and_grad,
+    make_tensor_value_and_grad_batched,
 )
 from mri_super_resolution_tpu_torch.ops.nlls import hybrid_fit
 from mri_super_resolution_tpu_torch.ops.siren_kernel import make_fused_value_and_grad_batched
@@ -118,6 +122,21 @@ def mean_over_acquisitions(hybrid_raw_all_acq) -> list[list[np.ndarray]]:
             arr = np.asarray(hybrid_raw_all_acq[b][te], dtype=np.float32)
             out[b][te] = arr.mean(-1) if (b and arr.ndim == 4) else arr
     return out
+
+
+def te_targets(normed, cfg: HybridConfig) -> tuple[tuple, np.ndarray]:
+    """The per-TE fits' LR grid ``(sx', sy', S, 4)`` (the ROI at ::2, the
+    four b values) and their (4, P, 1) float32 targets, from the
+    max-normalised volumes of :func:`normalize_hybrid`."""
+    lr_targets = []
+    for te in range(4):
+        vol = np.stack([normed[b][te] for b in range(4)], axis=-1)  # (X, Y, S, 4)
+        lr = vol[cfg.roi_start_x:cfg.roi_end_x:2, cfg.roi_start_y:cfg.roi_end_y:2]
+        lr_targets.append(lr.reshape(-1, 1))
+    sx = cfg.roi_end_x - cfg.roi_start_x
+    sy = cfg.roi_end_y - cfg.roi_start_y
+    lr_shape = (sx // 2 + sx % 2, sy // 2 + sy % 2, normed[0][0].shape[2], 4)
+    return lr_shape, np.stack(lr_targets).astype(np.float32)
 
 
 def _timings(t0, t_prep, t_fit, t_infer, cfg: HybridConfig, lr_voxels: int,
@@ -188,14 +207,8 @@ def fit_all_te(hybrid_raw, cfg: HybridConfig, seed: int = 0,
     S = normed[0][0].shape[2]
     sx = cfg.roi_end_x - cfg.roi_start_x
     sy = cfg.roi_end_y - cfg.roi_start_y
-
-    lr_targets = []
-    for te in range(4):
-        vol = np.stack([normed[b][te] for b in range(4)], axis=-1)  # (X, Y, S, 4)
-        lr = vol[cfg.roi_start_x:cfg.roi_end_x:2, cfg.roi_start_y:cfg.roi_end_y:2]
-        lr_targets.append(lr.reshape(-1, 1))
-    lr_shape = (sx // 2 + sx % 2, sy // 2 + sy % 2, S, 4)
-    targets = torch.as_tensor(np.stack(lr_targets).astype(np.float32), device=dev)
+    lr_shape, lr_targets = te_targets(normed, cfg)
+    targets = torch.as_tensor(lr_targets, device=dev)
     _sync(dev)
     t_prep = time.perf_counter()
 
@@ -214,29 +227,31 @@ def fit_all_te(hybrid_raw, cfg: HybridConfig, seed: int = 0,
         if init is not None:
             model.load_state_dict(init["inr"][te])
         model.requires_grad_(False)
+    # the four TEs' models stacked: one batched step an epoch (the grid
+    # arm's tensor path over stacked grids, the SIREN arm's batched K1)
     if cfg.inr_model == "grid":
-        vag = make_tensor_value_and_grad(lr_shape)
-        losses = torch.stack([_fit(m.params(), cfg.grid_lr, cfg, coords, targets[te], vag)
-                              for te, m in enumerate(models)])
-        weights = None
-    else:  # the four TEs' SIRENs stacked: one batched K1 a step
-        opt = StackedAdam([torch.stack(ws) for ws in zip(*(m.weights() for m in models))],
-                          cfg.lr, restart_every=max(int(cfg.inr_restart_every), 0))
-        losses = fit_simple_batched(opt, fourier_encode(coords, B), targets,
-                                    cfg.number_of_epochs,
-                                    make_fused_value_and_grad_batched(models[0])).losses.T
-        weights = [[p[te] for p in opt.params] for te in range(4)]
+        stacked = zip(*(m.params() for m in models))
+        lr, x = cfg.grid_lr, coords
+        vag = make_tensor_value_and_grad_batched(lr_shape)
+    else:
+        stacked = zip(*(m.weights() for m in models))
+        lr, x = cfg.lr, fourier_encode(coords, B)
+        vag = make_fused_value_and_grad_batched(models[0])
+    opt = StackedAdam([torch.stack(ps) for ps in stacked], lr,
+                      restart_every=max(int(cfg.inr_restart_every), 0))
+    losses = fit_simple_batched(opt, x, targets, cfg.number_of_epochs, vag).losses.T
+    params = [[p[te] for p in opt.params] for te in range(4)]
     _sync(dev)
     t_fit = time.perf_counter()
 
     test_shape = (sx * 2, sy * 2, S, 4)
     recon_hybrid = np.zeros((sx * 2, sy * 2, S, 4, 4), dtype=np.float32)
-    for te, model in enumerate(models):
-        if isinstance(model, GridINR):
-            rec = infer_tensor_grid(model.params(), test_shape, clamp_min=0.0)
+    for te in range(4):
+        if cfg.inr_model == "grid":
+            rec = infer_tensor_grid(params[te], test_shape, clamp_min=0.0)
         else:
-            rec = infer_dense_grid(functools.partial(_kernel_apply, model.omegas),
-                                   weights[te], test_shape, clamp_min=0.0, fourier_B=B)
+            rec = infer_dense_grid(functools.partial(_kernel_apply, models[0].omegas),
+                                   params[te], test_shape, clamp_min=0.0, fourier_B=B)
         rec = rec.reshape(test_shape)
         for b in range(4):
             recon_hybrid[:, :, :, b, te] = rec[:, :, :, b] * maxes[b, te]

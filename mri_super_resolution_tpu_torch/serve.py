@@ -46,7 +46,7 @@ from torch import nn
 
 from mri_super_resolution_tpu_torch import resolve_device, set_float32_precision
 from mri_super_resolution_tpu_torch.core.coords import fourier_encode
-from mri_super_resolution_tpu_torch.models.grid_inr import _HEAD, _mlp_head, _unit_linspace
+from mri_super_resolution_tpu_torch.models.grid_inr import _HEAD, _b_slots, _mlp_head
 
 _MANIFEST_FILE = "manifest.json"
 
@@ -221,8 +221,8 @@ class _GridProgram(nn.Module):
                                       for p in params[L + 1:]])
         num_b = params[L].shape[0]
         # the b axis is static: its nb embedding rows are a constant
-        b_pos = torch.round(_unit_linspace(nb, None) * (num_b - 1)).long().clamp(0, num_b - 1)
-        self.register_buffer("b_feat", params[L].detach()[b_pos.to(params[L].device)].clone())
+        b_pos = _b_slots(nb, num_b, params[L].device)
+        self.register_buffer("b_feat", params[L].detach()[b_pos].clone())
         self.clamp_min = clamp_min
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

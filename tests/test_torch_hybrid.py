@@ -4,15 +4,17 @@ two CLIs against the JAX package's, on the CPU.
 A tiny patient (mono-exponential synthetic hybrid of a 20x20x2 b0, ROI
 2:18, so an 8x8x2x4 LR grid a TE) runs through both ``fit_all_te``s in
 each arm: ``siren`` (FF-SIREN 16 -> 32x2 -> 1, 25 epochs; the port runs
-the plain K1 where the JAX package takes autodiff on the CPU), ``grid``
-(GridINR 2 levels, base 4, F 2, hidden 8; 30 epochs, restarts every 10) and
+the plain batched K1 where the JAX package takes autodiff on the CPU),
+``grid`` (GridINR 2 levels, base 4, F 2, hidden 8; 30 epochs, restarts
+every 10; the four TEs one batched fit in both packages) and
 ``grid_shared`` (the same GridINR over 16 (b, TE) slots; 40 epochs, restarts
 every 20). The port gets the JAX-drawn B and initial params (converted)
 through ``init=``; the JAX loss traces are read from its fit programs.
 
 Measured gaps: loss traces 2.4e-7 relative (siren), 3.6e-7 (grid), 2.4e-7
-(grid_shared); recon_hybrid 3.9e-7 (siren, values up to 0.51), 3.0e-7
-(grid, up to 1.07), 2.4e-7 (grid_shared, up to 1.08). Tolerances: 1e-5
+(grid_shared); recon_hybrid 4.5e-7 (siren, values up to 0.51), 2.4e-7
+(grid, up to 1.07; 3.0e-7 when the port fitted the TEs in turn), 2.4e-7
+(grid_shared, up to 1.08). Tolerances: 1e-5
 relative on the traces, 1e-5 absolute on the recon.
 
 ``tissue_maps`` runs on each arm's JAX-made recon in both packages. With

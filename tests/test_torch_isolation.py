@@ -4,7 +4,8 @@ imports, and short CPU fits of the SIREN and WIRE paths, a tiny MISR run
 training run (K6 and K7 routes, their plain versions), a two-step
 ``fit_ensemble_batched`` and ``fit_until`` (K1's batched weighted and
 absmax variants, their plain versions), the P1 probe's plain version, a two-step GridINR
-fit, a two-epoch hybrid fit in its SIREN and grid arms, a 2-iteration
+fit, the cubic-spline resample ``resize_along_axis``, a two-epoch hybrid
+fit in its SIREN and grid arms (each one batched fit), a 2-iteration
 NLLS ``hybrid_fit`` run, a two-step half-res quality slice
 (``lowres_qual.run_slice``) and a two-step cohort fit
 (``cohort.run_cohort``), in a process where both are blocked, launching
@@ -121,6 +122,9 @@ gi.requires_grad_(False)
 res = fit_simple(None, Adam(gi.params(), 5e-3), mgrid((4, 3, 2, 4)), torch.rand(96, 1, generator=g),
                  2, value_and_grad_fn=make_tensor_value_and_grad((4, 3, 2, 4)))
 assert res.losses.shape == (2,) and bool(torch.isfinite(res.losses).all())
+from mri_super_resolution_tpu_torch.core.interp import resize_along_axis
+up = resize_along_axis(torch.rand(3, 4, 6, generator=g), 10)
+assert up.shape == (3, 4, 10) and bool(torch.isfinite(up).all())
 from mri_super_resolution_tpu_torch.data import synthetic
 from mri_super_resolution_tpu_torch.pipelines import hybrid as hy
 h = hy.mean_over_acquisitions(synthetic.hybrid_from_b0(

@@ -95,7 +95,8 @@ def test_fit_ensemble_matches_jax_with_padded_slots():
 
 def test_fit_directions_matches_jax_unequal_counts():
     """The JAX package's vmapped, padded three-direction fit against the
-    port's independent direction fits from the same initial params."""
+    port's batched one (the three directions stacked, the padded slots
+    masked in the stacked Adam) from the same initial params."""
     rng = np.random.default_rng(1)
     H, W = 8, 10
     counts = (3, 1, 2)

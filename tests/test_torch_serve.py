@@ -8,8 +8,9 @@ Bars, read on the CPU before they were set: served against the live module
 0 for SIREN, WIRE, PIA and the RAMS (the same float32 and bf16 kernels run
 the program and the module), 4.0e-7 for the GridINR against its tensor
 path (the in-graph interpolation matrices read the coordinates, the tensor
-path ``_unit_linspace``); each held at 1e-6 of the largest magnitude, as
-``tests/test_serve.py`` holds 1e-6 and 1e-5, the gather path at 1e-5.
+path ``core.coords.linspace_from_zero``); each held at 1e-6 of the largest
+magnitude, as ``tests/test_serve.py`` holds 1e-6 and 1e-5, the gather path
+at 1e-5.
 Against the JAX artifacts, float32 programs in other orders: 5.0e-7
 (SIREN with B), 1.4e-7 (SIREN), 3.7e-7 (WIRE), 3.1e-7 (GridINR) and
 1.7e-7 (PIA) of the largest magnitude, held at the JAX CLI's ``--check``
