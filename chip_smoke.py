@@ -9,8 +9,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any failure ends the run with a non-zero exit:
 1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``,
-   ``csrc/siren_resident.cu``, ``csrc/siren_stream.cu``, ``csrc/wire.cu``,
-   ``csrc/wire_tc.cu``,
+   ``csrc/siren_wg.cu``, ``csrc/siren_resident.cu``, ``csrc/siren_stream.cu``,
+   ``csrc/wire.cu``, ``csrc/wire_tc.cu``,
    ``csrc/conv3d.cu`` and ``csrc/mma_probe.cu`` with nvcc (sm_90a), one
    process each, started together, and print the times and the compiler's
    register/spill report;
@@ -33,8 +33,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    for the record; the batched K1 (K1 under ``jax.vmap`` in the JAX
    package, one launch over stacked MLPs) on both its kernels, each against
    its plain batched version and against D unbatched kernel calls, twice
-   for the same bits: the tensor-core ``siren_loss_grads_tc_batched`` at the
-   hybrid's four TEs on 100,800 rows and the weight-resident
+   for the same bits: ``csrc/siren_wg.cu``'s ``siren_loss_grads_wg`` (wgmma
+   fed by TMA, the Pallas K1's bf16 stash) at the hybrid's four TEs on
+   100,800 rows, also against the plain version with that stash at
+   K1_WG_STASH_TOL, and the weight-resident
    ``siren_loss_grads_resident_batched`` at the 2-D ensemble's three
    directions on 3,600 rows with one padded (all-zero-weight) slot; and its
    absmax/ReLU variant K1-a on its streaming
@@ -180,7 +182,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    turns, K3 also at the inference chunk; each one's device time by pass
    under ``torch.profiler``, K5 at the inference chunk too; K1-weighted's
    and K1-absmax's two routes in turns and by pass; each batched K1 beside
-   D unbatched calls in turns, and by pass);
+   D unbatched calls in turns, and by pass, the tensor-core one's passes
+   (profiled in a fresh process) beside their product bound and bytes);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
    shape; P1 also at GRID 256, whose time must be about half; the
@@ -226,10 +229,16 @@ PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "siren_tc", "siren_resident", "siren_stream", "wire", "wire_tc", "conv3d",
-           "mma_probe")  # csrc/<name>.cu
+SOURCES = ("siren", "siren_tc", "siren_wg", "siren_resident", "siren_stream", "wire", "wire_tc",
+           "conv3d", "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
+# the batched K1 (csrc/siren_wg.cu) against the plain version with the same
+# bf16 stash: bf16x3 products and another order of sums move z by about
+# 1e-6 relative, enough to flip a few stashed values by one bf16 ulp (2^-8):
+# measured 1.6e-4 of the largest value at the hybrid's shape on an H100;
+# against the float32 plain version and the unbatched K1, K1_K2_TOL
+K1_WG_STASH_TOL = 5e-4
 # K1's tensor-core route (bf16x3 products) held to K1_K2_TOL too; a 20-step
 # Adam fit (lr 1e-4, the mean fit's) from one init, its loss at each step
 # within K1_TRACE_RTOL of the plain K1's (fits are chaotic: compare short
@@ -791,39 +800,52 @@ def _stacked_inputs(P: int, dims, D: int, seed: int):
     return probs[0][0], ws, torch.stack([p[2] for p in probs])
 
 
-def _batched_check(what: str, got, ref, singles, again) -> float:
+def _batched_check(what: str, got, ref, singles, again, stash_ref=None) -> float:
     """Hold a batched K1's (loss (D,), grads) against its plain batched
     version and against D unbatched kernel calls, slot by slot, at
-    K1_K2_TOL, and two calls for the same bits; returns the max abs error
-    against the plain version."""
+    K1_K2_TOL, and two calls for the same bits; with ``stash_ref`` (the plain
+    version with the kernel's own bf16 stash) also against that at
+    K1_WG_STASH_TOL. Returns the max abs error against the kernel's own
+    plain version (``stash_ref`` when given)."""
     import torch
 
     D = got[0].shape[0]
-    worst_ref, worst_one, same = (0.0, 0.0), (0.0, 0.0), True
+    worst_ref, worst_one, worst_stash, same = (0.0, 0.0), (0.0, 0.0), (0.0, 0.0), True
     for s in range(D):
         pairs = [(got[0][s], ref[0][s]), *((a[s], b[s]) for a, b in zip(got[1], ref[1]))]
         worst_ref = max(worst_ref, _worst_rel(pairs))
+        if stash_ref is not None:
+            worst_stash = max(worst_stash, _worst_rel(
+                [(got[0][s], stash_ref[0][s]),
+                 *((a[s], b[s]) for a, b in zip(got[1], stash_ref[1]))]))
         one = [(got[0][s], singles[s][0]), *((a[s], b) for a, b in zip(got[1], singles[s][1]))]
         worst_one = max(worst_one, _worst_rel(one))
         same = same and all(torch.equal(a, b) for a, b in one)
-    print(f"[parity] {what}: against the plain batched version worst over loss/dW/db max abs "
-          f"{worst_ref[0]:.3e}, rel {worst_ref[1]:.3e}; against {D} unbatched kernel calls "
-          f"max abs {worst_one[0]:.3e}, rel {worst_one[1]:.3e} (tol rel {K1_K2_TOL:g}); "
-          f"every slot bit-equal to its unbatched call: {same}")
+    stash = ("" if stash_ref is None else
+             f"against the plain version with its bf16 stash max abs {worst_stash[0]:.3e}, rel "
+             f"{worst_stash[1]:.3e} (tol rel {K1_WG_STASH_TOL:g}); ")
+    print(f"[parity] {what}: {stash}against the plain batched version (float32) worst over "
+          f"loss/dW/db max abs {worst_ref[0]:.3e}, rel {worst_ref[1]:.3e}; against {D} unbatched "
+          f"kernel calls max abs {worst_one[0]:.3e}, rel {worst_one[1]:.3e} (tol rel "
+          f"{K1_K2_TOL:g}); every slot bit-equal to its unbatched call: {same}")
+    if stash_ref is not None:
+        _require(worst_stash[1] <= K1_WG_STASH_TOL,
+                 f"{what} disagrees with its plain batched version with the bf16 stash")
     _require(worst_ref[1] <= K1_K2_TOL, f"{what} disagrees with its plain batched version")
     _require(worst_one[1] <= K1_K2_TOL, f"{what} disagrees with {D} unbatched calls")
     _require(torch.equal(got[0], again[0])
              and all(torch.equal(a, b) for a, b in zip(got[1], again[1])),
              f"two calls of {what} differ")
-    return worst_ref[0]
+    return (worst_ref if stash_ref is None else worst_stash)[0]
 
 
 def phase_k1_batched_parity(P: int, dims) -> dict:
-    """The batched K1 on its tensor-core route at the hybrid fit's shape,
-    D = 4 stacked 256 -> 512x4 -> 1 SIRENs on P = 100,800 rows (one launch
-    of csrc/siren_tc.cu's siren_loss_grads_tc_batched), against its plain
-    batched version and four unbatched tensor-core K1 calls, twice for the
-    same bits; returns its max abs error."""
+    """The batched K1 of the tensor-core class at the hybrid fit's shape,
+    D = 4 stacked 256 -> 512x4 -> 1 SIRENs on P = 100,800 rows (one call of
+    csrc/siren_wg.cu's siren_loss_grads_wg), against its plain batched
+    version with the bf16 stash (K1_WG_STASH_TOL), the float32 one and four
+    unbatched tensor-core K1 calls (K1_K2_TOL), twice for the same bits;
+    returns its max abs error against the bf16-stash plain version."""
     import torch
 
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
@@ -834,14 +856,15 @@ def phase_k1_batched_parity(P: int, dims) -> dict:
     again = sk.siren_loss_grads_batched(x, ws, target)
     singles = [sk.siren_loss_grads(x, [w[s] for w in ws], target[s]) for s in range(HYBRID_TES)]
     torch.cuda.synchronize()
-    _require(sk.LAUNCHES == {**before,
-                             "siren_loss_grads_tc_batched": before["siren_loss_grads_tc_batched"] + 2,
+    key = "siren_loss_grads_wg_batched"
+    _require(sk.LAUNCHES == {**before, key: before[key] + 2,
                              "siren_loss_grads_tc": before["siren_loss_grads_tc"] + HYBRID_TES},
-             "the batched K1 did not take its tensor-core kernel")
+             "the batched K1 did not take its wgmma kernel")
     ref = sk.siren_loss_grads_batched_ref(x, ws, target)
-    err = _batched_check(f"K1 batched x{HYBRID_TES} at the hybrid's P={P}, tensor-core route",
-                            got, ref, singles, again)
-    return {"siren_loss_grads_tc_batched": err}
+    stash_ref = sk.siren_loss_grads_batched_ref(x, ws, target, stash="bf16")
+    err = _batched_check(f"K1 batched x{HYBRID_TES} at the hybrid's P={P}, csrc/siren_wg.cu",
+                         got, ref, singles, again, stash_ref)
+    return {"siren_loss_grads_wg_batched": err}
 
 
 def phase_k1w_batched_parity() -> dict:
@@ -2437,12 +2460,14 @@ def _device_busy(what: str, fn) -> None:
           f"{1 - busy_ms / wall_ms:.3f}")
 
 
-def _passes(what: str, fn, calls: int = 3) -> None:
+def _passes(what: str, fn, calls: int = 3) -> dict:
     """Where a call's device time goes: ``calls`` calls under
     ``torch.profiler``, each kernel's summed time per call, largest first
     (the tensor-core route's forward, chain, dW and dx passes are the
     ``gemm3_kernel`` templates 0, 1, 2 and 3; K4's forward, dW and dh passes
-    the ``wire_gemm_kernel`` templates 0, 2 and 3)."""
+    the ``wire_gemm_kernel`` templates 0, 2 and 3; the batched K1's forward,
+    last forward, chain and dW passes the ``wg_kernel`` templates 0-3).
+    Returns the ms a call by kernel name (empty when nothing was traced)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2460,11 +2485,12 @@ def _passes(what: str, fn, calls: int = 3) -> None:
             per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     if not per_kernel:
         print(f"[profile] {what} passes: no device events traced; not measured")
-        return
+        return per_kernel
     print(f"[profile] {what} passes, ms a call (device total "
           f"{sum(per_kernel.values()):.3f}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_kernel.items(),
                                                          key=lambda kv: -kv[1])))
+    return per_kernel
 
 
 def phase_k7_times(err: float, launches: dict) -> dict:
@@ -2695,7 +2721,7 @@ def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
     t2 = time.perf_counter()
     launches = _all_counts()
     chunks = -(-HYBRID_INFER // INFER_CHUNK)
-    want = {"siren_loss_grads_tc_batched": epochs, "siren_forward_tc": HYBRID_TES * chunks}
+    want = {"siren_loss_grads_wg_batched": epochs, "siren_forward_tc": HYBRID_TES * chunks}
     _check_only(launches, want, "hybrid")
     _require(res.timings["lr_voxels_per_te"] == HYBRID_P, "hybrid LR voxels")
     rh = res.recon_hybrid
@@ -2714,7 +2740,7 @@ def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
           f"{err.round(4).tolist()}; cancer-map fraction {float(maps.cancer.mean()):.4f}")
     # the hybrid's K1 rows, each from its own key: the batched entry, and
     # the unbatched entry at this shape (0, the path is batched)
-    return ({"siren_loss_grads_tc_batched": launches["siren_loss_grads_tc_batched"],
+    return ({"siren_loss_grads_wg_batched": launches["siren_loss_grads_wg_batched"],
              "siren_loss_grads_tc_hybrid": launches["siren_loss_grads_tc"]}, res, maps, gt)
 
 
@@ -3900,17 +3926,63 @@ def _batched_lib(x, ws, target, sw=None, acts=None):
     return lib
 
 
+def _wg_passes(P: int, dims, D: int) -> dict:
+    """csrc/siren_wg.cu's passes at D slots of P rows: for each kernel
+    (``wg_kernel<0>`` FWD, ``<1>`` the last hidden FWD, ``<2>`` CHAIN,
+    ``<3>`` DW, the last layer, the split and the sums) its launches, its
+    tensor-core products (bf16x3 for FWD and CHAIN, two a k step for DW's
+    bf16 stash) and the bytes its design moves: each operand plane read
+    once, each output plane written once (activations hi/lo, the last
+    hidden's hi, F in bf16, deltas hi/lo, dW's float32 partials)."""
+    L = len(dims) - 1
+    out = {}
+
+    def add(name, flops, nbytes):
+        n, f, b = out.get(name, (0, 0, 0))
+        out[name] = (n + 1, f + flops, b + nbytes)
+
+    for l in range(L - 1):
+        din, dout = dims[l], dims[l + 1]
+        a_in = 4 * P * din * (1 if l == 0 else D)  # x's planes are shared
+        if l + 2 < L:
+            add("wg_kernel<0>", 6 * D * P * din * dout, a_in + 6 * D * P * dout)
+        else:
+            add("wg_kernel<1>", 6 * D * P * din * dout, a_in + 4 * D * P * dout
+                + 4 * D * P * dout // 128)
+        add("wg_kernel<3>", 4 * D * P * din * dout,
+            4 * D * P * dout + 2 * P * din * (1 if l == 0 else D) + 4 * D * dout * din)
+        if l > 0:
+            add("wg_kernel<2>", 6 * D * P * din * dout, 4 * D * P * dout + 2 * D * P * din
+                + 4 * D * P * din)
+    W = dims[L - 1]
+    add("last_layer_kernel", 0, 4 * D * P * W + 4 * D * P * W + 4 * D * P * (W // 128 + 1))
+    return out
+
+
+def _k1_wg_work(P: int, dims, D: int) -> tuple[int, int]:
+    """The batched K1's work on csrc/siren_wg.cu at D slots: its tensor-core
+    products (bf16x3 forward and chain, two products for dW with the bf16
+    stash) and its compulsory bytes (x once, each slot's weights, their
+    gradients, targets and losses)."""
+    macs = _layer_macs(dims)
+    fwd, chain = sum(macs), sum(macs[1:])
+    weight_bytes = 4 * sum(dims[l + 1] * (dims[l] + 1) for l in range(len(dims) - 1))
+    return (2 * D * P * (3 * fwd + 3 * chain + 2 * fwd),
+            4 * P * dims[0] + D * (2 * weight_bytes + 4 * P + 4))
+
+
 def phase_k1_batched_time(P: int, dims, errs: dict, launches: dict) -> dict:
-    """The batched K1 on its tensor-core route at the hybrid fit's shape (D
-    = 4 on P = 100,800 rows) beside its plain batched version and eager
-    autograd over ``torch.bmm``; then the batched call and four unbatched
-    tensor-core K1 calls in turns, and the batched call by pass."""
+    """The batched K1 of the tensor-core class (csrc/siren_wg.cu) at the
+    hybrid fit's shape (D = 4 on P = 100,800 rows) beside its plain batched
+    version with the bf16 stash and eager autograd over ``torch.bmm``; then
+    the batched call and four unbatched tensor-core K1 calls in turns, and
+    the batched call by pass beside each pass's product bound and bytes."""
     import torch
 
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
     x, ws, target = _stacked_inputs(P, dims, HYBRID_TES, seed=62)
-    flops, nbytes = _k1_work(P, dims, [w[0] for w in ws])
+    flops, nbytes = _k1_wg_work(P, dims, HYBRID_TES)
     batched = lambda: sk.siren_loss_grads_batched(x, ws, target)
     singles = [([w[s].contiguous() for w in ws], target[s].contiguous())
                for s in range(HYBRID_TES)]
@@ -3919,11 +3991,9 @@ def phase_k1_batched_time(P: int, dims, errs: dict, launches: dict) -> dict:
         for w1, t1 in singles:
             sk.siren_loss_grads(x, w1, t1)
 
-    # the bound: four slots' bf16x3 products at the bf16 peak, x read once
-    row = _time_row("siren_loss_grads_tc_batched", "siren_tc", "siren_kernel.py:518", batched,
-                    lambda: sk.siren_loss_grads_batched_ref(x, ws, target),
-                    _batched_lib(x, ws, target), HYBRID_TES * flops,
-                    HYBRID_TES * nbytes - (HYBRID_TES - 1) * 4 * x.numel(),
+    row = _time_row("siren_loss_grads_wg_batched", "siren_wg", "siren_kernel.py:518", batched,
+                    lambda: sk.siren_loss_grads_batched_ref(x, ws, target, stash="bf16"),
+                    _batched_lib(x, ws, target), flops, nbytes,
                     f"P={P}, D={HYBRID_TES} (hybrid)", errs, launches, peak=PEAK_BF16_TC,
                     reps=5)
     b_ms, t_ms = _best_alternating(batched, in_turn, 5, 2)
@@ -3931,10 +4001,49 @@ def phase_k1_batched_time(P: int, dims, errs: dict, launches: dict) -> dict:
           f"unbatched calls in turn (CUDA events, best of 2): batched {b_ms:.3f} ms, in turn "
           f"{t_ms:.3f} ms ({t_ms / HYBRID_TES:.3f} ms a call); batched / in turn "
           f"{b_ms / t_ms:.3f}")
-    _passes(f"K1 batched x{HYBRID_TES} (tensor-core)", batched, calls=2)
     del x, ws, target, singles
     torch.cuda.empty_cache()
+    per = _fresh_passes(P, dims, HYBRID_TES)
+    for name, (n, f, b) in _wg_passes(P, dims, HYBRID_TES).items():
+        ms = per.get(name)
+        t_ops, t_bytes = f / PEAK_BF16_TC * 1e3, b / PEAK_BYTES * 1e3
+        print(f"[passes] K1 batched x{HYBRID_TES} {name} ({n} launches): "
+              + ("not measured" if ms is None else f"{ms:.3f} ms a call")
+              + f"; product bound {t_ops:.3f} ms ({f / 1e12:.3f} TFLOP), bytes {b / 1e9:.3f} GB "
+              f"({t_bytes:.3f} ms at 3.35 TB/s)"
+              + ("" if ms is None else f"; ms / larger bound {ms / max(t_ops, t_bytes):.2f}"))
     return row
+
+
+FRESH_PASSES = """
+import json, sys
+import chip_smoke as cs
+from mri_super_resolution_tpu_torch import set_float32_precision
+from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+set_float32_precision()
+P, dims, D = int(sys.argv[1]), tuple(json.loads(sys.argv[2])), int(sys.argv[3])
+x, ws, target = cs._stacked_inputs(P, dims, D, seed=62)
+per = cs._passes(f"K1 batched x{D} (csrc/siren_wg.cu, a fresh process)",
+                 lambda: sk.siren_loss_grads_batched(x, ws, target), calls=2)
+print(json.dumps(per))
+"""
+
+
+def _fresh_passes(P: int, dims, D: int) -> dict:
+    """The batched K1's passes under ``torch.profiler`` in a process of its
+    own: late in this script the profiler drops device events (K1's passes
+    sum to less than its call, K5's to none), which a fresh process does
+    not. Returns the ms a call by kernel name."""
+    import subprocess
+
+    p = subprocess.run([sys.executable, "-c", FRESH_PASSES, str(P), json.dumps(list(dims)),
+                        str(D)], cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL)
+    lines = p.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    _require(p.returncode == 0 and lines, f"the fresh per-pass profile failed: {p.stderr[-2000:]}")
+    return json.loads(lines[-1])
 
 
 def phase_k1w_batched_time(errs: dict, launches: dict) -> dict:

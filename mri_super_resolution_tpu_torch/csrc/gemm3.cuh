@@ -12,10 +12,9 @@
 // length lda / ldb, read with ldmatrix; row-contiguous ones are (K, cols)
 // arrays, read with ldmatrix.trans. Rows of A past M and depth past this
 // block's range read as zeros. Grid: x = column tile, y = row tile, z =
-// split of the depth (k_split a multiple of TK; siren_tc.cu's batched K1
-// folds a slot index into z and hands gemm3_products the split alone).
-// Shared rows are padded by 16 bytes, so the eight rows of an ldmatrix
-// matrix fall in distinct banks.
+// split of the depth (k_split a multiple of TK), handed to gemm3_products
+// as kz. Shared rows are padded by 16 bytes, so the eight rows of an
+// ldmatrix matrix fall in distinct banks.
 
 #pragma once
 

@@ -12,19 +12,8 @@
 // ops/siren_kernel.py chooses this route from the shapes alone: sine on
 // every hidden layer, a linear last layer of one output, no sample weights,
 // no max |out| (K1), and the input and every hidden width a multiple of
-// 128. csrc/siren.cu's SIMT kernels keep every other call.
-//
-// K1 also comes batched (siren_loss_grads_tc_batched): jax.vmap over the
-// Pallas siren_loss_grads adds a batch axis to its grid, so that one launch
-// trains D stacked MLPs (the hybrid tissue fit's four per-TE SIRENs,
-// pipelines/hybrid.py:108-137 of the JAX package). Here the slot index rides
-// in grid z beside the split of dW (z = slot x splits + split): every
-// hidden-layer pass of the D slots is one launch. x is split into its planes
-// once and shared; each slot has its own weights' planes, activations, F,
-// deltas and dW partials, one slot's workspace after the other; the last
-// layer, the column sums and the split sums (a few microseconds each) run
-// once a slot. A slot repeats the unbatched call's arithmetic in its order,
-// so its numbers are that call's, bit for bit.
+// 128. csrc/siren.cu's SIMT kernels keep every other call; K1 under
+// jax.vmap (stacked MLPs on one x) is csrc/siren_wg.cu's.
 //
 // Numerics. The TPU kernel's float32 dots run on the MXU as multi-pass
 // bf16; the counterpart here is the bf16x3 split on the tensor cores. Each
@@ -72,9 +61,7 @@
 //         read row-contiguous (ldmatrix.trans); epilogue the split's
 //         float32 partial, summed by reduce_splits_kernel in a fixed order.
 // The last layer (D -> 1), the loss, dW and db of the last layer and the
-// split reductions are common.cuh's kernels. Batched over D slots at the
-// hybrid's P = 100,800 a call holds D x 2.07 GB of workspace (8.3 GB at D =
-// 4: activations, F and deltas of 256 -> 512x4 -> 1) besides x's 103 MB.
+// split reductions are common.cuh's kernels.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsiren_tc.so siren_tc.cu   (see ops/_build.py)
@@ -98,52 +85,32 @@ struct PassOut {
   long long split_stride;  // DW: floats between the splits' partials
 };
 
-// Elements between one slot's operands and outputs and the next's in a
-// batched pass (0: shared by every slot): A's and B's planes, the output
-// planes, the float32 outputs and F (the slot's workspace), the bias.
-struct SlotStride {
-  long long a, b, out_h, out_f, bias;
-};
-
 // C (M x N) = sum over k of Aop[m, k] Bop[k, n] in bf16x3 (see the modes
 // above): FWD's A and B and CHAIN's and DX's A depth-contiguous, CHAIN's and
-// DX's B and DW's A and B row-contiguous (gemm3.cuh). Grid z is slot x
-// splits + split: a batched call runs every slot's pass in one launch, each
-// slot's operands and outputs ss further on than the last's.
+// DX's B and DW's A and B row-contiguous (gemm3.cuh).
 template <int MODE>
 __global__ void __launch_bounds__(TC_NT, 2) gemm3_kernel(Planes A, int lda, Planes B, int ldb,
                                                          int M, int N, int K, int k_split,
-                                                         int splits, SlotStride ss, PassOut epi) {
+                                                         PassOut epi) {
 #ifdef __CUDACC__
   extern __shared__ __align__(16) uint16_t smem3[];
 #else
   alignas(16) __shared__ uint16_t smem3[TC_SMEM / 2];
   emu_poison_shared(smem3, sizeof smem3);
 #endif
-  const long long slot = blockIdx.z / splits;
-  const int kz = blockIdx.z - (int)slot * splits;
-  A.hi += slot * ss.a;
-  A.lo += slot * ss.a;
-  B.hi += slot * ss.b;
-  B.lo += slot * ss.b;
   float acc[4][4][4];
-  gemm3_products<MODE != MODE_DW, MODE == MODE_FWD>(A, lda, B, ldb, M, N, K, k_split, kz, smem3,
-                                                    acc);
+  gemm3_products<MODE != MODE_DW, MODE == MODE_FWD>(A, lda, B, ldb, M, N, K, k_split,
+                                                    blockIdx.z, smem3, acc);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m0 = blockIdx.y * TC_TILE;
   const int n0 = blockIdx.x * TC_TILE;
   const int wm = (warp >> 2) * 64;
   const int wn = (warp & 3) * 32;
-  const float* bias = MODE == MODE_FWD ? epi.bias + slot * ss.bias : nullptr;
-  uint16_t* out_hi = epi.out_hi != nullptr ? epi.out_hi + slot * ss.out_h : nullptr;
-  uint16_t* out_lo = epi.out_lo != nullptr ? epi.out_lo + slot * ss.out_h : nullptr;
-  float* out_f32 = epi.out_f32 != nullptr ? epi.out_f32 + slot * ss.out_f : nullptr;
-  float* F = epi.F != nullptr ? epi.F + slot * ss.out_f : nullptr;
 
   // acc[i][j][2 h + e] is row wm + 16 i + lane / 4 + 8 h, column wn + 8 j +
   // 2 (lane % 4) + e of the tile
-  float* part = MODE == MODE_DW ? out_f32 + kz * epi.split_stride : nullptr;
+  float* part = MODE == MODE_DW ? epi.out_f32 + blockIdx.z * epi.split_stride : nullptr;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -157,22 +124,22 @@ __global__ void __launch_bounds__(TC_NT, 2) gemm3_kernel(Planes A, int lda, Plan
         float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if (MODE == MODE_FWD) {
           float s0, c0, s1, c1;
-          sincosf(epi.omega * (v0 + bias[col]), &s0, &c0);
-          sincosf(epi.omega * (v1 + bias[col + 1]), &s1, &c1);
-          if (out_hi != nullptr) store_planes(out_hi, out_lo, off, s0, s1);
-          if (out_f32 != nullptr) {
-            out_f32[off] = s0;
-            out_f32[off + 1] = s1;
+          sincosf(epi.omega * (v0 + epi.bias[col]), &s0, &c0);
+          sincosf(epi.omega * (v1 + epi.bias[col + 1]), &s1, &c1);
+          if (epi.out_hi != nullptr) store_planes(epi.out_hi, epi.out_lo, off, s0, s1);
+          if (epi.out_f32 != nullptr) {
+            epi.out_f32[off] = s0;
+            epi.out_f32[off + 1] = s1;
           }
-          if (F != nullptr) {
-            F[off] = epi.omega * c0;
-            F[off + 1] = epi.omega * c1;
+          if (epi.F != nullptr) {
+            epi.F[off] = epi.omega * c0;
+            epi.F[off + 1] = epi.omega * c1;
           }
         } else if (MODE == MODE_CHAIN) {
-          store_planes(out_hi, out_lo, off, v0 * F[off], v1 * F[off + 1]);
+          store_planes(epi.out_hi, epi.out_lo, off, v0 * epi.F[off], v1 * epi.F[off + 1]);
         } else if (MODE == MODE_DX) {
-          out_f32[off] = v0;
-          out_f32[off + 1] = v1;
+          epi.out_f32[off] = v0;
+          epi.out_f32[off + 1] = v1;
         } else {
           part[off] = v0;
           part[off + 1] = v1;
@@ -206,19 +173,17 @@ __global__ void outer_mul_split_kernel(const float* __restrict__ d, const float*
   }
 }
 
-// One pass over D slots (grid z: D x splits), each slot's operands and
-// outputs ss further on than the last's (D = 1: one unbatched pass).
 template <int MODE>
 int gemm3(Planes A, int lda, Planes B, int ldb, int M, int N, int K, int splits, int k_split,
-          const PassOut& epi, cudaStream_t stream, int D = 1, SlotStride ss = {}) {
-  const dim3 grid(N / TC_TILE, cdiv(M, TC_TILE), D * splits);
+          const PassOut& epi, cudaStream_t stream) {
+  const dim3 grid(N / TC_TILE, cdiv(M, TC_TILE), splits);
 #ifdef __CUDACC__
   const cudaError_t e = cudaFuncSetAttribute(
       gemm3_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
   if (e != cudaSuccess) return (int)e;
 #endif
   LAUNCH_SMEM(gemm3_kernel<MODE>, grid, TC_NT, TC_SMEM, stream)(A, lda, B, ldb, M, N, K,
-                                                                k_split, splits, ss, epi);
+                                                                k_split, epi);
   CHECK_LAUNCH();
   return 0;
 }
@@ -238,11 +203,9 @@ enum Plan {
   PLAN_BWD_DX,      // K2, dx only: F and both deltas; activations ping-pong in the deltas
 };
 
-// The workspace of a call: x's planes, shared by every slot, then D slots
-// of the same pieces, each slot_bytes after the last (an unbatched call is
-// one slot); every piece 256-byte aligned.
+// The workspace of one call, carved in order; every piece 256-byte aligned.
 struct Work {
-  Planes x;                        // (P, d_0), shared by the slots
+  Planes x;                        // (P, d_0)
   std::vector<Planes> w;           // W_l (d_{l+1}, d_l), l < L - 1
   std::vector<Planes> act;         // a_{l+1} (P, d_{l+1}), l < L - 2
   float* a_last = nullptr;         // a_{L-1} (P, d_{L-1}), float32 (null: K2, dx only)
@@ -250,16 +213,14 @@ struct Work {
   Planes delta[2] = {};            // (P, widest hidden)
   float* delta_last = nullptr;     // (P): K1 (K2 with dW leaves it unused)
   float* partial = nullptr;        // K1, K2 with dW
-  long long x_bytes = 0;           // x's planes
-  long long slot_bytes = 0;        // one slot's pieces
+  long long bytes = 0;
 };
 
-// One slot's pieces from slot_base (null: the sizes alone).
-Work carve_slot(char* slot_base, int P, const int* dims, int L, Plan plan) {
+Work carve(char* base, int P, const int* dims, int L, Plan plan) {
   Work w;
   long long at = 0;
   auto take = [&](long long bytes) {
-    char* p = slot_base ? slot_base + at : nullptr;
+    char* p = base ? base + at : nullptr;
     at += (bytes + 255) / 256 * 256;
     return p;
   };
@@ -271,6 +232,7 @@ Work carve_slot(char* slot_base, int P, const int* dims, int L, Plan plan) {
   int width = 0;
   long long part = 2 * ROWDOT_MAX_BLOCKS;
   for (int l = 1; l < L; ++l) width = dims[l] > width ? dims[l] : width;
+  w.x = planes((long long)P * dims[0]);
   for (int l = 0; l + 1 < L; ++l) {
     w.w.push_back(planes((long long)dims[l + 1] * dims[l]));
     if (keep && l + 2 < L) w.act.push_back(planes((long long)P * dims[l + 1]));
@@ -300,19 +262,7 @@ Work carve_slot(char* slot_base, int P, const int* dims, int L, Plan plan) {
   }
   if (plan == PLAN_LOSS_GRADS) w.delta_last = reinterpret_cast<float*>(take(4LL * P));
   if (keep) w.partial = reinterpret_cast<float*>(take(4 * part));
-  w.slot_bytes = at;
-  return w;
-}
-
-// Slot s's pieces of the workspace at base (null: the sizes alone), with
-// x's shared planes.
-Work carve(char* base, int P, const int* dims, int L, Plan plan, int s = 0) {
-  const long long x_bytes = (4LL * P * dims[0] + 255) / 256 * 256;
-  const long long slot_bytes = carve_slot(nullptr, P, dims, L, plan).slot_bytes;
-  Work w = carve_slot(base ? base + x_bytes + s * slot_bytes : nullptr, P, dims, L, plan);
-  uint16_t* xp = reinterpret_cast<uint16_t*>(base);
-  w.x = Planes{xp, xp ? xp + (long long)P * dims[0] : nullptr};
-  w.x_bytes = x_bytes;
+  w.bytes = at;
   return w;
 }
 
@@ -336,117 +286,68 @@ int colsum_planes_reduced(Planes X, int P, int N, float* out, float* partial,
   return 0;
 }
 
-// What a call reads and writes, over D slots (D = 1: unbatched). Slot s's
-// W_l and b_l are W[l] + s w_slot[l] and b[l] + s b_slot[l], its dW_l and
-// db_l dW[l] + s g_slot and db[l] + s g_slot, its target target + s P and
-// its loss loss[s].
-struct Call {
-  const float* x;
-  int P, n_rows, L, D;
-  const int* dims;
-  const float* const* W;
-  const float* const* b;
-  const long long* w_slot;  // null: 0 (D = 1)
-  const long long* b_slot;
-  const float* omegas;
-  float* const* dW;
-  float* const* db;
-  long long g_slot;
-  char* work;
-  Plan plan;
-
-  long long ws(int l) const { return w_slot ? w_slot[l] : 0; }
-  long long bs(int l) const { return b_slot ? b_slot[l] : 0; }
-  Work slot(int s) const { return carve(work, P, dims, L, plan, s); }
-};
-
-// hi/lo planes of x once a call and of every slot's hidden-layer W
-int split_operands(const Call& c, cudaStream_t stream) {
-  const Work w0 = c.slot(0);
-  int rc = split(c.x, (long long)c.P * c.dims[0], w0.x, stream);
-  for (int s = 0; !rc && s < c.D; ++s) {
-    const Work w = c.slot(s);
-    for (int l = 0; !rc && l + 1 < c.L; ++l)
-      rc = split(c.W[l] + s * c.ws(l), (long long)c.dims[l + 1] * c.dims[l], w.w[l], stream);
-  }
+// hi/lo planes of x and of every hidden layer's W, once a call
+int split_operands(const Work& w, const float* x, int P, const int* dims, int L,
+                   const float* const* W, cudaStream_t stream) {
+  int rc = split(x, (long long)P * dims[0], w.x, stream);
+  for (int l = 0; !rc && l + 1 < L; ++l)
+    rc = split(W[l], (long long)dims[l + 1] * dims[l], w.w[l], stream);
   return rc;
 }
 
-// Elements between two slots' workspace pieces: planes (halves) and floats.
-SlotStride work_stride(const Work& w) {
-  SlotStride ss{};
-  ss.a = ss.b = ss.out_h = w.slot_bytes / 2;
-  ss.out_f = w.slot_bytes / 4;
-  return ss;
-}
-
-// The FWD passes through the hidden layers, every slot's in one launch a
-// layer: layer l reads x or act[l - 1] and writes act[l] as planes or, the
-// last hidden layer, a_last in float32 (nothing when a_last is null), and
-// F[l] when the plan keeps F.
-int forward_passes(const Call& c, cudaStream_t stream) {
-  const Work w = c.slot(0);
-  const int* dims = c.dims;
-  for (int l = 0; l + 1 < c.L; ++l) {
+// The FWD passes through the hidden layers: layer l reads x or act[l - 1]
+// and writes act[l] as planes or, the last hidden layer, a_last in float32
+// (nothing when a_last is null), and F[l] when the plan keeps F.
+int forward_passes(const Work& w, int P, const int* dims, int L, const float* const* b,
+                   const float* omegas, cudaStream_t stream) {
+  for (int l = 0; l + 1 < L; ++l) {
     PassOut e{};
-    e.bias = c.b[l];
-    e.omega = c.omegas[l];
-    if (l + 2 < c.L) {
+    e.bias = b[l];
+    e.omega = omegas[l];
+    if (l + 2 < L) {
       e.out_hi = const_cast<uint16_t*>(w.act[l].hi);
       e.out_lo = const_cast<uint16_t*>(w.act[l].lo);
     } else {
       e.out_f32 = w.a_last;
     }
     e.F = w.F.empty() ? nullptr : w.F[l];
-    SlotStride ss = work_stride(w);
-    if (l == 0) ss.a = 0;  // x is shared
-    ss.bias = c.bs(l);
-    const int rc = gemm3<MODE_FWD>(l == 0 ? w.x : w.act[l - 1], dims[l], w.w[l], dims[l], c.P,
-                                   dims[l + 1], dims[l], 1, dims[l], e, stream, c.D, ss);
+    const int rc = gemm3<MODE_FWD>(l == 0 ? w.x : w.act[l - 1], dims[l], w.w[l], dims[l], P,
+                                   dims[l + 1], dims[l], 1, dims[l], e, stream);
     if (rc) return rc;
   }
   return 0;
 }
 
-// The passes below the D -> 1 layer, from delta_{L-2} in each slot's
-// delta[0]: for each hidden layer l from L - 2 down, with dW (dW != null)
-// every slot's DW pass in one launch, then each slot's split sum and db's
-// column sums; then every slot's CHAIN pass to delta_{l-1} in one launch or,
-// at l = 0 and with dx (D = 1 alone), the DX pass.
-int backward_passes(const Call& c, float* dx, cudaStream_t stream) {
-  const Work w = c.slot(0);
-  const SlotStride ss = work_stride(w);
-  const int P = c.P;
+// The passes below the D -> 1 layer, from delta_{L-2} in w.delta[0]: for
+// each hidden layer l from L - 2 down, with dW (dW != null) its DW pass,
+// split sum and db's column sums; then the CHAIN pass to delta_{l-1} or, at
+// l = 0 and with dx, the DX pass.
+int backward_passes(const Work& w, int P, const int* dims, int L, float* const* dW,
+                    float* const* db, float* dx, cudaStream_t stream) {
   int cur = 0, rc = 0;
-  for (int l = c.L - 2; l >= 0; --l) {
-    const int din = c.dims[l], dout = c.dims[l + 1];
-    if (c.dW != nullptr) {
+  for (int l = L - 2; l >= 0; --l) {
+    const int din = dims[l], dout = dims[l + 1];
+    if (dW != nullptr) {
       const SplitPlan sp = dw_plan(dout, din, P);
       PassOut e{};
       e.out_f32 = w.partial;
       e.split_stride = (long long)dout * din;
-      SlotStride sd = ss;
-      if (l == 0) sd.b = 0;  // x is shared
       rc = gemm3<MODE_DW>(w.delta[cur], dout, l == 0 ? w.x : w.act[l - 1], din, dout, din, P,
-                          sp.splits, sp.k_split, e, stream, c.D, sd);
+                          sp.splits, sp.k_split, e, stream);
       if (rc) return rc;
-      for (int s = 0; s < c.D; ++s) {
-        const Work ws = c.slot(s);
-        LAUNCH(reduce_splits_kernel, cdiv((long long)dout * din, 256), 256, stream)(
-            ws.partial, sp.splits, (long long)dout * din, 1.f, c.dW[l] + s * c.g_slot);
-        CHECK_LAUNCH();
-        rc = colsum_planes_reduced(ws.delta[cur], P, dout, c.db[l] + s * c.g_slot, ws.partial,
-                                   stream);
-        if (rc) return rc;
-      }
+      LAUNCH(reduce_splits_kernel, cdiv((long long)dout * din, 256), 256, stream)(
+          w.partial, sp.splits, (long long)dout * din, 1.f, dW[l]);
+      CHECK_LAUNCH();
+      rc = colsum_planes_reduced(w.delta[cur], P, dout, db[l], w.partial, stream);
+      if (rc) return rc;
     }
     if (l > 0) {
-      PassOut o{};
-      o.out_hi = const_cast<uint16_t*>(w.delta[1 - cur].hi);
-      o.out_lo = const_cast<uint16_t*>(w.delta[1 - cur].lo);
-      o.F = w.F[l - 1];
-      rc = gemm3<MODE_CHAIN>(w.delta[cur], dout, w.w[l], din, P, din, dout, 1, dout, o, stream,
-                             c.D, ss);
+      PassOut c{};
+      c.out_hi = const_cast<uint16_t*>(w.delta[1 - cur].hi);
+      c.out_lo = const_cast<uint16_t*>(w.delta[1 - cur].lo);
+      c.F = w.F[l - 1];
+      rc = gemm3<MODE_CHAIN>(w.delta[cur], dout, w.w[l], din, P, din, dout, 1, dout, c,
+                             stream);
       if (rc) return rc;
       cur = 1 - cur;
     } else if (dx != nullptr) {
@@ -459,64 +360,9 @@ int backward_passes(const Call& c, float* dx, cudaStream_t stream) {
   return 0;
 }
 
-long long workspace_bytes(int P, const int* dims, int n_layers, Plan plan, int D = 1) {
-  if (!supported(dims, n_layers) || P < 1 || D < 1) return -1;
-  const Work w = carve(nullptr, P, dims, n_layers, plan);
-  return w.x_bytes + D * w.slot_bytes;
-}
-
-// K1 over D slots: every slot's loss and dW/db (see siren_loss_grads_tc and
-// siren_loss_grads_tc_batched).
-int loss_grads(const Call& c, const float* target, float inv_n, float* loss,
-               cudaStream_t stream) {
-  int rc = split_operands(c, stream);
-  if (!rc) rc = forward_passes(c, stream);
-  if (rc) return rc;
-
-  // each slot's last layer, loss, and its dW (float32 column sums weighted
-  // by delta) and db
-  const int L = c.L, P = c.P;
-  const int D = c.dims[L - 1];
-  const int blocks = rowdot_blocks(P);
-  const auto rowdot = rowdot_act_kernel<ROW_LOSS, false, false, false>;
-  for (int s = 0; s < c.D; ++s) {
-    const Work w = c.slot(s);
-    const float* w_last = c.W[L - 1] + s * c.ws(L - 1);
-    LAUNCH(rowdot, blocks, ROWDOT_WARPS * 32, stream)(
-        w.a_last, P, D, w_last, c.b[L - 1] + s * c.bs(L - 1), w.delta_last,
-        target + (long long)s * P, c.n_rows, 2.f * inv_n, w.partial, nullptr, nullptr);
-    CHECK_LAUNCH();
-    LAUNCH(sum_kernel, 1, 1024, stream)(w.partial, (long long)blocks, inv_n, loss + s);
-    CHECK_LAUNCH();
-    rc = colsum_reduced(w.a_last, P, D, w.delta_last, c.dW[L - 1] + s * c.g_slot, w.partial,
-                        stream);
-    if (rc) return rc;
-    LAUNCH(sum_kernel, 1, 1024, stream)(w.delta_last, (long long)P, 1.f,
-                                        c.db[L - 1] + s * c.g_slot);
-    CHECK_LAUNCH();
-    LAUNCH(outer_mul_split_kernel, EW_MAX_BLOCKS, EW_THREADS, stream)(
-        w.delta_last, w_last, w.F[L - 2], P, D, const_cast<uint16_t*>(w.delta[0].hi),
-        const_cast<uint16_t*>(w.delta[0].lo));
-    CHECK_LAUNCH();
-  }
-  return backward_passes(c, nullptr, stream);
-}
-
-Call unbatched(const float* x, int P, const int* dims, int L, const float* const* W,
-               const float* const* b, const float* omegas, void* work, Plan plan) {
-  Call c{};
-  c.x = x;
-  c.P = P;
-  c.n_rows = P;
-  c.L = L;
-  c.D = 1;
-  c.dims = dims;
-  c.W = W;
-  c.b = b;
-  c.omegas = omegas;
-  c.work = static_cast<char*>(work);
-  c.plan = plan;
-  return c;
+long long workspace_bytes(int P, const int* dims, int n_layers, Plan plan) {
+  if (!supported(dims, n_layers) || P < 1) return -1;
+  return carve(nullptr, P, dims, n_layers, plan).bytes;
 }
 
 }  // namespace
@@ -538,45 +384,31 @@ int siren_loss_grads_tc(const float* x, int P, int n_rows, const int* dims, int 
                         const float* target, float inv_n, void* work, float* const* dW,
                         float* const* db, float* loss, cudaStream_t stream) {
   if (!supported(dims, n_layers) || P < 1) return -1;
-  Call c = unbatched(x, P, dims, n_layers, W, b, omegas, work, PLAN_LOSS_GRADS);
-  c.n_rows = n_rows;
-  c.dW = dW;
-  c.db = db;
-  return loss_grads(c, target, inv_n, loss, stream);
-}
+  const int L = n_layers;
+  const Work w = carve(static_cast<char*>(work), P, dims, L, PLAN_LOSS_GRADS);
+  int rc = split_operands(w, x, P, dims, L, W, stream);
+  if (!rc) rc = forward_passes(w, P, dims, L, b, omegas, stream);
+  if (rc) return rc;
 
-// Bytes of workspace siren_loss_grads_tc_batched needs for D slots: x's
-// planes once and D slots of siren_loss_grads_tc's other pieces (-1 as
-// above).
-long long siren_tc_batched_workspace_bytes(int P, const int* dims, int n_layers, int D) {
-  return workspace_bytes(P, dims, n_layers, PLAN_LOSS_GRADS, D);
-}
-
-// K1 on the tensor cores over D stacked MLPs that share x (P, d_0), the
-// counterpart of jax.vmap over siren_loss_grads: slot s's weights are W[l] +
-// s w_slot[l] and b[l] + s b_slot[l] (floats), its target target + s P (the
-// targets (D, P, 1)), and it writes loss[s] and dW[l] + s g_slot, db[l] + s
-// g_slot. Every hidden-layer pass runs the D slots in one launch (grid z:
-// slot x split); the last layer, the column sums and the split sums run once
-// a slot. A slot's numbers are those of siren_loss_grads_tc on its inputs,
-// bit for bit. work: siren_tc_batched_workspace_bytes bytes.
-int siren_loss_grads_tc_batched(const float* x, int P, int n_rows, const int* dims,
-                                int n_layers, int D, const float* const* W,
-                                const float* const* b, const long long* w_slot,
-                                const long long* b_slot, const float* omegas,
-                                const float* target, float inv_n, void* work, float* const* dW,
-                                float* const* db, long long g_slot, float* loss,
-                                cudaStream_t stream) {
-  if (!supported(dims, n_layers) || P < 1 || D < 1 || D > 65535) return -1;
-  Call c = unbatched(x, P, dims, n_layers, W, b, omegas, work, PLAN_LOSS_GRADS);
-  c.n_rows = n_rows;
-  c.D = D;
-  c.w_slot = w_slot;
-  c.b_slot = b_slot;
-  c.dW = dW;
-  c.db = db;
-  c.g_slot = g_slot;
-  return loss_grads(c, target, inv_n, loss, stream);
+  // last layer, loss, and its dW (float32 column sums weighted by delta) and db
+  const int D = dims[L - 1];
+  const int blocks = rowdot_blocks(P);
+  const auto rowdot = rowdot_act_kernel<ROW_LOSS, false, false, false>;
+  LAUNCH(rowdot, blocks, ROWDOT_WARPS * 32, stream)(
+      w.a_last, P, D, W[L - 1], b[L - 1], w.delta_last, target, n_rows, 2.f * inv_n, w.partial,
+      nullptr, nullptr);
+  CHECK_LAUNCH();
+  LAUNCH(sum_kernel, 1, 1024, stream)(w.partial, (long long)blocks, inv_n, loss);
+  CHECK_LAUNCH();
+  rc = colsum_reduced(w.a_last, P, D, w.delta_last, dW[L - 1], w.partial, stream);
+  if (rc) return rc;
+  LAUNCH(sum_kernel, 1, 1024, stream)(w.delta_last, (long long)P, 1.f, db[L - 1]);
+  CHECK_LAUNCH();
+  LAUNCH(outer_mul_split_kernel, EW_MAX_BLOCKS, EW_THREADS, stream)(
+      w.delta_last, W[L - 1], w.F[L - 2], P, D, const_cast<uint16_t*>(w.delta[0].hi),
+      const_cast<uint16_t*>(w.delta[0].lo));
+  CHECK_LAUNCH();
+  return backward_passes(w, P, dims, L, dW, db, nullptr, stream);
 }
 
 // Bytes of workspace siren_forward_tc needs, or -1 (as above).
@@ -591,11 +423,10 @@ int siren_forward_tc(const float* x, int P, const int* dims, int n_layers,
                      void* work, float* out, cudaStream_t stream) {
   if (!supported(dims, n_layers) || P < 1) return -1;
   const int L = n_layers;
-  const Call c = unbatched(x, P, dims, L, W, b, omegas, work, PLAN_FORWARD);
-  int rc = split_operands(c, stream);
-  if (!rc) rc = forward_passes(c, stream);
+  const Work w = carve(static_cast<char*>(work), P, dims, L, PLAN_FORWARD);
+  int rc = split_operands(w, x, P, dims, L, W, stream);
+  if (!rc) rc = forward_passes(w, P, dims, L, b, omegas, stream);
   if (rc) return rc;
-  const Work w = c.slot(0);
   const auto rowdot = rowdot_kernel<false>;
   LAUNCH(rowdot, rowdot_blocks(P), ROWDOT_WARPS * 32, stream)(
       w.a_last, P, dims[L - 1], W[L - 1], b[L - 1], out, nullptr, 0, 0.f, nullptr);
@@ -619,14 +450,11 @@ int siren_fused_bwd_tc(const float* x, int P, const int* dims, int n_layers,
                        float* dx, cudaStream_t stream) {
   if (!supported(dims, n_layers) || P < 1) return -1;
   const int L = n_layers;
-  Call c = unbatched(x, P, dims, L, W, b, omegas, work,
-                     dW != nullptr ? PLAN_LOSS_GRADS : PLAN_BWD_DX);
-  c.dW = dW;
-  c.db = db;
-  int rc = split_operands(c, stream);
-  if (!rc) rc = forward_passes(c, stream);
+  const Work w = carve(static_cast<char*>(work), P, dims, L,
+                       dW != nullptr ? PLAN_LOSS_GRADS : PLAN_BWD_DX);
+  int rc = split_operands(w, x, P, dims, L, W, stream);
+  if (!rc) rc = forward_passes(w, P, dims, L, b, omegas, stream);
   if (rc) return rc;
-  const Work w = c.slot(0);
   const int D = dims[L - 1];
   if (dW != nullptr) {  // the last layer's dW (column sums weighted by g) and db
     rc = colsum_reduced(w.a_last, P, D, g, dW[L - 1], w.partial, stream);
@@ -638,7 +466,7 @@ int siren_fused_bwd_tc(const float* x, int P, const int* dims, int n_layers,
       g, W[L - 1], w.F[L - 2], P, D, const_cast<uint16_t*>(w.delta[0].hi),
       const_cast<uint16_t*>(w.delta[0].lo));
   CHECK_LAUNCH();
-  return backward_passes(c, dx, stream);
+  return backward_passes(w, P, dims, L, dW, db, dx, stream);
 }
 
 }  // extern "C"

@@ -11,12 +11,14 @@
 //   cp_async16, cp_async_commit, cp_async_wait
 //             cp.async.cg.shared.global of 16 bytes, zero-filled when the
 //             source is out of range, and its commit/wait groups
-//   wgmma_desc_sw128
-//             the shared-memory matrix descriptor of a K-major operand in
-//             the 128-byte swizzled layout (below)
+//   wgmma_desc_sw128, wgmma_desc_sw64
+//             the shared-memory matrix descriptor of an operand in the
+//             128- or 64-byte swizzled layout (below)
 //   wgmma_bf16_m64n128k16, wgmma_s8_m64n128k32
 //             wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 and
-//             .m64n128k32.s32.s8.s8, both operands from shared memory
+//             .m64n128k32.s32.s8.s8, both operands from shared memory, both
+//             K-major; wgmma_bf16_m64n128k16_t<TRANS_A, TRANS_B> the bf16 one
+//             with either operand MN-major (the instruction's transpose bits)
 //   wgmma_fence, wgmma_commit, wgmma_wait, wgmma_fence_operands
 //             wgmma.fence / commit_group / wait_group, and a compiler-only
 //             fence that keeps the accumulators' reads after a wait
@@ -24,7 +26,16 @@
 //             fence.proxy.async.shared::cta: shared-memory writes of the
 //             threads (cp.async included) made visible to wgmma's reads
 //   named_barrier_sync
-//             bar.sync id, n: a barrier of n threads (a warpgroup) of the block.
+//             bar.sync id, n: a barrier of n threads (a warpgroup) of the block
+//   mbar_init, mbar_init_fence, mbar_arrive, mbar_arrive_expect_tx, mbar_wait
+//             mbarrier.init / fence.mbarrier_init / mbarrier.arrive[.expect_tx]
+//             / a loop of mbarrier.try_wait.parity on a 64-bit shared barrier
+//   tma_load_3d, tma_store_3d, bulk_commit, bulk_wait_read, bulk_wait
+//             cp.async.bulk.tensor.3d (TMA): one box of a tensor map from
+//             global to shared memory, completing its bytes on a barrier, or
+//             from shared to global memory in a bulk group, and that group's
+//             commit and waits; the host builds the map with
+//             encode_tensor_map_3d.
 // The mma and wgmma are asm volatile: every product really runs, none is
 // hoisted out of a loop or merged with another.
 //
@@ -35,11 +46,26 @@
 // group), its leading byte offset unused (1); a k step of 32 bytes (16 bf16
 // or 32 int8) is the tile's descriptor plus 2 (its start address in 16-byte
 // units): the hardware swizzles the final address, bits 4-6 ^= bits 7-9.
+//
+// The 64-byte swizzled layouts (what a TMA box of 64-byte rows writes with
+// CU_TENSOR_MAP_SWIZZLE_64B): rows of 64 bytes (32 bf16), row r at byte
+// r * 64, the final address's bits 4-5 ^= bits 7-8 (the pattern repeats
+// every 512 bytes: keep each box 512-byte aligned). K-major (depth along
+// the row): a tile of rows x 32 bf16 of depth, stride byte offset 512 (one
+// 8-row group), leading byte offset unused, a k step of 16 bf16 = 32 bytes.
+// MN-major (the M or N index along the row, depth down the rows): boxes of
+// 32 bf16 of M or N x d rows of depth, one box after another at lbo bytes;
+// stride byte offset 512 (8 rows of depth), leading byte offset lbo (the
+// next 32 of M or N), a k step of 16 rows = 1024 bytes.
 
 #pragma once
 
 #include <cstdint>
 #include <cstring>
+
+#ifdef __CUDACC__
+#include <cuda.h>  // CUtensorMap and its enums (cuTensorMapEncodeTiled is fetched at run time)
+#endif
 
 namespace {
 
@@ -74,6 +100,24 @@ __device__ __forceinline__ unsigned f32_to_bf16(float f) {
   if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
   u += 0x7fffu + ((u >> 16) & 1u);
   return u >> 16;
+}
+
+// bf16(v0) | bf16(v1) << 16, both rounded to nearest even, in one
+// cvt.rn.bf16x2.f32 (a NaN becomes the canonical 0x7fff)
+__device__ __forceinline__ unsigned bf16x2_rn(float v0, float v1) {
+#ifdef __CUDACC__
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(v1), "f"(v0));
+  return r;
+#else
+  const auto one = [](float f) {
+    unsigned u = f2u(f);
+    if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fffu;
+    u += 0x7fffu + ((u >> 16) & 1u);
+    return u >> 16;
+  };
+  return one(v0) | (one(v1) << 16);
+#endif
 }
 
 // ---- mma.sync and ldmatrix (warp-wide) -----------------------------------------
@@ -176,6 +220,16 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
          | ((uint64_t)1 << 16)                         // leading byte offset (unused)
          | ((uint64_t)(1024 >> 4) << 32)               // stride byte offset: 8 rows
          | ((uint64_t)1 << 62);                        // layout: 128-byte swizzle
+}
+
+// descriptor of a 64-byte swizzled tile at p (512-byte aligned but for a
+// K-major k step; see above): lbo is the MN-major layout's byte offset of
+// the next 32 of M or N (K-major: unused, 16)
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p, unsigned lbo = 16) {
+  return (uint64_t)((shared_addr(p) & 0x3ffff) >> 4)  // start address, 16-byte units
+         | ((uint64_t)((lbo >> 4) & 0x3fff) << 16)     // leading byte offset
+         | ((uint64_t)(512 >> 4) << 32)                // stride byte offset: 8 rows
+         | ((uint64_t)2 << 62);                        // layout: 64-byte swizzle
 }
 
 // shared-memory writes of this thread made visible to wgmma (the async proxy)
@@ -282,9 +336,177 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
 #endif
 }
 
+// wgmma_bf16_m64n128k16 with A (TRANS_A = 1) or B (TRANS_B = 1) MN-major:
+// the descriptor then describes a tile whose rows run along the depth
+// (wgmma takes a transposed operand only in 16-bit types)
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_t(float (&d)[64], uint64_t da,
+                                                        uint64_t db, int accumulate) {
+#ifdef __CUDACC__
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : WG_OP64("f", d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+#else
+  emu_wgmma(EMU_WGMMA_BF16, d, da, db, accumulate, 128, TRANS_A, TRANS_B);
+#endif
+}
+
 #undef WG_OP
 #undef WG_OP8
 #undef WG_OP64
 #undef WG_D64
+
+// ---- mbarrier and TMA (sm_90) ---------------------------------------------------
+
+// one thread: the barrier at bar (8 bytes of shared memory) expects count
+// arrivals a phase
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(count)
+               : "memory");
+#else
+  emu_mbar_init(bar, count);
+#endif
+}
+
+// the barriers' initialisation made visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+#ifdef __CUDACC__
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(shared_addr(bar)) : "memory");
+#else
+  emu_mbar_arrive(bar, 0);
+#endif
+}
+
+// arrive, and expect bytes more of asynchronous copies before the phase ends
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+#else
+  emu_mbar_arrive(bar, bytes);
+#endif
+}
+
+// until the phase of parity `parity` (0 for the barrier's first phase) has
+// completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+#ifdef __CUDACC__
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+#else
+  while (!emu_mbar_try_wait(bar, parity)) {
+  }
+#endif
+}
+
+// one thread: the box of map at coordinates (c0 innermost, c1, c2) into
+// dst (the box's bytes, laid out and swizzled as the map says), its bytes
+// completed on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+#ifdef __CUDACC__
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(shared_addr(bar))
+      : "memory");
+#else
+  emu_tma_load_3d(dst, map, c0, c1, c2, bar);
+#endif
+}
+
+// one thread: shared src (a box laid out and swizzled as map says) to the
+// box of map at (c0, c1, c2), elements outside the tensor dropped; the
+// copy joins this thread's current bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int c0, int c1, int c2,
+                                             const void* src) {
+#ifdef __CUDACC__
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(shared_addr(src))
+      : "memory");
+#else
+  emu_tma_store_3d(map, c0, c1, c2, src);
+#endif
+}
+
+// close this thread's bulk group; wait until at most N of its groups still
+// read shared memory (bulk_wait_read) or are not complete (bulk_wait)
+__device__ __forceinline__ void bulk_commit() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// Host: a 3-D tensor map of bf16 (dims[0] innermost, each dims[i + 1]
+// strides[i] bytes apart) whose boxes (box[0] x box[1] x 1) land in shared
+// memory with the given swizzle (32, 64 or 128 bytes); out-of-range
+// elements read as zeros. 0 on success.
+inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t dims[3],
+                                const uint64_t strides[2], const unsigned box[2],
+                                int swizzle_bytes) {
+#ifdef __CUDACC__
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return -2;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t g_dims[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t g_strides[2] = {strides[0], strides[1]};
+  const cuuint32_t b[3] = {box[0], box[1], 1};
+  const cuuint32_t e[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            g_dims, g_strides, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+#else
+  return emu_tensor_map_encode_3d(map, base, dims, strides, box, swizzle_bytes);
+#endif
+}
 
 }  // namespace

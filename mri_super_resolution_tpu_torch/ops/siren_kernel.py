@@ -1,6 +1,7 @@
 """SIREN kernels K1-K3: wrappers over the hand-written CUDA kernels of
-``csrc/siren.cu``, ``csrc/siren_tc.cu``, ``csrc/siren_resident.cu`` and
-``csrc/siren_stream.cu`` and their plain PyTorch versions.
+``csrc/siren.cu``, ``csrc/siren_tc.cu``, ``csrc/siren_resident.cu``,
+``csrc/siren_stream.cu`` and ``csrc/siren_wg.cu`` and their plain PyTorch
+versions.
 
 Counterpart of ``mri_super_resolution_tpu/ops/pallas/siren_kernel.py``:
 
@@ -36,9 +37,10 @@ tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
 both, and per variant on the weight-resident route (``*_resident``) and on
 the streaming route (``*_stream``); each kernel's tensor-core route under
-its own ``*_tc`` key; batched K1 under ``*_batched`` keys). The
-plain versions run on either device and are what the CPU tests and
-``chip_smoke.py`` hold the kernels against.
+its own ``*_tc`` key; batched K1 under ``*_batched`` keys, its
+tensor-core class, ``csrc/siren_wg.cu``, under
+``siren_loss_grads_wg_batched``). The plain versions run on either device
+and are what the CPU tests and ``chip_smoke.py`` hold the kernels against.
 
 The route, chosen from the shapes alone (:func:`tc_route`): a K1, K2 or K3
 call with the plain Siren's activations (sine on every hidden layer, none
@@ -87,7 +89,7 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_weighted_stream": 0,
                             "siren_loss_grads_absmax_stream": 0,
                             "siren_loss_grads_weighted_absmax_stream": 0,
-                            "siren_loss_grads_tc_batched": 0,
+                            "siren_loss_grads_wg_batched": 0,
                             "siren_loss_grads_resident_batched": 0,
                             "siren_loss_grads_weighted_resident_batched": 0}
 
@@ -383,14 +385,29 @@ def _batched_dims(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> tuple[lis
     return dims, D
 
 
+def _stashed(t: torch.Tensor, stash: str) -> torch.Tensor:
+    """``t`` as the stash keeps it: float32, or bf16 (rounded to nearest
+    even) read back as float32."""
+    return t.to(torch.bfloat16).to(t.dtype) if stash == "bf16" else t
+
+
 @torch.no_grad()
 def siren_loss_grads_batched_ref(x, weights, target, omega=30.0, n_rows=None, acts=None,
-                                 sample_weights=None):
+                                 sample_weights=None, stash="f32"):
     """Plain batched K1: ``(loss (D,), grads)`` of D stacked MLPs on one x,
     slot s being :func:`siren_loss_grads_ref` of ``[w[s] for w in weights]``,
     ``target[s]`` and ``sample_weights[s]`` (``target``, ``sample_weights``
     (D, P, 1)); the grads stacked as ``weights``. The batch is written out
-    as ``einsum``/``bmm`` over the stacked weights."""
+    as ``einsum``/``bmm`` over the stacked weights.
+
+    ``stash`` is what the backward keeps of the forward. ``"f32"`` (the
+    default, what the CPU pipelines run): float32, plain autodiff's numbers.
+    ``"bf16"``: the Pallas K1's stash (``siren_kernel.py:196-199, :289,
+    :309, :319`` of the JAX package) and ``csrc/siren_wg.cu``'s: each
+    layer's input enters dW as ``bf16(a)``, and a sine's factor is ``omega *
+    f32(bf16(cos(omega z)))``; the forward, the chain and db stay float32."""
+    if stash not in ("f32", "bf16"):
+        raise ValueError(f"stash is 'f32' or 'bf16'; got {stash!r}")
     P = x.shape[0]
     n = len(weights) // 2
     n_rows = P if n_rows is None else int(n_rows)
@@ -406,7 +423,7 @@ def siren_loss_grads_batched_ref(x, weights, target, omega=30.0, n_rows=None, ac
         if acts[l] == "sine":
             z = omegas[l] * z
             h = torch.sin(z)
-            factors.append(omegas[l] * torch.cos(z))
+            factors.append(omegas[l] * _stashed(torch.cos(z), stash))
         elif acts[l] == "relu":
             h = torch.relu(z)
             factors.append((z > 0).to(z.dtype))
@@ -424,7 +441,7 @@ def siren_loss_grads_batched_ref(x, weights, target, omega=30.0, n_rows=None, ac
         delta = delta * (z > 0).to(z.dtype)
     grads = [None] * len(weights)
     for l in reversed(range(n)):
-        a = inputs[l]
+        a = _stashed(inputs[l], stash)
         grads[2 * l] = (torch.einsum("dpo,pi->doi", delta, a) if a.dim() == 2
                         else torch.bmm(delta.transpose(1, 2), a))
         grads[2 * l + 1] = delta.sum(1)
@@ -494,15 +511,23 @@ def _tc_declare(lib: ctypes.CDLL) -> None:
     lib.siren_fused_bwd_tc_workspace_bytes.restype = ctypes.c_longlong
     lib.siren_fused_bwd_tc.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p]
     lib.siren_fused_bwd_tc.restype = i
-    lib.siren_tc_batched_workspace_bytes.argtypes = [i, p, i, i]
-    lib.siren_tc_batched_workspace_bytes.restype = ctypes.c_longlong
-    lib.siren_loss_grads_tc_batched.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, f, p, p, p,
-                                                ctypes.c_longlong, p, p]
-    lib.siren_loss_grads_tc_batched.restype = i
 
 
 def _tc_lib() -> ctypes.CDLL:
     return _build.library("siren_tc", _tc_declare)
+
+
+def _wg_declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.siren_wg_workspace_bytes.argtypes = [i, p, i, i]
+    lib.siren_wg_workspace_bytes.restype = ctypes.c_longlong
+    lib.siren_loss_grads_wg.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, f, p, p, p,
+                                        ctypes.c_longlong, p, p]
+    lib.siren_loss_grads_wg.restype = i
+
+
+def _wg_lib() -> ctypes.CDLL:
+    return _build.library("siren_wg", _wg_declare)
 
 
 def _res_declare(lib: ctypes.CDLL) -> None:
@@ -724,16 +749,17 @@ def _n_params(dims: Sequence[int]) -> int:
     return sum(dims[l + 1] * (dims[l] + 1) for l in range(len(dims) - 1))
 
 
-def _launch_loss_grads_tc_batched(lib, x, weights, target, omega, n_rows, stream):
-    """Batched K1 on the tensor-core route (``siren_loss_grads_tc_batched``):
-    ``(loss (D,), grads)``, the grads views of one (D, n_params) buffer."""
+def _launch_loss_grads_wg(lib, x, weights, target, omega, n_rows, stream):
+    """Batched K1 on the tensor-core route (``csrc/siren_wg.cu``'s
+    ``siren_loss_grads_wg``): ``(loss (D,), grads)``, the grads views of one
+    (D, n_params) buffer."""
     dims, D = _batched_dims(x, weights)
     n = len(dims) - 1
     c_dims = (ctypes.c_int * len(dims))(*dims)
     cast = lambda a: ctypes.cast(a, ctypes.c_void_p)
-    nbytes = lib.siren_tc_batched_workspace_bytes(int(x.shape[0]), cast(c_dims), n, D)
+    nbytes = lib.siren_wg_workspace_bytes(int(x.shape[0]), cast(c_dims), n, D)
     if nbytes < 0:
-        raise ValueError(f"the tensor-core K1 does not take widths {dims}")
+        raise ValueError(f"the batched tensor-core K1 does not take widths {dims} at D = {D}")
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     strides = _slot_strides(weights)
     w_slot = (ctypes.c_longlong * n)(*strides[0::2])
@@ -743,13 +769,13 @@ def _launch_loss_grads_tc_batched(lib, x, weights, target, omega, n_rows, stream
     buf = torch.empty(D, _n_params(dims), dtype=x.dtype, device=x.device)
     grads = _stacked_views(buf, dims)
     loss = torch.empty(D, dtype=x.dtype, device=x.device)
-    rc = lib.siren_loss_grads_tc_batched(
+    rc = lib.siren_loss_grads_wg(
         x.data_ptr(), int(x.shape[0]), int(n_rows), cast(c_dims), n, D,
         _build.ptr_array(weights[0::2]), _build.ptr_array(weights[1::2]), cast(w_slot),
         cast(b_slot), cast(c_om), target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
         work.data_ptr(), _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2]),
         buf.stride(0), loss.data_ptr(), stream)
-    _build.raise_on(rc, "siren_loss_grads_tc_batched")
+    _build.raise_on(rc, "siren_loss_grads_wg")
     return loss, grads
 
 
@@ -913,12 +939,15 @@ def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
     Slot s is :func:`siren_loss_grads` of slot s's inputs.
 
     On the card the route follows from the shapes as for K1
-    (:func:`k1_route`): the tensor-core route (the hybrid fit's 256 ->
+    (:func:`k1_route`): the tensor-core class (the hybrid fit's 256 ->
     512x4 -> 1) and the weight-resident route (the 2-D ensemble's 2 -> 64x7
     -> 1 with sample weights) have batched kernels, one call a step for the
-    D slots, counted under their route's key with ``_batched`` appended
-    (``siren_loss_grads_tc_batched``,
-    ``siren_loss_grads_weighted_resident_batched``); their grads are views
+    D slots: ``csrc/siren_wg.cu`` (``wgmma`` fed by TMA, the Pallas K1's
+    bf16 stash: :func:`siren_loss_grads_batched_ref` with ``stash="bf16"``;
+    counted under ``siren_loss_grads_wg_batched``; last hidden width at most
+    2,048, else it raises) and ``csrc/siren_resident.cu`` (counted under
+    the resident route's key with ``_batched`` appended,
+    ``siren_loss_grads_weighted_resident_batched``). Their grads are views
     of one (D, n_params) buffer (plus the loss and max |out| on the resident
     route). The routes with no batched kernel (SIMT widths, the streaming
     route) run the slots in turn through :func:`siren_loss_grads`, counted
@@ -946,9 +975,11 @@ def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
     weights = [w.detach() for w in weights]
     route = k1_route(dims, acts, weighted, False)
     if route == "tc":
-        out = _launch_loss_grads_tc_batched(_tc_lib(), x, weights, target, omega, n_rows,
-                                            _build.stream_ptr())
-    elif route == "resident":
+        out = _launch_loss_grads_wg(_wg_lib(), x, weights, target, omega, n_rows,
+                                    _build.stream_ptr())
+        LAUNCHES["siren_loss_grads_wg_batched"] += 1
+        return out
+    if route == "resident":
         out = _launch_loss_grads_resident_batched(_res_lib(), x, weights, target, omega,
                                                   n_rows, _build.stream_ptr(), acts,
                                                   sample_weights)

@@ -19,8 +19,8 @@ The JAX package vmaps the four fits into one program (``_make_fit_stack``
 the four models are stacked, and each epoch is one batched step and one
 :class:`~mri_super_resolution_tpu_torch.fit.optim.StackedAdam` step over
 them (``fit_simple_batched``). The SIREN arm's step is one batched K1
-(``siren_loss_grads_batched``; on a CUDA device one launch of the
-tensor-core kernel over the four TEs), its inference K3 (``siren_forward``)
+(``siren_loss_grads_batched``; on a CUDA device one call of
+``csrc/siren_wg.cu``'s batched kernel over the four TEs), its inference K3 (``siren_forward``)
 per TE, and there is no autograd route on the card; the grid arm's step is
 the tensor path over the stacked grids
 (``models/grid_inr.py:make_tensor_value_and_grad_batched``), its inference

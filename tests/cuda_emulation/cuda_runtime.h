@@ -24,8 +24,19 @@
 // wait_group N runs this thread's oldest groups until N are left, each
 // thread computing its own accumulator fragment from shared memory as it
 // stands then (a slot refilled before the wait is read refilled, as on the
-// card). The operands' descriptors are decoded as the hardware does; only
-// the 128-byte swizzled K-major layout is emulated, anything else aborts.
+// card). The operands' descriptors are decoded as the hardware does: the
+// 128- and 64-byte swizzled layouts, K-major or (bf16, the instruction's
+// transpose bits) MN-major; anything else aborts.
+// mbarriers live in a side table keyed by their shared address: init,
+// arrive (with expect-tx) and try_wait.parity as PTX defines them, a phase
+// completing when its arrivals and its transaction bytes are all in; a
+// fiber whose try_wait fails yields to the others (many yields with no
+// barrier progress abort as a deadlock). A TMA tile load
+// (cp.async.bulk.tensor) is a synchronous copy of its box, zero outside the
+// tensor, laid out and swizzled as the tensor map says, whose bytes then
+// complete on its barrier; a TMA tile store copies a box back at once,
+// dropping what lies outside the tensor; a tensor map is the emulation's own
+// struct.
 // Include the .cu after this header; see tests/cuda_emulation/emulated.py.
 #pragma once
 #include <algorithm>
@@ -36,6 +47,7 @@
 #include <cstring>
 #include <deque>
 #include <functional>
+#include <map>
 #include <memory>
 #include <vector>
 
@@ -46,6 +58,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n)
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -53,6 +66,9 @@ struct dim3 {
 };
 struct uint3 {
   unsigned x, y, z;
+};
+struct float2 {
+  float x, y;
 };
 struct float4 {
   float x, y, z, w;
@@ -65,14 +81,16 @@ const int cudaSuccess = 0;
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
-// one device with an H100's 132 SMs
+// one device with an H100's 132 SMs, or $EMU_SM_COUNT of them (read at each
+// query: a test can shrink a persistent kernel's grid)
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* device) {
   *device = 0;
   return cudaSuccess;
 }
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
-  *value = attr == cudaDevAttrMultiProcessorCount ? 132 : 0;
+  const char* sms = std::getenv("EMU_SM_COUNT");
+  *value = attr == cudaDevAttrMultiProcessorCount ? (sms ? std::atoi(sms) : 132) : 0;
   return cudaSuccess;
 }
 
@@ -115,7 +133,14 @@ struct WgmmaOp {
   int kind;  // EMU_WGMMA_BF16 or EMU_WGMMA_S8
   void* d;   // the thread's accumulator fragment
   uint64_t da, db;
-  int accumulate, n;
+  int accumulate, n, trans_a, trans_b;
+};
+// an mbarrier: arrivals a phase, arrivals and transaction bytes still
+// pending in this phase, and the phase's parity
+struct Mbar {
+  int expected = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;
 };
 
 // The running block: its fibers' saved stack pointers, the queue of fibers
@@ -135,6 +160,8 @@ struct Block {
   std::unique_ptr<Barrier> named[16];  // bar.sync id, n (ids 1-15)
   std::vector<std::vector<struct WgmmaOp>> wg_open;                // per thread
   std::vector<std::deque<std::vector<struct WgmmaOp>>> wg_groups;  // per thread
+  std::map<unsigned, Mbar> mbars;  // by shared address
+  long long idle_yields = 0;       // yields since a barrier last moved
 };
 inline Block* block;
 
@@ -146,6 +173,12 @@ inline char* stack_of(int t) {
 
 // the running fiber waits: hand the OS thread back to the scheduler
 inline void park() { emu_switch(&block->sp[block->current], block->sched_sp); }
+
+// the running fiber lets the others run, then goes on
+inline void yield() {
+  block->ready.push_back(block->current);
+  park();
+}
 
 struct Barrier {
   int expected, count = 0;
@@ -203,6 +236,17 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   emu_warp_barrier()->arrive_and_wait();
   return r;
 }
+inline unsigned __shfl_xor_sync(unsigned mask, unsigned v, int lane_mask) {
+  float f, r;
+  std::memcpy(&f, &v, 4);
+  r = __shfl_xor_sync(mask, f, lane_mask);
+  unsigned u;
+  std::memcpy(&u, &r, 4);
+  return u;
+}
+struct uint4 {
+  unsigned x, y, z, w;
+};
 using std::min;
 
 // The fragment layouts of PTX's mma.sync m16n8k16 (bf16) and m16n8k32 (s8)
@@ -312,26 +356,52 @@ inline unsigned emu_shared_offset(const void* p) {
 // ---- wgmma ------------------------------------------------------------------
 // The shared-memory matrix descriptor: start address >> 4 in bits 0-13,
 // leading byte offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, base
-// offset in 49-51, layout in 62-63 (1: 128-byte swizzle). In the K-major
-// SW128 layout, byte kb (< 32) of the instruction's depth in row r (of m
-// for A, of n for B) lies at start + (r / 8) SBO + (r % 8) 128 + kb, its
-// bits 4-6 then XORed with bits 7-9.
+// offset in 49-51, layout in 62-63 (1: 128-byte swizzle, 2: 64-byte). With
+// a swizzle of S bytes, element (r, k) of an operand (r of m for A, of n
+// for B; k of the instruction's depth) lies, K-major, at start + (r / 8)
+// SBO + (r % 8) S + k size and, MN-major (bf16), at start + (r / (S / 2))
+// LBO + (k / 8) SBO + (k % 8) S + 2 (r % (S / 2)); then the address's bits
+// 4 .. 4 + log2(S / 16) are XORed with the bits 3 above them.
 enum { EMU_WGMMA_BF16 = 0, EMU_WGMMA_S8 = 1 };
 
-inline const unsigned char* emu_desc_byte(uint64_t desc, int r, int kb) {
-  const unsigned start = (unsigned)(desc & 0x3fff) << 4;
-  const unsigned sbo = (unsigned)((desc >> 32) & 0x3fff) << 4;
+struct EmuDesc {
+  unsigned start, lbo, sbo, swz;  // swz: the swizzle's bytes
+  bool mn;
+};
+
+inline EmuDesc emu_desc(uint64_t desc, bool mn) {
+  EmuDesc d;
+  d.start = (unsigned)(desc & 0x3fff) << 4;
+  d.lbo = (unsigned)((desc >> 16) & 0x3fff) << 4;
+  d.sbo = (unsigned)((desc >> 32) & 0x3fff) << 4;
+  d.mn = mn;
   const unsigned base_offset = (unsigned)(desc >> 49) & 7;
   const unsigned layout = (unsigned)(desc >> 62);
-  // the instruction's 32 bytes of depth must lie in the first 128-byte row
-  // of a 1024-byte swizzle atom
-  if (layout != 1 || base_offset != 0 || ((start >> 7) & 7) != 0 || (start & 127) > 96) {
-    std::fprintf(stderr, "emulated wgmma: descriptor %016llx is not a SW128 K-major tile\n",
-                 (unsigned long long)desc);
+  d.swz = layout == 1 ? 128 : layout == 2 ? 64 : 0;
+  // K-major: the instruction's 32 bytes of depth lie in the first row of a
+  // swizzle atom (8 rows); MN-major: the start is an atom's
+  const unsigned in_atom = d.start % (d.swz ? 8 * d.swz : 1);
+  if (d.swz == 0 || base_offset != 0 ||
+      (mn ? in_atom != 0 : (in_atom >= d.swz || in_atom + 32 > d.swz))) {
+    std::fprintf(stderr, "emulated wgmma: descriptor %016llx is not a %s tile in a swizzled "
+                 "layout the emulation knows\n", (unsigned long long)desc,
+                 mn ? "MN-major" : "K-major");
     std::abort();
   }
-  unsigned addr = start + (unsigned)(r / 8) * sbo + (unsigned)(r % 8) * 128 + (unsigned)kb;
-  addr ^= ((addr >> 7) & 7) << 4;
+  return d;
+}
+
+// element (r, k) of an operand of `size` bytes an element
+inline const unsigned char* emu_desc_at(const EmuDesc& d, int r, int k, int size) {
+  unsigned addr;
+  if (d.mn) {
+    const int w = (int)d.swz / 2;  // bf16 along a row
+    addr = d.start + (unsigned)(r / w) * d.lbo + (unsigned)(k / 8) * d.sbo +
+           (unsigned)(k % 8) * d.swz + (unsigned)(r % w) * 2;
+  } else {
+    addr = d.start + (unsigned)(r / 8) * d.sbo + (unsigned)(r % 8) * d.swz + (unsigned)(k * size);
+  }
+  addr ^= ((addr >> 7) & (d.swz / 16 - 1)) << 4;
   return reinterpret_cast<const unsigned char*>(emu::block->shared_base) + addr;
 }
 
@@ -340,33 +410,48 @@ inline const unsigned char* emu_desc_byte(uint64_t desc, int r, int kb) {
 // the warpgroup
 inline void emu_wgmma_run(const emu::WgmmaOp& op) {
   const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
-  for (int i = 0; i < op.n / 8; ++i)
+  const bool bf = op.kind == EMU_WGMMA_BF16;
+  const int K = bf ? 16 : 32, size = bf ? 2 : 1;
+  const EmuDesc da = emu_desc(op.da, op.trans_a), db = emu_desc(op.db, op.trans_b);
+  float a[2][32], b[2][32];
+  int ai[2][32], bi[2][32];
+  auto load = [&](const EmuDesc& d, int r, float* f, int* n) {
+    for (int k = 0; k < K; ++k) {
+      const unsigned char* p = emu_desc_at(d, r, k, size);
+      if (bf) {
+        uint16_t v;
+        std::memcpy(&v, p, 2);
+        f[k] = emu_bf16(v, 0);
+      } else {
+        n[k] = (int8_t)*p;
+      }
+    }
+  };
+  for (int h = 0; h < 2; ++h) load(da, 16 * w + l / 4 + 8 * h, a[h], ai[h]);
+  for (int i = 0; i < op.n / 8; ++i) {
+    for (int e = 0; e < 2; ++e) load(db, 8 * i + 2 * (l % 4) + e, b[e], bi[e]);
     for (int h = 0; h < 2; ++h)
       for (int e = 0; e < 2; ++e) {
-        const int row = 16 * w + l / 4 + 8 * h, col = 8 * i + 2 * (l % 4) + e;
         const int q = 4 * i + 2 * h + e;
-        if (op.kind == EMU_WGMMA_BF16) {
+        if (bf) {
           float s = 0.f;
-          for (int k = 0; k < 16; ++k) {
-            uint16_t a, b;
-            std::memcpy(&a, emu_desc_byte(op.da, row, 2 * k), 2);
-            std::memcpy(&b, emu_desc_byte(op.db, col, 2 * k), 2);
-            s += emu_bf16(a, 0) * emu_bf16(b, 0);
-          }
+          for (int k = 0; k < K; ++k) s += a[h][k] * b[e][k];
           float& d = static_cast<float*>(op.d)[q];
           d = op.accumulate ? d + s : s;
         } else {
           int s = 0;
-          for (int k = 0; k < 32; ++k)
-            s += (int8_t)*emu_desc_byte(op.da, row, k) * (int8_t)*emu_desc_byte(op.db, col, k);
+          for (int k = 0; k < K; ++k) s += ai[h][k] * bi[e][k];
           int& d = static_cast<int*>(op.d)[q];
           d = op.accumulate ? d + s : s;
         }
       }
+  }
 }
 
-inline void emu_wgmma(int kind, void* d, uint64_t da, uint64_t db, int accumulate, int n) {
-  emu::block->wg_open[threadIdx.x].push_back({kind, d, da, db, accumulate, n});
+inline void emu_wgmma(int kind, void* d, uint64_t da, uint64_t db, int accumulate, int n,
+                      int trans_a = 0, int trans_b = 0) {
+  if ((trans_a || trans_b) && kind != EMU_WGMMA_BF16) std::abort();
+  emu::block->wg_open[threadIdx.x].push_back({kind, d, da, db, accumulate, n, trans_a, trans_b});
 }
 
 inline void emu_wgmma_commit() {
@@ -381,6 +466,124 @@ inline void emu_wgmma_wait(int n) {
     for (const auto& op : groups.front()) emu_wgmma_run(op);
     groups.pop_front();
   }
+}
+
+// ---- mbarrier and TMA ----------------------------------------------------------
+inline emu::Mbar& emu_mbar(const void* bar) {
+  auto& m = emu::block->mbars;
+  const auto it = m.find(emu_shared_offset(bar));
+  if (it == m.end()) {
+    std::fprintf(stderr, "emulated mbarrier used before its init\n");
+    std::abort();
+  }
+  return it->second;
+}
+
+inline void emu_mbar_progress(emu::Mbar& b) {
+  emu::block->idle_yields = 0;
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1u;
+    b.pending = b.expected;
+  }
+}
+
+inline void emu_mbar_init(void* bar, unsigned count) {
+  emu::Mbar b;
+  b.expected = b.pending = (int)count;
+  emu::block->mbars[emu_shared_offset(bar)] = b;
+}
+
+// one arrival, after expecting tx more bytes of this phase
+inline void emu_mbar_arrive(void* bar, unsigned tx) {
+  emu::Mbar& b = emu_mbar(bar);
+  if (b.pending <= 0) std::abort();
+  b.tx += tx;
+  --b.pending;
+  emu_mbar_progress(b);
+}
+
+// whether the phase of this parity has completed; if not, the fiber yields
+inline bool emu_mbar_try_wait(void* bar, unsigned parity) {
+  if (emu_mbar(bar).phase != (parity & 1u)) return true;
+  if (++emu::block->idle_yields > 1000LL * emu::block->nt) {
+    std::fprintf(stderr, "emulated mbarrier wait: no barrier moved in %lld yields (deadlock)\n",
+                 emu::block->idle_yields);
+    std::abort();
+  }
+  emu::yield();
+  return false;
+}
+
+// the emulation's tensor map: a 3-D array of bf16, dims[0] innermost, and
+// the box a load copies
+struct CUtensorMap {
+  const char* base;
+  uint64_t dims[3], strides[2];  // strides: bytes between consecutive dims[1], dims[2]
+  unsigned box[2];
+  int swizzle;
+};
+
+inline int emu_tensor_map_encode_3d(CUtensorMap* map, const void* base, const uint64_t dims[3],
+                                    const uint64_t strides[2], const unsigned box[2],
+                                    int swizzle) {
+  // the card's rules: 16-byte aligned base and strides, a box row within the swizzle
+  if (reinterpret_cast<uintptr_t>(base) % 16 || strides[0] % 16 || strides[1] % 16 ||
+      box[0] * 2 > (unsigned)swizzle || box[1] > 256 || box[0] == 0 || box[1] == 0)
+    return -3;
+  map->base = static_cast<const char*>(base);
+  for (int i = 0; i < 3; ++i) map->dims[i] = dims[i];
+  map->strides[0] = strides[0];
+  map->strides[1] = strides[1];
+  map->box[0] = box[0];
+  map->box[1] = box[1];
+  map->swizzle = swizzle;
+  return 0;
+}
+
+// the box at (c0, c1, c2): box[1] rows of box[0] bf16 written densely from
+// dst (rows of box[0] * 2 bytes), each 16-byte chunk at its swizzled shared
+// address; then its bytes complete on bar
+inline void emu_tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                            void* bar) {
+  const unsigned d0 = emu_shared_offset(dst);
+  if (d0 % 128) std::abort();  // the card wants 128-byte aligned boxes (and the swizzle atom's)
+  const unsigned row_bytes = map->box[0] * 2;
+  char* sbase = emu::block->shared_base;
+  for (unsigned r = 0; r < map->box[1]; ++r)
+    for (unsigned c = 0; c < map->box[0]; ++c) {
+      const long long i0 = (long long)c0 + c, i1 = (long long)c1 + r, i2 = c2;
+      uint16_t v = 0;
+      if (i0 >= 0 && i1 >= 0 && i2 >= 0 && (uint64_t)i0 < map->dims[0] &&
+          (uint64_t)i1 < map->dims[1] && (uint64_t)i2 < map->dims[2])
+        std::memcpy(&v, map->base + i2 * map->strides[1] + i1 * map->strides[0] + 2 * i0, 2);
+      unsigned addr = d0 + r * row_bytes + 2 * c;
+      addr ^= ((addr >> 7) & (unsigned)(map->swizzle / 16 - 1)) << 4;
+      std::memcpy(sbase + addr, &v, 2);
+    }
+  emu::Mbar& b = emu_mbar(bar);
+  b.tx -= (long long)row_bytes * map->box[1];
+  emu_mbar_progress(b);
+}
+
+// the box at (c0, c1, c2) from src (laid out and swizzled as for a load) to
+// the tensor, elements outside it dropped: a synchronous copy, so that the
+// bulk group's commit and waits have nothing to wait for
+inline void emu_tma_store_3d(const CUtensorMap* map, int c0, int c1, int c2, const void* src) {
+  const unsigned s0 = emu_shared_offset(src);
+  if (s0 % 128) std::abort();
+  const unsigned row_bytes = map->box[0] * 2;
+  const char* sbase = emu::block->shared_base;
+  char* base = const_cast<char*>(map->base);
+  for (unsigned r = 0; r < map->box[1]; ++r)
+    for (unsigned c = 0; c < map->box[0]; ++c) {
+      const long long i0 = (long long)c0 + c, i1 = (long long)c1 + r, i2 = c2;
+      if (i0 < 0 || i1 < 0 || i2 < 0 || (uint64_t)i0 >= map->dims[0] ||
+          (uint64_t)i1 >= map->dims[1] || (uint64_t)i2 >= map->dims[2])
+        continue;
+      unsigned addr = s0 + r * row_bytes + 2 * c;
+      addr ^= ((addr >> 7) & (unsigned)(map->swizzle / 16 - 1)) << 4;
+      std::memcpy(base + i2 * map->strides[1] + i1 * map->strides[0] + 2 * i0, sbase + addr, 2);
+    }
 }
 
 inline void sincosf(float x, float* s, float* c) {
@@ -420,6 +623,8 @@ struct Launcher {
           blockIdx = {bx, by, bz};
           b.finished = 0;
           b.shared_base = nullptr;
+          b.mbars.clear();
+          b.idle_yields = 0;
           for (auto& nb : b.named) nb.reset();
           for (int t = 0; t < nt; ++t) {
             b.wg_open[t].clear();

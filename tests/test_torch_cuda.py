@@ -615,17 +615,21 @@ def _stacked_problem(card, D, P, dims, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims,D,P,n_rows,key", [
-    ((256, 256, 256, 1), 4, 1000, 900, "siren_loss_grads_tc_batched"),
-    ((256, 256, 256, 1), 1, 777, 777, "siren_loss_grads_tc_batched"),
+    ((256, 256, 256, 1), 4, 1000, 900, "siren_loss_grads_wg_batched"),
+    ((256, 256, 256, 1), 1, 777, 777, "siren_loss_grads_wg_batched"),
     ((2, 64, 64, 64, 1), 3, 3600, 3500, "siren_loss_grads_weighted_resident_batched"),
 ])
 def test_k1_batched_launches_and_matches_plain_and_unbatched(card, dims, D, P, n_rows, key):
     """The batched K1 launches once under its key for the D slots (stacked
     weights as a StackedAdam holds them, a parameter buffer's rows apart)
     and agrees with its plain batched version and with D unbatched calls;
-    on the tensor-core route each slot is its unbatched call bit for bit;
-    two calls give the same bits. The resident case weighs its rows, slot
-    D - 1 all zero (a padded acquisition slot: loss and grads exactly 0)."""
+    two calls give the same bits. The tensor-core class
+    (``csrc/siren_wg.cu``) keeps the Pallas K1's bf16 stash: it is held to
+    the plain version with that stash at 5e-4 of each grad's largest value,
+    and to the float32 plain version and the unbatched calls by what the two
+    stashes' plain versions part by plus 1e-3. The resident case weighs its
+    rows, slot D - 1 all zero (a padded acquisition slot: loss and grads
+    exactly 0)."""
     from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
 
     x, ws, target = _stacked_problem(card, D, P, dims, seed=P + D)
@@ -641,15 +645,22 @@ def test_k1_batched_launches_and_matches_plain_and_unbatched(card, dims, D, P, n
     loss_r, grads_r = tk.siren_loss_grads_batched_ref(x, ws, target, n_rows=n_rows,
                                                       sample_weights=sw)
     torch.testing.assert_close(loss, loss_r, rtol=1e-4, atol=0)
-    for a, b in zip(grads, grads_r):
+    rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())
+    stash = [0.0] * len(grads)
+    if key == "siren_loss_grads_wg_batched":
+        _, grads_b = tk.siren_loss_grads_batched_ref(x, ws, target, n_rows=n_rows, stash="bf16")
+        stash = [rel(b, f) for b, f in zip(grads_b, grads_r)]
+        assert all(rel(a, b) <= 5e-4 for a, b in zip(grads, grads_b))
+    for a, b, st in zip(grads, grads_r, stash):
         assert a.shape == b.shape
-        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+        assert rel(a, b) <= 1e-3 + st
     for s in range(D):
         ls, gs = tk.siren_loss_grads(x, [w[s] for w in ws], target[s], n_rows=n_rows,
                                      sample_weights=None if sw is None else sw[s])
-        if key == "siren_loss_grads_tc_batched":
-            assert torch.equal(loss[s], ls) and all(torch.equal(a[s], b)
-                                                    for a, b in zip(grads, gs))
+        if key == "siren_loss_grads_wg_batched":
+            torch.testing.assert_close(loss[s], ls, rtol=1e-4, atol=0)
+            for a, b, st in zip(grads, gs, stash):
+                assert rel(a[s], b) <= 1e-3 + st
         else:
             torch.testing.assert_close(loss[s], ls, rtol=1e-5, atol=0)
             for a, b in zip(grads, gs):

@@ -9,7 +9,9 @@ under ``vmap``, which adds a batch axis to its grid. Cases: D = 4 at 256 ->
 widths), and D = 3 at 2 -> 16x2 -> 1 with sample weights (the 2-D
 ensemble's). Tolerances are ``tests/test_torch_siren_kernel.py``'s, the JAX
 package's own kernel-vs-autodiff ones: loss rtol 1e-4, dW atol 5e-4 (the JAX
-kernel stashes activations in bf16).
+kernel stashes activations in bf16); the plain version with that same stash
+(``stash="bf16"``, what ``csrc/siren_wg.cu`` computes on the card) is held
+to dW atol 5e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 torch.set_num_threads(2)
 
 LOSS_RTOL, DW_ATOL, FWD_ATOL = 1e-4, 5e-4, 2e-4
+DW_BF16_ATOL = 5e-5  # the plain version with the Pallas kernel's own stash
 
 
 def _np(tree):
@@ -64,22 +67,46 @@ def _torch_layout(dws):
     return [np.swapaxes(np.asarray(g), 1, 2) if g.ndim == 3 else np.asarray(g) for g in dws]
 
 
-@pytest.mark.parametrize("n_rows", [None, 271])
-def test_batched_k1_matches_vmapped_pallas_hybrid_class(n_rows):
+@pytest.mark.parametrize("n_rows,stash", [(None, "f32"), (271, "f32"), (None, "bf16"),
+                                           (271, "bf16")],
+                         ids=["None", "271", "None-bf16", "271-bf16"])
+def test_batched_k1_matches_vmapped_pallas_hybrid_class(n_rows, stash):
     """D = 4 stacked 256 -> 256x2 -> 1 Sirens (the hybrid fit's class of
-    widths), 300 rows (no tile divides them), all rows and a ragged count."""
+    widths), 300 rows (no tile divides them), all rows and a ragged count.
+    ``"f32"``: the wrapper on CPU tensors (the plain version's default
+    stash), at the file's bars. ``"bf16"``: the plain version with the
+    Pallas kernel's own stash (each layer's input bf16 for dW, the sine's
+    factor omega * f32(bf16(cos))), what ``csrc/siren_wg.cu`` computes: it
+    keeps what the JAX kernel keeps, so only the float32 forward's order of
+    sums and the bf16 roundings it flips part the two, and dW is held to
+    DW_BF16_ATOL, ten times tighter (measured 2.1e-5 against 2.3e-4 for
+    the float32 stash)."""
     _, stack, x, target, _ = _stack(4, 300, 256, 256, 2, seed=0)
     loss_j, dws_j = _jax_batched(stack, x, target, n_rows)
     tws = convert.siren_batched_weights(_np(stack))
     assert [tuple(w.shape) for w in tws] == [(4, 256, 256), (4, 256), (4, 256, 256), (4, 256),
                                              (4, 256, 256), (4, 256), (4, 1, 256), (4, 1)]
-    loss_t, dws_t = tk.siren_loss_grads_batched(torch.as_tensor(x), tws,
-                                                torch.as_tensor(target), n_rows=n_rows)
+    xt, tt = torch.as_tensor(x), torch.as_tensor(target)
+    if stash == "f32":
+        loss_t, dws_t = tk.siren_loss_grads_batched(xt, tws, tt, n_rows=n_rows)
+        # the default stays the float32 one, bit for bit
+        loss_f, dws_f = tk.siren_loss_grads_batched_ref(xt, tws, tt, n_rows=n_rows, stash="f32")
+        assert torch.equal(loss_t, loss_f) and all(map(torch.equal, dws_t, dws_f))
+    else:
+        loss_t, dws_t = tk.siren_loss_grads_batched_ref(xt, tws, tt, n_rows=n_rows, stash=stash)
     assert loss_t.shape == (4,)
     np.testing.assert_allclose(loss_t.numpy(), np.asarray(loss_j), rtol=LOSS_RTOL)
     for gt, gj in zip(dws_t, _torch_layout(dws_j)):
         assert gt.shape == gj.shape
-        np.testing.assert_allclose(gt.numpy(), gj, atol=DW_ATOL)
+        np.testing.assert_allclose(gt.numpy(), gj, atol=DW_ATOL if stash == "f32" else DW_BF16_ATOL)
+
+
+def test_batched_ref_refuses_an_unknown_stash():
+    _, stack, x, target, _ = _stack(2, 20, 2, 8, 1, seed=6)
+    with pytest.raises(ValueError, match="stash"):
+        tk.siren_loss_grads_batched_ref(torch.as_tensor(x),
+                                        convert.siren_batched_weights(_np(stack)),
+                                        torch.as_tensor(target), stash="bf8")
 
 
 def test_batched_k1_weighted_matches_vmapped_pallas_2d_class():

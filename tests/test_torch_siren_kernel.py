@@ -130,7 +130,7 @@ def test_cpu_runs_plain_versions_without_launching(setup):
                                 "siren_loss_grads_stream", "siren_loss_grads_weighted_stream",
                                 "siren_loss_grads_absmax_stream",
                                 "siren_loss_grads_weighted_absmax_stream",
-                                "siren_loss_grads_tc_batched",
+                                "siren_loss_grads_wg_batched",
                                 "siren_loss_grads_resident_batched",
                                 "siren_loss_grads_weighted_resident_batched"}
     assert not any(tk.LAUNCHES.values())
