@@ -36,9 +36,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    for the same bits: ``csrc/siren_wg.cu``'s ``siren_loss_grads_wg`` (wgmma
    fed by TMA, the Pallas K1's bf16 stash) at the hybrid's four TEs on
    100,800 rows, also against the plain version with that stash at
-   K1_WG_STASH_TOL, and the weight-resident
-   ``siren_loss_grads_resident_batched`` at the 2-D ensemble's three
-   directions on 3,600 rows with one padded (all-zero-weight) slot; and its
+   K1_WG_STASH_TOL, and ``csrc/siren_resident_tc.cu``'s
+   ``siren_loss_grads_rtc`` (``mma.sync`` bf16x3 tiles, one cooperative
+   launch) at the 2-D ensemble's three directions on 3,600 rows with one
+   padded (all-zero-weight) slot, also replayed from a CUDA graph (the same
+   bits as an eager call) and a 20-step Adam trace against its plain
+   batched version; and its
    absmax/ReLU variant K1-a on its streaming
    tensor-core route (``csrc/siren_stream.cu``) at the soft-ERD fit's 16,384
    rows (2 -> 128x4 -> 128 ReLU -> 1 ReLU), with ragged row counts, with and
@@ -116,7 +119,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (128, 128, 24), 27 acquisitions (9, 9, 9)) with the steps cut to
    ``--master_steps`` and ``--master_seg``: CSV, DICOMs, finite outputs and
    exactly steps x 9 batched K1-weighted launches (the three directions a
-   launch, one a acquisition slot) on the weight-resident route and no
+   launch, one a acquisition slot) on ``csrc/siren_resident_tc.cu`` and no
    other kernel (none of the SIMT or unbatched K1-w); then the
    soft-ERD fit, ``cli/inr_erd.main`` at full width (SirenERD 128x3, 9
    acquisitions, one seed) on the same kind of volume with phase 1 run to
@@ -229,8 +232,8 @@ PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "siren_tc", "siren_wg", "siren_resident", "siren_stream", "wire", "wire_tc",
-           "conv3d", "mma_probe")  # csrc/<name>.cu
+SOURCES = ("siren", "siren_tc", "siren_wg", "siren_resident", "siren_resident_tc",
+           "siren_stream", "wire", "wire_tc", "conv3d", "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
 # the batched K1 (csrc/siren_wg.cu) against the plain version with the same
@@ -868,43 +871,87 @@ def phase_k1_batched_parity(P: int, dims) -> dict:
 
 
 def phase_k1w_batched_parity() -> dict:
-    """The batched K1-w on its weight-resident route at the 2-D ensemble's
-    shape, D = 3 stacked 2 -> 64x7 -> 1 Sirens on P = 3,600 rows with
-    sample weights, slot 2 a padded acquisition slot (every weight 0: its
-    loss and grads exactly 0), all rows and a ragged count, against its
-    plain batched version and three unbatched resident K1-w calls, twice
-    for the same bits; returns its max abs error."""
+    """The batched K1-w (``csrc/siren_resident_tc.cu``) at the 2-D
+    ensemble's shape, D = 3 stacked 2 -> 64x7 -> 1 Sirens on P = 3,600 rows
+    with sample weights, held as the parameter buffer of a ``StackedAdam``
+    holds them: slot 2 a padded acquisition slot (every weight 0: its loss
+    and grads exactly 0), all rows and a ragged count, against its plain
+    batched version and three unbatched resident K1-w calls, twice for the
+    same bits; one call captured in a CUDA graph and replayed, the same bits
+    as an eager call; and a K1_TRACE_STEPS-step stacked Adam fit (lr 3e-4,
+    the ensemble's) from one init against the plain batched version, loss
+    by loss. Returns its max abs error."""
     import torch
 
+    from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
     models, x, targets, sws = zip(*(_master_inputs(seed=71 + d) for d in range(MASTER_DIRS)))
     x, acts = x[0], models[0].acts
-    ws = [torch.stack(t) for t in zip(*(m.weights() for m in models))]
+    ws0 = [torch.stack(t) for t in zip(*(m.weights() for m in models))]
+    ws = StackedAdam(ws0, 3e-4).params
     target, sw = torch.stack(targets), torch.stack(sws)
-    sw[MASTER_DIRS - 1] = 0.0
+    padded = sw.clone()
+    padded[MASTER_DIRS - 1] = 0.0
+    key, one = "siren_loss_grads_weighted_resident_tc_batched", "siren_loss_grads_weighted_resident"
     err = 0.0
     for n_rows in (MASTER_P, MASTER_P - 123):
         before = dict(sk.LAUNCHES)
-        kw = dict(n_rows=n_rows, acts=acts, sample_weights=sw)
+        kw = dict(n_rows=n_rows, acts=acts, sample_weights=padded)
         got = sk.siren_loss_grads_batched(x, ws, target, **kw)
         again = sk.siren_loss_grads_batched(x, ws, target, **kw)
         singles = [sk.siren_loss_grads(x, [w[s] for w in ws], target[s], n_rows=n_rows,
-                                       acts=acts, sample_weights=sw[s])
+                                       acts=acts, sample_weights=padded[s])
                    for s in range(MASTER_DIRS)]
         torch.cuda.synchronize()
-        key, one = "siren_loss_grads_weighted_resident_batched", "siren_loss_grads_weighted_resident"
         _require(sk.LAUNCHES == {**before, key: before[key] + 2, one: before[one] + MASTER_DIRS},
-                 "the batched K1-w did not take its weight-resident kernel")
-        ref = sk.siren_loss_grads_batched_ref(x, ws, target, 30.0, n_rows, acts, sw)
+                 "the batched K1-w did not take its kernel (csrc/siren_resident_tc.cu)")
+        ref = sk.siren_loss_grads_batched_ref(x, ws, target, 30.0, n_rows, acts, padded)
         e = _batched_check(f"K1-w batched x{MASTER_DIRS} P={MASTER_P} n_rows={n_rows}, "
-                              f"weight-resident route, slot {MASTER_DIRS - 1} padded",
-                              got, ref, singles, again)
+                           f"csrc/siren_resident_tc.cu, slot {MASTER_DIRS - 1} padded",
+                           got, ref, singles, again)
         _require(float(got[0][-1]) == 0.0 and all(float(g[-1].abs().max()) == 0.0
                                                   for g in got[1]),
                  "the padded slot's loss or grads are not exactly 0")
         err = max(err, e)
-    return {"siren_loss_grads_weighted_resident_batched": err}
+
+    call = lambda: sk.siren_loss_grads_batched(x, ws, target, acts=acts, sample_weights=sw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_loss, g_grads = call()
+    graph.replay()
+    graph.replay()
+    e_loss, e_grads = call()
+    torch.cuda.synchronize()
+    same = torch.equal(g_loss, e_loss) and all(torch.equal(a, b) for a, b in zip(g_grads, e_grads))
+    print(f"[parity] K1-w batched x{MASTER_DIRS}: one call captured in a CUDA graph, replayed "
+          f"twice, bit-equal to an eager call: {same}")
+    _require(same, "the batched K1-w replayed from a CUDA graph differs from an eager call")
+
+    traces = {}
+    for route, vag in (("kernel", sk.siren_loss_grads_batched),
+                       ("plain", sk.siren_loss_grads_batched_ref)):
+        opt = StackedAdam(ws0, 3e-4)
+        losses = []
+        for _ in range(K1_TRACE_STEPS):
+            loss, grads = vag(x, opt.params, target, 30.0, None, acts, sw)
+            losses.append(loss)
+            opt.step(grads)
+        traces[route] = torch.stack(losses)
+    k, p = traces["kernel"], traces["plain"]
+    rel = float((k / p - 1.0).abs().max())
+    print(f"[parity] K1-w batched x{MASTER_DIRS} {K1_TRACE_STEPS}-step stacked Adam trace (lr "
+          f"3e-4) at 2 -> 64x7 -> 1, P={MASTER_P}: loss {p[0].tolist()} -> {p[-1].tolist()} "
+          f"(plain), {k[-1].tolist()} (kernel); worst step and slot rel {rel:.3e} (tol "
+          f"{K1_TRACE_RTOL:g})")
+    _require(rel <= K1_TRACE_RTOL and bool((k[-1] < k[0]).all()),
+             "the batched K1-w's Adam trace departs from the plain one")
+    return {key: err}
 
 
 def phase_k4_trace(P: int) -> None:
@@ -1135,7 +1182,7 @@ def phase_probe_parity() -> dict:
 
 
 def phase_small_2d() -> None:
-    """A small 2-D ensemble case (Siren 16x1, 6 steps, AutoERD) and a small
+    """A small 2-D ensemble case (Siren 64x1, 6 steps, AutoERD) and a small
     soft-ERD phase 1 (SirenERD 16x1, 30 steps, threshold 0) on the card's
     K1 variants against the plain path on the CPU, from the same init."""
     import numpy as np
@@ -1148,7 +1195,7 @@ def phase_small_2d() -> None:
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
     from mri_super_resolution_tpu_torch.pipelines import master2d
 
-    cfg = Master2DConfig(total_steps=6, seg=2, hidden_layers=1, hidden_features=16,
+    cfg = Master2DConfig(total_steps=6, seg=2, hidden_layers=1, hidden_features=64,
                          roi_begin=8, roi_end=24, scale=2, erd=1)
     outs = {}
     for dev in ("cuda", "cpu"):
@@ -1160,9 +1207,10 @@ def phase_small_2d() -> None:
             launches = dict(sk.LAUNCHES)
     err = max(float(np.abs(outs["cuda"][d].superres - outs["cpu"][d].superres).max())
               for d in outs["cpu"])
-    batched = launches["siren_loss_grads_weighted_resident_batched"]
-    print(f"[parity] small 2-D ensemble case, card batched K1-weighted (resident, the three "
-          f"directions a launch) vs CPU plain: superres max abs {err:.3e} (tol {E2E_ATOL:g}); "
+    batched = launches["siren_loss_grads_weighted_resident_tc_batched"]
+    print(f"[parity] small 2-D ensemble case, card batched K1-weighted "
+          f"(csrc/siren_resident_tc.cu, the three directions a launch) vs CPU plain: superres "
+          f"max abs {err:.3e} (tol {E2E_ATOL:g}); "
           f"batched K1-weighted launches {batched}")
     _require(err <= E2E_ATOL and batched == 6 * MASTER_SLOTS
              and sum(launches.values()) == batched, "small 2-D ensemble case disagrees")
@@ -1487,7 +1535,7 @@ def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _all_counts()
-    want = {"siren_loss_grads_weighted_resident_batched": steps * MASTER_SLOTS}
+    want = {"siren_loss_grads_weighted_resident_tc_batched": steps * MASTER_SLOTS}
     _check_only(launches, want, "2-D ensemble")
     rows = [ln.split(",") for ln in open(csv_path).read().splitlines()]
     _require(rows[0] == list(CONTRAST_HEADER) and len(rows) == 1 + 4 * 8 * 3,
@@ -4029,14 +4077,32 @@ print(json.dumps(per))
 """
 
 
-def _fresh_passes(P: int, dims, D: int) -> dict:
-    """The batched K1's passes under ``torch.profiler`` in a process of its
-    own: late in this script the profiler drops device events (K1's passes
-    sum to less than its call, K5's to none), which a fresh process does
-    not. Returns the ms a call by kernel name."""
+FRESH_K1W_PASSES = """
+import json
+import torch
+import chip_smoke as cs
+from mri_super_resolution_tpu_torch import set_float32_precision
+from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+set_float32_precision()
+models, x, targets, sws = zip(*(cs._master_inputs(seed=81 + d) for d in range(cs.MASTER_DIRS)))
+ws = [torch.stack(t) for t in zip(*(m.weights() for m in models))]
+target, sw = torch.stack(targets), torch.stack(sws)
+per = cs._passes(f"K1-w batched x{cs.MASTER_DIRS} (csrc/siren_resident_tc.cu, a fresh process)",
+                 lambda: sk.siren_loss_grads_batched(x[0], ws, target, acts=models[0].acts,
+                                                     sample_weights=sw), calls=20)
+print(json.dumps(per))
+"""
+
+
+def _fresh_passes(P: int, dims, D: int, code: str = FRESH_PASSES) -> dict:
+    """A batched K1's passes under ``torch.profiler`` in a process of its
+    own (``code``: the hybrid's batched K1, or with FRESH_K1W_PASSES the
+    2-D ensemble's): late in this script the profiler drops device events
+    (K1's passes sum to less than its call, K5's to none), which a fresh
+    process does not. Returns the ms a call by kernel name."""
     import subprocess
 
-    p = subprocess.run([sys.executable, "-c", FRESH_PASSES, str(P), json.dumps(list(dims)),
+    p = subprocess.run([sys.executable, "-c", code, str(P), json.dumps(list(dims)),
                         str(D)], cwd=os.path.dirname(os.path.abspath(__file__)),
                        capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL)
     lines = p.stdout.strip().splitlines()
@@ -4047,13 +4113,14 @@ def _fresh_passes(P: int, dims, D: int) -> dict:
 
 
 def phase_k1w_batched_time(errs: dict, launches: dict) -> dict:
-    """The batched K1-w on its weight-resident route at the 2-D ensemble's
-    shape (D = 3 on P = 3,600 rows) beside its plain batched version and
-    eager autograd over ``torch.bmm``; the batched call and three unbatched
-    resident calls in turns; and on the host clock the 2-D update's costs
-    per batched update: the call, the stacked Adam step over the three
-    directions' (3, 25,217) buffer, and both, beside three unbatched
-    updates with three Adams."""
+    """The batched K1-w (``csrc/siren_resident_tc.cu``) at the 2-D
+    ensemble's shape (D = 3 on P = 3,600 rows) beside its tensor-core bound
+    (the bf16x3 products at the bf16 peak), its plain batched version and
+    eager autograd over ``torch.bmm``; by kernel under ``torch.profiler``;
+    the batched call and three unbatched resident calls in turns; and on
+    the host clock the 2-D update's costs per batched update: the call, the
+    stacked Adam step over the three directions' (3, 25,217) buffer, and
+    both, beside three unbatched updates with three Adams."""
     import torch
 
     from mri_super_resolution_tpu_torch.fit.optim import Adam, StackedAdam
@@ -4075,17 +4142,25 @@ def phase_k1w_batched_time(errs: dict, launches: dict) -> dict:
         for w1, t1, s1 in singles:
             sk.siren_loss_grads(x, w1, t1, acts=acts, sample_weights=s1)
 
+    nbytes = 4 * x.numel() + 2 * wbytes + 2 * 4 * MASTER_DIRS * MASTER_P + 4 * MASTER_DIRS
     row = _time_row(
-        "siren_loss_grads_weighted_resident_batched", "siren_resident", "siren_kernel.py:518",
+        "siren_loss_grads_weighted_resident_tc_batched", "siren_resident_tc",
+        "siren_kernel.py:518",
         batched, lambda: sk.siren_loss_grads_batched_ref(x, ws, target, 30.0, None, acts, sw),
-        _batched_lib(x, ws, target, sw, acts), flops,
-        4 * x.numel() + 2 * wbytes + 2 * 4 * MASTER_DIRS * MASTER_P + 4 * MASTER_DIRS,
-        f"P={MASTER_P}, D={MASTER_DIRS}", errs, launches, reps=100, rounds=2)
+        _batched_lib(x, ws, target, sw, acts), 3 * flops, nbytes,
+        f"P={MASTER_P}, D={MASTER_DIRS}", errs, launches, peak=PEAK_BF16_TC, reps=100, rounds=2)
     b_ms, t_ms = _best_alternating(batched, in_turn, 100, 2)
     print(f"[times] K1-weighted at P={MASTER_P}, batched over {MASTER_DIRS} directions vs "
           f"{MASTER_DIRS} unbatched calls in turn (CUDA events, 100 calls, best of 2): batched "
-          f"{b_ms:.4f} ms, in turn {t_ms:.4f} ms; f32 bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
-    _passes(f"K1-weighted batched x{MASTER_DIRS} (weight-resident)", batched, calls=20)
+          f"{b_ms:.4f} ms, in turn {t_ms:.4f} ms; bf16x3 tensor-core bound "
+          f"{3 * flops / PEAK_BF16_TC * 1e3:.4f} ms")
+    per = _fresh_passes(MASTER_P, dims, MASTER_DIRS, FRESH_K1W_PASSES)
+    t_ops, t_bytes = row["bound_ms"], nbytes / PEAK_BYTES * 1e3
+    for name, ms in per.items():
+        print(f"[passes] K1-w batched x{MASTER_DIRS} {name} (1 launch a call, the whole call): "
+              f"{ms:.4f} ms a call; product bound {3 * flops / PEAK_BF16_TC * 1e3:.4f} ms "
+              f"({3 * flops / 1e12:.4f} TFLOP of bf16x3 products), bytes {nbytes / 1e6:.3f} MB "
+              f"({t_bytes:.4f} ms at 3.35 TB/s); ms / bound {ms / t_ops:.2f}")
     opt = StackedAdam(ws, 3e-4)
     grads = batched()[1]
     opts = [Adam([w.clone() for w in w1], 3e-4) for w1, _, _ in singles]

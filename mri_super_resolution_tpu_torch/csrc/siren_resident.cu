@@ -34,19 +34,11 @@
 //     into its own slot of a workspace (one slot a block, the same thread
 //     for the same value in every tile: no atomics), and a second launch
 //     sums the slots in block order: a call repeats bit for bit;
-//   * at most one block an SM of the current device (132 on an H100); two
-//     launches a call.
-// Batched (siren_loss_grads_resident_batched): jax.vmap over the Pallas
-// siren_loss_grads, as the 2-D ensemble runs it over its three gradient
-// directions (pipelines/master2d.py:157 of the JAX package), trains D
-// stacked MLPs on one shared x in one launch. The one-block-an-SM grid is
-// split among the slots, SMs / D blocks a slot (44 at D = 3); each block
-// loads its slot's W and b once and walks that slot's row tiles (113 at P =
-// 3,600, about 2.6 a block), adding into its own workspace slot; the second
-// launch sums each batch slot's blocks in block order, so a call still
-// repeats bit for bit. A batch slot sums its tiles over fewer blocks than an
-// unbatched call, so its numbers are an unbatched call's within float32
-// reordering, not bit for bit.
+//   * at most one block an SM (the caller gives the device's SM count, 132
+//     on an H100, asked once; siren_resident_setup sets the kernel's
+//     shared-memory attribute once a device); two launches a call.
+// The batched form (jax.vmap over siren_loss_grads, the 2-D ensemble's three
+// directions) is csrc/siren_resident_tc.cu.
 // Shared-memory plan (floats; ops/siren_kernel.py's resident_smem_bytes is
 // the same formula): the sum over layers of pad4(out) (pad4(in) + 1) for W and
 // b; a row stride S = pad4(widest input or hidden width), plus 4 when S / 4
@@ -139,11 +131,8 @@ struct Args {
   const float* b[RES_MAX_LAYERS];
   float omega[RES_MAX_LAYERS];
   int act[RES_MAX_LAYERS];
-  long long w_slot[RES_MAX_LAYERS];  // floats between two batch slots' W_l
-  long long b_slot[RES_MAX_LAYERS];  // and b_l
   int P, n_rows;
-  int bps;  // blocks a batch slot: block i works for batch slot i / bps, which
-            // reads its targets and sample weights P further on a slot
+  int bps;  // blocks a call: block i walks row tiles i, i + bps, ...
   float two_inv_n;
   float* partial;  // gridDim.x slots of n_params + 2 floats
 };
@@ -319,9 +308,8 @@ __device__ void weight_grads(const Plan& pl, int l, const float* delta, const fl
   }
 }
 
-// K1 over row tiles i, i + bps, ... of batch slot blockIdx.x / bps (i =
-// blockIdx.x % bps): the block's share of that slot's loss, max |out| and
-// every dW, db into its workspace slot.
+// K1 over row tiles i, i + bps, ... (i = blockIdx.x): the block's share of
+// the loss, max |out| and every dW, db into its workspace slot.
 __global__ void __launch_bounds__(RES_NT, 1) siren_resident_kernel(Plan pl, Args a) {
 #ifdef __CUDACC__
   extern __shared__ __align__(16) float sm[];
@@ -331,13 +319,13 @@ __global__ void __launch_bounds__(RES_NT, 1) siren_resident_kernel(Plan pl, Args
 #endif
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int L = pl.L, S = pl.stride;
-  const int slot_of = blockIdx.x / a.bps, blk = blockIdx.x - slot_of * a.bps;
-  const float* target = a.target + (long long)slot_of * a.P;
-  const float* sw = a.sw != nullptr ? a.sw + (long long)slot_of * a.P : nullptr;
-  for (int l = 0; l < L; ++l) {  // every W and b of the batch slot, zero-padded
+  const int blk = blockIdx.x;
+  const float* target = a.target;
+  const float* sw = a.sw;
+  for (int l = 0; l < L; ++l) {  // every W and b, zero-padded
     const int din = pl.dims[l], dout = pl.dims[l + 1], kp = pl.kp[l], np = pl.np[l];
-    const float* W = a.W[l] + slot_of * a.w_slot[l];
-    const float* b = a.b[l] + slot_of * a.b_slot[l];
+    const float* W = a.W[l];
+    const float* b = a.b[l];
     for (int i = tid; i < np * kp; i += RES_NT) {
       const int n = i / kp, k = i - n * kp;
       sm[pl.w_sm[l] + i] = (n < dout && k < din) ? W[n * din + k] : 0.f;
@@ -440,44 +428,51 @@ __global__ void __launch_bounds__(RES_NT, 1) siren_resident_kernel(Plan pl, Args
   }
 }
 
-// Blocks a batch slot of P rows takes in a call over D slots: one a row
-// tile, at most SMs / D (at least one) on the current device (0 when the
-// device cannot be asked).
-int resident_blocks(int P, int D) {
-  int dev = 0, sms = 0;
-  if (D < 1 || cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
+// Blocks a call of P rows takes on sms SMs: one a row tile, at most one an SM.
+int resident_blocks(int P, int sms) {
   const int tiles = cdiv(P, RES_ROWS);
-  const int share = sms / D > 1 ? sms / D : 1;
-  return tiles < share ? tiles : share;
+  return tiles < sms ? tiles : sms;
 }
 
-long long work_floats(int P, const int* dims, int n_layers, int D) {
+}  // namespace
+
+extern "C" {
+
+// Once a device, before its first launch: the kernel's opt-in shared memory
+// (a device with less than the route's RES_SMEM_MAX bytes refuses it).
+int siren_resident_setup() {
+#ifdef __CUDACC__
+  return (int)cudaFuncSetAttribute(siren_resident_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, RES_SMEM_MAX);
+#else
+  return 0;
+#endif
+}
+
+// Floats of workspace a call needs on sms SMs: one slot of every dW, db, the
+// loss and max |out| for each block (-1: not a K1 network, or a plan over the
+// route's RES_SMEM_MAX bytes of shared memory).
+long long siren_resident_work_floats(int P, const int* dims, int n_layers, int sms) {
   const Plan p = make_plan(dims, n_layers);
-  if (p.smem_floats < 0 || 4LL * p.smem_floats > RES_SMEM_MAX || P < 1) return -1;
-  const int blocks = resident_blocks(P, D);
-  return blocks < 1 ? -1 : (long long)D * blocks * (p.n_params + 2);
+  if (p.smem_floats < 0 || 4LL * p.smem_floats > RES_SMEM_MAX || P < 1 || sms < 1) return -1;
+  return (long long)resident_blocks(P, sms) * (p.n_params + 2);
 }
 
-// K1 over D batch slots (D = 1: unbatched); w_slot: floats between two
-// slots' copies of each of the 2L tensors [W0, b0, ...] (null: D = 1).
-int loss_grads(const float* x, int P, int n_rows, const int* dims, int n_layers, int D,
-               const int* act, const float* const* w, const long long* w_slot,
-               const float* omegas, const float* target, const float* sw, float inv_n,
-               float* work, float* out, cudaStream_t stream) {
+// K1 on the weight-resident route: out (n_params + 2 floats) gets every dW_l
+// and db_l in the flat order W0, b0, W1, b1, ... (torch layouts), then the
+// loss inv_n * sum_{p < n_rows} s_p (MLP(x)_p - target_p)^2 (s_p = sw[p], or
+// 1 when sw is null), then max_{p < n_rows} |MLP(x)_p|. w: [W0, b0, ...];
+// act: the per-layer codes; omegas: one per hidden layer; sms: the device's
+// SMs; work: siren_resident_work_floats floats. Two launches.
+int siren_loss_grads_resident(const float* x, int P, int n_rows, const int* dims, int n_layers,
+                              const int* act, const float* const* w, const float* omegas,
+                              const float* target, const float* sw, float inv_n, int sms,
+                              float* work, float* out, cudaStream_t stream) {
   const Plan pl = make_plan(dims, n_layers);
-  if (pl.smem_floats < 0 || P < 1 || D < 1 || D > 65535) return -1;
+  if (pl.smem_floats < 0 || P < 1 || sms < 1) return -1;
   const long long smem = 4LL * pl.smem_floats;
   if (smem > RES_SMEM_MAX) return -1;
-  const int bps = resident_blocks(P, D);
-  if (bps < 1) return -1;
-#ifdef __CUDACC__
-  // on every call: the attribute belongs to the current device's context
-  const cudaError_t e = cudaFuncSetAttribute(
-      siren_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-#endif
+  const int bps = resident_blocks(P, sms);
   Args a{};
   a.x = x;
   a.target = target;
@@ -485,8 +480,6 @@ int loss_grads(const float* x, int P, int n_rows, const int* dims, int n_layers,
   for (int l = 0; l < n_layers; ++l) {
     a.W[l] = w[2 * l];
     a.b[l] = w[2 * l + 1];
-    a.w_slot[l] = w_slot != nullptr ? w_slot[2 * l] : 0;
-    a.b_slot[l] = w_slot != nullptr ? w_slot[2 * l + 1] : 0;
     a.act[l] = act[l];
     a.omega[l] = l + 1 < n_layers ? omegas[l] : 1.f;
   }
@@ -495,59 +488,12 @@ int loss_grads(const float* x, int P, int n_rows, const int* dims, int n_layers,
   a.bps = bps;
   a.two_inv_n = 2.f * inv_n;
   a.partial = work;
-  LAUNCH_SMEM(siren_resident_kernel, D * bps, RES_NT, smem, stream)(pl, a);
+  LAUNCH_SMEM(siren_resident_kernel, bps, RES_NT, smem, stream)(pl, a);
   CHECK_LAUNCH();
-  LAUNCH(slot_reduce_kernel, dim3(cdiv(pl.n_params + 2, 256), D), 256, stream)(
+  LAUNCH(slot_reduce_kernel, cdiv(pl.n_params + 2, 256), 256, stream)(
       work, bps, pl.n_params, inv_n, out);
   CHECK_LAUNCH();
   return 0;
-}
-
-}  // namespace
-
-extern "C" {
-
-// Floats of workspace a call needs: one slot of every dW, db, the loss and
-// max |out| for each block of a call on the current device (-1: not a K1
-// network, or a plan over the route's RES_SMEM_MAX bytes of shared memory).
-// A device with less opt-in shared memory refuses the launch's attribute.
-long long siren_resident_work_floats(int P, const int* dims, int n_layers) {
-  return work_floats(P, dims, n_layers, 1);
-}
-
-// K1 on the weight-resident route: out (n_params + 2 floats) gets every dW_l
-// and db_l in the flat order W0, b0, W1, b1, ... (torch layouts), then the
-// loss inv_n * sum_{p < n_rows} s_p (MLP(x)_p - target_p)^2 (s_p = sw[p], or
-// 1 when sw is null), then max_{p < n_rows} |MLP(x)_p|. w: [W0, b0, ...];
-// act: the per-layer codes; omegas: one per hidden layer; work:
-// siren_resident_work_floats floats. Two launches.
-int siren_loss_grads_resident(const float* x, int P, int n_rows, const int* dims, int n_layers,
-                              const int* act, const float* const* w, const float* omegas,
-                              const float* target, const float* sw, float inv_n, float* work,
-                              float* out, cudaStream_t stream) {
-  return loss_grads(x, P, n_rows, dims, n_layers, 1, act, w, nullptr, omegas, target, sw, inv_n,
-                    work, out, stream);
-}
-
-// Floats of workspace siren_loss_grads_resident_batched needs for D slots
-// (-1 as above).
-long long siren_resident_batched_work_floats(int P, const int* dims, int n_layers, int D) {
-  return work_floats(P, dims, n_layers, D);
-}
-
-// K1 on the weight-resident route over D stacked MLPs that share x (P, d_0),
-// the counterpart of jax.vmap over siren_loss_grads: slot s's tensors are
-// w[i] + s w_slot[i] (floats; w: [W0, b0, ...] of slot 0), its targets and
-// sample weights (D, P, 1) rows s; out (D, n_params + 2) gets slot s's
-// siren_loss_grads_resident output in row s. Two launches, as unbatched.
-int siren_loss_grads_resident_batched(const float* x, int P, int n_rows, const int* dims,
-                                      int n_layers, int D, const int* act,
-                                      const float* const* w, const long long* w_slot,
-                                      const float* omegas, const float* target,
-                                      const float* sw, float inv_n, float* work, float* out,
-                                      cudaStream_t stream) {
-  return loss_grads(x, P, n_rows, dims, n_layers, D, act, w, w_slot, omegas, target, sw, inv_n,
-                    work, out, stream);
 }
 
 }  // extern "C"

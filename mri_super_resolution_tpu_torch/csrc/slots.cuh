@@ -32,16 +32,12 @@ __device__ __forceinline__ void act_and_factor(int act, float omega, float z, fl
 
 // out[i] = the sum over the blocks' slots (n_params + 2 floats each) in
 // block order (i < n_params: the grads; n_params: the loss, times inv_n) or
-// their max (n_params + 1: max |out|); grid y: one batch slot of `blocks`
-// blocks' slots a row, into its own out row (csrc/siren_resident.cu's
-// batched K1)
+// their max (n_params + 1: max |out|)
 __global__ void slot_reduce_kernel(const float* __restrict__ partial, int blocks, int n_params,
                                    float inv_n, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int count = n_params + 2;
   if (i >= count) return;
-  partial += (long long)blockIdx.y * blocks * count;
-  out += (long long)blockIdx.y * count;
   float s = 0.f;
   if (i == n_params + 1) {
     for (int z = 0; z < blocks; ++z) {

@@ -36,6 +36,13 @@
 //             from shared to global memory in a bulk group, and that group's
 //             commit and waits; the host builds the map with
 //             encode_tensor_map_3d.
+//   bulk_load cp.async.bulk.shared.global (a plain bulk copy, no tensor map):
+//             16-byte aligned bytes from global to shared memory, completing
+//             on a barrier
+//   spin_pause
+//             nanosleep.u32 in a loop that waits on another block (in the
+//             emulation: the block's other fibers and the other blocks of a
+//             cooperative launch run)
 // The mma and wgmma are asm volatile: every product really runs, none is
 // hoisted out of a loop or merged with another.
 //
@@ -447,6 +454,29 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int c0, int
       : "memory");
 #else
   emu_tma_store_3d(map, c0, c1, c2, src);
+#endif
+}
+
+// one thread: bytes (a multiple of 16) from global src to shared dst, both
+// 16-byte aligned, completing on bar (whose phase must expect them)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+#ifdef __CUDACC__
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(shared_addr(dst)), "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+#else
+  emu_bulk_load(dst, src, bytes, bar);
+#endif
+}
+
+// a short pause in a loop that polls memory another block writes
+__device__ __forceinline__ void spin_pause() {
+#ifdef __CUDACC__
+  __nanosleep(64);
+#else
+  emu_spin_pause();
 #endif
 }
 

@@ -39,8 +39,11 @@ both, and per variant on the weight-resident route (``*_resident``) and on
 the streaming route (``*_stream``); each kernel's tensor-core route under
 its own ``*_tc`` key; batched K1 under ``*_batched`` keys, its
 tensor-core class, ``csrc/siren_wg.cu``, under
-``siren_loss_grads_wg_batched``). The plain versions run on either device
-and are what the CPU tests and ``chip_smoke.py`` hold the kernels against.
+``siren_loss_grads_wg_batched``, and the 2-D ensemble's,
+``csrc/siren_resident_tc.cu``, under
+``siren_loss_grads_[weighted_]resident_tc_batched``). The plain versions
+run on either device and are what the CPU tests and ``chip_smoke.py`` hold
+the kernels against.
 
 The route, chosen from the shapes alone (:func:`tc_route`): a K1, K2 or K3
 call with the plain Siren's activations (sine on every hidden layer, none
@@ -90,8 +93,8 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_absmax_stream": 0,
                             "siren_loss_grads_weighted_absmax_stream": 0,
                             "siren_loss_grads_wg_batched": 0,
-                            "siren_loss_grads_resident_batched": 0,
-                            "siren_loss_grads_weighted_resident_batched": 0}
+                            "siren_loss_grads_resident_tc_batched": 0,
+                            "siren_loss_grads_weighted_resident_tc_batched": 0}
 
 ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
 TC_TILE = 128  # csrc/siren_tc.cu's block tile: every width but the output's a multiple
@@ -101,6 +104,9 @@ RES_ROWS, RES_MAX_LAYERS, RES_SMEM_MAX = 32, 16, 232_448
 # csrc/siren_stream.cu: rows a tile (a block), W rows a ring stage, ring
 # stages, the hidden width's step and layers at most
 ST_TM, ST_RING, ST_STAGES, ST_H_STEP, ST_MAX_LAYERS = 128, 32, 2, 64, 16
+# csrc/siren_resident_tc.cu: the hidden width, rows a tile, hidden layers
+# and input width at most
+RT_H, RT_ROWS, RT_MAX_HIDDEN, RT_MAX_D0 = 64, 32, 7, 4
 
 
 def reset_launches() -> None:
@@ -229,6 +235,47 @@ def stream_route(dims: Sequence[int]) -> bool:
     return (4 <= len(dims) <= ST_MAX_LAYERS + 1 and dims[-1] == 1 and dims[0] >= 1
             and len(hidden) == 1 and dims[1] % ST_H_STEP == 0 and dims[1] > 0
             and stream_smem_bytes(dims) <= RES_SMEM_MAX)
+
+
+def resident_tc_smem_bytes(dims: Sequence[int]) -> int:
+    """Bytes of shared memory a block of the batched K1-w kernel
+    (``csrc/siren_resident_tc.cu``'s ``rt_plan``) takes for ``dims`` (d0,
+    64 x NH, 1): hi and lo bf16 planes of each 64 x 64 W, W0 as 64 x 4 and
+    the biases and the head in float32, a stash of hi/lo planes and a
+    float32 factor of 32 rows for every hidden layer but the last, two delta
+    buffers of hi/lo planes, the head's 4 x 32 partial sums and an
+    mbarrier."""
+    nhh = len(dims) - 3
+    return (nhh * 4 * RT_H * RT_H + 16 * RT_H + 4 * RT_H * (nhh + 1) + 4 * RT_H + 16
+            + nhh * 8 * RT_ROWS * RT_H + 8 * RT_ROWS * RT_H + 16 * RT_ROWS + 16)
+
+
+def resident_tc_route(dims: Sequence[int], acts: Sequence[str],
+                      omega: float | Sequence[float]) -> bool:
+    """Whether a batched K1 call on the card runs on the batched K1-w
+    kernel (``csrc/siren_resident_tc.cu``): an input width of 1 to
+    :data:`RT_MAX_D0`, 2 to :data:`RT_MAX_HIDDEN` hidden layers all
+    :data:`RT_H` wide, one output, sine on every hidden layer with one
+    omega and none on the last (the 2-D ensemble's Siren 2 -> 64x7 -> 1);
+    with or without sample weights."""
+    nh = len(dims) - 2
+    one_omega = isinstance(omega, (int, float)) or len(set(float(o) for o in omega)) == 1
+    return (2 <= nh <= RT_MAX_HIDDEN and 1 <= dims[0] <= RT_MAX_D0 and dims[-1] == 1
+            and all(d == RT_H for d in dims[1:-1]) and one_omega
+            and tuple(acts) == ("sine",) * nh + ("none",))
+
+
+def batched_route(dims: Sequence[int], acts: Sequence[str], omega: float | Sequence[float],
+                  weighted: bool = False) -> str:
+    """The route of a batched K1 call on the card, from the shapes alone:
+    ``"wg"`` (K1's tensor-core class, :func:`tc_route`: ``csrc/siren_wg.cu``),
+    ``"resident_tc"`` (:func:`resident_tc_route`), else ``"slots"``: the D
+    slots in turn through :func:`siren_loss_grads` on its own route (the
+    weight-resident widths with ReLU codes or per-layer omegas, the
+    streaming and SIMT widths)."""
+    if tc_route(dims, acts, weighted):
+        return "wg"
+    return "resident_tc" if resident_tc_route(dims, acts, omega) else "slots"
 
 
 def k1_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
@@ -362,9 +409,18 @@ def siren_loss_grads_ref(x, weights, target, omega=30.0, n_rows=None, acts=None,
     return loss, grads
 
 
-def _batched_dims(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> tuple[list[int], int]:
+_BATCHED_DIMS: dict[tuple, tuple[tuple[int, ...], int]] = {}
+
+
+def _batched_dims(x: torch.Tensor,
+                  weights: Sequence[torch.Tensor]) -> tuple[tuple[int, ...], int]:
     """(the layer widths, D) of stacked weights ``[W0, b0, ...]``, each W
-    (D, out, in) and b (D, out), over a shared x (P, d_in)."""
+    (D, out, in) and b (D, out), over a shared x (P, d_in); checked once a
+    set of shapes."""
+    key = (x.shape, *(w.shape for w in weights))
+    known = _BATCHED_DIMS.get(key)
+    if known is not None:
+        return known
     if len(weights) % 2 or len(weights) < 4:
         raise ValueError("weights must be [W0, b0, ..., W_last, b_last] with at "
                          f"least one hidden layer; got {len(weights)} tensors")
@@ -382,7 +438,8 @@ def _batched_dims(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> tuple[lis
         dims.append(int(W.shape[1]))
     if D < 1 or dims[-1] != 1:
         raise ValueError(f"need D >= 1 slots and one output; got D = {D}, {dims[-1]} outputs")
-    return dims, D
+    known = _BATCHED_DIMS[key] = (tuple(dims), D)
+    return known
 
 
 def _stashed(t: torch.Tensor, stash: str) -> torch.Tensor:
@@ -532,19 +589,47 @@ def _wg_lib() -> ctypes.CDLL:
 
 def _res_declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.siren_resident_work_floats.argtypes = [i, p, i]
+    lib.siren_resident_setup.argtypes = []
+    lib.siren_resident_setup.restype = i
+    lib.siren_resident_work_floats.argtypes = [i, p, i, i]
     lib.siren_resident_work_floats.restype = ctypes.c_longlong
-    lib.siren_loss_grads_resident.argtypes = [p, i, i, p, i, p, p, p, p, p, f, p, p, p]
+    lib.siren_loss_grads_resident.argtypes = [p, i, i, p, i, p, p, p, p, p, f, i, p, p, p]
     lib.siren_loss_grads_resident.restype = i
-    lib.siren_resident_batched_work_floats.argtypes = [i, p, i, i]
-    lib.siren_resident_batched_work_floats.restype = ctypes.c_longlong
-    lib.siren_loss_grads_resident_batched.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, f, p,
-                                                      p, p]
-    lib.siren_loss_grads_resident_batched.restype = i
 
 
 def _res_lib() -> ctypes.CDLL:
     return _build.library("siren_resident", _res_declare)
+
+
+def _rtc_declare(lib: ctypes.CDLL) -> None:
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.siren_rtc_smem_bytes.argtypes = [p, i]
+    lib.siren_rtc_smem_bytes.restype = ll
+    lib.siren_rtc_setup.argtypes = []
+    lib.siren_rtc_setup.restype = i
+    lib.siren_rtc_work_floats.argtypes = [i, p, i, i, i]
+    lib.siren_rtc_work_floats.restype = ll
+    lib.siren_loss_grads_rtc.argtypes = [p, i, i, p, i, i, p, p, f, p, p, f, i, p, p, p, ll, p]
+    lib.siren_loss_grads_rtc.restype = i
+
+
+def _rtc_lib() -> ctypes.CDLL:
+    return _build.library("siren_resident_tc", _rtc_declare)
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device, asked once a device; 132 (an H100's) for the
+    CPU, where the CUDA emulation of the tests runs the kernels."""
+    if device.type != "cuda":
+        return 132
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
 def _stream_declare(lib: ctypes.CDLL) -> None:
@@ -658,7 +743,8 @@ class _SlotCall:
     set of codes and omegas, built once; each call fills in the weights'
     pointers."""
 
-    def __init__(self, lib, route: str, P: int, dims: tuple, codes: tuple, omegas: tuple):
+    def __init__(self, lib, route: str, P: int, dims: tuple, codes: tuple, omegas: tuple,
+                 device: torch.device):
         L = len(dims) - 1
         self.L = L
         self._arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_int * L)(*codes),
@@ -666,9 +752,14 @@ class _SlotCall:
         self.dims, self.codes, self.omegas, self.ptrs_arg = (ctypes.cast(a, ctypes.c_void_p)
                                                              for a in self._arrays)
         self.ptrs = self._arrays[3]  # the weights' pointers, filled in each call
-        self.work = int(getattr(lib, f"siren_{route}_work_floats")(P, self.dims, L))
+        # the resident route's blocks: one an SM of the device, asked once;
+        # its shared-memory attribute set once a plan, not once a call
+        self.sms = (_sm_count(device),) if route == "resident" else ()
+        self.work = int(getattr(lib, f"siren_{route}_work_floats")(P, self.dims, L, *self.sms))
         if self.work < 0:
             raise ValueError(f"K1's {route} route does not take widths {list(dims)}")
+        if route == "resident":
+            _build.raise_on(lib.siren_resident_setup(), "siren_resident_setup")
         self.launch = getattr(lib, f"siren_loss_grads_{route}")
         # each grad's (shape, stride, offset) in the output buffer: W0, b0, W1, b1, ...
         self.views, at = [], 0
@@ -692,10 +783,9 @@ def _launch_loss_grads_slots(route, lib, x, weights, target, omega, n_rows, stre
     dims = tuple(int(s) for s in x.shape[1:]) + tuple(int(w.shape[0]) for w in weights[0::2])
     key = (int(x.shape[0]), dims, tuple(ACT_CODES[a] for a in _acts(acts, n)),
            tuple(_omegas(omega, n - 1)))
-    # the resident route's blocks a call: one an SM of the device
     call = _SLOT_CALLS.get((route, id(lib), key, x.device))
     if call is None:
-        call = _SLOT_CALLS[route, id(lib), key, x.device] = _SlotCall(lib, route, *key)
+        call = _SLOT_CALLS[route, id(lib), key, x.device] = _SlotCall(lib, route, *key, x.device)
     call.ptrs[:] = [w.data_ptr() for w in weights]
     work = torch.empty(call.work, dtype=x.dtype, device=x.device)
     out = torch.empty(call.n_params + 2, dtype=x.dtype, device=x.device)
@@ -703,7 +793,7 @@ def _launch_loss_grads_slots(route, lib, x, weights, target, omega, n_rows, stre
         x.data_ptr(), key[0], int(n_rows), call.dims, call.L, call.codes,
         call.ptrs_arg, call.omegas, target.data_ptr(),
         None if sample_weights is None else sample_weights.data_ptr(),
-        1.0 / (n_rows * target.shape[-1]), work.data_ptr(), out.data_ptr(), stream)
+        1.0 / (n_rows * target.shape[-1]), *call.sms, work.data_ptr(), out.data_ptr(), stream)
     _build.raise_on(rc, f"siren_loss_grads_{route}")
     grads = [out.as_strided(*v) for v in call.views]
     loss = out[call.n_params]
@@ -723,13 +813,15 @@ def _launch_loss_grads_stream(lib, *args, **kwargs):
 def _slot_strides(weights: Sequence[torch.Tensor]):
     """The floats between two slots' copies of each stacked tensor, as a C
     array (the kernels read slot s of tensor i at its slot 0 + s stride);
-    each slot's copy must be contiguous."""
+    each slot's copy must be contiguous (from the strides alone: no view)."""
     strides = []
     for w in weights:
-        inner = w[0]
-        if not inner.is_contiguous():
-            raise ValueError("each slot of a stacked weight must be contiguous")
-        strides.append(int(w.stride(0)))
+        stride, want = w.stride(), 1
+        for d in range(w.dim() - 1, 0, -1):
+            if w.shape[d] != 1 and stride[d] != want:
+                raise ValueError("each slot of a stacked weight must be contiguous")
+            want *= w.shape[d]
+        strides.append(int(stride[0]))
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
@@ -779,34 +871,72 @@ def _launch_loss_grads_wg(lib, x, weights, target, omega, n_rows, stream):
     return loss, grads
 
 
-def _launch_loss_grads_resident_batched(lib, x, weights, target, omega, n_rows, stream,
-                                        acts=None, sample_weights=None):
-    """Batched K1 on the weight-resident route
-    (``siren_loss_grads_resident_batched``): ``(loss (D,), grads)``, views of
-    one (D, n_params + 2) buffer whose row s holds slot s's grads, loss and
-    max |out|."""
-    dims, D = _batched_dims(x, weights)
-    n = len(dims) - 1
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    cast = lambda a: ctypes.cast(a, ctypes.c_void_p)
-    P = int(x.shape[0])
-    work_n = lib.siren_resident_batched_work_floats(P, cast(c_dims), n, D)
-    if work_n < 0:
-        raise ValueError(f"K1's resident route does not take widths {dims}")
-    codes = [ACT_CODES[a] for a in _acts(acts, n)]
-    c_codes = (ctypes.c_int * n)(*codes)
-    omegas = _omegas(omega, n - 1)
-    c_om = (ctypes.c_float * len(omegas))(*omegas)
-    work = torch.empty(int(work_n), dtype=x.dtype, device=x.device)
-    n_params = _n_params(dims)
-    out = torch.empty(D, n_params + 2, dtype=x.dtype, device=x.device)
-    rc = lib.siren_loss_grads_resident_batched(
-        x.data_ptr(), P, int(n_rows), cast(c_dims), n, D, cast(c_codes),
-        _build.ptr_array(weights), cast(_slot_strides(weights)), cast(c_om), target.data_ptr(),
+class _RtcCall:
+    """One plan of the batched K1-w kernel (``csrc/siren_resident_tc.cu``)
+    for a shape, a device and the weights' slot strides, built once: the
+    ctypes arrays, the SM count, the grid barrier's counter (zeroed here;
+    every call leaves it 0, so calls of a plan run in stream order, as
+    launches on PyTorch's current stream do), the partial workspace's size,
+    the grads' places in the output row, and the kernel's shared-memory
+    attribute, set once a plan."""
+
+    def __init__(self, lib, P: int, dims: tuple, D: int, strides: tuple, omega: float,
+                 sms: int, device: torch.device):
+        n = len(dims) - 1
+        self.dims_arr = (ctypes.c_int * len(dims))(*dims)
+        self.dims = ctypes.cast(self.dims_arr, ctypes.c_void_p)
+        self.slot_arr = (ctypes.c_longlong * len(strides))(*strides)
+        self.w_slot = ctypes.cast(self.slot_arr, ctypes.c_void_p)
+        self.ptrs = (ctypes.c_void_p * (2 * n))()  # the weights' pointers, filled in each call
+        self.ptrs_arg = ctypes.cast(self.ptrs, ctypes.c_void_p)
+        self.n, self.omega, self.sms = n, float(omega), sms
+        self.work = int(lib.siren_rtc_work_floats(P, self.dims, n, D, self.sms))
+        if self.work < 0:
+            raise ValueError(f"the batched K1-w kernel does not take widths {list(dims)}")
+        _build.raise_on(lib.siren_rtc_setup(), "siren_rtc_setup")
+        self.sync = torch.zeros(2, dtype=torch.int32, device=device)
+        self.n_params = _n_params(dims)
+        # each grad's (shape, stride, offset) in the (D, n_params + 1) output
+        self.views, at = [], 0
+        for l in range(n):
+            for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
+                self.views.append(((D, *shape), (self.n_params + 1, *stride), at))
+                at += int(torch.Size(shape).numel())
+        self.launch = lib.siren_loss_grads_rtc
+
+
+_RTC_CALLS: dict[tuple, _RtcCall] = {}
+
+
+def _launch_loss_grads_resident_tc(lib, x, weights, target, omega, n_rows, stream,
+                                   sample_weights=None):
+    """The batched K1-w (``csrc/siren_resident_tc.cu``, the widths
+    :func:`resident_tc_route` takes): ``(loss (D,), grads)``, views of one
+    (D, n_params + 1) buffer whose row s holds slot s's grads, then its
+    loss. One plan a shape, device and set of slot strides
+    (:class:`_RtcCall`); a call fills in the pointers, allocates the output
+    and the partial workspace, and launches."""
+    P, D = int(x.shape[0]), int(weights[0].shape[0])
+    omega = float(omega if isinstance(omega, (int, float)) else omega[0])
+    sms = _sm_count(x.device)
+    key = (id(lib), x.device, sms, P, tuple(x.shape[1:]), D, tuple(w.shape for w in weights),
+           tuple(w.stride() for w in weights), omega)
+    call = _RTC_CALLS.get(key)
+    if call is None:
+        dims, _ = _batched_dims(x, weights)
+        call = _RTC_CALLS[key] = _RtcCall(lib, P, dims, D, tuple(_slot_strides(weights)),
+                                          omega, sms, x.device)
+    call.ptrs[:] = [w.data_ptr() for w in weights]
+    work = torch.empty(call.work, dtype=x.dtype, device=x.device)
+    out = torch.empty(D, call.n_params + 1, dtype=x.dtype, device=x.device)
+    rc = call.launch(
+        x.data_ptr(), P, int(n_rows), call.dims, call.n, D, call.ptrs_arg, call.w_slot,
+        call.omega, target.data_ptr(),
         None if sample_weights is None else sample_weights.data_ptr(),
-        1.0 / (n_rows * target.shape[-1]), work.data_ptr(), out.data_ptr(), stream)
-    _build.raise_on(rc, "siren_loss_grads_resident_batched")
-    return out[:, n_params], _stacked_views(out, dims)
+        1.0 / (n_rows * target.shape[-1]), call.sms, work.data_ptr(), call.sync.data_ptr(),
+        out.data_ptr(), call.n_params + 1, stream)
+    _build.raise_on(rc, "siren_loss_grads_rtc")
+    return out[:, call.n_params], [out.as_strided(*v) for v in call.views]
 
 
 def _launch_forward_tc(lib, x, weights, omega, stream) -> torch.Tensor:
@@ -938,20 +1068,24 @@ def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
     ``sample_weights`` are (D, P, 1); the grads are stacked like ``weights``.
     Slot s is :func:`siren_loss_grads` of slot s's inputs.
 
-    On the card the route follows from the shapes as for K1
-    (:func:`k1_route`): the tensor-core class (the hybrid fit's 256 ->
-    512x4 -> 1) and the weight-resident route (the 2-D ensemble's 2 -> 64x7
-    -> 1 with sample weights) have batched kernels, one call a step for the
-    D slots: ``csrc/siren_wg.cu`` (``wgmma`` fed by TMA, the Pallas K1's
+    On the card the route follows from the shapes (:func:`batched_route`):
+    the tensor-core class (the hybrid fit's 256 -> 512x4 -> 1) and the 2-D
+    ensemble's class (d0 -> 64 x NH -> 1, sine with one omega; the ensemble
+    runs it with sample weights) have batched kernels, one launch a call for
+    the D slots: ``csrc/siren_wg.cu`` (``wgmma`` fed by TMA, the Pallas K1's
     bf16 stash: :func:`siren_loss_grads_batched_ref` with ``stash="bf16"``;
     counted under ``siren_loss_grads_wg_batched``; last hidden width at most
-    2,048, else it raises) and ``csrc/siren_resident.cu`` (counted under
-    the resident route's key with ``_batched`` appended,
-    ``siren_loss_grads_weighted_resident_batched``). Their grads are views
-    of one (D, n_params) buffer (plus the loss and max |out| on the resident
-    route). The routes with no batched kernel (SIMT widths, the streaming
-    route) run the slots in turn through :func:`siren_loss_grads`, counted
-    under its keys."""
+    2,048, else it raises) and ``csrc/siren_resident_tc.cu`` (``mma.sync``
+    bf16x3 products, the float32 stash; counted under
+    ``siren_loss_grads_[weighted_]resident_tc_batched``). Their grads are
+    views of one (D, n_params [+ 1]) buffer, the loss in the last column on
+    the second. Every other call (ReLU codes or per-layer omegas at the
+    weight-resident widths, the streaming and SIMT widths) runs the slots in
+    turn through :func:`siren_loss_grads`, counted under its keys.
+
+    The checks are lean, as the 2-D ensemble calls this 27,000 times a
+    case: each tensor's type and device once, the slots' contiguity from
+    the strides, the widths once a shape."""
     weights = list(weights)
     dims, D = _batched_dims(x, weights)
     acts = _acts(acts, len(weights) // 2)
@@ -967,30 +1101,31 @@ def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
     extra = [] if sample_weights is None else [sample_weights]
     dev = _build.check_tensors("SIREN", x, [target, *extra], (torch.float32,))
     for w in weights:
-        _build.check_tensors("SIREN", x, [w[0]], (torch.float32,))
+        if w.dtype != torch.float32:
+            raise TypeError(f"SIREN kernels take torch.float32; got {w.dtype}")
+        if w.device != x.device:
+            raise ValueError(f"all tensors must be on {x.device}; got one on {w.device}")
     if dev == "cpu":
+        _slot_strides(weights)
         return siren_loss_grads_batched_ref(x, weights, target, omega, n_rows, acts,
                                             sample_weights)
     weighted = sample_weights is not None
-    weights = [w.detach() for w in weights]
-    route = k1_route(dims, acts, weighted, False)
-    if route == "tc":
+    route = batched_route(dims, acts, omega, weighted)
+    if route == "wg":
         out = _launch_loss_grads_wg(_wg_lib(), x, weights, target, omega, n_rows,
                                     _build.stream_ptr())
         LAUNCHES["siren_loss_grads_wg_batched"] += 1
         return out
-    if route == "resident":
-        out = _launch_loss_grads_resident_batched(_res_lib(), x, weights, target, omega,
-                                                  n_rows, _build.stream_ptr(), acts,
-                                                  sample_weights)
-    else:
-        slots = [siren_loss_grads(x, [w[s] for w in weights], target[s], omega, n_rows, acts,
-                                  None if sample_weights is None else sample_weights[s])
-                 for s in range(D)]
-        return (torch.stack([loss for loss, _ in slots]),
-                [torch.stack(g) for g in zip(*(grads for _, grads in slots))])
-    LAUNCHES[loss_grads_key(weighted, False, route) + "_batched"] += 1
-    return out
+    if route == "resident_tc":
+        out = _launch_loss_grads_resident_tc(_rtc_lib(), x, weights, target, omega, n_rows,
+                                             _build.stream_ptr(), sample_weights)
+        LAUNCHES[loss_grads_key(weighted, False, "resident_tc") + "_batched"] += 1
+        return out
+    slots = [siren_loss_grads(x, [w[s] for w in weights], target[s], omega, n_rows, acts,
+                              None if sample_weights is None else sample_weights[s])
+             for s in range(D)]
+    return (torch.stack([loss for loss, _ in slots]),
+            [torch.stack(g) for g in zip(*(grads for _, grads in slots))])
 
 
 def siren_fused_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],

@@ -36,7 +36,16 @@
 // tensor, laid out and swizzled as the tensor map says, whose bytes then
 // complete on its barrier; a TMA tile store copies a box back at once,
 // dropping what lies outside the tensor; a tensor map is the emulation's own
-// struct.
+// struct. A plain bulk copy (cp.async.bulk) is a synchronous copy whose
+// bytes then complete on its barrier.
+// A cooperative launch (LAUNCH_COOP) runs every block at once: each block's
+// fibers have their own stacks and their own shared window
+// (emu_block_shared), and the scheduler takes the blocks in turn, the last
+// first, each until none of its fibers can run; a fiber that polls memory
+// another block writes (spin_pause) waits for the next turn of its block.
+// Integer atomics are plain read-modify-writes and __threadfence orders
+// nothing (one OS thread runs every fiber); many turns in which only
+// pollers ran abort as a deadlock.
 // Include the .cu after this header; see tests/cuda_emulation/emulated.py.
 #pragma once
 #include <algorithm>
@@ -70,6 +79,7 @@ struct uint3 {
 struct float2 {
   float x, y;
 };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct float4 {
   float x, y, z, w;
 };
@@ -162,10 +172,23 @@ struct Block {
   std::vector<std::deque<std::vector<struct WgmmaOp>>> wg_groups;  // per thread
   std::map<unsigned, Mbar> mbars;  // by shared address
   long long idle_yields = 0;       // yields since a barrier last moved
+  // a cooperative launch's block: its index, its own fiber stacks and
+  // shared window, the fibers waiting for its next turn, and the runs and
+  // pauses of its fibers (a turn of pauses alone is no progress)
+  uint3 idx{0, 0, 0};
+  std::vector<std::unique_ptr<char[]>> own_stacks;
+  std::unique_ptr<char[]> own_shared;
+  std::vector<int> pausing;
+  long long runs = 0, pauses = 0;
 };
 inline Block* block;
 
 inline char* stack_of(int t) {
+  if (!block->own_stacks.empty()) {
+    auto& s = block->own_stacks[t];
+    if (!s) s.reset(new char[STACK_BYTES]);
+    return s.get();
+  }
   static std::vector<std::unique_ptr<char[]>> stacks(MAX_THREADS);
   if (!stacks[t]) stacks[t].reset(new char[STACK_BYTES]);
   return stacks[t].get();
@@ -586,6 +609,57 @@ inline void emu_tma_store_3d(const CUtensorMap* map, int c0, int c1, int c2, con
     }
 }
 
+// cp.async.bulk.shared.global: bytes (a multiple of 16, both addresses
+// 16-byte aligned, as the card wants) copied at once, then completed on bar
+inline void emu_bulk_load(void* dst, const void* src, unsigned bytes, void* bar) {
+  if (reinterpret_cast<uintptr_t>(src) % 16 || emu_shared_offset(dst) % 16 || bytes % 16)
+    std::abort();
+  std::memcpy(dst, src, bytes);
+  emu::Mbar& b = emu_mbar(bar);
+  b.tx -= bytes;
+  emu_mbar_progress(b);
+}
+
+// a fiber polling memory that another block writes: it waits for its
+// block's next turn (a block launched on its own has no other turn: abort)
+inline void emu_spin_pause() {
+  auto& b = *emu::block;
+  if (b.own_stacks.empty()) {
+    std::fprintf(stderr, "emulated spin outside a cooperative launch (deadlock)\n");
+    std::abort();
+  }
+  b.pausing.push_back(b.current);
+  ++b.pauses;
+  emu::park();
+}
+
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p = v;
+  return old;
+}
+inline void __threadfence() {}
+
+// the block's shared window of a cooperative launch's kernel (bytes, NaN
+// bits to start with, as emu_poison_shared)
+inline void* emu_block_shared(size_t bytes) {
+  auto& b = *emu::block;
+  if (threadIdx.x == 0) {
+    b.own_shared.reset(new char[bytes + 128]);
+    char* p = b.own_shared.get();
+    p += (128 - reinterpret_cast<uintptr_t>(p) % 128) % 128;
+    std::memset(p, 0xff, bytes);
+    b.shared_base = p;
+  }
+  __syncthreads();
+  return b.shared_base;
+}
+
 inline void sincosf(float x, float* s, float* c) {
   *s = std::sin(x);
   *c = std::cos(x);
@@ -651,6 +725,86 @@ template <class K>
 Launcher<K> launch(K kernel, dim3 grid, dim3 block) {
   return {kernel, grid, block};
 }
+
+// every block at once: each its own Block (fibers, stacks, shared window),
+// run in turns, the last block first, each turn until none of its fibers
+// can run
+template <class K>
+struct CoopLauncher {
+  K kernel;
+  dim3 grid, block_dim;
+  template <class... A>
+  int operator()(A... args) {
+    gridDim = grid;
+    blockDim = block_dim;
+    const int nt = block_dim.x;
+    const int nw = (nt + 31) / 32;
+    if (nt > MAX_THREADS) std::abort();
+    std::vector<std::unique_ptr<Block>> blocks;
+    Block* outer = block;
+    for (unsigned bz = grid.z; bz-- > 0;)
+      for (unsigned by = grid.y; by-- > 0;)
+        for (unsigned bx = grid.x; bx-- > 0;) {
+          blocks.emplace_back(new Block);
+          Block& b = *blocks.back();
+          b.idx = {bx, by, bz};
+          b.nt = nt;
+          b.sp.resize(nt);
+          b.own_stacks.resize(nt);
+          b.block_barrier.reset(new Barrier(nt));
+          for (int w = 0; w < nw; ++w)
+            b.warp_barriers.emplace_back(new Barrier(std::min(32, nt - 32 * w)));
+          b.warp_buf.resize(nw * 32);
+          b.warp_words.resize(nw * 32 * 8);
+          b.warp_ptrs.resize(nw * 32);
+          b.wg_open.resize(nt);
+          b.wg_groups.resize(nt);
+          b.task = [&](int) { kernel(args...); };
+          block = &b;
+          for (int t = 0; t < nt; ++t) {
+            b.sp[t] = fresh_stack(t);
+            b.ready.push_back(t);
+          }
+        }
+    long long idle_turns = 0;
+    for (;;) {
+      bool done = true, moved = false;
+      for (auto& bp : blocks) {
+        Block& b = *bp;
+        if (b.finished == b.nt) continue;
+        done = false;
+        block = &b;
+        blockIdx = b.idx;
+        for (int f : b.pausing) b.ready.push_back(f);
+        b.pausing.clear();
+        const long long runs = b.runs, pauses = b.pauses;
+        while (!b.ready.empty()) {
+          b.current = b.ready.front();
+          b.ready.pop_front();
+          threadIdx = {(unsigned)b.current, 0, 0};
+          ++b.runs;
+          emu_switch(&b.sched_sp, b.sp[b.current]);
+        }
+        moved = moved || (b.runs - runs) != (b.pauses - pauses);
+      }
+      if (done) break;
+      idle_turns = moved ? 0 : idle_turns + 1;
+      if (idle_turns > 100000) {
+        std::fprintf(stderr, "emulated cooperative launch: only pollers ran in %lld turns "
+                     "(deadlock)\n", idle_turns);
+        std::abort();
+      }
+    }
+    block = outer;
+    return 0;
+  }
+};
+template <class K>
+CoopLauncher<K> launch_coop(K kernel, dim3 grid, dim3 block) {
+  return {kernel, grid, block};
+}
 }  // namespace emu
 
 #define LAUNCH(kernel, grid, block, stream) emu::launch(kernel, dim3(grid), dim3(block))
+#define LAUNCH_COOP(kernel, grid, block, smem, stream, ...) \
+  emu::launch_coop(kernel, dim3(grid), dim3(block))(__VA_ARGS__)

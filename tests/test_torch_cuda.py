@@ -617,7 +617,7 @@ def _stacked_problem(card, D, P, dims, seed):
 @pytest.mark.parametrize("dims,D,P,n_rows,key", [
     ((256, 256, 256, 1), 4, 1000, 900, "siren_loss_grads_wg_batched"),
     ((256, 256, 256, 1), 1, 777, 777, "siren_loss_grads_wg_batched"),
-    ((2, 64, 64, 64, 1), 3, 3600, 3500, "siren_loss_grads_weighted_resident_batched"),
+    ((2, 64, 64, 64, 1), 3, 3600, 3500, "siren_loss_grads_weighted_resident_tc_batched"),
 ])
 def test_k1_batched_launches_and_matches_plain_and_unbatched(card, dims, D, P, n_rows, key):
     """The batched K1 launches once under its key for the D slots (stacked
@@ -627,15 +627,18 @@ def test_k1_batched_launches_and_matches_plain_and_unbatched(card, dims, D, P, n
     (``csrc/siren_wg.cu``) keeps the Pallas K1's bf16 stash: it is held to
     the plain version with that stash at 5e-4 of each grad's largest value,
     and to the float32 plain version and the unbatched calls by what the two
-    stashes' plain versions part by plus 1e-3. The resident case weighs its
-    rows, slot D - 1 all zero (a padded acquisition slot: loss and grads
-    exactly 0)."""
+    stashes' plain versions part by plus 1e-3. The 2-D ensemble's class
+    (``csrc/siren_resident_tc.cu``, bf16x3 products, the float32 stash)
+    weighs its rows, slot D - 1 all zero (a padded acquisition slot: loss
+    and grads exactly 0), and is held to the unbatched weight-resident
+    calls (float32 FMA) as the tensor-core routes are, at 1e-3 of each
+    grad's largest value."""
     from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
 
     x, ws, target = _stacked_problem(card, D, P, dims, seed=P + D)
     ws = StackedAdam(ws, 1e-4).params
     sw = None
-    if key.endswith("resident_batched"):
+    if key.endswith("resident_tc_batched"):
         sw = (torch.rand(D, P, 1, generator=torch.Generator().manual_seed(D)) > 0.1).float()
         sw[-1] = 0.0
         sw = sw.to(card)
@@ -662,9 +665,9 @@ def test_k1_batched_launches_and_matches_plain_and_unbatched(card, dims, D, P, n
             for a, b, st in zip(grads, gs, stash):
                 assert rel(a[s], b) <= 1e-3 + st
         else:
-            torch.testing.assert_close(loss[s], ls, rtol=1e-5, atol=0)
-            for a, b in zip(grads, gs):
-                torch.testing.assert_close(a[s], b, rtol=1e-4, atol=1e-6)
+            torch.testing.assert_close(loss[s], ls, rtol=1e-4, atol=0)
+            for a, b in zip(grads, gs):  # the padded slot's are 0 on both sides
+                assert float((a[s] - b).abs().max()) <= 1e-3 * float(b.abs().max())
     if sw is not None:
         assert float(loss[-1]) == 0.0 and all(float(g[-1].abs().max()) == 0.0 for g in grads)
     loss2, grads2 = tk.siren_loss_grads_batched(x, ws, target, n_rows=n_rows, sample_weights=sw)

@@ -160,7 +160,7 @@ def test_emulated_resident_plan_and_refusals(emulated_res):
     def work(dims, P):
         arr = (ctypes.c_int * len(dims))(*dims)
         return emulated_res.siren_resident_work_floats(P, ctypes.cast(arr, ctypes.c_void_p),
-                                                       len(dims) - 1)
+                                                       len(dims) - 1, 132)
 
     for dims in (MASTER_DIMS, ERD_DIMS, (3, 10, 7, 1), (2, 8, 1), (64, 96, 130, 1),
                  (256, 512, 512, 512, 512, 1), (2, 1), (2, 8, 2), (2,) + (4,) * 17 + (1,),
@@ -174,70 +174,3 @@ def test_emulated_resident_plan_and_refusals(emulated_res):
         x, ws, target, _ = _problem(dims, 4, seed=0)
         with pytest.raises(ValueError):
             tk._launch_loss_grads_resident(emulated_res, x, ws, target, 30.0, 4, 0)
-
-
-def _stacked(dims, D, P, seed):
-    probs = [_problem(dims, P, seed + s) for s in range(D)]
-    ws = [torch.stack([p[1][i] for p in probs]) for i in range(len(probs[0][1]))]
-    return (probs[0][0], ws, torch.stack([p[2] for p in probs]),
-            torch.stack([p[3] for p in probs]))
-
-
-@pytest.mark.parametrize("dims,D,P,n_rows,masked", [
-    (MASTER_DIMS, 1, 100, 100, None),  # one slot, a ragged last tile
-    (MASTER_DIMS, 3, 100, 93, 1),  # three slots, masked rows, slot 1 padded
-    ((2, 8, 1), 3, 4300, 4290, None),  # 135 tiles over 44 blocks a slot
-])
-def test_emulated_resident_batched(emulated_res, dims, D, P, n_rows, masked):
-    """The batched entry (132 // D blocks a slot, each loading its slot's
-    weights) against the plain batched K1 at the route's tolerances and
-    each slot against the unbatched entry on its inputs (float32 sums over
-    another split of the row tiles, so the same tolerances); ``masked``: a
-    padded slot of the 2-D ensemble, all sample weights 0, whose loss and
-    grads are exactly 0 while the other slots stay right. Two calls give
-    the same bits."""
-    from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
-
-    x, ws, target, sw = _stacked(dims, D, P, seed=P + D)
-    if masked is not None:
-        sw[masked] = 0.0
-    ws = StackedAdam(ws, 1e-4).params  # slots a parameter buffer's rows apart
-    got = tk._launch_loss_grads_resident_batched(emulated_res, x, ws, target, 30.0, n_rows, 0,
-                                                 None, sw)
-    want = tk.siren_loss_grads_batched_ref(x, ws, target, 30.0, n_rows, None, sw)
-    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
-    for i, (a, b) in enumerate(zip(got[1], want[1])):
-        assert a.shape == b.shape == ws[i].shape
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=f"grad {i}")
-    for s in range(D):
-        one = tk._launch_loss_grads_resident(emulated_res, x, [w[s].contiguous() for w in ws],
-                                             target[s].contiguous(), 30.0, n_rows, 0, None,
-                                             sw[s].contiguous())
-        torch.testing.assert_close(got[0][s], one[0], rtol=1e-5, atol=0)
-        for a, b in zip(got[1], one[1]):
-            torch.testing.assert_close(a[s], b, rtol=1e-4, atol=1e-6)
-    if masked is not None:
-        assert float(got[0][masked]) == 0.0
-        assert all(float(g[masked].abs().max()) == 0.0 for g in got[1])
-    again = tk._launch_loss_grads_resident_batched(emulated_res, x, ws, target, 30.0, n_rows, 0,
-                                                   None, sw)
-    assert torch.equal(got[0], again[0]) and all(torch.equal(a, b)
-                                                 for a, b in zip(got[1], again[1]))
-
-
-def test_emulated_resident_batched_plan(emulated_res):
-    """SMs / D blocks a slot (44 of 132 at D = 3), at most a slot's tiles:
-    the workspace of the 2-D ensemble's call; the widths the unbatched
-    route refuses are refused."""
-
-    def work(dims, P, D):
-        arr = (ctypes.c_int * len(dims))(*dims)
-        return emulated_res.siren_resident_batched_work_floats(
-            P, ctypes.cast(arr, ctypes.c_void_p), len(dims) - 1, D)
-
-    assert work(MASTER_DIMS, 3600, 3) == 3 * 44 * (25_217 + 2)
-    assert work(MASTER_DIMS, 3600, 1) == 113 * (25_217 + 2)
-    assert work(MASTER_DIMS, 100, 3) == 3 * 4 * (25_217 + 2)
-    assert work(MASTER_DIMS, 3600, 200) == 200 * (25_217 + 2)  # one block a slot
-    assert work((256, 512, 512, 512, 512, 1), 100, 3) == -1
-    assert work(MASTER_DIMS, 3600, 0) == -1

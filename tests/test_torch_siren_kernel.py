@@ -131,8 +131,8 @@ def test_cpu_runs_plain_versions_without_launching(setup):
                                 "siren_loss_grads_absmax_stream",
                                 "siren_loss_grads_weighted_absmax_stream",
                                 "siren_loss_grads_wg_batched",
-                                "siren_loss_grads_resident_batched",
-                                "siren_loss_grads_weighted_resident_batched"}
+                                "siren_loss_grads_resident_tc_batched",
+                                "siren_loss_grads_weighted_resident_tc_batched"}
     assert not any(tk.LAUNCHES.values())
 
 
