@@ -171,11 +171,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    steps, exactly 5 tensor-core K1 launches a rank), the ragged fit (69,997
    rows padded to 69,998), the tensor-parallel fit (3 steps, width 512 over
    the two ranks, no kernel), each against one rank loss by loss; a sharded
-   checkpoint round trip (``torch.distributed.checkpoint``); and
+   checkpoint round trip (``torch.distributed.checkpoint``); the engine's
+   three fits with ``mesh=`` on the same ranks: ``fit_ensemble_batched``
+   at the 2-D ensemble's full width (three directions of nine acquisitions,
+   3,600 rows, 1,800 a rank; 20 steps, a tail of 5; exactly 180 batched
+   K1-w launches a rank), ``fit_alternating_pn`` at the flagship (70,000
+   rows, 35,000 a rank, 75 acquisitions, 14 epochs, 4 alternating: 12 K1
+   and 150 K3 and K2 launches a rank) and ``fit_until`` (soft-ERD phase 1 on
+   the soft-ERD case's 16,384-row target, 8,192 a rank, to 2e-5: one
+   streaming K1-a launch a step), the ranks bit-equal, each trace against
+   one rank in its stated window (SHARD_ENS_WINDOW), phase 1's stop within
+   5% of one rank's, both stop steps printed, and a 2-step ensemble whose
+   gathered predictions are its final params' on the whole grids; and
    ``train_misr.main --data_parallel --conv_kernel`` at full-width RAMS
    (batch 32, 16 a rank, 2 steps; exactly 34 K6 + 34 K7 launches a step on
    each rank) against one rank's two step losses; ms a step on two ranks and
-   on one printed;
+   on one printed; then the port's three examples: ``phantom_sanity`` as it
+   stands (its gates; one streaming K1-a launch a phase-1 step),
+   ``sr3d_demo --epochs 60`` (K1-K3 on the tensor cores, counted exactly)
+   and ``wire_vs_siren --steps 100`` (plain autograd, no kernel);
 4. times: each kernel at its main path's shapes with CUDA events, beside
    its plain version, the library equivalent (eager autograd; ``F.conv3d``
    for K6, ``torch.autograd.grad`` through it for K7; ``torch.matmul`` in
@@ -194,7 +208,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Adam step, a whole update, ``fit_until``'s per-step read-back, the
    soft-ERD step on both K1-a routes; the batched 2-D update of the three
    directions, a batched K1-w call and a stacked Adam step, beside three
-   unbatched updates); K1-a at the half-res LR slice beside
+   unbatched updates); the shapes of the fits on two ranks, each held to
+   its plain version first: the batched K1-w at 1,800 rows, K1-a at 8,192,
+   K3 and K2 at 35,000; K1-a at the half-res LR slice beside
    its plain version, eager autograd and its bound, by pass; the
    25-draw RAMS forward on both
    routes; one full training step at batch 32 on both routes, whose losses
@@ -207,8 +223,9 @@ tensor-core route, K1 also at the hybrid's shape and at a shard's 35,000
 rows, K6-K7, K1's weighted
 variant on its weight-resident
 route and its absmax variant on its streaming route, also at the half-res
-LR slice, P1 in bf16 and int8, and the batched K1 on its two kernels: 16
-rows; each row's launches are its own entry's on the main path, so the
+LR slice, P1 in bf16 and int8, the batched K1 on its two kernels, and the
+batched K1-w, K1-a, K3 and K2 at a rank's shard of the fits on two ranks:
+20 rows; each row's launches are its own entry's on the main path, so the
 unbatched K1 row at the hybrid's shape and the unbatched K1-weighted row,
 whose paths now run the batched entries, count 0),
 the card's name and
@@ -390,6 +407,27 @@ COHORT_TRACE_STEPS, COHORT_TRACE_RTOL = 20, 1e-4
 # 2^-8 (K7 sums the batch's dW in halves; the bf16 activations round after
 # the params part by Adam's sign flips of near-zero gradient components)
 SHARD_STEPS, TP_STEPS, SHARD_RTOL, TRAIN_DP_RTOL = 5, 3, 1e-4, 1e-3
+# the engine's three fits on the data axis of the same two ranks, at full
+# width: the 2-D ensemble (three directions of nine acquisitions on the 60 x
+# 60 ROI, 1,800 rows a rank; eval grids of 3,600 and 32,400 rows) for 20
+# steps with a tail of 5; the 3-D main path's schedule at the flagship (75
+# acquisitions, 35,000 rows a rank) for 14 epochs, 4 of them alternating;
+# soft-ERD phase 1 (16,384 rows, 8,192 a rank) to ERD_THRESHOLD. The ranks
+# bit-equal; against one rank, whose one sum rounds otherwise than two
+# half-sums, each loss trace at SHARD_RTOL within a window: the alternating
+# fit's whole 14 epochs; the ensemble's first SHARD_ENS_WINDOW steps (45
+# updates) and phase 1's first K1_TRACE_STEPS, since Adam amplifies the
+# rounding of near-zero gradient components from update to update (on an
+# H100, NVIDIA H100 80GB HBM3, 700 W, the ensemble's random-target trace
+# drifted to 4.9e-3 by step 20 on the kernel route and 2.5e-3 on the plain
+# one, phase 1's to 0.63 at a loss spike, stopping at 738 against 725);
+# phase 1's stop step within SHARD_STOP_FRAC of one rank's; and a
+# SHARD_ENS_SHORT-step ensemble's trace at SHARD_RTOL, with a tail of one
+# step, whose gathered predictions are the INR of its final params on the
+# whole grids (at SHARD_RTOL of their largest magnitude)
+SHARD_ENS_STEPS, SHARD_ENS_SEG, SHARD_ENS_WINDOW, SHARD_ENS_SHORT = 20, 5, 5, 2
+SHARD_ALT_EPOCHS, SHARD_ALT_PN, SHARD_ALT_ACQ = 14, 4, 75
+SHARD_STOP_FRAC = 0.05
 
 
 def _require(cond: bool, what: str) -> None:
@@ -3528,6 +3566,68 @@ def phase_cohort(out_dir: str) -> None:
           f"{cpu.voxels_per_sec:,.0f}")
 
 
+def phase_examples(out_dir: str) -> None:
+    """The port's three examples on the card, each run's launches counted
+    from 0: ``phantom_sanity`` as it stands (its gates raise on failure;
+    one streaming K1-a launch a phase-1 step of the two phantoms' LR
+    slices), ``sr3d_demo --epochs 60`` (the SIREN 128 -> 256x3 -> 1 on
+    K1-K3's tensor-core route) and ``wire_vs_siren --steps 100`` (autograd
+    over the plain models, as the JAX example: no kernel)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mri_super_resolution_tpu_torch.examples import phantom_sanity, sr3d_demo, wire_vs_siren
+    from mri_super_resolution_tpu_torch.pipelines import lowres_qual
+
+    steps, run_slice = [], lowres_qual.run_slice
+
+    def recording(*args, **kwargs):
+        res = run_slice(*args, **kwargs)
+        steps.append(res.pretrain_steps)
+        return res
+
+    lowres_qual.run_slice = recording
+    try:
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        rows = phantom_sanity.main(["--out_dir", os.path.join(out_dir, "phantom_sanity")])
+        wall = time.perf_counter() - t0
+    finally:
+        lowres_qual.run_slice = run_slice
+    _check_only(_all_counts(), {"siren_loss_grads_absmax_stream": sum(steps)}, "phantom_sanity")
+    print(f"[examples] phantom_sanity: {rows}; phase-1 steps {steps}; gates passed; "
+          f"{wall:.1f} s")
+
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    res = sr3d_demo.main(["--epochs", "60"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n1 = 60 - 6
+    odd = sum(e % 2 for e in range(n1, 60))
+    pn_steps = (6 - odd) * res.timings["num_combinations"]
+    chunks = sum(math.ceil(a.size / INFER_CHUNK) for a in (res.recon_2x, res.sr_hr_grid))
+    _check_only(_all_counts(), {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd_tc": pn_steps,
+                                "siren_forward_tc": pn_steps + chunks}, "sr3d_demo")
+    ssim = np.asarray([r[3:] for r in res.ssim_rows])
+    _require(bool(np.isfinite(ssim).all()) and bool(np.isfinite(res.losses).all()),
+             "sr3d_demo: non-finite losses or SSIM")
+    print(f"[examples] sr3d_demo --epochs 60: {len(res.ssim_rows)} SSIM rows, SR above the "
+          f"spline in {int((ssim[:, 1] > ssim[:, 0]).sum())}; loss {res.losses[0]:.4e} -> "
+          f"{res.losses[-1]:.4e}; {wall:.1f} s")
+
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    fits = wire_vs_siren.main(["--steps", "100"])
+    wall = time.perf_counter() - t0
+    _check_only(_all_counts(), {}, "wire_vs_siren")
+    _require(all(np.isfinite(v).all() for v in fits.values()),
+             f"wire_vs_siren: non-finite results {fits}")
+    print(f"[examples] wire_vs_siren --steps 100: (final loss, PSNR dB) {fits}; {wall:.1f} s")
+
+
 def _train_dp_args(out_dir: str, tag: str) -> list:
     return ["--conv_kernel", "--batch_size", str(TRAIN_BATCH), "--hr_size", "96",
             "--epochs", "1", "--evaluate_every", "2", "--ckpt_dir",
@@ -3535,7 +3635,151 @@ def _train_dp_args(out_dir: str, tag: str) -> list:
             "--device", "cuda", "--seed", "0"]
 
 
-def _sharded_rank(P: int, dims, out_dir: str) -> dict:
+def _ensemble_problem(seed: int):
+    """The 2-D ensemble's batched fit at full width on the card: three
+    seeded Siren(2 -> 64x7 -> 1) stacked, the 60 x 60 ROI grid and its 3x
+    grid, targets in Normalize(0.5, 0.5) space and acceptance weights with
+    one row in ten rejected for each of the nine acquisitions of each
+    direction."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.config import Master2DConfig
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.models import Siren
+
+    gen = torch.Generator().manual_seed(seed)
+    models = [Siren(2, MASTER_HIDDEN, MASTER_LAYERS, generator=gen) for _ in range(MASTER_DIRS)]
+    init = [torch.stack(t).cuda() for t in zip(*(m.weights() for m in models))]
+    scale = Master2DConfig().scale
+    shape = (MASTER_DIRS, MASTER_SLOTS, MASTER_P, 1)
+    pixels = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
+    weights = (torch.rand(shape, generator=gen) > 0.1).float().cuda()
+    return (models[0], init, mgrid((60, 60), device="cuda"),
+            mgrid((60 * scale, 60 * scale), device="cuda"), pixels, weights)
+
+
+def _alternating_problem(P: int, dims, seed: int):
+    """The 3-D main path's fit at the flagship on the card: the 25 x 25 x 28
+    x 4 LR grid (70,000 rows) encoded by B (mapping 128), a seeded SIREN
+    256 -> 512x4 -> 1 and PerturbNet of width 128 (the reference preset's),
+    a mean target and SHARD_ALT_ACQ acquisitions in [0, 1]."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix, mgrid
+    from mri_super_resolution_tpu_torch.models import PerturbNet, Siren
+
+    gen = torch.Generator().manual_seed(seed)
+    shape = (25, 25, 28, 4)
+    _require(P == 25 * 25 * 28 * 4, "the alternating fit runs at the flagship's 70,000 rows")
+    B = fourier_matrix(gen, dims[0] // 2, len(shape), device="cuda")
+    ff = fourier_encode(mgrid(shape, device="cuda"), B)
+    inr = Siren(dims[0], dims[1], len(dims) - 3, generator=gen, device="cuda")
+    inr.requires_grad_(False)
+    pn = PerturbNet(ff.shape[1], 128, len(shape), generator=gen, device="cuda")
+    pn.requires_grad_(False)
+    target = torch.rand(P, 1, generator=gen).cuda()
+    acq = torch.rand(SHARD_ALT_ACQ, P, 1, generator=gen).cuda()
+    return inr, pn, ff, B, target, acq
+
+
+def _fit_programs_rank(P: int, dims, erd_target, flat, one) -> dict:
+    """``fit_ensemble_batched``, ``fit_alternating_pn`` and ``fit_until``
+    with ``mesh=flat`` on this rank's shards, then on rank 0 each on the
+    whole batch (a mesh of one); every run's launches counted from 0 and
+    its wall-clock taken."""
+    import torch
+    import torch.distributed as dist
+
+    from mri_super_resolution_tpu_torch.core.coords import mgrid
+    from mri_super_resolution_tpu_torch.fit.engine import (fit_alternating_pn,
+                                                          fit_ensemble_batched, fit_until,
+                                                          plain_apply_init)
+    from mri_super_resolution_tpu_torch.fit.optim import Adam, StackedAdam
+    from mri_super_resolution_tpu_torch.models import SirenERD, perturbnet_apply
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+    from mri_super_resolution_tpu_torch.parallel import Spec, shard_batch
+    from mri_super_resolution_tpu_torch.pipelines.inr_erd import PRETRAIN_MAX_STEPS
+
+    rank = dist.get_rank()
+    out = {}
+
+    def on(mesh, x, spec=None):
+        return x if mesh is one else shard_batch(x, mesh, spec)
+
+    def run(tag: str, fn):
+        """``fn(mesh)`` on every rank's shards, then on rank 0 alone."""
+        for mesh, suffix in ((flat, ""), (one, "_ref")):
+            if mesh is one and rank != 0:
+                continue
+            _reset_all_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(mesh)
+            torch.cuda.synchronize()
+            out[f"{tag}_s{suffix}"] = time.perf_counter() - t0
+            out[f"{tag}_launches{suffix}"] = _all_counts()
+            out[f"{tag}{suffix}"] = res
+        dist.barrier()
+
+    model, init, coords, coords_s, pixels, weights = _ensemble_problem(seed=91)
+    omegas = model.omegas
+    vag_w = sk.make_fused_weighted_value_and_grad_batched(model)
+    acq_spec = Spec(None, None, "data")
+
+    def ensemble(steps: int, seg: int):
+        def fit(mesh):
+            res = fit_ensemble_batched(
+                lambda p, x: sk.siren_forward_batched_ref(x, p, omegas), StackedAdam(init, 3e-4),
+                on(mesh, coords), on(mesh, pixels, acq_spec), on(mesh, weights, acq_spec),
+                on(mesh, coords), on(mesh, coords_s), steps, seg,
+                weighted_value_and_grad_fn=vag_w, mesh=mesh)
+            if steps == SHARD_ENS_SHORT and mesh is flat:
+                # the gathered tail of one step: the final params on the whole grids
+                with torch.no_grad():
+                    whole = [sk.siren_forward_batched_ref(c, res.params, omegas)
+                             for c in (coords, coords_s)]
+                out["ensemble_short_gather"] = max(
+                    float((got - w).abs().max() / w.abs().max())
+                    for got, w in zip((res.pred_1x, res.pred_scale), whole))
+            return {"losses": res.losses.cpu().numpy(), "pred_1x": res.pred_1x.cpu().numpy(),
+                    "pred_scale": res.pred_scale.cpu().numpy(),
+                    "rows": int(on(mesh, coords).shape[0])}
+        return fit
+
+    run("ensemble", ensemble(SHARD_ENS_STEPS, SHARD_ENS_SEG))
+    run("ensemble_short", ensemble(SHARD_ENS_SHORT, 1))
+
+    inr, pn, ff, B, target, acq = _alternating_problem(P, dims, seed=92)
+
+    def alternating(mesh):
+        res = fit_alternating_pn(
+            lambda p, x: sk.siren_fused(x, p), perturbnet_apply,
+            Adam([w.clone() for w in inr.weights()], 1e-4),
+            Adam([w.clone() for w in pn.weights()], 1e-6), on(mesh, ff), on(mesh, target),
+            on(mesh, acq, Spec(None, "data")), B, num_epochs=SHARD_ALT_EPOCHS,
+            pn_epochs=SHARD_ALT_PN, inr_value_and_grad=lambda p, x, t: sk.siren_loss_grads(x, p, t),
+            mesh=mesh)
+        return {"losses": res.losses.cpu().numpy(), "rows": int(on(mesh, ff).shape[0])}
+
+    run("alternating", alternating)
+    del inr, pn, ff, target, acq
+
+    erd_coords, erd_target = mgrid((ERD_SIDE, ERD_SIDE), device="cuda"), erd_target.cuda()
+
+    def until(mesh):
+        model = SirenERD(2, ERD_HIDDEN, ERD_LAYERS, perturb=True, device="cuda")
+        apply_fn, init_fn = plain_apply_init(model, torch.Generator().manual_seed(0))
+        res = fit_until(apply_fn, ERD_LR, init_fn, on(mesh, erd_coords), on(mesh, erd_target),
+                        ERD_THRESHOLD, PRETRAIN_MAX_STEPS, sk.make_fused_value_grad_absmax(model),
+                        mesh=mesh)
+        return {"losses": res.losses, "steps": res.steps, "restarts": res.restarts,
+                "loss": res.loss, "rows": int(on(mesh, erd_coords).shape[0])}
+
+    run("until", until)
+    return out
+
+
+def _sharded_rank(P: int, dims, out_dir: str, erd_target) -> dict:
     """One rank of ``phase_sharded`` (two ranks share the card over gloo):
     each program on this rank's shard, the one-rank references on rank 0,
     each program's launches counted from 0."""
@@ -3613,6 +3857,8 @@ def _sharded_rank(P: int, dims, out_dir: str) -> dict:
     out["ckpt_s"] = time.perf_counter() - t0
     out["ckpt_equal"] = (all(torch.equal(back[k].to_local(), tree[k].to_local())
                              for k in tree if k != "step") and int(back["step"]) == TP_STEPS)
+    # the engine's three fits on the data axis
+    out.update(_fit_programs_rank(P, dims, erd_target, flat, one))
     # the MISR trainer, batch 32 over the two ranks
     steps, train_step = [], Trainer.train_step
 
@@ -3683,23 +3929,130 @@ def _trace_rel(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
 
 
-def phase_sharded(P: int, dims, out_dir: str) -> dict:
+def _alternating_counts() -> tuple[int, int]:
+    """(K1 launches, K3 and K2 launches each) of the alternating fit's
+    schedule: the mean steps and odd alternating epochs run K1, the even
+    ones a PerturbNet step per acquisition."""
+    n1 = SHARD_ALT_EPOCHS - SHARD_ALT_PN
+    odd = sum(e % 2 for e in range(n1, SHARD_ALT_EPOCHS))
+    return n1 + odd, (SHARD_ALT_PN - odd) * SHARD_ALT_ACQ
+
+
+def _first_over(a, b, tol: float):
+    """The first index at which ``a`` departs from ``b`` by more than
+    ``tol`` relative, or None."""
+    import numpy as np
+
+    over = np.flatnonzero(np.abs(np.asarray(a) / np.asarray(b) - 1.0).reshape(len(a), -1)
+                          .max(axis=1) > tol)
+    return int(over[0]) if len(over) else None
+
+
+def _check_fit_programs(ranks: list, P: int) -> dict:
+    """The engine's three fits on the data axis: each rank's launches, the
+    ranks bit-equal, each trace against one rank's in its window (see
+    SHARD_ENS_WINDOW); prints both stop steps of phase 1 and where each
+    trace leaves SHARD_RTOL. Returns each program's launches summed over the
+    ranks, by kernel-row name."""
+    import numpy as np
+
+    r0 = ranks[0]
+    n_k1, n_pn = _alternating_counts()
+    until_key = "siren_loss_grads_absmax_stream"
+    ens_key = "siren_loss_grads_weighted_resident_tc_batched"
+    want = {"ensemble": {ens_key: SHARD_ENS_STEPS * MASTER_SLOTS},
+            "ensemble_short": {ens_key: SHARD_ENS_SHORT * MASTER_SLOTS},
+            "alternating": {"siren_loss_grads_tc": n_k1, "siren_forward_tc": n_pn,
+                            "siren_fused_bwd_tc": n_pn}}
+    rows = {"ensemble": MASTER_P // 2, "ensemble_short": MASTER_P // 2,
+            "alternating": P // 2, "until": ERD_SIDE ** 2 // 2}
+    for r in ranks:
+        for tag in rows:
+            w = want.get(tag, {until_key: r["until"]["steps"]})
+            _check_only(r[f"{tag}_launches"], w, f"sharded {tag} (rank {r['rank']})")
+            _require(r[tag]["rows"] == rows[tag], f"rank {r['rank']}: {tag} on "
+                     f"{r[tag]['rows']} rows")
+            got, ref = r[tag], r0[tag]
+            for k in ("losses", "pred_1x", "pred_scale", "steps", "restarts"):
+                if k in got:
+                    _require(np.array_equal(np.asarray(got[k]), np.asarray(ref[k])),
+                             f"sharded {tag}: the ranks' {k} differ")
+    for tag in rows:
+        w = want.get(tag, {until_key: r0["until_ref"]["steps"]})
+        _check_only(r0[f"{tag}_launches_ref"], w, f"one-rank {tag}")
+    for tag in ("ensemble", "ensemble_short"):
+        _require(all(r0[tag][k].shape == r0[f"{tag}_ref"][k].shape
+                     and bool(np.isfinite(r0[tag][k]).all()) for k in ("pred_1x", "pred_scale")),
+                 "the gathered ensemble predictions do not have the one-rank shapes")
+    ens, ens1 = r0["ensemble"]["losses"], r0["ensemble_ref"]["losses"]
+    short, short1 = r0["ensemble_short"], r0["ensemble_short_ref"]
+    alt, alt1 = r0["alternating"]["losses"], r0["alternating_ref"]["losses"]
+    u, u1 = r0["until"], r0["until_ref"]
+    n = min(len(u["losses"]), len(u1["losses"]))
+    rel = {"ensemble": _trace_rel(ens[:SHARD_ENS_WINDOW], ens1[:SHARD_ENS_WINDOW]),
+           "ensemble_short": _trace_rel(short["losses"], short1["losses"]),
+           "ensemble_short gathered predictions": max(r["ensemble_short_gather"] for r in ranks),
+           "alternating": _trace_rel(alt, alt1),
+           "until": _trace_rel(u["losses"][:K1_TRACE_STEPS], u1["losses"][:K1_TRACE_STEPS])}
+    print(f"[sharded] fit_ensemble_batched: {MASTER_DIRS} directions x {MASTER_SLOTS} "
+          f"acquisitions, {MASTER_P // 2} rows a rank, {SHARD_ENS_STEPS} steps ({ens_key} "
+          f"{SHARD_ENS_STEPS * MASTER_SLOTS} a rank): losses vs one rank worst rel "
+          f"{rel['ensemble']:.2e} over the first {SHARD_ENS_WINDOW} steps, "
+          f"{_trace_rel(ens, ens1):.2e} over all {SHARD_ENS_STEPS} (first step beyond "
+          f"{SHARD_RTOL:g}: {_first_over(ens, ens1, SHARD_RTOL)}); {SHARD_ENS_SHORT} steps: "
+          f"losses worst rel {rel['ensemble_short']:.2e}, gathered predictions vs the final "
+          f"params on the whole grids worst gap / max "
+          f"{rel['ensemble_short gathered predictions']:.2e}, vs one rank's "
+          f"{max(float(np.abs(short[k] - short1[k]).max() / np.abs(short1[k]).max()) for k in ('pred_1x', 'pred_scale')):.2e}; "
+          f"{r0['ensemble_s']:.3f} s on two ranks vs "
+          f"{r0['ensemble_s_ref']:.3f} s on one")
+    print(f"[sharded] fit_alternating_pn: flagship on {P // 2} rows a rank, "
+          f"{SHARD_ALT_EPOCHS} epochs ({SHARD_ALT_PN} alternating, {SHARD_ALT_ACQ} "
+          f"acquisitions; K1 {n_k1}, K3 and K2 {n_pn} each a rank): losses {alt.tolist()} vs "
+          f"one rank worst rel {rel['alternating']:.2e}; {r0['alternating_s']:.3f} s on two "
+          f"ranks vs {r0['alternating_s_ref']:.3f} s on one")
+    print(f"[sharded] fit_until (soft-ERD phase 1 to {ERD_THRESHOLD:g}): {ERD_SIDE ** 2 // 2} "
+          f"rows a rank, stop step {u['steps']} (restarts {u['restarts']}) on two ranks vs "
+          f"{u1['steps']} (restarts {u1['restarts']}) on one; worst rel {rel['until']:.2e} "
+          f"over the first {K1_TRACE_STEPS} steps, {_trace_rel(u['losses'][:n], u1['losses'][:n]):.2e} "
+          f"over the common {n} (first step beyond {SHARD_RTOL:g}: "
+          f"{_first_over(u['losses'][:n], u1['losses'][:n], SHARD_RTOL)}); "
+          f"{r0['until_s']:.3f} s on two ranks vs {r0['until_s_ref']:.3f} s on one (bars: "
+          f"{SHARD_RTOL:g}, stop within {SHARD_STOP_FRAC:.0%})")
+    for tag, v in rel.items():
+        _require(v <= SHARD_RTOL, f"sharded {tag} vs one rank: {v:.3e}")
+    _require(abs(u["steps"] - u1["steps"]) <= SHARD_STOP_FRAC * u1["steps"]
+             and u["loss"] <= ERD_THRESHOLD,
+             f"sharded phase 1 stops at {u['steps']}, one rank at {u1['steps']}")
+    total = lambda tag, key: sum(r[f"{tag}_launches"][key] for r in ranks)  # noqa: E731
+    return {f"{ens_key}_shard": total("ensemble", ens_key),
+            "siren_forward_tc_shard": total("alternating", "siren_forward_tc"),
+            "siren_fused_bwd_tc_shard": total("alternating", "siren_fused_bwd_tc"),
+            f"{until_key}_shard": total("until", until_key)}
+
+
+def phase_sharded(P: int, dims, out_dir: str, erd_target) -> dict:
     """The parallel layer at full width on two gloo ranks sharing the card
     (``parallel/distributed.py:spawn_ranks``): the flagship SIREN's
     data-parallel fit on K1 (35,000 rows a rank, 5 steps), the ragged fit
     (69,997 rows padded to 69,998, K1 on each rank's real rows), the
     tensor-parallel fit (3 steps, width 512 over the two), a sharded
-    checkpoint round trip, and ``train_misr --data_parallel --conv_kernel``
+    checkpoint round trip, the engine's three fits with ``mesh=`` (the 2-D
+    ensemble on the batched K1-w, the 3-D main path's schedule on K1, K3
+    and K2, soft-ERD phase 1 on K1-a to ``erd_target``, the soft-ERD case's
+    16,384-row target), and ``train_misr --data_parallel --conv_kernel``
     at full-width RAMS (batch 32, 16 a rank, 2 steps); each against one
     rank, each rank's launches asserted. Returns the K1 launches of the
-    data-parallel fit, summed over the ranks."""
+    data-parallel fit and those of the three fits, summed over the
+    ranks."""
     import numpy as np
 
     from mri_super_resolution_tpu_torch.parallel.distributed import spawn_ranks
 
     _write_b0_volumes(os.path.join(out_dir, "train_data"))
     t0 = time.perf_counter()
-    ranks = spawn_ranks(_sharded_rank, 2, P, dims, out_dir, device="cuda", timeout=900)
+    ranks = spawn_ranks(_sharded_rank, 2, P, dims, out_dir, erd_target.cpu(), device="cuda",
+                        timeout=900)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     for r in ranks:
@@ -3748,7 +4101,7 @@ def phase_sharded(P: int, dims, out_dir: str) -> dict:
           f"{r0['train_ref_steps'][1][3] * 1e3:.1f} ms on one; train_misr.main() "
           f"{r0['train_s']:.2f} s on two ranks vs {r0['train_ref_s']:.2f} s on one")
     return {"siren_loss_grads_tc_shard": sum(r["k1_launches"]["siren_loss_grads_tc"]
-                                             for r in ranks)}
+                                             for r in ranks), **_check_fit_programs(ranks, P)}
 
 
 def phase_k1_shard_time(P: int, dims, errs: dict, launches: dict) -> dict:
@@ -3788,6 +4141,140 @@ def phase_k1_shard_time(P: int, dims, errs: dict, launches: dict) -> dict:
                      lambda: sk.siren_loss_grads(x, ws, target),
                      lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads, flops,
                      nbytes, f"P={n} (a shard of 2)", errs, launches, peak=PEAK_BF16_TC)
+
+
+def phase_shard_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
+    """The kernels at the shapes of the engine's fits on two ranks, each
+    held to its plain version (twice for the same bits) and timed beside
+    it, its bound and its library call: the batched K1-w at 1,800 rows a
+    rank (57 row tiles, the last of 8 rows), K1-a at 8,192 and K3 and K2
+    (dx only, as a PerturbNet step calls it) at 35,000."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
+
+    rows = []
+    # the batched K1-w on a rank's 1,800 rows of the 60 x 60 ROI
+    n = MASTER_P // 2
+    models, x, targets, sws = zip(*(_master_inputs(seed=101 + d) for d in range(MASTER_DIRS)))
+    x, acts = x[0][:n].contiguous(), models[0].acts
+    ws = [torch.stack(t) for t in zip(*(m.weights() for m in models))]
+    target = torch.stack([t[:n] for t in targets])
+    sw = torch.stack([w[:n] for w in sws])
+    name = "siren_loss_grads_weighted_resident_tc_batched_shard"
+    before = dict(sk.LAUNCHES)
+    batched = lambda: sk.siren_loss_grads_batched(x, ws, target, acts=acts, sample_weights=sw)
+    got, again = batched(), batched()
+    singles = [sk.siren_loss_grads(x, [w[s] for w in ws], target[s], acts=acts,
+                                   sample_weights=sw[s]) for s in range(MASTER_DIRS)]
+    torch.cuda.synchronize()
+    key = "siren_loss_grads_weighted_resident_tc_batched"
+    _require(sk.LAUNCHES[key] == before[key] + 2,
+             f"the batched K1-w at {n} rows did not take its kernel")
+    ref = sk.siren_loss_grads_batched_ref(x, ws, target, 30.0, None, acts, sw)
+    errs[name] = _batched_check(f"K1-w batched x{MASTER_DIRS} at a rank's P={n}, "
+                                "csrc/siren_resident_tc.cu", got, ref, singles, again)
+    kdims = (2,) + (MASTER_HIDDEN,) * (MASTER_LAYERS + 1) + (1,)
+    macs = _layer_macs(kdims)
+    flops = MASTER_DIRS * 2 * n * (2 * sum(macs) + sum(macs[1:]))
+    wbytes = 4 * sum(w.numel() for w in ws)
+    nbytes = 4 * x.numel() + 2 * wbytes + 2 * 4 * MASTER_DIRS * n + 4 * MASTER_DIRS
+    rows.append(_time_row(
+        name, "siren_resident_tc", "siren_kernel.py:518", batched,
+        lambda: sk.siren_loss_grads_batched_ref(x, ws, target, 30.0, None, acts, sw),
+        _batched_lib(x, ws, target, sw, acts), 3 * flops, nbytes,
+        f"P={n}, D={MASTER_DIRS} (a rank's shard)", errs, launches, peak=PEAK_BF16_TC,
+        reps=100, rounds=2))
+
+    # K1-a on a rank's 8,192 rows of the 128 x 128 slice
+    n = ERD_SIDE ** 2 // 2
+    model, x, target = _erd_inputs(seed=103, last_bias=0.05)
+    x, target = x[:n].contiguous(), target[:n].contiguous()
+    ws, acts = model.weights(), model.acts
+    name, key = "siren_loss_grads_absmax_stream_shard", sk.loss_grads_key(False, True, "stream")
+    before = dict(sk.LAUNCHES)
+    kern = lambda: sk.siren_loss_grads(x, ws, target, acts=acts, with_out_absmax=True)
+    (loss, am, grads), again = kern(), kern()
+    loss_r, am_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, None, True)
+    torch.cuda.synchronize()
+    _require(sk.LAUNCHES == {**before, key: before[key] + 2},
+             f"K1-a at {n} rows did not take the streaming route")
+    worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
+    loss_rel, am_rel = _rel(loss, loss_r)[1], _rel(am, am_r)[1]
+    print(f"[parity] K1 absmax/ReLU at a rank's P={n}, streaming route: loss rel {loss_rel:.2e} "
+          f"(tol {K1A_LOSS_RTOL:g}); max |out| rel {am_rel:.2e} (tol {K1_ABSMAX_TOL:g}); worst "
+          f"over loss/dW max abs {worst[0]:.3e}, rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
+    _require(all(torch.equal(a, b) for a, b in zip([loss, am, *grads],
+                                                    [again[0], again[1], *again[2]])),
+             f"two streaming K1-a calls at {n} rows differ")
+    _require(worst[1] <= K1_K2_TOL and am_rel <= K1_ABSMAX_TOL and loss_rel <= K1A_LOSS_RTOL,
+             f"K1-a at {n} rows disagrees with its plain version")
+    errs[name] = max(worst[0], float((am - am_r).abs()))
+    edims = (2,) + (ERD_HIDDEN,) * (ERD_LAYERS + 2) + (1,)
+    macs = _layer_macs(edims)
+    lib_params = [w.clone().requires_grad_() for w in ws]
+
+    def lib_absmax():
+        out = sk.siren_forward_ref(x, lib_params, 30.0, acts)
+        torch.autograd.grad(torch.mean((out - target) ** 2), lib_params)
+        out.detach().abs().max()
+
+    rows.append(_time_row(
+        name, "siren_stream", "siren_kernel.py:518", kern,
+        lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, None, True), lib_absmax,
+        3 * 2 * n * (2 * sum(macs) + sum(macs[1:])),
+        4 * x.numel() + 8 * sum(w.numel() for w in ws) + 4 * n + 8,
+        f"P={n} (a rank's shard)", errs, launches, peak=PEAK_BF16_TC, reps=50, rounds=2))
+
+    # K3 and K2 (dx only) on a rank's 35,000 rows of the flagship
+    n = P // 2
+    x, ws, _, g = _flagship_inputs(P, dims, seed=104)
+    x, g = x[:n].contiguous(), g[:n].contiguous()
+    before = dict(sk.LAUNCHES)
+    out, out2 = sk.siren_forward(x, ws), sk.siren_forward(x, ws)
+    dx, _ = sk.siren_fused_bwd(x, ws, g, need_dw=False)
+    dx2, _ = sk.siren_fused_bwd(x, ws, g, need_dw=False)
+    ref = sk.siren_forward_ref(x, ws)
+    dx_r, _ = sk.siren_fused_bwd_ref(x, ws, g, need_dw=False)
+    torch.cuda.synchronize()
+    _require(sk.LAUNCHES == {**before, "siren_forward_tc": before["siren_forward_tc"] + 2,
+                             "siren_fused_bwd_tc": before["siren_fused_bwd_tc"] + 2},
+             f"K3 and K2 at {n} rows did not take the tensor-core route")
+    (e3, r3), (e2, r2) = _rel(out, ref), _rel(dx, dx_r)
+    print(f"[parity] K3 at a rank's P={n}: max abs {e3:.3e}, rel {r3:.3e} (tol {K3_TOL:g}); "
+          f"K2 dx only: max abs {e2:.3e}, rel {r2:.3e} (tol {K1_K2_TOL:g}); two calls of each "
+          f"bit-equal")
+    _require(torch.equal(out, out2) and torch.equal(dx, dx2),
+             f"two K3 or K2 calls at {n} rows differ")
+    _require(r3 <= K3_TOL and r2 <= K1_K2_TOL, f"K3 or K2 at {n} rows disagrees")
+    errs["siren_forward_tc_shard"], errs["siren_fused_bwd_tc_shard"] = e3, e2
+    module = _siren_module(dims, ws)
+    module.requires_grad_(False)
+    xr = x.clone().requires_grad_()
+
+    def lib_forward():
+        with torch.no_grad():
+            module(x)
+
+    def lib_fused_bwd():
+        torch.autograd.grad(module(xr), xr, g)
+
+    macs = _layer_macs(dims)
+    fwd, chain = sum(macs), sum(macs[1:])
+    bwd = sum(macs[:-1]) + chain + macs[0]
+    weight_bytes, in_bytes = 4 * sum(w.numel() for w in ws), 4 * x.numel()
+    rows.append(_time_row(
+        "siren_forward_tc_shard", "siren_tc", "siren_kernel.py:240",
+        lambda: sk.siren_forward(x, ws), lambda: sk.siren_forward_ref(x, ws), lib_forward,
+        3 * 2 * n * fwd, in_bytes + weight_bytes + 4 * n, f"P={n} (a rank's shard)", errs,
+        launches, peak=PEAK_BF16_TC))
+    rows.append(_time_row(
+        "siren_fused_bwd_tc_shard", "siren_tc", "siren_kernel.py:377",
+        lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False),
+        lambda: sk.siren_fused_bwd_ref(x, ws, g, need_dw=False), lib_fused_bwd,
+        3 * 2 * n * bwd, 2 * in_bytes + weight_bytes + 4 * n, f"P={n} (a rank's shard)", errs,
+        launches, peak=PEAK_BF16_TC))
+    return rows
 
 
 def _best_alternating(kern, lib, reps: int, rounds: int) -> tuple[float, float]:
@@ -4368,7 +4855,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         phase_cohort(out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
-        launches.update(phase_sharded(P, dims, out_dir))
+        launches.update(phase_sharded(P, dims, out_dir, erd_target))
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_examples(out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_data = phase_train_main(out_dir)
         launches.update(train_launches)
@@ -4376,6 +4865,7 @@ def main(argv=None) -> int:
         rows.append(phase_k1_hybrid_time(HYBRID_P, dims, errs, launches))
         rows.append(phase_k1_batched_time(HYBRID_P, dims, errs, launches))
         rows.append(phase_k1_shard_time(P, dims, errs, launches))
+        rows += phase_shard_times(P, dims, errs, launches)
         rows.append(phase_k6_times(k6_err, launches))
         rows.append(phase_k7_times(k7_err, launches))
         rows += phase_2d_times(errs, launches)

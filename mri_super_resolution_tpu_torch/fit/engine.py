@@ -19,6 +19,18 @@ Parameters are lists of tensors (``Siren.weights()`` order); the optimizers
 of ``fit/optim.py`` hold them and update them in place. ``apply_fn(params,
 x)`` evaluates the INR; ``value_and_grad_fn(params, x, target) -> (loss,
 grads)`` replaces autograd for the INR-on-mean steps (the one-pass kernel K1).
+
+``fit_ensemble_batched``, ``fit_alternating_pn`` and ``fit_until`` take a
+``mesh`` (``parallel/mesh.py``): the JAX functions run unchanged on voxel
+rows sharded over a device mesh, and this is their form over ranks. Every
+row-indexed input is then this rank's equal shard of the voxel axis
+(``parallel.mesh.shard_batch``), the params and optimizer state are
+replicated, and each kernel (or autograd) call's loss and gradients, scaled
+by P_local / P, are summed over the ``data`` axis in one ``all_reduce``
+before the optimizer step, which every rank takes alike. The losses divide
+by the total row count (the weighted MSE by the element count, not the
+weight sum), so the sum is the whole batch's. Without a mesh, or with a
+``data`` axis of one rank, they run as unsharded code, op for op.
 """
 from __future__ import annotations
 
@@ -61,6 +73,42 @@ class AlternatingResult(NamedTuple):
     losses: torch.Tensor
     inr_opt: Adam
     pn_opt: Adam
+
+
+def _mesh_ops():
+    """``parallel/mesh.py``, imported at first use: ``parallel/`` imports
+    this module."""
+    from mri_super_resolution_tpu_torch.parallel import mesh
+
+    return mesh
+
+
+def _data_scale(mesh, device: torch.device, **rows: int) -> float | None:
+    """``None`` without ``mesh`` or with a ``data`` axis of one rank: the
+    fit runs unsharded. Else P_local / P of the first of ``rows`` (input
+    name -> this rank's row count); raises ``ValueError`` unless every rank
+    of the data row holds as many rows of each (one ``all_reduce``)."""
+    if mesh is None or mesh.group("data") is None:
+        return None
+    counts = _mesh_ops().axis_counts(list(rows.values()), mesh, "data", device)
+    for j, name in enumerate(rows):
+        if len(set(counts[:, j].tolist())) > 1:
+            raise ValueError(
+                f"{name}: the {len(counts)} ranks of the data axis hold "
+                f"{counts[:, j].tolist()} rows; each needs an equal shard "
+                "(parallel.mesh.shard_batch)")
+    return float(counts[0, 0]) / float(counts[:, 0].sum())
+
+
+def _reduce(mesh, scale: float | None, loss: torch.Tensor, grads):
+    """``(loss, grads)`` summed over the data row after scaling by
+    ``scale`` (one ``all_reduce`` of one flat buffer); as they are when
+    ``scale`` is None."""
+    if scale is None:
+        return loss, list(grads)
+    loss, *grads = _mesh_ops().all_reduce_sum([loss * scale, *(g * scale for g in grads)],
+                                              mesh, "data")
+    return loss, grads
 
 
 def autodiff_value_and_grad(apply_fn: Callable, params: Sequence[torch.Tensor],
@@ -136,6 +184,7 @@ def fit_ensemble_batched(
     seg: int,
     valid: np.ndarray | None = None,  # (D, A) real acquisition slots
     weighted_value_and_grad_fn: Callable | None = None,
+    mesh=None,
 ) -> EnsembleResult:
     """The master.py:137-160 loop (``fit_ensemble`` of the JAX package)
     over D directions at once, as the JAX package runs it under ``jax.vmap``
@@ -155,8 +204,16 @@ def fit_ensemble_batched(
     (:func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_weighted_value_and_grad_batched`),
     else autograd through ``apply_fn`` (``use_pallas=False``, the CPU's
     plain route). Returns the stacked params, the (total_steps, D) loss
-    trace and (D, P, out) predictions."""
+    trace and (D, P, out) predictions.
+
+    With ``mesh``, ``coords``, ``pixels``, ``weights`` (their P axis) and
+    both eval grids are this rank's shards: each slot's call runs on the
+    local rows and its ``(loss (D,), grads)`` are reduced before the step;
+    the predictions, made on each rank's eval rows, are gathered once at
+    the end (through the CPU), so the result has the one-rank shapes."""
     dev = coords.device
+    scale = _data_scale(mesh, dev, coords=coords.shape[0], eval_coords_1x=eval_coords_1x.shape[0],
+                        eval_coords_scale=eval_coords_scale.shape[0])
     D, A = pixels.shape[:2]
     valid = np.ones((D, A), dtype=bool) if valid is None else np.asarray(valid, dtype=bool)
     n_valid = torch.as_tensor(np.maximum(valid.sum(1), 1), dtype=torch.float32, device=dev)
@@ -179,6 +236,7 @@ def fit_ensemble_batched(
             else:
                 loss, grads = batched_autodiff_value_and_grad(apply_fn, opt.params, coords,
                                                               pixels[a], weights[a])
+            loss, grads = _reduce(mesh, scale, loss, grads)
             opt.step(grads, valid[:, a])
             total += torch.where(valid_t[:, a], loss, zero)
         losses[step] = total / n_valid
@@ -186,7 +244,11 @@ def fit_ensemble_batched(
             with torch.no_grad():
                 acc1 += apply_fn(opt.params, eval_coords_1x)
                 acc2 += apply_fn(opt.params, eval_coords_scale)
-    return EnsembleResult(opt.params, losses, acc1 / seg, acc2 / seg)
+    pred_1x, pred_scale = acc1 / seg, acc2 / seg
+    if scale is not None:
+        pred_1x = _mesh_ops().all_gather_cat(pred_1x, mesh, "data", dim=1)
+        pred_scale = _mesh_ops().all_gather_cat(pred_scale, mesh, "data", dim=1)
+    return EnsembleResult(opt.params, losses, pred_1x, pred_scale)
 
 
 def plain_apply(model):
@@ -223,7 +285,7 @@ def plain_apply_init(model, generator: torch.Generator | None = None):
 def fit_until(apply_fn: Callable, lr: float, init_fn: Callable[[int], list],
               coords: torch.Tensor, target: torch.Tensor, loss_threshold: float = 2e-5,
               max_steps: int = 200_000,
-              value_grad_absmax_fn: Callable | None = None) -> FitUntilResult:
+              value_grad_absmax_fn: Callable | None = None, mesh=None) -> FitUntilResult:
     """Train until the loss is at most ``loss_threshold``, re-initialising
     the params and a fresh Adam whenever the output collapses to all zero
     (INR_ERD.py:201-217), at most ``max_steps`` steps. Step by step as the
@@ -235,8 +297,23 @@ def fit_until(apply_fn: Callable, lr: float, init_fn: Callable[[int], list],
     ``value_grad_absmax_fn(params, coords, target) -> (loss, out_absmax,
     grads)`` replaces autograd with one K1 pass that also returns the
     collapse signal (:func:`~mri_super_resolution_tpu_torch.ops.siren_kernel.make_fused_value_grad_absmax`).
-    Each step copies its loss and max |out| to the host once."""
-    params = init_fn(0)
+    Each step copies its loss and max |out| to the host once.
+
+    With ``mesh``, ``coords`` and ``target`` are this rank's shards: the
+    loss and grads are summed over the data row and max |out| is its max,
+    before the read-back, so every rank stops and restarts at the same
+    step; each draw of ``init_fn`` is broadcast from the first rank of the
+    data row, so the replicas start equal even where ``init_fn`` draws from
+    a generator of each rank's own."""
+    scale = _data_scale(mesh, coords.device, coords=coords.shape[0])
+
+    def draw(k: int) -> list:
+        params = init_fn(k)
+        if scale is not None:
+            _mesh_ops().broadcast_from_first(params, mesh, "data")
+        return params
+
+    params = draw(0)
     opt = Adam(params, lr)
     loss, it = float("inf"), 0
     losses, restarts = [], []
@@ -250,13 +327,16 @@ def fit_until(apply_fn: Callable, lr: float, init_fn: Callable[[int], list],
                 loss_t = mse(out, target)
                 grads = torch.autograd.grad(loss_t, leaves)
             loss_t, absmax_t = loss_t.detach(), out.detach().abs().max()
+        if scale is not None:
+            loss_t, grads = _reduce(mesh, scale, loss_t, grads)
+            absmax_t = _mesh_ops().all_reduce_max(absmax_t, mesh, "data")
         opt.step(grads)
         loss, absmax = torch.stack([loss_t, absmax_t]).tolist()
         losses.append(loss)
         it += 1
         if absmax == 0.0:
             restarts.append(it)
-            params = init_fn(len(restarts))
+            params = draw(len(restarts))
             opt = Adam(params, lr)
     return FitUntilResult(params, it, loss, losses, restarts)
 
@@ -276,6 +356,7 @@ def fit_alternating_pn(
     inr_value_and_grad: Callable | None = None,
     phase2_start: int | None = None,
     pn_encode: Callable | None = None,
+    mesh=None,
 ) -> AlternatingResult:
     """superresDWI.py:132-156: ``num_epochs - pn_epochs`` INR-on-mean steps,
     then ``pn_epochs`` alternating steps at absolute epoch indices from
@@ -288,7 +369,14 @@ def fit_alternating_pn(
     gamma(PN(gamma(x))). ``pn_encode`` maps the PN output to the INR's input
     instead; models that take raw coordinates (WIRE) pass identity. The
     kernels mask ragged rows themselves, so there are no padded copies of
-    ``ff_coords`` or ``mean_target``."""
+    ``ff_coords`` or ``mean_target``.
+
+    With ``mesh``, ``ff_coords``, ``mean_target`` and ``acq_pixels`` (its
+    P axis) are this rank's shards: a mean step's K1 call and a PN step's
+    forward and backward (K3 and K2 through ``inr_apply``) run on the local
+    rows, and their loss and grads are reduced before each step; the loss
+    trace is the global one on every rank."""
+    scale = _data_scale(mesh, ff_coords.device, ff_coords=ff_coords.shape[0])
     inr_params, pn_params = inr_opt.params, pn_opt.params
     losses = torch.empty(num_epochs, dtype=torch.float32, device=ff_coords.device)
 
@@ -298,6 +386,7 @@ def fit_alternating_pn(
         else:
             loss, grads = autodiff_value_and_grad(inr_apply, inr_params, ff_coords,
                                                   mean_target)
+        loss, grads = _reduce(mesh, scale, loss, grads)
         inr_opt.step(grads)
         return loss
 
@@ -321,8 +410,9 @@ def fit_alternating_pn(
                        else pn_encode(perturbed))
                 loss = mse(inr_apply(inr_frozen, enc), acq_pixels[a])
                 grads = torch.autograd.grad(loss, leaves)
+            loss, grads = _reduce(mesh, scale, loss.detach(), grads)
             pn_opt.step(grads)
-            total += loss.detach()
+            total += loss
         losses[n1 + j] = total / n_acq
     return AlternatingResult(inr_params, pn_params, losses, inr_opt, pn_opt)
 

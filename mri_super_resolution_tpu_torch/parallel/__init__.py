@@ -1,5 +1,7 @@
 """Parallelism over ``torch.distributed`` ranks: meshes, voxel-sharded and
-cohort fits, the tensor-parallel fit, multi-process wiring."""
+cohort fits, the tensor-parallel fit, multi-process wiring. The engine's
+``fit_ensemble_batched``, ``fit_alternating_pn`` and ``fit_until`` take a
+``mesh`` of this package and run on each rank's ``shard_batch``."""
 
 from mri_super_resolution_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

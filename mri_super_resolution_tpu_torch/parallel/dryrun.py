@@ -10,11 +10,14 @@ each, with parity against one rank where the JAX dry run has it:
 - the tensor-parallel fit on a (data, model) mesh against one rank
   (rtol 1e-4);
 - the RAMS trainer's batch data parallelism on a ragged batch: its step
-  losses against one rank's (rtol 1e-4), then ``fit`` over a ragged epoch.
-
-The JAX dry run also runs ``fit_ensemble``, ``fit_alternating_pn`` and
-``fit_until`` under a mesh, which GSPMD allows without a sharded form; the
-port's engine has no sharded form of them, so they are left out.
+  losses against one rank's (rtol 1e-4), then ``fit`` over a ragged epoch;
+- the remaining fit programs with the voxel rows sharded over the data
+  axis, as the JAX dry run runs them under its mesh, each against one rank
+  (rtol 1e-4): ``fit_ensemble_batched`` (one direction, A = 3, 4 steps,
+  ``seg`` 2, its predictions gathered), ``fit_alternating_pn`` (a SIREN of
+  width 64 x 2 on a mapping of 8, a PerturbNet of width 16, 4 epochs, 2 of
+  them PN) and ``fit_until`` (threshold 5e-2, at most 50 steps; the stop
+  step equal).
 
 Run it on the CPU (gloo) with ``python -m
 mri_super_resolution_tpu_torch.parallel.dryrun 2 cpu``, or on a card with
@@ -30,6 +33,8 @@ import numpy as np
 import torch
 
 RTOL, ATOL = 1e-4, 1e-6
+# each rank's keys of its worst relative gaps against one rank
+CHECKS = ("dp", "padded", "tp", "trainer", "ensemble", "alternating", "until")
 
 
 def _close(a, b, what: str) -> float:
@@ -145,6 +150,75 @@ def _rank_checks(device: str) -> dict:
                                                for p in model.parameters()):
                     raise AssertionError(f"trainer fit: step {state.step}")
     out["trainer"] = _close(losses["ranks"], losses["one"], "RAMS trainer batch-DP")
+    out.update(_fit_programs(flat, one, coords, target, dev))
+    return out
+
+
+def _fit_programs(flat, one, coords, target, dev) -> dict:
+    """``fit_ensemble_batched``, ``fit_alternating_pn`` and ``fit_until``
+    on ``flat``'s shards against the whole batch on a mesh of one."""
+    from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix
+    from mri_super_resolution_tpu_torch.fit.engine import (fit_alternating_pn,
+                                                          fit_ensemble_batched, fit_until)
+    from mri_super_resolution_tpu_torch.fit.optim import Adam, StackedAdam
+    from mri_super_resolution_tpu_torch.models import PerturbNet, Siren, perturbnet_apply
+    from mri_super_resolution_tpu_torch.ops.siren_kernel import (siren_forward_batched_ref,
+                                                                 siren_forward_ref)
+    from mri_super_resolution_tpu_torch.parallel import Spec, shard_batch
+
+    def on(mesh, x, spec=None):
+        return x if mesh is one else shard_batch(x, mesh, spec)
+
+    def siren(seed, d_in=2):
+        m = Siren(d_in, 64, 2, 1, generator=torch.Generator().manual_seed(seed), device=dev)
+        m.requires_grad_(False)
+        return m
+
+    out = {}
+    A = 3
+    pixels = target.expand(1, A, -1, 1).contiguous()
+    wts = torch.ones_like(pixels)
+    init = [w[None] for w in siren(1).weights()]
+    ens = {}
+    for name, mesh in (("ranks", flat), ("one", one)):
+        ens[name] = fit_ensemble_batched(
+            lambda p, x: siren_forward_batched_ref(x, p), StackedAdam(init, 1e-4),
+            on(mesh, coords), on(mesh, pixels, Spec(None, None, "data")),
+            on(mesh, wts, Spec(None, None, "data")), on(mesh, coords), on(mesh, coords),
+            total_steps=4, seg=2, mesh=mesh)
+    if ens["ranks"].pred_1x.shape != (1, coords.shape[0], 1):
+        raise AssertionError(f"fit_ensemble: pred_1x {tuple(ens['ranks'].pred_1x.shape)}")
+    out["ensemble"] = max(
+        _close(ens["ranks"].losses.cpu(), ens["one"].losses.cpu(), "fit_ensemble"),
+        _close(ens["ranks"].pred_1x.cpu(), ens["one"].pred_1x.cpu(), "fit_ensemble pred"))
+
+    gen = torch.Generator().manual_seed(2)
+    B = fourier_matrix(gen, 8, coords.shape[-1], 0.5, device=dev)
+    ff = fourier_encode(coords, B)
+    inr = siren(3, ff.shape[1])
+    pn = PerturbNet(ff.shape[1], 16, coords.shape[-1], generator=gen, device=dev)
+    alt = {}
+    for name, mesh in (("ranks", flat), ("one", one)):
+        alt[name] = fit_alternating_pn(
+            lambda p, x: siren_forward_ref(x, p), perturbnet_apply,
+            Adam([w.clone() for w in inr.weights()], 1e-4),
+            Adam([w.detach().clone() for w in pn.weights()], 3e-4), on(mesh, ff),
+            on(mesh, target), on(mesh, pixels[0], Spec(None, "data")), B, num_epochs=4,
+            pn_epochs=2, mesh=mesh)
+    out["alternating"] = _close(alt["ranks"].losses.cpu(), alt["one"].losses.cpu(),
+                                "fit_alternating_pn")
+
+    first = siren(5).weights()
+    until = {}
+    for name, mesh in (("ranks", flat), ("one", one)):
+        until[name] = fit_until(lambda p, x: siren_forward_ref(x, p), 1e-3,
+                                lambda k: [w.clone() for w in first], on(mesh, coords),
+                                on(mesh, target), loss_threshold=5e-2, max_steps=50, mesh=mesh)
+    if until["ranks"].steps != until["one"].steps:
+        raise AssertionError(f"fit_until stopped at {until['ranks'].steps}, one rank at "
+                             f"{until['one'].steps}")
+    out["until"] = _close(until["ranks"].losses, until["one"].losses, "fit_until")
+    out["until_steps"] = until["ranks"].steps
     return out
 
 
@@ -154,10 +228,12 @@ def dryrun_multiprocess(n: int, device: str = "cpu", timeout: float = 600.0) -> 
     from mri_super_resolution_tpu_torch.parallel.distributed import spawn_ranks
 
     results = spawn_ranks(_rank_checks, n, device, device=device, timeout=timeout)
-    worst = max(r[k] for r in results for k in ("dp", "padded", "tp", "trainer"))
+    worst = max(r[k] for r in results for k in CHECKS)
     print(f"dryrun_multiprocess OK: {n} ranks on {device}: cohort step, data-parallel fit "
           f"(+ padded-mask parity), tensor-parallel fit {results[0]['tp_mesh']}, RAMS "
-          f"trainer batch-DP; worst relative loss gap against one rank {worst:.2e}")
+          f"trainer batch-DP, sharded fit_ensemble/fit_alternating_pn/fit_until (stop at "
+          f"step {results[0]['until_steps']}); worst relative loss gap against one rank "
+          f"{worst:.2e}")
     return results
 
 

@@ -193,6 +193,54 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str) -> li
     return out
 
 
+def all_reduce_max(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The elementwise max over ``axis``'s group of ``t`` (a new tensor; one
+    ``all_reduce``). Without a group, ``t`` as it is."""
+    group = mesh.group(axis)
+    if group is None:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def _first_rank(mesh: Mesh, axis: str) -> int:
+    """The global rank at index 0 of this rank's line along ``axis``."""
+    coords = list(np.unravel_index(mesh.ranks.index(mesh.rank), mesh.sizes))
+    coords[mesh.axis_names.index(axis)] = 0
+    return mesh.ranks[int(np.ravel_multi_index(coords, mesh.sizes))]
+
+
+def broadcast_from_first(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str) -> None:
+    """Overwrite ``tensors`` in place with the first rank's of this rank's
+    line along ``axis`` (one flat float32 buffer, one ``broadcast``; gloo
+    broadcasts CUDA tensors too). Without a group, nothing happens."""
+    group = mesh.group(axis)
+    if group is None:
+        return
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    dist.broadcast(flat, src=_first_rank(mesh, axis), group=group)
+    at = 0
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(flat[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+
+
+def axis_counts(counts: Sequence[int], mesh: Mesh, axis: str,
+                device: str | torch.device = "cpu") -> np.ndarray:
+    """Every rank's ``counts`` along ``axis``'s group, (axis size,
+    len(counts)) in axis order: one ``all_reduce`` of a float32 buffer on
+    ``device`` (exact below 2^24). Without a group, this rank's alone."""
+    group = mesh.group(axis)
+    if group is None:
+        return np.asarray([counts], dtype=np.int64)
+    buf = torch.zeros(mesh.axis_size(axis), len(counts), dtype=torch.float32, device=device)
+    buf[mesh.index(axis)] = torch.tensor([float(c) for c in counts], device=device)
+    dist.all_reduce(buf, group=group)
+    return buf.cpu().numpy().astype(np.int64)
+
+
 def all_gather_cat(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """Every rank's ``t`` along ``axis``'s group, concatenated along ``dim``
     in axis order (equal shapes). Staged through the CPU, since gloo gathers

@@ -9,8 +9,8 @@ fit in its SIREN and grid arms (each one batched fit), a 2-iteration
 NLLS ``hybrid_fit`` run, a two-step half-res quality slice
 (``lowres_qual.run_slice``) and a two-step cohort fit
 (``cohort.run_cohort``), in a process where both are blocked, launching
-nothing; the parallel layer, the loaders and the profiling helpers are
-among the modules imported. The CSV analysis and the LR panel CLI also import with
+nothing; the parallel layer, the loaders, the profiling helpers and the
+three examples are among the modules imported. The CSV analysis and the LR panel CLI also import with
 pandas, matplotlib and seaborn blocked (the card's machine has none). With
 JAX, the JAX package and matplotlib blocked, a blinded qualitative-study
 panel (``qual_study.build_panel``, two fine-tune steps) is built and
@@ -35,7 +35,8 @@ for m in mods:
     importlib.import_module(m)
 for m in ("parallel.mesh", "parallel.sharded_fit", "parallel.tp_fit", "parallel.distributed",
           "parallel.dryrun", "pipelines.cohort", "cli.cohort_run", "data.native_io",
-          "data.preprocessing", "data.tfckpt", "utils.profiling"):
+          "data.preprocessing", "data.tfckpt", "utils.profiling", "examples.phantom_sanity",
+          "examples.sr3d_demo", "examples.wire_vs_siren"):
     assert pkg.__name__ + "." + m in mods, m
 from mri_super_resolution_tpu_torch.core.coords import fourier_encode, fourier_matrix, mgrid
 from mri_super_resolution_tpu_torch.fit.engine import fit_simple
