@@ -31,6 +31,13 @@ before the optimizer step, which every rank takes alike. The losses divide
 by the total row count (the weighted MSE by the element count, not the
 weight sum), so the sum is the whole batch's. Without a mesh, or with a
 ``data`` axis of one rank, they run as unsharded code, op for op.
+
+Spans (``utils/profiling.py``; they record only while a profiler runs):
+``fit.inr_step`` and ``fit.pn_step`` around each step of
+``fit_alternating_pn``, ``infer.request`` around ``infer_dense_grid`` and,
+inside it, ``infer.grid``, ``infer.chunk`` (``infer.coords``,
+``infer.encode`` and the INR's call), ``infer.gather`` and
+``infer.to_host``.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from mri_super_resolution_tpu_torch.core.coords import fourier_encode
 from mri_super_resolution_tpu_torch.fit.losses import mse
 from mri_super_resolution_tpu_torch.fit.optim import Adam, StackedAdam
 from mri_super_resolution_tpu_torch.ops.siren_kernel import siren_forward_ref
+from mri_super_resolution_tpu_torch.utils.profiling import span
 
 
 class FitResult(NamedTuple):
@@ -380,6 +388,7 @@ def fit_alternating_pn(
     inr_params, pn_params = inr_opt.params, pn_opt.params
     losses = torch.empty(num_epochs, dtype=torch.float32, device=ff_coords.device)
 
+    @span("fit.inr_step")
     def inr_step():
         if inr_value_and_grad is not None:
             loss, grads = inr_value_and_grad(inr_params, ff_coords, mean_target)
@@ -403,15 +412,16 @@ def fit_alternating_pn(
         inr_frozen = [p.detach() for p in inr_params]
         total = torch.zeros((), dtype=torch.float32, device=ff_coords.device)
         for a in range(n_acq):
-            with torch.enable_grad():
-                leaves = [p.detach().requires_grad_() for p in pn_params]
-                perturbed = pn_apply(leaves, ff_coords, float(a), pn_eps)
-                enc = (fourier_encode(perturbed, B) if pn_encode is None
-                       else pn_encode(perturbed))
-                loss = mse(inr_apply(inr_frozen, enc), acq_pixels[a])
-                grads = torch.autograd.grad(loss, leaves)
-            loss, grads = _reduce(mesh, scale, loss.detach(), grads)
-            pn_opt.step(grads)
+            with span("fit.pn_step"):
+                with torch.enable_grad():
+                    leaves = [p.detach().requires_grad_() for p in pn_params]
+                    perturbed = pn_apply(leaves, ff_coords, float(a), pn_eps)
+                    enc = (fourier_encode(perturbed, B) if pn_encode is None
+                           else pn_encode(perturbed))
+                    loss = mse(inr_apply(inr_frozen, enc), acq_pixels[a])
+                    grads = torch.autograd.grad(loss, leaves)
+                loss, grads = _reduce(mesh, scale, loss.detach(), grads)
+                pn_opt.step(grads)
             total += loss
         losses[n1 + j] = total / n_acq
     return AlternatingResult(inr_params, pn_params, losses, inr_opt, pn_opt)
@@ -431,6 +441,7 @@ def infer_grid(apply_fn: Callable, params, coords: torch.Tensor,
     return torch.cat(outs, dim=0)
 
 
+@span("infer.request")
 @torch.no_grad()
 def infer_dense_grid(apply_fn: Callable, params, grid_shape: Sequence[int],
                      chunk: int = 262_144, clamp_min: float | None = None,
@@ -451,15 +462,23 @@ def infer_dense_grid(apply_fn: Callable, params, grid_shape: Sequence[int],
     if device is None:
         device = fourier_B.device if fourier_B is not None else params[0].device
     chunk = min(int(chunk), 1 << (P - 1).bit_length())
-    sizes_t = torch.tensor(sizes, dtype=torch.int64, device=device)
-    strides = torch.tensor([math.prod(sizes[a + 1:]) for a in range(len(sizes))],
-                           dtype=torch.int64, device=device)
-    denom = torch.clamp(sizes_t - 1, min=1).to(torch.float32)
+    with span("infer.grid"):
+        sizes_t = torch.tensor(sizes, dtype=torch.int64, device=device)
+        strides = torch.tensor([math.prod(sizes[a + 1:]) for a in range(len(sizes))],
+                               dtype=torch.int64, device=device)
+        denom = torch.clamp(sizes_t - 1, min=1).to(torch.float32)
     outs = []
     for start in range(0, P, chunk):
-        i = torch.arange(start, min(start + chunk, P), dtype=torch.int64, device=device)
-        idx = (i[:, None] // strides[None, :]) % sizes_t[None, :]
-        c = -1.0 + 2.0 * idx.to(torch.float32) / denom
-        out = apply_fn(params, fourier_encode(c, fourier_B))
-        outs.append(out if clamp_min is None else out.clamp_min(clamp_min))
-    return torch.cat(outs, dim=0).cpu().numpy()
+        with span("infer.chunk"):
+            with span("infer.coords"):
+                i = torch.arange(start, min(start + chunk, P), dtype=torch.int64, device=device)
+                idx = (i[:, None] // strides[None, :]) % sizes_t[None, :]
+                c = -1.0 + 2.0 * idx.to(torch.float32) / denom
+            with span("infer.encode"):
+                x = fourier_encode(c, fourier_B)
+            out = apply_fn(params, x)
+            outs.append(out if clamp_min is None else out.clamp_min(clamp_min))
+    with span("infer.gather"):
+        out = torch.cat(outs, dim=0)
+    with span("infer.to_host"):
+        return out.cpu().numpy()

@@ -8,6 +8,8 @@ both moments *and* the bias-correction count before every ``every``-th
 update (step > 0, step % every == 0). :class:`StackedAdam` is ``optax.adam``
 under ``jax.vmap`` (the JAX package's 2-D ensemble and hybrid fits), with a
 per-slot mask that leaves a slot's params, moments and count untouched.
+Each ``step`` is an ``optim.step`` span (``utils/profiling.py``); ``count``
+and ``step_index`` count the updates (by slot in :class:`StackedAdam`).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from mri_super_resolution_tpu_torch.utils.profiling import span
 
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
@@ -50,6 +54,7 @@ class Adam:
         self.count = 0  # bias-correction count (optax ScaleByAdamState.count)
         self.step_index = 0  # restart schedule counter (never reset)
 
+    @span("optim.step")
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         if (self.restart_every > 0 and self.step_index > 0
@@ -122,6 +127,7 @@ class StackedAdam:
         # leaves its slot's, as the JAX package's masked slots keep theirs)
         self.step_index = np.zeros(D, dtype=np.int64)
 
+    @span("optim.step")
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor] | torch.Tensor,
              ok: Sequence[bool] | np.ndarray | None = None) -> None:

@@ -43,7 +43,11 @@ tensor-core class, ``csrc/siren_wg.cu``, under
 ``csrc/siren_resident_tc.cu``, under
 ``siren_loss_grads_[weighted_]resident_tc_batched``). The plain versions
 run on either device and are what the CPU tests and ``chip_smoke.py`` hold
-the kernels against.
+the kernels against. Each public wrapper is a span of ``utils/profiling.py``
+(``kernel.<name>``) on every device, and the ctypes call of the
+tensor-core, batched tensor-core and batched K1-w routes a
+``kernel.launch`` span inside it: the wrapper's self time is its checks,
+route, allocations and pointer arrays.
 
 The route, chosen from the shapes alone (:func:`tc_route`): a K1, K2 or K3
 call with the plain Siren's activations (sine on every hidden layer, none
@@ -75,6 +79,7 @@ from typing import Sequence
 import torch
 
 from mri_super_resolution_tpu_torch.ops import _build
+from mri_super_resolution_tpu_torch.utils.profiling import span
 
 # one count per wrapper (and per K1 variant), bumped once per kernel launch
 # on a CUDA tensor
@@ -727,12 +732,13 @@ def _launch_loss_grads_tc(lib, x, weights, target, omega, n_rows, stream):
     a = _Args(x, weights, omega, None)
     work = _tc_work(lib.siren_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers), a, "K1", x)
     grads = [torch.empty_like(w) for w in weights]
+    dW, db = _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2])
     loss = torch.empty((), dtype=x.dtype, device=x.device)
-    rc = lib.siren_loss_grads_tc(
-        x.data_ptr(), a.P, int(n_rows), a.ptr(a.dims), a.n_layers, a.W, a.b,
-        a.ptr(a.omegas), target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
-        work.data_ptr(), _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2]),
-        loss.data_ptr(), stream)
+    with span("kernel.launch"):
+        rc = lib.siren_loss_grads_tc(
+            x.data_ptr(), a.P, int(n_rows), a.ptr(a.dims), a.n_layers, a.W, a.b,
+            a.ptr(a.omegas), target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
+            work.data_ptr(), dW, db, loss.data_ptr(), stream)
     _build.raise_on(rc, "siren_loss_grads_tc")
     return loss, grads
 
@@ -861,12 +867,14 @@ def _launch_loss_grads_wg(lib, x, weights, target, omega, n_rows, stream):
     buf = torch.empty(D, _n_params(dims), dtype=x.dtype, device=x.device)
     grads = _stacked_views(buf, dims)
     loss = torch.empty(D, dtype=x.dtype, device=x.device)
-    rc = lib.siren_loss_grads_wg(
-        x.data_ptr(), int(x.shape[0]), int(n_rows), cast(c_dims), n, D,
-        _build.ptr_array(weights[0::2]), _build.ptr_array(weights[1::2]), cast(w_slot),
-        cast(b_slot), cast(c_om), target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
-        work.data_ptr(), _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2]),
-        buf.stride(0), loss.data_ptr(), stream)
+    W, b = _build.ptr_array(weights[0::2]), _build.ptr_array(weights[1::2])
+    dW, db = _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2])
+    with span("kernel.launch"):
+        rc = lib.siren_loss_grads_wg(
+            x.data_ptr(), int(x.shape[0]), int(n_rows), cast(c_dims), n, D, W, b,
+            cast(w_slot), cast(b_slot), cast(c_om), target.data_ptr(),
+            1.0 / (n_rows * target.shape[-1]), work.data_ptr(), dW, db, buf.stride(0),
+            loss.data_ptr(), stream)
     _build.raise_on(rc, "siren_loss_grads_wg")
     return loss, grads
 
@@ -929,12 +937,12 @@ def _launch_loss_grads_resident_tc(lib, x, weights, target, omega, n_rows, strea
     call.ptrs[:] = [w.data_ptr() for w in weights]
     work = torch.empty(call.work, dtype=x.dtype, device=x.device)
     out = torch.empty(D, call.n_params + 1, dtype=x.dtype, device=x.device)
-    rc = call.launch(
-        x.data_ptr(), P, int(n_rows), call.dims, call.n, D, call.ptrs_arg, call.w_slot,
-        call.omega, target.data_ptr(),
-        None if sample_weights is None else sample_weights.data_ptr(),
-        1.0 / (n_rows * target.shape[-1]), call.sms, work.data_ptr(), call.sync.data_ptr(),
-        out.data_ptr(), call.n_params + 1, stream)
+    sw = None if sample_weights is None else sample_weights.data_ptr()
+    with span("kernel.launch"):
+        rc = call.launch(
+            x.data_ptr(), P, int(n_rows), call.dims, call.n, D, call.ptrs_arg, call.w_slot,
+            call.omega, target.data_ptr(), sw, 1.0 / (n_rows * target.shape[-1]), call.sms,
+            work.data_ptr(), call.sync.data_ptr(), out.data_ptr(), call.n_params + 1, stream)
     _build.raise_on(rc, "siren_loss_grads_rtc")
     return out[:, call.n_params], [out.as_strided(*v) for v in call.views]
 
@@ -945,8 +953,9 @@ def _launch_forward_tc(lib, x, weights, omega, stream) -> torch.Tensor:
     work = _tc_work(lib.siren_forward_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers), a,
                     "K3", x)
     out = torch.empty(a.P, 1, dtype=x.dtype, device=x.device)
-    rc = lib.siren_forward_tc(x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b,
-                              a.ptr(a.omegas), work.data_ptr(), out.data_ptr(), stream)
+    with span("kernel.launch"):
+        rc = lib.siren_forward_tc(x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b,
+                                  a.ptr(a.omegas), work.data_ptr(), out.data_ptr(), stream)
     _build.raise_on(rc, "siren_forward_tc")
     return out
 
@@ -958,12 +967,13 @@ def _launch_fused_bwd_tc(lib, x, weights, g, omega, need_dw, need_dx, stream):
                                                            int(need_dw)), a, "K2", x)
     grads = [torch.empty_like(w) for w in weights] if need_dw else None
     dx = torch.empty_like(x) if need_dx else None
-    rc = lib.siren_fused_bwd_tc(
-        x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b, a.ptr(a.omegas),
-        g.data_ptr(), work.data_ptr(),
-        _build.ptr_array(grads[0::2]) if need_dw else None,
-        _build.ptr_array(grads[1::2]) if need_dw else None,
-        None if dx is None else dx.data_ptr(), stream)
+    dW = _build.ptr_array(grads[0::2]) if need_dw else None
+    db = _build.ptr_array(grads[1::2]) if need_dw else None
+    with span("kernel.launch"):
+        rc = lib.siren_fused_bwd_tc(
+            x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b, a.ptr(a.omegas),
+            g.data_ptr(), work.data_ptr(), dW, db, None if dx is None else dx.data_ptr(),
+            stream)
     _build.raise_on(rc, "siren_fused_bwd_tc")
     return dx, grads
 
@@ -990,6 +1000,7 @@ def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream, acts=
 # --------------------------------------------------------------------------
 
 
+@span("kernel.siren_forward")
 def siren_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                   omega: float | Sequence[float] = 30.0,
                   acts: Sequence[str] | None = None) -> torch.Tensor:
@@ -1009,6 +1020,7 @@ def siren_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return out
 
 
+@span("kernel.siren_loss_grads")
 def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
                      target: torch.Tensor, omega: float | Sequence[float] = 30.0,
                      n_rows: int | None = None, acts: Sequence[str] | None = None,
@@ -1056,6 +1068,7 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return out
 
 
+@span("kernel.siren_loss_grads_batched")
 def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
                              target: torch.Tensor, omega: float | Sequence[float] = 30.0,
                              n_rows: int | None = None, acts: Sequence[str] | None = None,
@@ -1128,6 +1141,7 @@ def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
             [torch.stack(g) for g in zip(*(grads for _, grads in slots))])
 
 
+@span("kernel.siren_fused_bwd")
 def siren_fused_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     g: torch.Tensor, omega: float | Sequence[float] = 30.0,
                     need_dw: bool = True, need_dx: bool = True,
