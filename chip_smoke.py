@@ -8,14 +8,14 @@ Run from the repository root on a machine with one NVIDIA H100:
         [--hybrid_grid_epochs 600] [--pia_steps 300]
 
 Phases, in order; any failure ends the run with a non-zero exit:
-1. build: compile ``csrc/siren.cu``, ``csrc/siren_tc.cu``,
-   ``csrc/siren_wg.cu``, ``csrc/siren_resident.cu``, ``csrc/siren_stream.cu``,
+1. build: compile ``csrc/siren.cu``, ``csrc/siren_wg.cu``,
+   ``csrc/siren_resident.cu``, ``csrc/siren_stream.cu``,
    ``csrc/wire.cu``, ``csrc/wire_tc.cu``,
    ``csrc/conv3d.cu`` and ``csrc/mma_probe.cu`` with nvcc (sm_90a), one
    process each, started together, and print the times and the compiler's
    register/spill report;
 2. kernel parity against the plain PyTorch versions on the card, K1-K3 on
-   their tensor-core route (``csrc/siren_tc.cu``) and the SIMT kernels of
+   their tensor-core route (``csrc/siren_wg.cu``) and the SIMT kernels of
    ``csrc/siren.cu`` at the same shapes for the record: K3
    ``siren_forward`` at the SIREN flagship (P = 70,000 rows, 256 -> 512x4
    -> 1), the inference chunk (262,144 rows) and its ragged tails (71,424,
@@ -249,7 +249,7 @@ PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "siren_tc", "siren_wg", "siren_resident", "siren_resident_tc",
+SOURCES = ("siren", "siren_wg", "siren_resident", "siren_resident_tc",
            "siren_stream", "wire", "wire_tc", "conv3d", "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
@@ -633,18 +633,18 @@ def phase_parity(P: int, dims) -> dict:
             _require(torch.equal(out, sk.siren_forward(xn, wn)),
                      "two tensor-core K3 calls differ")
     del xc, wsc
-    _require(sk.LAUNCHES["siren_forward_tc"] == before["siren_forward_tc"] + len(shapes) + 1
+    _require(sk.LAUNCHES["siren_forward_wg"] == before["siren_forward_wg"] + len(shapes) + 1
              and sk.LAUNCHES["siren_forward"] == before["siren_forward"],
              "K3 at the flagship's widths did not take the tensor-core route")
-    errs["siren_forward_tc"] = e
+    errs["siren_forward_wg"] = e
 
     loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target)
-    tc_before = sk.LAUNCHES["siren_loss_grads_tc"]
+    tc_before = sk.LAUNCHES["siren_loss_grads_wg"]
     loss, grads = sk.siren_loss_grads(x, ws, target)
     simt_loss, simt_grads = sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, P,
                                                   _build.stream_ptr())
     torch.cuda.synchronize()
-    _require(sk.LAUNCHES["siren_loss_grads_tc"] == tc_before + 1,
+    _require(sk.LAUNCHES["siren_loss_grads_wg"] == tc_before + 1,
              "K1 at the flagship did not take the tensor-core route")
     for what, (l_k, g_k) in (("tensor-core route", (loss, grads)),
                              ("SIMT (csrc/siren.cu)", (simt_loss, simt_grads))):
@@ -653,7 +653,7 @@ def phase_parity(P: int, dims) -> dict:
               f"{float(loss_r):.6e}; worst over loss/dW/db max abs {worst[0]:.3e}, "
               f"rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g})")
         _require(worst[1] <= K1_K2_TOL, f"K1 ({what}) disagrees with its plain version")
-    errs["siren_loss_grads_tc"] = max(float((loss - loss_r).abs()),
+    errs["siren_loss_grads_wg"] = max(float((loss - loss_r).abs()),
                                       *[float((a - b).abs().max())
                                         for a, b in zip(grads, grads_r)])
     loss2, grads2 = sk.siren_loss_grads(x, ws, target)
@@ -691,10 +691,10 @@ def phase_parity(P: int, dims) -> dict:
                                                        [again[0], *(again[1] or [])])),
                  "two tensor-core K2 calls differ: the reductions are not in a fixed order")
         e = max(e, _worst_rel(zip([got[0], *(got[1] or [])], want))[0])
-    _require(sk.LAUNCHES["siren_fused_bwd_tc"] == before["siren_fused_bwd_tc"] + 4
+    _require(sk.LAUNCHES["siren_fused_bwd_wg"] == before["siren_fused_bwd_wg"] + 4
              and sk.LAUNCHES["siren_fused_bwd"] == before["siren_fused_bwd"],
              "K2 at the flagship's widths did not take the tensor-core route")
-    errs["siren_fused_bwd_tc"] = e
+    errs["siren_fused_bwd_wg"] = e
     return errs
 
 
@@ -750,8 +750,8 @@ def phase_pn_trace(P: int, dims) -> None:
             losses.append(loss.detach())
         traces[route] = torch.stack(losses).tolist()
     _require(sk.LAUNCHES == {**before,
-                             "siren_forward_tc": before["siren_forward_tc"] + PN_TRACE_STEPS,
-                             "siren_fused_bwd_tc": before["siren_fused_bwd_tc"] + PN_TRACE_STEPS},
+                             "siren_forward_wg": before["siren_forward_wg"] + PN_TRACE_STEPS,
+                             "siren_fused_bwd_wg": before["siren_fused_bwd_wg"] + PN_TRACE_STEPS},
              "the PerturbNet steps did not run K3 and K2 on the tensor cores once each")
     k, p = traces["kernel"], traces["plain"]
     rel = max(abs(a / b - 1.0) for a, b in zip(k, p))
@@ -813,12 +813,12 @@ def phase_k1_hybrid_parity(P: int, dims) -> dict:
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
 
     x, ws, target, _ = _flagship_inputs(P, dims, seed=5)
-    before = sk.LAUNCHES["siren_loss_grads_tc"]
+    before = sk.LAUNCHES["siren_loss_grads_wg"]
     loss, grads = sk.siren_loss_grads(x, ws, target)
     loss2, grads2 = sk.siren_loss_grads(x, ws, target)
     loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target)
     torch.cuda.synchronize()
-    _require(sk.LAUNCHES["siren_loss_grads_tc"] == before + 2,
+    _require(sk.LAUNCHES["siren_loss_grads_wg"] == before + 2,
              "K1 at the hybrid's shape did not take the tensor-core route")
     worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
     print(f"[parity] K1 siren_loss_grads at the hybrid's P={P} ({P % sk.TC_TILE} rows in "
@@ -827,7 +827,7 @@ def phase_k1_hybrid_parity(P: int, dims) -> dict:
     _require(worst[1] <= K1_K2_TOL, "K1 at the hybrid's shape disagrees with its plain version")
     _require(torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
              "two tensor-core K1 calls at the hybrid's shape differ")
-    return {"siren_loss_grads_tc_hybrid": worst[0]}
+    return {"siren_loss_grads_wg_hybrid": worst[0]}
 
 
 def _stacked_inputs(P: int, dims, D: int, seed: int):
@@ -899,7 +899,7 @@ def phase_k1_batched_parity(P: int, dims) -> dict:
     torch.cuda.synchronize()
     key = "siren_loss_grads_wg_batched"
     _require(sk.LAUNCHES == {**before, key: before[key] + 2,
-                             "siren_loss_grads_tc": before["siren_loss_grads_tc"] + HYBRID_TES},
+                             "siren_loss_grads_wg": before["siren_loss_grads_wg"] + HYBRID_TES},
              "the batched K1 did not take its wgmma kernel")
     ref = sk.siren_loss_grads_batched_ref(x, ws, target)
     stash_ref = sk.siren_loss_grads_batched_ref(x, ws, target, stash="bf16")
@@ -2549,10 +2549,10 @@ def _device_busy(what: str, fn) -> None:
 def _passes(what: str, fn, calls: int = 3) -> dict:
     """Where a call's device time goes: ``calls`` calls under
     ``torch.profiler``, each kernel's summed time per call, largest first
-    (the tensor-core route's forward, chain, dW and dx passes are the
-    ``gemm3_kernel`` templates 0, 1, 2 and 3; K4's forward, dW and dh passes
-    the ``wire_gemm_kernel`` templates 0, 2 and 3; the batched K1's forward,
-    last forward, chain and dW passes the ``wg_kernel`` templates 0-3).
+    (K1-K3's forward, last forward, chain, dW and dx passes are the
+    ``wg_kernel`` templates 0-4, the second template argument the stash: 1
+    float32, 0 the batched K1's bf16; K4's forward, dW and dh passes the
+    ``wire_gemm_kernel`` templates 0, 2 and 3).
     Returns the ms a call by kernel name (empty when nothing was traced)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2646,8 +2646,8 @@ def _expected_launches(inr_model: str, epochs: int, pn_epochs: int) -> dict:
     pn_steps = 75 * (pn_epochs - odd)
     if inr_model == "wire":
         return {"wire_loss_grads_tc": n1 + odd, "wire_forward_tc": 7}
-    return {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd_tc": pn_steps,
-            "siren_forward_tc": pn_steps + 7}
+    return {"siren_loss_grads_wg": n1 + odd, "siren_fused_bwd_wg": pn_steps,
+            "siren_forward_wg": pn_steps + 7}
 
 
 def _b0_volume(seed: int = 7):
@@ -2807,7 +2807,7 @@ def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
     t2 = time.perf_counter()
     launches = _all_counts()
     chunks = -(-HYBRID_INFER // INFER_CHUNK)
-    want = {"siren_loss_grads_wg_batched": epochs, "siren_forward_tc": HYBRID_TES * chunks}
+    want = {"siren_loss_grads_wg_batched": epochs, "siren_forward_wg": HYBRID_TES * chunks}
     _check_only(launches, want, "hybrid")
     _require(res.timings["lr_voxels_per_te"] == HYBRID_P, "hybrid LR voxels")
     rh = res.recon_hybrid
@@ -2827,7 +2827,7 @@ def phase_hybrid(epochs: int) -> tuple[dict, object, object, object]:
     # the hybrid's K1 rows, each from its own key: the batched entry, and
     # the unbatched entry at this shape (0, the path is batched)
     return ({"siren_loss_grads_wg_batched": launches["siren_loss_grads_wg_batched"],
-             "siren_loss_grads_tc_hybrid": launches["siren_loss_grads_tc"]}, res, maps, gt)
+             "siren_loss_grads_wg_hybrid": launches["siren_loss_grads_wg"]}, res, maps, gt)
 
 
 def phase_pia(res, nlls_maps, gt, steps: int) -> None:
@@ -3609,8 +3609,8 @@ def phase_examples(out_dir: str) -> None:
     odd = sum(e % 2 for e in range(n1, 60))
     pn_steps = (6 - odd) * res.timings["num_combinations"]
     chunks = sum(math.ceil(a.size / INFER_CHUNK) for a in (res.recon_2x, res.sr_hr_grid))
-    _check_only(_all_counts(), {"siren_loss_grads_tc": n1 + odd, "siren_fused_bwd_tc": pn_steps,
-                                "siren_forward_tc": pn_steps + chunks}, "sr3d_demo")
+    _check_only(_all_counts(), {"siren_loss_grads_wg": n1 + odd, "siren_fused_bwd_wg": pn_steps,
+                                "siren_forward_wg": pn_steps + chunks}, "sr3d_demo")
     ssim = np.asarray([r[3:] for r in res.ssim_rows])
     _require(bool(np.isfinite(ssim).all()) and bool(np.isfinite(res.losses).all()),
              "sr3d_demo: non-finite losses or SSIM")
@@ -3962,8 +3962,8 @@ def _check_fit_programs(ranks: list, P: int) -> dict:
     ens_key = "siren_loss_grads_weighted_resident_tc_batched"
     want = {"ensemble": {ens_key: SHARD_ENS_STEPS * MASTER_SLOTS},
             "ensemble_short": {ens_key: SHARD_ENS_SHORT * MASTER_SLOTS},
-            "alternating": {"siren_loss_grads_tc": n_k1, "siren_forward_tc": n_pn,
-                            "siren_fused_bwd_tc": n_pn}}
+            "alternating": {"siren_loss_grads_wg": n_k1, "siren_forward_wg": n_pn,
+                            "siren_fused_bwd_wg": n_pn}}
     rows = {"ensemble": MASTER_P // 2, "ensemble_short": MASTER_P // 2,
             "alternating": P // 2, "until": ERD_SIDE ** 2 // 2}
     for r in ranks:
@@ -4026,8 +4026,8 @@ def _check_fit_programs(ranks: list, P: int) -> dict:
              f"sharded phase 1 stops at {u['steps']}, one rank at {u1['steps']}")
     total = lambda tag, key: sum(r[f"{tag}_launches"][key] for r in ranks)  # noqa: E731
     return {f"{ens_key}_shard": total("ensemble", ens_key),
-            "siren_forward_tc_shard": total("alternating", "siren_forward_tc"),
-            "siren_fused_bwd_tc_shard": total("alternating", "siren_fused_bwd_tc"),
+            "siren_forward_wg_shard": total("alternating", "siren_forward_wg"),
+            "siren_fused_bwd_wg_shard": total("alternating", "siren_fused_bwd_wg"),
             f"{until_key}_shard": total("until", until_key)}
 
 
@@ -4056,10 +4056,10 @@ def phase_sharded(P: int, dims, out_dir: str, erd_target) -> dict:
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     for r in ranks:
-        _check_only(r["k1_launches"], {"siren_loss_grads_tc": SHARD_STEPS},
+        _check_only(r["k1_launches"], {"siren_loss_grads_wg": SHARD_STEPS},
                     f"sharded K1 (rank {r['rank']})")
         _require(r["k1_rows"] == P // 2, f"rank {r['rank']}: {r['k1_rows']} rows")
-        _check_only(r["ragged_launches"], {"siren_loss_grads_tc": SHARD_STEPS},
+        _check_only(r["ragged_launches"], {"siren_loss_grads_wg": SHARD_STEPS},
                     f"ragged K1 (rank {r['rank']})")
         _check_only(r["tp_launches"], {}, f"tensor-parallel (rank {r['rank']})")
         _require(r["ckpt_equal"], f"rank {r['rank']}: the sharded checkpoint differs")
@@ -4100,7 +4100,7 @@ def phase_sharded(P: int, dims, out_dir: str, erd_target) -> dict:
           f"{r0['train_steps'][1][3] * 1e3:.1f} ms on two ranks vs "
           f"{r0['train_ref_steps'][1][3] * 1e3:.1f} ms on one; train_misr.main() "
           f"{r0['train_s']:.2f} s on two ranks vs {r0['train_ref_s']:.2f} s on one")
-    return {"siren_loss_grads_tc_shard": sum(r["k1_launches"]["siren_loss_grads_tc"]
+    return {"siren_loss_grads_wg_shard": sum(r["k1_launches"]["siren_loss_grads_wg"]
                                              for r in ranks), **_check_fit_programs(ranks, P)}
 
 
@@ -4127,7 +4127,7 @@ def phase_k1_shard_time(P: int, dims, errs: dict, launches: dict) -> dict:
         worst = max(worst, _rel(g, r)[1])
         err = max(err, _rel(g, r)[0])
     _require(worst <= K1_K2_TOL, f"K1 (shard) rel {worst:.3e}")
-    errs["siren_loss_grads_tc_shard"] = err
+    errs["siren_loss_grads_wg_shard"] = err
     print(f"[parity] K1 tensor-core at a shard's P={n}: worst rel {worst:.2e}, two calls "
           f"bit-equal")
     module = _siren_module(dims, ws)
@@ -4137,7 +4137,7 @@ def phase_k1_shard_time(P: int, dims, errs: dict, launches: dict) -> dict:
         torch.autograd.grad(torch.mean((module(x) - target) ** 2), params)
 
     flops, nbytes = _k1_work(n, dims, ws)
-    return _time_row("siren_loss_grads_tc_shard", "siren_tc", "siren_kernel.py:518",
+    return _time_row("siren_loss_grads_wg_shard", "siren_wg", "siren_kernel.py:518",
                      lambda: sk.siren_loss_grads(x, ws, target),
                      lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads, flops,
                      nbytes, f"P={n} (a shard of 2)", errs, launches, peak=PEAK_BF16_TC)
@@ -4237,8 +4237,8 @@ def phase_shard_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
     ref = sk.siren_forward_ref(x, ws)
     dx_r, _ = sk.siren_fused_bwd_ref(x, ws, g, need_dw=False)
     torch.cuda.synchronize()
-    _require(sk.LAUNCHES == {**before, "siren_forward_tc": before["siren_forward_tc"] + 2,
-                             "siren_fused_bwd_tc": before["siren_fused_bwd_tc"] + 2},
+    _require(sk.LAUNCHES == {**before, "siren_forward_wg": before["siren_forward_wg"] + 2,
+                             "siren_fused_bwd_wg": before["siren_fused_bwd_wg"] + 2},
              f"K3 and K2 at {n} rows did not take the tensor-core route")
     (e3, r3), (e2, r2) = _rel(out, ref), _rel(dx, dx_r)
     print(f"[parity] K3 at a rank's P={n}: max abs {e3:.3e}, rel {r3:.3e} (tol {K3_TOL:g}); "
@@ -4247,7 +4247,7 @@ def phase_shard_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
     _require(torch.equal(out, out2) and torch.equal(dx, dx2),
              f"two K3 or K2 calls at {n} rows differ")
     _require(r3 <= K3_TOL and r2 <= K1_K2_TOL, f"K3 or K2 at {n} rows disagrees")
-    errs["siren_forward_tc_shard"], errs["siren_fused_bwd_tc_shard"] = e3, e2
+    errs["siren_forward_wg_shard"], errs["siren_fused_bwd_wg_shard"] = e3, e2
     module = _siren_module(dims, ws)
     module.requires_grad_(False)
     xr = x.clone().requires_grad_()
@@ -4264,12 +4264,12 @@ def phase_shard_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
     bwd = sum(macs[:-1]) + chain + macs[0]
     weight_bytes, in_bytes = 4 * sum(w.numel() for w in ws), 4 * x.numel()
     rows.append(_time_row(
-        "siren_forward_tc_shard", "siren_tc", "siren_kernel.py:240",
+        "siren_forward_wg_shard", "siren_wg", "siren_kernel.py:240",
         lambda: sk.siren_forward(x, ws), lambda: sk.siren_forward_ref(x, ws), lib_forward,
         3 * 2 * n * fwd, in_bytes + weight_bytes + 4 * n, f"P={n} (a rank's shard)", errs,
         launches, peak=PEAK_BF16_TC))
     rows.append(_time_row(
-        "siren_fused_bwd_tc_shard", "siren_tc", "siren_kernel.py:377",
+        "siren_fused_bwd_wg_shard", "siren_wg", "siren_kernel.py:377",
         lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False),
         lambda: sk.siren_fused_bwd_ref(x, ws, g, need_dw=False), lib_fused_bwd,
         3 * 2 * n * bwd, 2 * in_bytes + weight_bytes + 4 * n, f"P={n} (a rank's shard)", errs,
@@ -4437,7 +4437,7 @@ def phase_k1_hybrid_time(P: int, dims, errs: dict, launches: dict) -> dict:
         torch.autograd.grad(loss, params)
 
     flops, nbytes = _k1_work(P, dims, ws)
-    return _time_row("siren_loss_grads_tc_hybrid", "siren_tc", "siren_kernel.py:518",
+    return _time_row("siren_loss_grads_wg_hybrid", "siren_wg", "siren_kernel.py:518",
                      lambda: sk.siren_loss_grads(x, ws, target),
                      lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads, flops,
                      nbytes, f"P={P} (hybrid)", errs, launches, peak=PEAK_BF16_TC)
@@ -4462,9 +4462,10 @@ def _batched_lib(x, ws, target, sw=None, acts=None):
 
 
 def _wg_passes(P: int, dims, D: int) -> dict:
-    """csrc/siren_wg.cu's passes at D slots of P rows: for each kernel
-    (``wg_kernel<0>`` FWD, ``<1>`` the last hidden FWD, ``<2>`` CHAIN,
-    ``<3>`` DW, the last layer, the split and the sums) its launches, its
+    """csrc/siren_wg.cu's passes at D slots of P rows with the bf16 stash:
+    for each kernel (``wg_kernel<0, 0>`` FWD, ``<1, 0>`` the last hidden
+    FWD, ``<2, 0>`` CHAIN, ``<3, 0>`` DW, the last layer, the split and the
+    sums) its launches, its
     tensor-core products (bf16x3 for FWD and CHAIN, two a k step for DW's
     bf16 stash) and the bytes its design moves: each operand plane read
     once, each output plane written once (activations hi/lo, the last
@@ -4480,17 +4481,17 @@ def _wg_passes(P: int, dims, D: int) -> dict:
         din, dout = dims[l], dims[l + 1]
         a_in = 4 * P * din * (1 if l == 0 else D)  # x's planes are shared
         if l + 2 < L:
-            add("wg_kernel<0>", 6 * D * P * din * dout, a_in + 6 * D * P * dout)
+            add("wg_kernel<0, 0>", 6 * D * P * din * dout, a_in + 6 * D * P * dout)
         else:
-            add("wg_kernel<1>", 6 * D * P * din * dout, a_in + 4 * D * P * dout
+            add("wg_kernel<1, 0>", 6 * D * P * din * dout, a_in + 4 * D * P * dout
                 + 4 * D * P * dout // 128)
-        add("wg_kernel<3>", 4 * D * P * din * dout,
+        add("wg_kernel<3, 0>", 4 * D * P * din * dout,
             4 * D * P * dout + 2 * P * din * (1 if l == 0 else D) + 4 * D * dout * din)
         if l > 0:
-            add("wg_kernel<2>", 6 * D * P * din * dout, 4 * D * P * dout + 2 * D * P * din
+            add("wg_kernel<2, 0>", 6 * D * P * din * dout, 4 * D * P * dout + 2 * D * P * din
                 + 4 * D * P * din)
     W = dims[L - 1]
-    add("last_layer_kernel", 0, 4 * D * P * W + 4 * D * P * W + 4 * D * P * (W // 128 + 1))
+    add("last_layer_kernel<0>", 0, 4 * D * P * W + 4 * D * P * W + 4 * D * P * (W // 128 + 1))
     return out
 
 
@@ -4712,13 +4713,13 @@ def phase_times(P: int, dims, errs: dict, launches: dict) -> list[dict]:
     # the tensor-core route's bound: its bf16x3 products (three bf16
     # products for each float32 one) at the bf16 peak
     specs = [
-        ("siren_forward_tc", "siren_tc", ":240", lambda: sk.siren_forward(x, ws),
+        ("siren_forward_wg", "siren_wg", ":240", lambda: sk.siren_forward(x, ws),
          lambda: sk.siren_forward_ref(x, ws), lib_forward,
          3 * 2 * P * fwd, in_bytes + weight_bytes + 4 * P),
-        ("siren_loss_grads_tc", "siren_tc", ":518", lambda: sk.siren_loss_grads(x, ws, target),
+        ("siren_loss_grads_wg", "siren_wg", ":518", lambda: sk.siren_loss_grads(x, ws, target),
          lambda: sk.siren_loss_grads_ref(x, ws, target), lib_loss_grads, *_k1_work(P, dims, ws)),
         # as the main path calls it: dx for the PerturbNet step, no dW
-        ("siren_fused_bwd_tc", "siren_tc", ":377",
+        ("siren_fused_bwd_wg", "siren_wg", ":377",
          lambda: sk.siren_fused_bwd(x, ws, g, need_dw=False),
          lambda: sk.siren_fused_bwd_ref(x, ws, g, need_dw=False), lib_fused_bwd,
          3 * 2 * P * bwd, 2 * in_bytes + weight_bytes + 4 * P),

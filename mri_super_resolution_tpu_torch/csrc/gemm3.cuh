@@ -1,6 +1,6 @@
-// The bf16x3 tensor-core GEMM main loop of the hand-written Hopper kernels
-// csrc/siren_tc.cu (K1-K3) and csrc/wire_tc.cu (K4), with what both use
-// around it: the 128 x 128 block tile of 8 warps (64 x 32 a warp: 4 x 4
+// The bf16x3 tensor-core GEMM main loop of the hand-written Hopper kernel
+// csrc/wire_tc.cu (K4, K5), with what it and csrc/siren_wg.cu use around
+// it: the 128 x 128 block tile of 8 warps (64 x 32 a warp: 4 x 4
 // mma tiles, 64 float32 sums a thread), 32 of depth a stage, two stages of
 // hi/lo bf16 planes filled by cp.async of 16 bytes (81,920 bytes, so that
 // two blocks share an SM), ldmatrix fragments and three mma.sync m16n8k16

@@ -1,5 +1,5 @@
 // Tensor-core, async-copy and bfloat16 building blocks of the hand-written
-// Hopper kernels (csrc/mma_probe.cu, csrc/conv3d.cu, csrc/siren_tc.cu), each
+// Hopper kernels (csrc/mma_probe.cu, csrc/conv3d.cu, csrc/siren_wg.cu), each
 // a small __device__ function around one PTX instruction so that a host
 // compiler can be given a C++ body for it instead (the CPU emulation in
 // tests/cuda_emulation/cuda_runtime.h):
@@ -500,13 +500,13 @@ __device__ __forceinline__ void bulk_wait() {
 #endif
 }
 
-// Host: a 3-D tensor map of bf16 (dims[0] innermost, each dims[i + 1]
-// strides[i] bytes apart) whose boxes (box[0] x box[1] x 1) land in shared
-// memory with the given swizzle (32, 64 or 128 bytes); out-of-range
-// elements read as zeros. 0 on success.
+// Host: a 3-D tensor map of bf16 (elem_bytes 2) or float32 (4) (dims[0]
+// innermost, each dims[i + 1] strides[i] bytes apart) whose boxes (box[0] x
+// box[1] x 1) land in shared memory with the given swizzle (32, 64 or 128
+// bytes); out-of-range elements read as zeros. 0 on success.
 inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t dims[3],
                                 const uint64_t strides[2], const unsigned box[2],
-                                int swizzle_bytes) {
+                                int swizzle_bytes, int elem_bytes = 2) {
 #ifdef __CUDACC__
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -529,13 +529,15 @@ inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, const uint64
   const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const CUtensorMapDataType type =
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base),
                             g_dims, g_strides, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
 #else
-  return emu_tensor_map_encode_3d(map, base, dims, strides, box, swizzle_bytes);
+  return emu_tensor_map_encode_3d(map, base, dims, strides, box, swizzle_bytes, elem_bytes);
 #endif
 }
 

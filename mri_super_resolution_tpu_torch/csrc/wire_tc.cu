@@ -25,14 +25,14 @@
 // P = 70,000 that is 440.4 GFLOP a call (the first layer, K = 4, and the last,
 // N = 1, are under 1% of it): 6.585 ms at the card's 67 TFLOP/s of float32
 // FMA, the SIMT route's bound. Here the products run on the tensor cores in
-// the bf16x3 split of csrc/siren_tc.cu (x = hi + lo, both bf16 rounded to
+// the bf16x3 split of the SIREN kernels (x = hi + lo, both bf16 rounded to
 // nearest even; hi hi + hi lo + lo hi on mma.sync m16n8k16, float32 sums):
 // 3 x 440.4 GFLOP of bf16 products, 1.336 ms at the 989 TFLOP/s bf16 peak.
 // K5 at the inference chunk (262,144 rows) is 551 GFLOP of forward
 // products: 8.225 ms at the float32 FMA peak, 1.67 ms as bf16x3.
 //
 // Design: each product is one pass of wire_gemm_kernel, the main loop of
-// csrc/gemm3.cuh that siren_tc.cu's K1-K3 run too (128 x 128 block tiles of
+// csrc/gemm3.cuh (128 x 128 block tiles of
 // 8 warps, two cp.async stages of hi/lo planes, ldmatrix fragments, three
 // mma a tile and k16 step; two blocks an SM), with WIRE's epilogues:
 //   FWD  S = A Wblk^T + bias with the Gabor activation fused (S is not

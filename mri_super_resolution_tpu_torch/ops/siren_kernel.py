@@ -1,7 +1,7 @@
 """SIREN kernels K1-K3: wrappers over the hand-written CUDA kernels of
-``csrc/siren.cu``, ``csrc/siren_tc.cu``, ``csrc/siren_resident.cu``,
-``csrc/siren_stream.cu`` and ``csrc/siren_wg.cu`` and their plain PyTorch
-versions.
+``csrc/siren.cu``, ``csrc/siren_wg.cu``, ``csrc/siren_resident.cu``,
+``csrc/siren_resident_tc.cu`` and ``csrc/siren_stream.cu`` and their plain
+PyTorch versions.
 
 Counterpart of ``mri_super_resolution_tpu/ops/pallas/siren_kernel.py``:
 
@@ -36,9 +36,9 @@ A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
 :data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
 both, and per variant on the weight-resident route (``*_resident``) and on
-the streaming route (``*_stream``); each kernel's tensor-core route under
-its own ``*_tc`` key; batched K1 under ``*_batched`` keys, its
-tensor-core class, ``csrc/siren_wg.cu``, under
+the streaming route (``*_stream``); each kernel's tensor-core route,
+``csrc/siren_wg.cu``, under its own ``*_wg`` key; batched K1 under
+``*_batched`` keys, its tensor-core class, ``csrc/siren_wg.cu`` too, under
 ``siren_loss_grads_wg_batched``, and the 2-D ensemble's,
 ``csrc/siren_resident_tc.cu``, under
 ``siren_loss_grads_[weighted_]resident_tc_batched``). The plain versions
@@ -51,11 +51,13 @@ route, allocations and pointer arrays.
 
 The route, chosen from the shapes alone (:func:`tc_route`): a K1, K2 or K3
 call with the plain Siren's activations (sine on every hidden layer, none
-on the last), for K1 no ``sample_weights`` and no ``with_out_absmax``, and
-the input and every hidden width a multiple of 128 (:data:`TC_TILE`) runs
-on the tensor cores (``csrc/siren_tc.cu``: bf16x3 split products, float32
-accumulation; the 3-D pipeline's 256 -> 512x4 -> 1, for K2 with or without
-dW); every other call (ReLU codes, the 2-D ensemble's 64-wide Siren, odd
+on the last), for K1 no ``sample_weights`` and no ``with_out_absmax``, the
+input and every hidden width a multiple of 128 (:data:`TC_TILE`), the last
+hidden width at most :data:`WG_MAX_LAST` and at most :data:`WG_MAX_LAYERS`
+layers runs on the tensor cores (``csrc/siren_wg.cu``: ``wgmma`` passes fed
+by TMA, bf16x3 split products, float32 accumulation, the float32 stash; the
+3-D pipeline's 256 -> 512x4 -> 1, for K2 with or without dW); every other
+call (ReLU codes, the 2-D ensemble's 64-wide Siren, odd
 widths) on the SIMT kernels of ``csrc/siren.cu``, except that a K1 call
 off the tensor-core route whose weights and one 32-row tile's working set
 fit in one block's shared memory (:func:`resident_route`: the 2-D
@@ -87,8 +89,8 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_weighted": 0,
                             "siren_loss_grads_absmax": 0,
                             "siren_loss_grads_weighted_absmax": 0,
-                            "siren_loss_grads_tc": 0, "siren_fused_bwd": 0,
-                            "siren_forward_tc": 0, "siren_fused_bwd_tc": 0,
+                            "siren_loss_grads_wg": 0, "siren_fused_bwd": 0,
+                            "siren_forward_wg": 0, "siren_fused_bwd_wg": 0,
                             "siren_loss_grads_resident": 0,
                             "siren_loss_grads_weighted_resident": 0,
                             "siren_loss_grads_absmax_resident": 0,
@@ -102,7 +104,9 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_weighted_resident_tc_batched": 0}
 
 ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
-TC_TILE = 128  # csrc/siren_tc.cu's block tile: every width but the output's a multiple
+TC_TILE = 128  # csrc/siren_wg.cu's unit tile: every width but the output's a multiple
+# csrc/siren_wg.cu: the last hidden width (its last-layer kernel's) and layers at most
+WG_MAX_LAST, WG_MAX_LAYERS = 2048, 16
 # csrc/siren_resident.cu: rows a tile, layers at most, and the shared memory
 # a block may use on an H100 (bytes)
 RES_ROWS, RES_MAX_LAYERS, RES_SMEM_MAX = 32, 16, 232_448
@@ -184,8 +188,10 @@ def tc_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
     """Whether a K1, K2 or K3 call on the card runs on the tensor-core
     route: the plain Siren's activations, no sample weights and no max |out|
     (K1's options), and ``dims`` (input, hidden widths..., 1) with every
-    width but the last a multiple of :data:`TC_TILE`."""
-    return (not weighted and not absmax and len(dims) >= 3 and dims[-1] == 1
+    width but the last a multiple of :data:`TC_TILE`, the last hidden one at
+    most :data:`WG_MAX_LAST`, and at most :data:`WG_MAX_LAYERS` layers."""
+    return (not weighted and not absmax and 3 <= len(dims) <= WG_MAX_LAYERS + 1
+            and dims[-1] == 1 and dims[-2] <= WG_MAX_LAST
             and tuple(acts) == ("sine",) * (len(dims) - 2) + ("none",)
             and all(d % TC_TILE == 0 and d > 0 for d in dims[:-1]))
 
@@ -559,33 +565,24 @@ def _lib() -> ctypes.CDLL:
     return _build.library("siren", _declare)
 
 
-def _tc_declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.siren_tc_workspace_bytes.argtypes = [i, p, i]
-    lib.siren_tc_workspace_bytes.restype = ctypes.c_longlong
-    lib.siren_loss_grads_tc.argtypes = [p, i, i, p, i, p, p, p, p, f, p, p, p, p, p]
-    lib.siren_loss_grads_tc.restype = i
-    lib.siren_forward_tc_workspace_bytes.argtypes = [i, p, i]
-    lib.siren_forward_tc_workspace_bytes.restype = ctypes.c_longlong
-    lib.siren_forward_tc.argtypes = [p, i, p, i, p, p, p, p, p, p]
-    lib.siren_forward_tc.restype = i
-    lib.siren_fused_bwd_tc_workspace_bytes.argtypes = [i, p, i, i]
-    lib.siren_fused_bwd_tc_workspace_bytes.restype = ctypes.c_longlong
-    lib.siren_fused_bwd_tc.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p]
-    lib.siren_fused_bwd_tc.restype = i
-
-
-def _tc_lib() -> ctypes.CDLL:
-    return _build.library("siren_tc", _tc_declare)
-
-
 def _wg_declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.siren_wg_workspace_bytes.argtypes = [i, p, i, i]
-    lib.siren_wg_workspace_bytes.restype = ctypes.c_longlong
-    lib.siren_loss_grads_wg.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, f, p, p, p,
-                                        ctypes.c_longlong, p, p]
+    lib.siren_wg_workspace_bytes.restype = ll
+    lib.siren_loss_grads_wg.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, f, p, p, p, ll, p, p]
     lib.siren_loss_grads_wg.restype = i
+    lib.siren_loss_grads_wg_f32_workspace_bytes.argtypes = [i, p, i]
+    lib.siren_loss_grads_wg_f32_workspace_bytes.restype = ll
+    lib.siren_loss_grads_wg_f32.argtypes = [p, i, i, p, i, p, p, p, p, f, p, p, p, p, p]
+    lib.siren_loss_grads_wg_f32.restype = i
+    lib.siren_forward_wg_workspace_bytes.argtypes = [i, p, i]
+    lib.siren_forward_wg_workspace_bytes.restype = ll
+    lib.siren_forward_wg.argtypes = [p, i, p, i, p, p, p, p, p, p]
+    lib.siren_forward_wg.restype = i
+    lib.siren_fused_bwd_wg_workspace_bytes.argtypes = [i, p, i, i]
+    lib.siren_fused_bwd_wg_workspace_bytes.restype = ll
+    lib.siren_fused_bwd_wg.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p]
+    lib.siren_fused_bwd_wg.restype = i
 
 
 def _wg_lib() -> ctypes.CDLL:
@@ -719,28 +716,84 @@ def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream, acts=None
     return (loss, absmax, grads) if with_out_absmax else (loss, grads)
 
 
-def _tc_work(nbytes: int, a: _Args, what: str, like: torch.Tensor) -> torch.Tensor:
-    """The workspace of a tensor-core call, whose size query gave ``nbytes``
-    (-1: the route does not take these widths)."""
-    if nbytes < 0:
-        raise ValueError(f"the tensor-core {what} does not take widths {a.dims_list}")
-    return torch.empty(nbytes, dtype=torch.uint8, device=like.device)
+def _grad_views(dims: Sequence[int]) -> tuple[list, int]:
+    """Each grad's (shape, stride, offset) in one output buffer that holds
+    W0, b0, W1, b1, ... one after another, and the number of parameters."""
+    views, at = [], 0
+    for l in range(len(dims) - 1):
+        for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
+            views.append((shape, stride, at))
+            at += int(torch.Size(shape).numel())
+    return views, at
 
 
-def _launch_loss_grads_tc(lib, x, weights, target, omega, n_rows, stream):
-    """K1 on the tensor-core route (the shapes :func:`tc_route` takes)."""
-    a = _Args(x, weights, omega, None)
-    work = _tc_work(lib.siren_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers), a, "K1", x)
-    grads = [torch.empty_like(w) for w in weights]
-    dW, db = _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2])
-    loss = torch.empty((), dtype=x.dtype, device=x.device)
+class _WgCall:
+    """One plan of the tensor-core route's unbatched entries
+    (``csrc/siren_wg.cu``, the float32 stash) for a kind (``"k1"``,
+    ``"k3"``, ``"k2"``: dx only, ``"k2_dw"``), a shape and its omegas, built
+    once: the ctypes arrays of the widths, the omegas and the weights' and
+    grads' pointers (filled in each call), the workspace's size, and each
+    grad's place in the call's output buffer."""
+
+    def __init__(self, lib, kind: str, P: int, dims: tuple, omegas: tuple):
+        n = len(dims) - 1
+        self.n = n
+        self._arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_float * (n - 1))(*omegas),
+                        *((ctypes.c_void_p * n)() for _ in range(4)))
+        self.dims, self.omegas, self.W, self.b, self.dW, self.db = (
+            ctypes.cast(a, ctypes.c_void_p) for a in self._arrays)
+        if kind == "k1":
+            nbytes = lib.siren_loss_grads_wg_f32_workspace_bytes(P, self.dims, n)
+        elif kind == "k3":
+            nbytes = lib.siren_forward_wg_workspace_bytes(P, self.dims, n)
+        else:
+            nbytes = lib.siren_fused_bwd_wg_workspace_bytes(P, self.dims, n, int(kind == "k2_dw"))
+        if nbytes < 0:
+            raise ValueError(f"the tensor-core {kind.upper()[:2]} does not take widths {list(dims)}")
+        self.work = int(nbytes)
+        self.views, self.n_params = _grad_views(dims)
+
+    def fill(self, weights, out: torch.Tensor | None = None) -> list[torch.Tensor] | None:
+        """Point the call at ``weights`` and, given the output buffer, at
+        the grads in it, which it returns as views."""
+        self._arrays[2][:] = [w.data_ptr() for w in weights[0::2]]
+        self._arrays[3][:] = [w.data_ptr() for w in weights[1::2]]
+        if out is None:
+            return None
+        base = out.data_ptr()
+        self._arrays[4][:] = [base + 4 * v[2] for v in self.views[0::2]]
+        self._arrays[5][:] = [base + 4 * v[2] for v in self.views[1::2]]
+        return [out.as_strided(*v) for v in self.views]
+
+
+_WG_CALLS: dict[tuple, _WgCall] = {}
+
+
+def _wg_call(lib, kind: str, x: torch.Tensor, weights, omega) -> _WgCall:
+    n = len(weights) // 2
+    dims = (int(x.shape[1]),) + tuple(int(w.shape[0]) for w in weights[0::2])
+    key = (kind, id(lib), x.device, int(x.shape[0]), dims, tuple(_omegas(omega, n - 1)))
+    call = _WG_CALLS.get(key)
+    if call is None:
+        call = _WG_CALLS[key] = _WgCall(lib, kind, *key[3:])
+    return call
+
+
+def _launch_loss_grads_wg_f32(lib, x, weights, target, omega, n_rows, stream):
+    """K1 on the tensor-core route (the shapes :func:`tc_route` takes):
+    ``csrc/siren_wg.cu``'s passes at one slot with the float32 stash. The
+    loss and grads are views of one buffer that the call allocates."""
+    call = _wg_call(lib, "k1", x, weights, omega)
+    work = torch.empty(call.work, dtype=torch.uint8, device=x.device)
+    out = torch.empty(call.n_params + 1, dtype=x.dtype, device=x.device)
+    grads = call.fill(weights, out)
     with span("kernel.launch"):
-        rc = lib.siren_loss_grads_tc(
-            x.data_ptr(), a.P, int(n_rows), a.ptr(a.dims), a.n_layers, a.W, a.b,
-            a.ptr(a.omegas), target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
-            work.data_ptr(), dW, db, loss.data_ptr(), stream)
-    _build.raise_on(rc, "siren_loss_grads_tc")
-    return loss, grads
+        rc = lib.siren_loss_grads_wg_f32(
+            x.data_ptr(), int(x.shape[0]), int(n_rows), call.dims, call.n, call.W, call.b,
+            call.omegas, target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
+            work.data_ptr(), call.dW, call.db, out.data_ptr() + 4 * call.n_params, stream)
+    _build.raise_on(rc, "siren_loss_grads_wg_f32")
+    return out[call.n_params], grads
 
 
 class _SlotCall:
@@ -767,13 +820,7 @@ class _SlotCall:
         if route == "resident":
             _build.raise_on(lib.siren_resident_setup(), "siren_resident_setup")
         self.launch = getattr(lib, f"siren_loss_grads_{route}")
-        # each grad's (shape, stride, offset) in the output buffer: W0, b0, W1, b1, ...
-        self.views, at = [], 0
-        for l in range(L):
-            for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
-                self.views.append((shape, stride, at))
-                at += int(torch.Size(shape).numel())
-        self.n_params = at
+        self.views, self.n_params = _grad_views(dims)
 
 
 _SLOT_CALLS: dict[tuple, _SlotCall] = {}
@@ -947,34 +994,33 @@ def _launch_loss_grads_resident_tc(lib, x, weights, target, omega, n_rows, strea
     return out[:, call.n_params], [out.as_strided(*v) for v in call.views]
 
 
-def _launch_forward_tc(lib, x, weights, omega, stream) -> torch.Tensor:
+def _launch_forward_wg(lib, x, weights, omega, stream) -> torch.Tensor:
     """K3 on the tensor-core route (the shapes :func:`tc_route` takes)."""
-    a = _Args(x, weights, omega, None)
-    work = _tc_work(lib.siren_forward_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers), a,
-                    "K3", x)
-    out = torch.empty(a.P, 1, dtype=x.dtype, device=x.device)
+    call = _wg_call(lib, "k3", x, weights, omega)
+    call.fill(weights)
+    work = torch.empty(call.work, dtype=torch.uint8, device=x.device)
+    out = torch.empty(x.shape[0], 1, dtype=x.dtype, device=x.device)
     with span("kernel.launch"):
-        rc = lib.siren_forward_tc(x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b,
-                                  a.ptr(a.omegas), work.data_ptr(), out.data_ptr(), stream)
-    _build.raise_on(rc, "siren_forward_tc")
+        rc = lib.siren_forward_wg(x.data_ptr(), int(x.shape[0]), call.dims, call.n, call.W,
+                                  call.b, call.omegas, work.data_ptr(), out.data_ptr(), stream)
+    _build.raise_on(rc, "siren_forward_wg")
     return out
 
 
-def _launch_fused_bwd_tc(lib, x, weights, g, omega, need_dw, need_dx, stream):
-    """K2 on the tensor-core route (the shapes :func:`tc_route` takes)."""
-    a = _Args(x, weights, omega, None)
-    work = _tc_work(lib.siren_fused_bwd_tc_workspace_bytes(a.P, a.ptr(a.dims), a.n_layers,
-                                                           int(need_dw)), a, "K2", x)
-    grads = [torch.empty_like(w) for w in weights] if need_dw else None
+def _launch_fused_bwd_wg(lib, x, weights, g, omega, need_dw, need_dx, stream):
+    """K2 on the tensor-core route (the shapes :func:`tc_route` takes), the
+    float32 stash; with dW the grads are views of one buffer."""
+    call = _wg_call(lib, "k2_dw" if need_dw else "k2", x, weights, omega)
+    work = torch.empty(call.work, dtype=torch.uint8, device=x.device)
+    grads = call.fill(weights, torch.empty(call.n_params, dtype=x.dtype, device=x.device)
+                      if need_dw else None)
     dx = torch.empty_like(x) if need_dx else None
-    dW = _build.ptr_array(grads[0::2]) if need_dw else None
-    db = _build.ptr_array(grads[1::2]) if need_dw else None
     with span("kernel.launch"):
-        rc = lib.siren_fused_bwd_tc(
-            x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.W, a.b, a.ptr(a.omegas),
-            g.data_ptr(), work.data_ptr(), dW, db, None if dx is None else dx.data_ptr(),
-            stream)
-    _build.raise_on(rc, "siren_fused_bwd_tc")
+        rc = lib.siren_fused_bwd_wg(
+            x.data_ptr(), int(x.shape[0]), call.dims, call.n, call.W, call.b, call.omegas,
+            g.data_ptr(), work.data_ptr(), call.dW if need_dw else None,
+            call.db if need_dw else None, None if dx is None else dx.data_ptr(), stream)
+    _build.raise_on(rc, "siren_fused_bwd_wg")
     return dx, grads
 
 
@@ -1012,8 +1058,8 @@ def siren_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
         return siren_forward_ref(x, weights, omega, acts)
     weights = [w.detach() for w in weights]
     if tc_route(dims, acts):
-        out = _launch_forward_tc(_tc_lib(), x, weights, omega, _build.stream_ptr())
-        LAUNCHES["siren_forward_tc"] += 1
+        out = _launch_forward_wg(_wg_lib(), x, weights, omega, _build.stream_ptr())
+        LAUNCHES["siren_forward_wg"] += 1
         return out
     out = _launch_forward(_lib(), x, weights, omega, _build.stream_ptr(), acts)
     LAUNCHES["siren_forward"] += 1
@@ -1052,9 +1098,9 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     weights = [w.detach() for w in weights]
     route = k1_route(dims, acts, weighted, with_out_absmax)
     if route == "tc":
-        out = _launch_loss_grads_tc(_tc_lib(), x, weights, target, omega, n_rows,
-                                    _build.stream_ptr())
-        LAUNCHES["siren_loss_grads_tc"] += 1
+        out = _launch_loss_grads_wg_f32(_wg_lib(), x, weights, target, omega, n_rows,
+                                        _build.stream_ptr())
+        LAUNCHES["siren_loss_grads_wg"] += 1
         return out
     if route == "simt":
         out = _launch_loss_grads(_lib(), x, weights, target, omega, n_rows,
@@ -1087,9 +1133,9 @@ def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
     runs it with sample weights) have batched kernels, one launch a call for
     the D slots: ``csrc/siren_wg.cu`` (``wgmma`` fed by TMA, the Pallas K1's
     bf16 stash: :func:`siren_loss_grads_batched_ref` with ``stash="bf16"``;
-    counted under ``siren_loss_grads_wg_batched``; last hidden width at most
-    2,048, else it raises) and ``csrc/siren_resident_tc.cu`` (``mma.sync``
-    bf16x3 products, the float32 stash; counted under
+    counted under ``siren_loss_grads_wg_batched``) and
+    ``csrc/siren_resident_tc.cu`` (``mma.sync`` bf16x3 products, the float32
+    stash; counted under
     ``siren_loss_grads_[weighted_]resident_tc_batched``). Their grads are
     views of one (D, n_params [+ 1]) buffer, the loss in the last column on
     the second. Every other call (ReLU codes or per-layer omegas at the
@@ -1157,9 +1203,9 @@ def siren_fused_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
         return siren_fused_bwd_ref(x, weights, g, omega, need_dw, need_dx, acts)
     weights = [w.detach() for w in weights]
     if tc_route(dims, acts):
-        out = _launch_fused_bwd_tc(_tc_lib(), x, weights, g, omega, need_dw, need_dx,
+        out = _launch_fused_bwd_wg(_wg_lib(), x, weights, g, omega, need_dw, need_dx,
                                    _build.stream_ptr())
-        LAUNCHES["siren_fused_bwd_tc"] += 1
+        LAUNCHES["siren_fused_bwd_wg"] += 1
         return out
     out = _launch_fused_bwd(_lib(), x, weights, g, omega, need_dw, need_dx,
                             _build.stream_ptr(), acts)

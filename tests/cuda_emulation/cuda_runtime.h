@@ -537,21 +537,22 @@ inline bool emu_mbar_try_wait(void* bar, unsigned parity) {
   return false;
 }
 
-// the emulation's tensor map: a 3-D array of bf16, dims[0] innermost, and
-// the box a load copies
+// the emulation's tensor map: a 3-D array of bf16 or float32 (elem bytes
+// each), dims[0] innermost, and the box a load copies
 struct CUtensorMap {
   const char* base;
   uint64_t dims[3], strides[2];  // strides: bytes between consecutive dims[1], dims[2]
   unsigned box[2];
-  int swizzle;
+  int swizzle, elem;
 };
 
 inline int emu_tensor_map_encode_3d(CUtensorMap* map, const void* base, const uint64_t dims[3],
                                     const uint64_t strides[2], const unsigned box[2],
-                                    int swizzle) {
+                                    int swizzle, int elem = 2) {
   // the card's rules: 16-byte aligned base and strides, a box row within the swizzle
   if (reinterpret_cast<uintptr_t>(base) % 16 || strides[0] % 16 || strides[1] % 16 ||
-      box[0] * 2 > (unsigned)swizzle || box[1] > 256 || box[0] == 0 || box[1] == 0)
+      box[0] * elem > (unsigned)swizzle || box[1] > 256 || box[0] == 0 || box[1] == 0 ||
+      (elem != 2 && elem != 4))
     return -3;
   map->base = static_cast<const char*>(base);
   for (int i = 0; i < 3; ++i) map->dims[i] = dims[i];
@@ -560,28 +561,29 @@ inline int emu_tensor_map_encode_3d(CUtensorMap* map, const void* base, const ui
   map->box[0] = box[0];
   map->box[1] = box[1];
   map->swizzle = swizzle;
+  map->elem = elem;
   return 0;
 }
 
-// the box at (c0, c1, c2): box[1] rows of box[0] bf16 written densely from
-// dst (rows of box[0] * 2 bytes), each 16-byte chunk at its swizzled shared
-// address; then its bytes complete on bar
+// the box at (c0, c1, c2): box[1] rows of box[0] elements written densely
+// from dst (rows of box[0] * elem bytes), each 16-byte chunk at its swizzled
+// shared address; then its bytes complete on bar
 inline void emu_tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
                             void* bar) {
   const unsigned d0 = emu_shared_offset(dst);
   if (d0 % 128) std::abort();  // the card wants 128-byte aligned boxes (and the swizzle atom's)
-  const unsigned row_bytes = map->box[0] * 2;
+  const unsigned e = map->elem, row_bytes = map->box[0] * e;
   char* sbase = emu::block->shared_base;
   for (unsigned r = 0; r < map->box[1]; ++r)
     for (unsigned c = 0; c < map->box[0]; ++c) {
       const long long i0 = (long long)c0 + c, i1 = (long long)c1 + r, i2 = c2;
-      uint16_t v = 0;
+      uint32_t v = 0;
       if (i0 >= 0 && i1 >= 0 && i2 >= 0 && (uint64_t)i0 < map->dims[0] &&
           (uint64_t)i1 < map->dims[1] && (uint64_t)i2 < map->dims[2])
-        std::memcpy(&v, map->base + i2 * map->strides[1] + i1 * map->strides[0] + 2 * i0, 2);
-      unsigned addr = d0 + r * row_bytes + 2 * c;
+        std::memcpy(&v, map->base + i2 * map->strides[1] + i1 * map->strides[0] + e * i0, e);
+      unsigned addr = d0 + r * row_bytes + e * c;
       addr ^= ((addr >> 7) & (unsigned)(map->swizzle / 16 - 1)) << 4;
-      std::memcpy(sbase + addr, &v, 2);
+      std::memcpy(sbase + addr, &v, e);
     }
   emu::Mbar& b = emu_mbar(bar);
   b.tx -= (long long)row_bytes * map->box[1];
@@ -594,7 +596,7 @@ inline void emu_tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, i
 inline void emu_tma_store_3d(const CUtensorMap* map, int c0, int c1, int c2, const void* src) {
   const unsigned s0 = emu_shared_offset(src);
   if (s0 % 128) std::abort();
-  const unsigned row_bytes = map->box[0] * 2;
+  const unsigned e = map->elem, row_bytes = map->box[0] * e;
   const char* sbase = emu::block->shared_base;
   char* base = const_cast<char*>(map->base);
   for (unsigned r = 0; r < map->box[1]; ++r)
@@ -603,9 +605,9 @@ inline void emu_tma_store_3d(const CUtensorMap* map, int c0, int c1, int c2, con
       if (i0 < 0 || i1 < 0 || i2 < 0 || (uint64_t)i0 >= map->dims[0] ||
           (uint64_t)i1 >= map->dims[1] || (uint64_t)i2 >= map->dims[2])
         continue;
-      unsigned addr = s0 + r * row_bytes + 2 * c;
+      unsigned addr = s0 + r * row_bytes + e * c;
       addr ^= ((addr >> 7) & (unsigned)(map->swizzle / 16 - 1)) << 4;
-      std::memcpy(base + i2 * map->strides[1] + i1 * map->strides[0] + 2 * i0, sbase + addr, 2);
+      std::memcpy(base + i2 * map->strides[1] + i1 * map->strides[0] + e * i0, sbase + addr, e);
     }
 }
 

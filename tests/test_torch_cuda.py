@@ -78,7 +78,7 @@ def test_k1_tc_route_launches_and_matches_plain(card, dims, P, n_rows):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     loss2, grads2 = tk.siren_loss_grads(x, ws, target, n_rows=n_rows)
     assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
-    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_tc": 2}
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_loss_grads_wg": 2}
 
 
 @pytest.mark.cuda
@@ -86,7 +86,7 @@ def test_k1_tc_route_launches_and_matches_plain(card, dims, P, n_rows):
                                     ((256, 128, 1), 300)])
 def test_k2_k3_tc_route_launches_and_matches_plain(card, dims, P):
     """K3 and K2 (with and without dW) at widths of the tensor-core route's
-    class launch under their ``*_tc`` keys (none on the SIMT route) and agree
+    class launch under their ``*_wg`` keys (none on the SIMT route) and agree
     with their plain versions (bf16x3 products: the output, dx and each
     dW/db within 1e-4 of their largest magnitude); two calls give the same
     bits."""
@@ -104,8 +104,8 @@ def test_k2_k3_tc_route_launches_and_matches_plain(card, dims, P):
             assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
         dx2, grads2 = tk.siren_fused_bwd(x, ws, g, need_dw=need_dw)
         assert all(torch.equal(a, b) for a, b in zip(got, [dx2, *(grads2 or [])]))
-    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward_tc": 2,
-                           "siren_fused_bwd_tc": 4}
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward_wg": 2,
+                           "siren_fused_bwd_wg": 4}
 
 
 @pytest.mark.cuda
@@ -127,8 +127,8 @@ def test_autograd_function_on_the_tc_route(card):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     (gx,) = torch.autograd.grad(torch.mean((tk.siren_fused(xk, ws) - target) ** 2), xk)
     assert float((gx - gr[0]).abs().max()) <= 1e-4 * float(gr[0].abs().max())
-    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward_tc": 2,
-                           "siren_fused_bwd_tc": 2}
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward_wg": 2,
+                           "siren_fused_bwd_wg": 2}
 
 
 @pytest.mark.cuda

@@ -1,24 +1,28 @@
-"""The CUDA source of K1's tensor-core route (``csrc/siren_tc.cu``, with
-``csrc/common.cuh`` and ``csrc/tensor_core.cuh``) runs on the CPU under an
-emulation of the CUDA execution model (``tests/cuda_emulation``: one fiber
-per CUDA thread; ``mma.sync``, ``ldmatrix`` and ``cp.async`` as the header
-computes them), through the same ctypes launch code the wrapper uses on the
-card, against the plain float32 version.
+"""The CUDA source of K1's tensor-core route (``csrc/siren_wg.cu``'s
+``siren_loss_grads_wg_f32``, with ``csrc/gemm3.cuh``'s splits and
+``csrc/tensor_core.cuh``'s TMA, mbarrier and wgmma pieces) runs on the CPU
+under an emulation of the CUDA execution model (``tests/cuda_emulation``:
+one fiber per CUDA thread; TMA box loads and stores, mbarriers and wgmma as
+the header computes them), through the same ctypes launch code the wrapper
+uses on the card, against the plain float32 version.
 
 Shapes are of the route's class (every width but the output a multiple of
 128) and small: ragged row tiles (P not a multiple of 128), masked rows
 (``n_rows`` < P), a hidden layer of two column tiles (so the chain and dW
-passes see non-square layers), a single hidden layer (no chain pass), and
-dW split over many blocks' row ranges.
+passes see non-square layers), three hidden layers (each of the two delta
+buffers written by one chain pass and read by the next), a single hidden
+layer (no chain pass), and dW split over many blocks' row ranges.
 
 Tolerance: each dW/db within 5e-5 of its largest magnitude and the loss
-within 1e-5 relative. The route's products are bf16x3 (hi hi + hi lo + lo
-hi, each split within 2^-16 of its value) summed in float32 in another order
-than the plain version; measured at most 6.3e-6 over these cases.
+within 1e-5 relative. The route keeps the float32 stash (each layer's input
+as hi/lo planes, dW bf16x3 in three products, the sine's factor in
+float32), so its products are bf16x3 (hi hi + hi lo + lo hi, each split
+within 2^-16 of its value) summed in float32 in another order than the
+plain version; measured at most 9.0e-6 over these cases.
 
-The batched cases hold the batched K1 of this class of shapes
-(``csrc/siren_wg.cu``, the Pallas K1's bf16 stash) against the unbatched
-entry here, slot by slot.
+The batched cases hold the batched K1 of this class of shapes (the same
+passes with the Pallas K1's bf16 stash) against the unbatched entry here,
+slot by slot.
 """
 import numpy as np
 import pytest
@@ -34,8 +38,8 @@ TC_LOSS_RTOL = 1e-5
 
 
 @pytest.fixture(scope="module")
-def emulated_tc(tmp_path_factory):
-    return emulated_library(tmp_path_factory, "siren_tc", tk._tc_declare)
+def emulated_wg(tmp_path_factory):
+    return emulated_library(tmp_path_factory, "siren_wg", tk._wg_declare)
 
 
 def _problem(dims, P, seed):
@@ -56,12 +60,13 @@ def _problem(dims, P, seed):
     ((128, 128, 128, 1), 300, 250),  # the same with masked rows
     ((128, 256, 128, 1), 200, 150),  # a hidden layer of two column tiles, masked
     ((256, 128, 1), 130, 129),       # one hidden layer: no chain pass
+    ((128, 256, 128, 256, 1), 140, 140),  # three: each delta buffer written, then read
 ])
-def test_emulated_tc_route_matches_plain(emulated_tc, dims, P, n_rows):
+def test_emulated_tc_route_matches_plain(emulated_wg, dims, P, n_rows):
     assert tk.tc_route(dims, ("sine",) * (len(dims) - 2) + ("none",))
     x, ws, target = _problem(dims, P, seed=P + n_rows)
     omegas = [30.0] * (len(dims) - 2)
-    loss, grads = tk._launch_loss_grads_tc(emulated_tc, x, ws, target, omegas, n_rows, 0)
+    loss, grads = tk._launch_loss_grads_wg_f32(emulated_wg, x, ws, target, omegas, n_rows, 0)
     loss_r, grads_r = tk.siren_loss_grads_ref(x, ws, target, omegas, n_rows)
     torch.testing.assert_close(loss, loss_r, rtol=TC_LOSS_RTOL, atol=0)
     for i, (a, b) in enumerate(zip(grads, grads_r)):
@@ -69,26 +74,26 @@ def test_emulated_tc_route_matches_plain(emulated_tc, dims, P, n_rows):
         err = float((a - b).abs().max()) / float(b.abs().max())
         assert err <= TC_GRAD_TOL, f"grad {i}: {err:.3e}"
     # a fixed-order reduction: a second run gives the same bits
-    loss2, grads2 = tk._launch_loss_grads_tc(emulated_tc, x, ws, target, omegas, n_rows, 0)
+    loss2, grads2 = tk._launch_loss_grads_wg_f32(emulated_wg, x, ws, target, omegas, n_rows, 0)
     assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
 
 
-def test_emulated_tc_refuses_widths_off_the_tile(emulated_tc):
+def test_emulated_tc_refuses_widths_off_the_tile(emulated_wg):
     """The workspace query (and with it the launch) refuses widths that are
     not multiples of 128, no hidden layer, or more than one output."""
     import ctypes
 
     def nbytes(dims, P=100):
         arr = (ctypes.c_int * len(dims))(*dims)
-        return emulated_tc.siren_tc_workspace_bytes(P, ctypes.cast(arr, ctypes.c_void_p),
-                                                    len(dims) - 1)
+        return emulated_wg.siren_loss_grads_wg_f32_workspace_bytes(
+            P, ctypes.cast(arr, ctypes.c_void_p), len(dims) - 1)
 
     assert nbytes((256, 512, 512, 512, 512, 1), 70_000) > 4 * 70_000 * 512 * 10
     for dims in ((2, 128, 1), (128, 96, 1), (128, 1), (128, 128, 2), (64, 128, 128, 1)):
         assert nbytes(dims) == -1, dims
     x, ws, target = _problem((128, 96, 1), 10, seed=0)
     with pytest.raises(ValueError):
-        tk._launch_loss_grads_tc(emulated_tc, x, ws, target, 30.0, 10, 0)
+        tk._launch_loss_grads_wg_f32(emulated_wg, x, ws, target, 30.0, 10, 0)
 
 
 def _stacked(dims, D, P, seed):
@@ -99,25 +104,20 @@ def _stacked(dims, D, P, seed):
     return x, ws, torch.stack([p[2] for p in probs])
 
 
-@pytest.fixture(scope="module")
-def emulated_wg(tmp_path_factory):
-    return emulated_library(tmp_path_factory, "siren_wg", tk._wg_declare)
-
-
 @pytest.mark.parametrize("dims,D,P,n_rows,strided", [
     ((128, 128, 128, 1), 1, 300, 300, False),  # one slot, ragged rows
     ((128, 128, 128, 1), 4, 300, 250, True),   # four slots, masked rows, a parameter buffer
     ((128, 256, 128, 1), 3, 200, 150, False),  # a hidden layer of two column tiles
 ])
-def test_emulated_tc_batched_matches_plain_and_unbatched(emulated_tc, emulated_wg, dims, D, P,
-                                                         n_rows, strided):
-    """The batched K1 of the tensor-core class (``csrc/siren_wg.cu``: every
-    slot's passes in one launch, the Pallas K1's bf16 stash) against the
-    plain batched K1 with that stash at its file's tolerances
+def test_emulated_tc_batched_matches_plain_and_unbatched(emulated_wg, dims, D, P, n_rows,
+                                                         strided):
+    """The batched K1 of the tensor-core class (every slot's passes in one
+    launch, the Pallas K1's bf16 stash) against the plain batched K1 with
+    that stash at its file's tolerances
     (``tests/test_torch_cuda_emulated_siren_wg.py``), and each slot against
-    the unbatched tensor-core K1 (float32 stash) on its inputs: the two
-    kernels part by at most what the two stashes' plain versions part by,
-    plus each kernel's own tolerance. ``strided``: the weights are views of
+    the unbatched tensor-core K1 (the same passes at one slot with the
+    float32 stash) on its inputs: the two part by at most what the two
+    stashes' plain versions part by, plus each one's own tolerance. ``strided``: the weights are views of
     one (D, n_params) buffer, a StackedAdam's, so each slot's tensors lie
     n_params floats apart."""
     from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
@@ -141,27 +141,27 @@ def test_emulated_tc_batched_matches_plain_and_unbatched(emulated_tc, emulated_w
             assert err <= WG_GRAD_TOL, f"slot {s} grad {i}: {err:.3e}"
     rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())
     for s in range(D):
-        l1, g1 = tk._launch_loss_grads_tc(emulated_tc, x, [w[s].contiguous() for w in ws],
-                                          target[s].contiguous(), omegas, n_rows, 0)
+        l1, g1 = tk._launch_loss_grads_wg_f32(emulated_wg, x, [w[s].contiguous() for w in ws],
+                                              target[s].contiguous(), omegas, n_rows, 0)
         torch.testing.assert_close(loss[s], l1, rtol=WG_LOSS_RTOL + TC_LOSS_RTOL, atol=0)
         for i, (a, b) in enumerate(zip(grads, g1)):
             bar = rel(grads_r[i][s], grads_f[i][s]) + WG_GRAD_TOL + TC_GRAD_TOL
             assert rel(a[s], b) <= bar, f"slot {s} grad {i}: {rel(a[s], b):.3e} > {bar:.3e}"
 
 
-def test_emulated_tc_batched_workspace(emulated_tc, emulated_wg):
-    """The batched K1's workspace (``csrc/siren_wg.cu``) at the hybrid's
-    shape: x's planes once, and a slot's activation planes (hi and lo, the
-    last hidden layer's hi alone), its factors in bf16 and two deltas'
-    planes, 1.58 GB a slot at D = 4, against 2.07 GB for the float32 stash
-    of the unbatched tensor-core K1; widths off the tile and D < 1 are
-    refused."""
+def test_emulated_tc_batched_workspace(emulated_wg):
+    """The batched K1's workspace at the hybrid's shape: x's planes once,
+    and a slot's activation planes (hi and lo, the last hidden layer's hi
+    alone), its factors in bf16 and two deltas' planes, 1.58 GB a slot at D
+    = 4, against 2.14 GB for the float32 stash of the unbatched tensor-core
+    K1 (every activation's hi and lo planes, the factors in float32); widths
+    off the tile and D < 1 are refused."""
     import ctypes
 
     def nbytes(dims, P, D=None):
         arr = ctypes.cast((ctypes.c_int * len(dims))(*dims), ctypes.c_void_p)
         if D is None:
-            return emulated_tc.siren_tc_workspace_bytes(P, arr, len(dims) - 1)
+            return emulated_wg.siren_loss_grads_wg_f32_workspace_bytes(P, arr, len(dims) - 1)
         return emulated_wg.siren_wg_workspace_bytes(P, arr, len(dims) - 1, D)
 
     flag, P = (256, 512, 512, 512, 512, 1), 100_800

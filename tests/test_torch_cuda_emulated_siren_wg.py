@@ -24,6 +24,11 @@ straddle a bf16 rounding boundary the stashed values part by one bf16 ulp
 (2^-8 relative). Those few elements set the error: measured at most 2.8e-4
 over these cases, against 5e-5 for the float32 stash's K1 in
 ``tests/test_torch_cuda_emulated_siren_tc.py``.
+
+The same passes with the float32 stash (the unbatched K1, K3 and K2, held
+against their plain versions case by case in
+``tests/test_torch_cuda_emulated_siren_tc.py`` and ``..._tc_fwd.py``) are
+held here to the grid: on two emulated SMs bit-equal to the 132-SM grid.
 """
 import ctypes
 
@@ -137,3 +142,37 @@ def test_emulated_wg_refuses_what_it_does_not_take(emulated_wg):
     x, ws, target = _stacked((128, 96, 1), 2, 10, seed=0)
     with pytest.raises(ValueError, match="does not take"):
         tk._launch_loss_grads_wg(emulated_wg, x, ws, target, 30.0, 10, 0)
+
+
+@pytest.mark.parametrize("kind", ["k1", "k3", "k2_dx", "k2_dw"])
+def test_emulated_wg_f32_grid_does_not_set_the_numbers(emulated_wg, monkeypatch, kind):
+    """The unbatched K1 (masked rows), K3 and K2 (dx alone; dW and dx) with
+    the float32 stash on two emulated SMs, where each persistent block walks
+    many units and dW's blocks several splits: the bits of the 132-SM grid,
+    and within the bars of ``tests/test_torch_cuda_emulated_siren_tc.py``
+    (5e-5 of each output's largest magnitude) of the plain versions."""
+    dims, P = (128, 256, 128, 1), 300
+    x, ws, target = _problem(dims, P, seed=11)
+    g = target - 0.5
+    omegas = [30.0] * (len(dims) - 2)
+    run = {"k1": lambda: tk._launch_loss_grads_wg_f32(emulated_wg, x, ws, target, omegas, 290, 0),
+           "k3": lambda: tk._launch_forward_wg(emulated_wg, x, ws, omegas, 0),
+           "k2_dx": lambda: tk._launch_fused_bwd_wg(emulated_wg, x, ws, g, omegas, False, True, 0),
+           "k2_dw": lambda: tk._launch_fused_bwd_wg(emulated_wg, x, ws, g, omegas, True, True, 0)}
+    ref = {"k1": lambda: tk.siren_loss_grads_ref(x, ws, target, omegas, 290),
+           "k3": lambda: tk.siren_forward_ref(x, ws, omegas),
+           "k2_dx": lambda: tk.siren_fused_bwd_ref(x, ws, g, omegas, need_dw=False),
+           "k2_dw": lambda: tk.siren_fused_bwd_ref(x, ws, g, omegas)}
+
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out if o is not None for t in flat(o)]
+
+    wide = flat(run[kind]())
+    monkeypatch.setenv("EMU_SM_COUNT", "2")
+    narrow = flat(run[kind]())
+    assert len(wide) == len(narrow) == {"k1": 7, "k3": 1, "k2_dx": 1, "k2_dw": 7}[kind]
+    assert all(torch.equal(a, b) for a, b in zip(wide, narrow))
+    for a, b in zip(narrow, flat(ref[kind]())):
+        assert float((a - b).abs().max()) <= 5e-5 * float(b.abs().max())

@@ -3,7 +3,7 @@ split its operands go through, and the plain versions it is held against on
 the card, compared with the JAX package's Pallas kernels at a width of its
 class.
 
-The route itself (``csrc/siren_tc.cu``) runs here under the CUDA emulation
+The route itself (``csrc/siren_wg.cu``) runs here under the CUDA emulation
 (``tests/test_torch_cuda_emulated_siren_tc.py`` for K1,
 ``tests/test_torch_cuda_emulated_siren_tc_fwd.py`` for K3 and K2) and on
 the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
@@ -43,6 +43,12 @@ SIREN_ACTS = lambda n_hidden: ("sine",) * n_hidden + ("none",)
     ((32, 32, 1), SIREN_ACTS(1), False, False, False),
     ((256, 500, 1), SIREN_ACTS(1), False, False, False),
     ((100, 128, 1), SIREN_ACTS(1), False, False, False),
+    # the kernel's limits: the last hidden width at most 2,048, at most 16 layers
+    ((256, 2048, 1), SIREN_ACTS(1), False, False, True),
+    ((256, 2176, 1), SIREN_ACTS(1), False, False, False),
+    ((256, 2176, 512, 1), SIREN_ACTS(2), False, False, True),
+    ((128,) * 16 + (1,), SIREN_ACTS(15), False, False, True),
+    ((128,) * 17 + (1,), SIREN_ACTS(16), False, False, False),
 ])
 def test_route_rule(dims, acts, weighted, absmax, route):
     """The route is chosen from the shapes and options alone."""
