@@ -38,8 +38,7 @@ from mri_super_resolution_tpu_torch.config import RAMSConfig
 from mri_super_resolution_tpu_torch.core.coords import fourier_encode
 from mri_super_resolution_tpu_torch.models import PIA, GridINR, Siren, SirenToy, Wire
 from mri_super_resolution_tpu_torch.models.grid_inr import infer_tensor_grid
-from mri_super_resolution_tpu_torch.models.rams import fold_weight_norm
-from mri_super_resolution_tpu_torch.pipelines.misr import build_rams
+from mri_super_resolution_tpu_torch.pipelines.misr import load_model
 from mri_super_resolution_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                              unwrap_trainer_params)
 
@@ -193,10 +192,8 @@ def main(argv=None) -> dict:
         live, inputs, tol, what = model.encode, [sig], INR_TOL, ""
     else:
         # the serving build of misr_master: bf16 activations, the library convs
-        model = build_rams(RAMSConfig(filters=args.filters, N=args.N, channels=args.channels),
-                           device=dev)
-        model.load_state_dict(fold_weight_norm(_rams_state_dict(args.params)))
-        model.requires_grad_(False)
+        model = load_model(RAMSConfig(filters=args.filters, N=args.N, channels=args.channels),
+                           _rams_state_dict(args.params), dev)
         manifest = serve.export_rams(model, args.out, height=args.height, width=args.width,
                                      channels=args.channels, device=dev,
                                      model_desc=f"RAMS F={args.filters} N={args.N}")

@@ -30,6 +30,12 @@ bias added, one rounding); every other conv goes to ``F.conv3d`` /
 ``F.conv2d`` in the compute type with the bias added in that type, as the
 JAX package's XLA route does. The weight norm has the JAX package's
 closed-form backward (``models/rams.py:60-89`` there).
+
+Spans (``utils/profiling.py``): ``rams.forward`` around a forward, and in it
+``rams.body`` (head, RFABs, body conv and the long skip), ``rams.reduce``
+(the temporal reduction), ``rams.global`` (the 2-D path) and ``rams.out``
+(the conv to scale^2 channels, depth_to_space, the float32 sum and
+denormalize).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mri_super_resolution_tpu_torch.ops.conv3d_kernel import conv3d_rfab_trainable
+from mri_super_resolution_tpu_torch.utils.profiling import span
 
 MEAN = 7433.6436  # PROBA-V dataset statistics (network.py:18-19)
 STD = 2353.0723
@@ -66,11 +73,13 @@ def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:
 
 def reflect_pad_hw(x: torch.Tensor, pad: int = 1, axes: Sequence[int] = (1, 2)) -> torch.Tensor:
     """Reflective padding (edge not repeated) of ``pad`` on each of ``axes``
-    (network.py:37-39)."""
+    (network.py:37-39). The indices are made on ``x``'s device: a copy from
+    the host would wait for the device's queue to drain."""
     for a in axes:
         n = x.shape[a]
-        idx = torch.cat([torch.arange(pad, 0, -1), torch.arange(n),
-                         torch.arange(n - 2, n - 2 - pad, -1)]).to(x.device)
+        idx = torch.cat([torch.arange(pad, 0, -1, device=x.device),
+                         torch.arange(n, device=x.device),
+                         torch.arange(n - 2, n - 2 - pad, -1, device=x.device)])
         x = x.index_select(a, idx)
     return x
 
@@ -224,6 +233,7 @@ class RAMS(nn.Module):
             if isinstance(m, WNConv):
                 m.reset_parameters(generator)
 
+    @span("rams.forward")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = normalize(x, self.mean, self.std).to(self.compute_dtype)
         global_res = x  # (B, H, W, T)
@@ -231,17 +241,21 @@ class RAMS(nn.Module):
             x, hw_axes, t_axis = x.permute(0, 3, 1, 2)[..., None], (2, 3), 1
         else:
             x, hw_axes, t_axis = x[..., None], (1, 2), 3
-        x = self.head(reflect_pad_hw(x, axes=hw_axes))
-        res = x
-        for blk in self.rfabs:
-            x = blk(x)
-        x = self.body_conv(x) + res
-        for blk, conv in zip(self.reduce_rfabs, self.reduce_convs):
-            x = torch.relu(conv(blk(reflect_pad_hw(x, axes=hw_axes))))
-        x = depth_to_space(self.to_scale(x).squeeze(t_axis), self.scale)  # T is 1 here
-        g = self.global_conv(self.rtab(reflect_pad_hw(global_res)))
-        g = depth_to_space(g, self.scale)
-        return denormalize(x.float() + g.float(), self.mean, self.std)
+        with span("rams.body"):
+            x = self.head(reflect_pad_hw(x, axes=hw_axes))
+            res = x
+            for blk in self.rfabs:
+                x = blk(x)
+            x = self.body_conv(x) + res
+        with span("rams.reduce"):
+            for blk, conv in zip(self.reduce_rfabs, self.reduce_convs):
+                x = torch.relu(conv(blk(reflect_pad_hw(x, axes=hw_axes))))
+        with span("rams.global"):
+            g = self.global_conv(self.rtab(reflect_pad_hw(global_res)))
+            g = depth_to_space(g, self.scale)
+        with span("rams.out"):
+            x = depth_to_space(self.to_scale(x).squeeze(t_axis), self.scale)  # T is 1 here
+            return denormalize(x.float() + g.float(), self.mean, self.std)
 
 
 @torch.no_grad()

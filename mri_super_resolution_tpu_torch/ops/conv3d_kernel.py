@@ -18,7 +18,10 @@ A wrapper given CPU tensors runs the plain version (:func:`conv3d_rfab_ref`,
 :func:`conv3d_rfab_bwd_ref`); given CUDA tensors it launches the kernel or
 raises, and adds one to its count in :data:`LAUNCHES`. On the card,
 :func:`conv3d_rfab` hands inputs that need a gradient to
-:func:`conv3d_rfab_trainable`, so their backward runs K7.
+:func:`conv3d_rfab_trainable`, so their backward runs K7. Each wrapper is a
+span of ``utils/profiling.py`` (``kernel.conv3d_rfab``,
+``kernel.conv3d_rfab_bwd``) on every device, and its ctypes call a
+``kernel.launch`` span inside it, as in ``ops/siren_kernel.py``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from mri_super_resolution_tpu_torch.ops import _build
+from mri_super_resolution_tpu_torch.utils.profiling import span
 
 # one count per wrapper, bumped once per kernel launch on a CUDA tensor
 LAUNCHES: dict[str, int] = {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
@@ -172,8 +176,9 @@ def _launch(lib, x, kernel, bias, padding, stream) -> torch.Tensor:
     _aligned(x, out)
     kernel = _aligned_kernel(kernel)
     fn = lib.conv3d_rfab_bf16 if x.dtype == torch.bfloat16 else lib.conv3d_rfab_f32
-    rc = fn(x.data_ptr(), B, H, W, T, C, kernel.data_ptr(), bias.data_ptr(), Cout,
-            1 if padding == "SAME" else 0, out.data_ptr(), stream)
+    with span("kernel.launch"):
+        rc = fn(x.data_ptr(), B, H, W, T, C, kernel.data_ptr(), bias.data_ptr(), Cout,
+                1 if padding == "SAME" else 0, out.data_ptr(), stream)
     _build.raise_on(rc, "conv3d_rfab")
     return out
 
@@ -194,12 +199,14 @@ def _launch_bwd(lib, x, kernel, g, padding, stream):
     _aligned(x, g, dx, dw, db, work)
     kernel = _aligned_kernel(kernel)
     fn = lib.conv3d_rfab_bwd_bf16 if x.dtype == torch.bfloat16 else lib.conv3d_rfab_bwd_f32
-    rc = fn(x.data_ptr(), B, H, W, T, C, kernel.data_ptr(), g.data_ptr(), Cout, pad,
-            dx.data_ptr(), dw.data_ptr(), db.data_ptr(), work.data_ptr(), slots, stream)
+    with span("kernel.launch"):
+        rc = fn(x.data_ptr(), B, H, W, T, C, kernel.data_ptr(), g.data_ptr(), Cout, pad,
+                dx.data_ptr(), dw.data_ptr(), db.data_ptr(), work.data_ptr(), slots, stream)
     _build.raise_on(rc, "conv3d_rfab_bwd")
     return dx, dw, db
 
 
+@span("kernel.conv3d_rfab")
 def conv3d_rfab(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                 padding: str = "SAME") -> torch.Tensor:
     """K6: ``conv3d(x, kernel) + bias`` in ``x.dtype``, shape ``(B, Ho, Wo,
@@ -218,6 +225,7 @@ def conv3d_rfab(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+@span("kernel.conv3d_rfab_bwd")
 def conv3d_rfab_bwd(x: torch.Tensor, kernel: torch.Tensor, g: torch.Tensor,
                     padding: str = "SAME"
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -13,8 +13,11 @@
   Chrome trace (``trace.json``) into a directory.
 
 Counters stay beside the code they count: ``ops/siren_kernel.py``'s
-``LAUNCHES`` (kernel launches by route), ``fit/optim.py``'s ``count`` and
-``step_index`` (updates, by slot in ``StackedAdam``).
+``LAUNCHES`` (kernel launches by route), ``ops/conv3d_kernel.py``'s
+``LAUNCHES`` (K6 and K7 launches on the card: ``conv3d_rfab``, 34 a RAMS
+forward at the reference architecture, and ``conv3d_rfab_bwd``),
+``fit/optim.py``'s ``count`` and ``step_index`` (updates, by slot in
+``StackedAdam``).
 """
 from __future__ import annotations
 
