@@ -63,6 +63,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
    and on ragged shapes; K7 ``conv3d_rfab_bwd`` (dx, dW, db) at the seven
    shapes of the training path in bf16 and float32 and on ragged shapes;
+   G1 ``rfab_gate`` (``csrc/rams_gate.cu``) at the four RFAB shapes of the
+   MISR path in bf16 against the eager chain (``RFAB.gate_eager``): the
+   gate within one bf16 ulp, the output bit for bit wherever the two gates
+   agree, twice for the same bits; in float32 and at C 8 on ragged shapes;
    then a small SIREN and a small WIRE patient, a small RAMS forward, three
    training steps of a small RAMS, a small 2-D ensemble case and a small
    soft-ERD phase 1 on the card's kernels against the plain path on the CPU;
@@ -106,7 +110,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
    ``conv_kernel=True``: DICOMs, timings.json, finite (384, 384) outputs in
-   [0, 65536], and exactly 34 K6 launches per case and no other kernel;
+   [0, 65536], exactly 34 K6 launches and 15 G1 gates per case (no eager
+   RFAB gate) and no other kernel;
    the same cases on the library route and in float32 bound the route gap;
    then the MISR trainer, ``cli/train_misr.main`` at full width (filters 32,
    N 12, bf16, ``--conv_kernel``, batch 32, hr 96) on three seeded
@@ -203,7 +208,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (profiled in a fresh process) beside their product bound and bytes);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
-   shape; P1 also at GRID 256, whose time must be about half; the
+   shape; G1 and the eager chain it replaces in three alternating rounds at
+   the four RFAB shapes, beside its plain version and its bound (x, res and
+   the output moved once at 3.35 TB/s), and its three passes by time; P1 also at GRID 256, whose time must be about half; the
    per-update costs of the two 2-D paths (a K1 call on either route, an
    Adam step, a whole update, ``fit_until``'s per-step read-back, the
    soft-ERD step on both K1-a routes; the batched 2-D update of the three
@@ -220,12 +227,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 The last three lines are the ``{"kernels": ...}`` record (K1-K5 on their
 tensor-core route, K1 also at the hybrid's shape and at a shard's 35,000
-rows, K6-K7, K1's weighted
+rows, K6-K7, G1 at the body's RFAB shape, K1's weighted
 variant on its weight-resident
 route and its absmax variant on its streaming route, also at the half-res
 LR slice, P1 in bf16 and int8, the batched K1 on its two kernels, and the
 batched K1-w, K1-a, K3 and K2 at a rank's shard of the fits on two ranks:
-20 rows; each row's launches are its own entry's on the main path, so the
+21 rows; each row's launches are its own entry's on the main path, so the
 unbatched K1 row at the hybrid's shape and the unbatched K1-weighted row,
 whose paths now run the batched entries, count 0),
 the card's name and
@@ -250,7 +257,8 @@ PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
 SOURCES = ("siren", "siren_wg", "siren_resident", "siren_resident_tc",
-           "siren_stream", "wire", "wire_tc", "conv3d", "mma_probe")  # csrc/<name>.cu
+           "siren_stream", "wire", "wire_tc", "conv3d", "rams_gate",
+           "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
 # the batched K1 (csrc/siren_wg.cu) against the plain version with the same
@@ -297,6 +305,15 @@ K6_SHAPES = (
     ((25, 132, 132, 5, 32), "VALID", 1),
 )
 K6_PER_FORWARD = sum(n for _, _, n in K6_SHAPES)  # 2 N + 1 + 3 (T // 3) = 34
+# the MISR path's RFAB gates (G1, csrc/rams_gate.cu): (x's shape, gates per
+# forward): the N body RFABs, then one per temporal step on the padded planes
+G1_SHAPES = (
+    ((25, 130, 130, 9, 32), 12),
+    ((25, 132, 132, 9, 32), 1),
+    ((25, 132, 132, 7, 32), 1),
+    ((25, 132, 132, 5, 32), 1),
+)
+G1_PER_FORWARD = sum(n for _, n in G1_SHAPES)  # N + T // 3 = 15
 # K7 dW and db: max |kernel - plain| / max |plain|. Float32 sums over every
 # output pixel (up to 3.7e5 rows at the training shapes) in other orders:
 # the K1 class would be 1e-3; measured at most 1.53e-6 on an H100 over the
@@ -1358,6 +1375,97 @@ def phase_k6_parity() -> float:
     return err
 
 
+def _g1_problem(shape, dtype, seed: int):
+    """An RFAB's gate modules (seeded, biases off 0.5) and a seeded x and res
+    of ``shape`` in ``dtype`` on the card; the gate's effective weights as
+    G1 takes them."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.models.rams import RFAB
+
+    gen = torch.Generator().manual_seed(seed)
+    C = shape[-1]
+    blk = RFAB(C, r=8 if C >= 16 else 4)
+    for conv in (blk.att0, blk.att1):
+        conv.reset_parameters(gen)
+        with torch.no_grad():
+            conv.bias.uniform_(-1.0, 1.0, generator=gen)
+    blk = blk.cuda().requires_grad_(False)
+    x = (torch.randn(shape, generator=gen) + 0.25).to("cuda", dtype)
+    res = torch.randn(shape, generator=gen).to("cuda", dtype)
+    return blk, x, res, blk.gate_weights()
+
+
+def _g1_check(shape, dtype, seed: int) -> float:
+    """G1 against the eager chain at one shape: both gates (G1's from its
+    sum and gate passes) within one bf16 ulp (16 float32 ulps) and equal in
+    over half the (item, channel) pairs, G1's output bit for bit the eager
+    chain's wherever the gates agree, its apply pass given the eager gate bit
+    for bit the eager output everywhere, and two calls the same bits.
+    Returns the max abs gap of the outputs."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import _build
+    from mri_super_resolution_tpu_torch.ops import rams_gate as rg
+
+    blk, x, res, weights = _g1_problem(shape, dtype, seed)
+    B, C = shape[0], shape[-1]
+    with torch.inference_mode():
+        fused = rg.rfab_gate(x, res, *weights)
+        again = rg.rfab_gate(x, res, *weights)
+        eager = blk.gate_eager(x, res)
+        att_e = torch.sigmoid(blk.att1(torch.relu(blk.att0(
+            x.float().mean(dim=(1, 2, 3), keepdim=True))))).to(dtype).reshape(B, C)
+        x3 = x.reshape(B, -1, C)
+        work = torch.empty(rg.work_floats(*x3.shape), device="cuda")
+        att_f = torch.empty(B, C, dtype=dtype, device="cuda")
+        rg._launch_att(rg._lib(), x3, *weights, work, att_f, rg.SLOT_PIXELS,
+                       _build.stream_ptr())
+        given = torch.empty_like(x3)
+        rg._launch_apply(rg._lib(), x3, att_e, res.reshape(B, -1, C), given,
+                         _build.stream_ptr())
+    # bf16: the float32 gates round to one bf16 value or to neighbours;
+    # float32: 16 ulps, about 1e-6 relative (the mean's order, the MLP's fmaf)
+    bits, ulps = (8, 1.0) if dtype == torch.bfloat16 else (24, 16.0)
+    ulp = 2.0 ** (torch.floor(torch.log2(att_e.float().abs())) - (bits - 1))
+    gate_gap = float(((att_f.float() - att_e.float()).abs() / ulp).max())
+    agree = (att_f == att_e).reshape(B, *(1,) * (len(shape) - 2), C).expand(shape)
+    share = float((att_f == att_e).float().mean())
+    err = float((fused.float() - eager.float()).abs().max())
+    print(f"[parity] G1 rfab_gate {shape} {str(dtype)[6:]}: gates agree in "
+          f"{share:.4f} of (item, channel), at most {gate_gap:.1f} ulp apart; output max abs "
+          f"gap {err:.3e}")
+    _require(gate_gap <= ulps, f"G1's gate {gate_gap} ulp from the eager chain's ({shape})")
+    _require(share > 0.5, f"G1's gate equals the eager chain's in only {share:.4f} ({shape})")
+    _require(torch.equal(given.reshape(shape), eager),
+             f"G1's apply pass given the eager gate differs from the eager output ({shape})")
+    _require(torch.equal(fused[agree], eager[agree]),
+             f"G1's output differs from the eager chain's where the gates agree ({shape})")
+    _require(torch.equal(fused, again), f"G1 gave other bits on a second call ({shape})")
+    return err
+
+
+def phase_g1_parity() -> float:
+    """G1 against the eager chain at the four RFAB shapes of the MISR path
+    in bf16, and in float32 and at C 8 and 12 on ragged shapes; one fused
+    launch a call. Returns the max abs output gap over the path's bf16 calls."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import rams_gate as rg
+
+    rg.reset_launches()
+    err = max(_g1_check(shape, torch.bfloat16, seed=i) for i, (shape, _) in enumerate(G1_SHAPES))
+    ragged = ((3, 37, 21, 5, 32), (2, 19, 45, 7, 8), (2, 19, 45, 7, 12))  # C 12: an element a load
+    for shape in ragged:
+        for dtype in (torch.bfloat16, torch.float32):
+            _g1_check(shape, dtype, seed=sum(shape))
+    calls = len(G1_SHAPES) + 2 * len(ragged)
+    _require(rg.LAUNCHES == {"rfab_gate": 2 * calls, "rfab_gate_eager": calls},
+             f"G1 launches {rg.LAUNCHES}")
+    torch.cuda.empty_cache()
+    return err
+
+
 def _b0_blob(seed: int, side: int = 128, slices: int = 24):
     """A seeded smooth blob of about 100 on a floor of 90, (side, side,
     slices) float32."""
@@ -1419,11 +1527,13 @@ def phase_small_misr() -> None:
 
 
 def _run_misr(cases, cfg, state_dict, out_dir: str):
-    """misr.run() with each case's outputs and K6 launches recorded; every
-    launch count is set to 0 just before the run and read just after."""
+    """misr.run() with each case's outputs, K6 launches and RFAB gates by
+    path recorded; every launch count is set to 0 just before the run and
+    read just after."""
     import torch
 
     from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+    from mri_super_resolution_tpu_torch.ops import rams_gate as rg
     from mri_super_resolution_tpu_torch.ops import siren_kernel as sk
     from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
     from mri_super_resolution_tpu_torch.pipelines import misr
@@ -1433,13 +1543,15 @@ def _run_misr(cases, cfg, state_dict, out_dir: str):
 
     def recording(*args, **kwargs):
         before = ck.LAUNCHES["conv3d_rfab"]
+        gates = dict(rg.LAUNCHES)
         out = predict_case(*args, **kwargs)
-        per_case.append((out, ck.LAUNCHES["conv3d_rfab"] - before))
+        per_case.append((out, ck.LAUNCHES["conv3d_rfab"] - before,
+                         {k: rg.LAUNCHES[k] - gates[k] for k in gates}))
         return out
 
     misr.predict_case = recording
     try:
-        for mod in (sk, wk, ck):
+        for mod in (sk, wk, ck, rg):
             mod.reset_launches()
         t0 = time.perf_counter()
         misr.run(cases, cfg, state_dict, out_dir, exp_name="smoke", sample_size=25, seed=0,
@@ -1458,8 +1570,9 @@ def phase_misr_main(out_dir: str) -> dict:
     the same cases on the library route (cuDNN everywhere) and in float32:
     the two bf16 routes may differ by at most twice the library route's own
     bf16-vs-float32 gap (on the CPU, tests/test_torch_rams.py: 0.61 of it,
-    73.5 vs 121, for the committed RAMS on a (2, 16, 16, 9) input). Returns
-    the path's launches."""
+    73.5 vs 121, for the committed RAMS on a (2, 16, 16, 9) input). Every
+    route runs its 15 RFAB gates a case on G1, none eager. Returns the
+    path's launches."""
     import dataclasses
 
     import numpy as np
@@ -1474,7 +1587,7 @@ def phase_misr_main(out_dir: str) -> dict:
     sd = convert.rams_state_dict(convert.load_params_npz(convert.RAMS_PARAMS_NPZ))
     cfg = RAMSConfig(conv_kernel=True)
     per_case, launches, wall = _run_misr(cases, cfg, sd, out_dir)
-    for case, ((mean_pred, adc), n) in zip(cases, per_case):
+    for case, ((mean_pred, adc), n, gates) in zip(cases, per_case):
         base = os.path.join(out_dir, "smoke", case.pt_no)
         _require(all(os.path.isfile(os.path.join(base, k, "mean.dcm")) for k in ("DWI", "ADC")),
                  f"no DICOMs for case {case.pt_no}")
@@ -1484,6 +1597,8 @@ def phase_misr_main(out_dir: str) -> dict:
         _require(bool(np.isfinite(adc).all()), "ADC finite")
         _require(n == K6_PER_FORWARD, f"K6 launched {n} times for case {case.pt_no}, "
                  f"expected {K6_PER_FORWARD}")
+        _require(gates == {"rfab_gate": G1_PER_FORWARD, "rfab_gate_eager": 0},
+                 f"RFAB gates {gates} for case {case.pt_no}, expected {G1_PER_FORWARD} on G1")
     for name, n in launches.items():
         want = K6_PER_FORWARD * len(cases) if name == "conv3d_rfab" else 0
         _require(n == want, f"{name} launched {n} times on the MISR path, expected {want}")
@@ -1499,14 +1614,19 @@ def phase_misr_main(out_dir: str) -> dict:
                     ("float32", dataclasses.replace(cfg, conv_kernel=False,
                                                     compute_dtype="float32"))):
         pc, _, _ = _run_misr(cases, c, sd, os.path.join(out_dir, name))
-        route[name] = [out[0] for out, _ in pc]
-    k6 = [out[0] for out, _ in per_case]
+        for case, (_, n, gates) in zip(cases, pc):
+            _require(n == 0 and gates == {"rfab_gate": G1_PER_FORWARD, "rfab_gate_eager": 0},
+                     f"{name} route, case {case.pt_no}: K6 {n}, RFAB gates {gates}, expected "
+                     f"no K6 and {G1_PER_FORWARD} on G1")
+        route[name] = [out[0] for out, _, _ in pc]
+    k6 = [out[0] for out, _, _ in per_case]
     gap = max(float(np.abs(a - b).max()) for a, b in zip(k6, route["library"]))
     own = max(float(np.abs(a - b).max()) for a, b in zip(route["library"], route["float32"]))
     print(f"[main misr] mean_pred, K6 route vs library route: max abs {gap:.2f}; library "
           f"bf16 vs float32: {own:.2f} (tol: route gap <= 2x that)")
     _require(gap <= 2 * own, "the K6 and library routes differ beyond the bf16 bound")
-    return {"conv3d_rfab": launches["conv3d_rfab"]}
+    return {"conv3d_rfab": launches["conv3d_rfab"],
+            "rfab_gate": sum(g["rfab_gate"] for _, _, g in per_case)}
 
 
 def _all_counts() -> dict:
@@ -2204,6 +2324,52 @@ def phase_k6_times(err: float, launches: dict) -> dict:
         torch.cuda.empty_cache()
     print(f"[times] K6 per RAMS forward (34 launches): kernel {per_forward['kernel']:.2f} ms, "
           f"F.conv3d {per_forward['library']:.2f} ms")
+    return row
+
+
+def phase_g1_times(err: float, launches: dict) -> dict:
+    """G1 in bf16 at each RFAB shape of the MISR path: the fused gate and the
+    eager chain it replaces (``RFAB.gate_eager``) in three alternating
+    rounds, best of each, and its plain version, with CUDA events, beside
+    the bound (x and res read once and the output written once at 3.35
+    TB/s; the two passes over x that the mean forces read x twice); its
+    three passes by time at the body's shape. The kernels-line row is the
+    body's shape, 12 of a forward's 15 gates."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import rams_gate as rg
+
+    row = None
+    per_forward = {"kernel": 0.0, "library": 0.0, "bound": 0.0}
+    with torch.inference_mode():
+        for i, (shape, n) in enumerate(G1_SHAPES):
+            blk, x, res, weights = _g1_problem(shape, torch.bfloat16, seed=i)
+            ms, eager_ms = _best_alternating(lambda: rg.rfab_gate(x, res, *weights),
+                                             lambda: blk.gate_eager(x, res), 5, 3)
+            plain_ms = _time_ms(lambda: rg.rfab_gate_ref(x, res, *weights), 5)
+            nbytes = 3 * 2 * x.numel()
+            bound = nbytes / PEAK_BYTES * 1e3
+            print(f"[times] rfab_gate {shape}: kernel {ms:.3f} ms, eager chain {eager_ms:.3f} "
+                  f"ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({nbytes / 1e6:.1f} MB; "
+                  f"two passes {4 / 3 * bound:.3f} ms) -> {nbytes / ms / 1e6:.0f} GB/s; "
+                  f"kernel/eager {ms / eager_ms:.3f}, kernel/bound {ms / bound:.2f}")
+            per_forward["kernel"] += n * ms
+            per_forward["library"] += n * eager_ms
+            per_forward["bound"] += n * bound
+            if row is None:
+                _passes("G1 at the body's shape", lambda: rg.rfab_gate(x, res, *weights))
+                row = {
+                    "name": "rfab_gate", "route": "cuda",
+                    "source": "mri_super_resolution_tpu_torch/csrc/rams_gate.cu",
+                    "replaces": None, "launches": launches["rfab_gate"],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": eager_ms,
+                }
+            del x, res
+        torch.cuda.empty_cache()
+    print(f"[times] G1 per RAMS forward ({G1_PER_FORWARD} gates): kernel "
+          f"{per_forward['kernel']:.2f} ms, eager chain {per_forward['library']:.2f} ms, "
+          f"bound {per_forward['bound']:.2f} ms")
     return row
 
 
@@ -4808,6 +4974,7 @@ def main(argv=None) -> int:
     errs.update(phase_probe_parity())
     errs.update(phase_wire_parity(P))
     k6_err = phase_k6_parity()
+    g1_err = phase_g1_parity()
     k7_err = phase_k7_parity()
     for inr_model in ("siren", "wire"):
         phase_small_patient(inr_model)
@@ -4868,6 +5035,7 @@ def main(argv=None) -> int:
         rows.append(phase_k1_shard_time(P, dims, errs, launches))
         rows += phase_shard_times(P, dims, errs, launches)
         rows.append(phase_k6_times(k6_err, launches))
+        rows.append(phase_g1_times(g1_err, launches))
         rows.append(phase_k7_times(k7_err, launches))
         rows += phase_2d_times(errs, launches)
         rows.append(phase_k1w_batched_time(errs, launches))

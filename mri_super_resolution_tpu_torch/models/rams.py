@@ -31,6 +31,13 @@ bias added, one rounding); every other conv goes to ``F.conv3d`` /
 JAX package's XLA route does. The weight norm has the JAX package's
 closed-form backward (``models/rams.py:60-89`` there).
 
+RFAB gates: on the card with grad off (serving runs under
+``torch.inference_mode``) an RFAB's channel-attention gate and residual run
+G1 (``ops/rams_gate.py``: the pooled mean, the 32 -> 4 -> 32 gate and ``x *
+att + res`` in three launches), which launches or raises; with grad on, on
+the CPU and inside a ``torch.export`` trace, the eager chain
+(``RFAB.gate_eager``). RTAB's 2-D gate stays eager.
+
 Spans (``utils/profiling.py``): ``rams.forward`` around a forward, and in it
 ``rams.body`` (head, RFABs, body conv and the long skip), ``rams.reduce``
 (the temporal reduction), ``rams.global`` (the 2-D path) and ``rams.out``
@@ -46,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mri_super_resolution_tpu_torch.ops import rams_gate
 from mri_super_resolution_tpu_torch.ops.conv3d_kernel import conv3d_rfab_trainable
 from mri_super_resolution_tpu_torch.utils.profiling import span
 
@@ -174,10 +182,31 @@ class RFAB(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         res = x
         x = self.conv1(torch.relu(self.conv0(x)))
-        # channel attention; the pooled mean in float32, the gate cast back
+        if rams_gate.fused_applies(x):
+            return self.gate_fused(x, res)
+        return self.gate_eager(x, res)
+
+    def gate_eager(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+        """Channel attention as PyTorch ops: the pooled mean in float32, the
+        gate cast back, ``x * att + res``."""
+        rams_gate.LAUNCHES["rfab_gate_eager"] += 1
         att = x.float().mean(dim=(1, 2, 3), keepdim=True)
         att = torch.sigmoid(self.att1(torch.relu(self.att0(att)))).to(x.dtype)
         return x * att + res
+
+    def gate_weights(self) -> tuple[torch.Tensor, ...]:
+        """The gate's float32 ``(w0 (C, R), b0, w1 (R, C), b1)`` as G1 takes
+        them: the 1x1x1 kernels weight-normed on each call, as ``WNConv``
+        forms them."""
+        w0 = weight_norm_kernel(self.att0.v, self.att0.g)
+        w1 = weight_norm_kernel(self.att1.v, self.att1.g)
+        return w0.reshape(w0.shape[-2:]), self.att0.bias, w1.reshape(w1.shape[-2:]), self.att1.bias
+
+    def gate_fused(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+        """The same gate through G1 (``ops/rams_gate.py``), which reads
+        contiguous channels-last tensors: what K6 and, on the card, cuDNN
+        write in either layout."""
+        return rams_gate.rfab_gate(x, res, *self.gate_weights())
 
 
 class RTAB(nn.Module):

@@ -12,6 +12,7 @@ from mri_super_resolution_tpu_torch import set_float32_precision
 from mri_super_resolution_tpu_torch.models import RAMS, Siren, SirenERD, Wire
 from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
 from mri_super_resolution_tpu_torch.ops import mma_probe as mp
+from mri_super_resolution_tpu_torch.ops import rams_gate as rg
 from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 from mri_super_resolution_tpu_torch.ops import wire_kernel as wk
 
@@ -456,6 +457,127 @@ def test_rams_on_k6_matches_cpu(card):
         gpu = model.to(card)(x.to(card))
     assert ck.LAUNCHES == {"conv3d_rfab": 2 * 2 + 1 + 3 * 3, "conv3d_rfab_bwd": 0}
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=2e-5, atol=2e-2)
+
+
+def _serving_rfab(card, seed: int):
+    """A full-width RFAB (32 filters, r 8) on K6 with seeded weights at the
+    committed checkpoint's scale, biases that keep the gate off 0.5."""
+    gen = torch.Generator().manual_seed(seed)
+    blk = RAMS(filters=32, N=1, conv_kernel=True, generator=gen).rfabs[0]
+    with torch.no_grad():
+        for conv in (blk.att0, blk.att1):
+            conv.bias.uniform_(-1.0, 1.0, generator=gen)
+    return blk.to(card).requires_grad_(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(25, 130, 130, 9, 32), (25, 132, 132, 5, 32)])
+def test_rfab_gate_at_the_serving_shapes_matches_the_eager_chain(card, shape):
+    """Under inference_mode a full-width bf16 RFAB at a body and a reduce
+    shape of the 25-draw forward: G1's gate within one bf16 ulp of the eager
+    chain's, its output bit for bit the eager chain's wherever the two gates
+    agree, G1's apply pass given the eager gate bit for bit everywhere, two
+    runs the same bits, one fused launch a call and none eager."""
+    blk = _serving_rfab(card, seed=sum(shape))
+    gen = torch.Generator().manual_seed(1)
+    res = torch.randn(shape, generator=gen).to(card, torch.bfloat16)
+    B, C = shape[0], shape[-1]
+    with torch.inference_mode():
+        x = blk.conv1(torch.relu(blk.conv0(res)))
+        rg.reset_launches()
+        fused = blk.gate_fused(x, res)
+        again = blk.gate_fused(x, res)
+        assert rg.LAUNCHES == {"rfab_gate": 2, "rfab_gate_eager": 0}
+        eager = blk.gate_eager(x, res)
+        att_e = torch.sigmoid(blk.att1(torch.relu(blk.att0(
+            x.float().mean(dim=(1, 2, 3), keepdim=True))))).to(x.dtype).reshape(B, C)
+        x3, r3 = x.reshape(B, -1, C), res.reshape(B, -1, C)
+        work = torch.empty(rg.work_floats(*x3.shape), device=card)
+        att_f = torch.empty(B, C, dtype=x.dtype, device=card)
+        stream = torch.cuda.current_stream().cuda_stream
+        rg._launch_att(rg._lib(), x3, *blk.gate_weights(), work, att_f, rg.SLOT_PIXELS, stream)
+        given = torch.empty_like(x3)
+        rg._launch_apply(rg._lib(), x3, att_e, r3, given, stream)
+    assert torch.equal(fused, again)
+    assert torch.equal(given.reshape(shape), eager)
+    ulp = 2.0 ** (torch.floor(torch.log2(att_e.float().abs())) - 7)
+    assert bool(((att_f.float() - att_e.float()).abs() <= ulp).all())
+    same = (att_f == att_e).reshape(B, 1, 1, 1, C).expand(shape)
+    assert float(same.float().mean()) > 0.5
+    assert torch.equal(fused[same], eager[same])
+
+
+@pytest.mark.cuda
+def test_rams_forward_takes_the_fused_gate_only_without_grad(card, monkeypatch):
+    """A full-width bf16 RAMS on K6 (12 body and 3 reduce RFABs): a forward
+    under inference_mode runs 15 fused gates and no eager one, within the
+    bf16 class of the same forward on the eager gates; a training forward
+    and backward runs 15 eager gates and no fused one."""
+    gen = torch.Generator().manual_seed(3)
+    model = RAMS(filters=32, N=12, conv_kernel=True, compute_dtype="bfloat16",
+                 generator=gen).to(card)
+    x = (torch.rand((2, 16, 16, 9), generator=gen) * 3000 + 6000).to(card)
+    rg.reset_launches()
+    with torch.inference_mode():
+        fused = model(x)
+    assert rg.LAUNCHES == {"rfab_gate": 15, "rfab_gate_eager": 0}
+    with monkeypatch.context() as m:
+        m.setattr(rg, "fused_applies", lambda x: False)
+        with torch.inference_mode():
+            eager = model(x)
+    scale = float(eager.abs().max())
+    assert float((fused - eager).abs().max()) <= 2e-3 * scale
+    rg.reset_launches()
+    model(x).square().mean().backward()
+    assert rg.LAUNCHES == {"rfab_gate": 0, "rfab_gate_eager": 15}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,dtype", [("nhwtc", "bfloat16"), ("nthwc", "bfloat16"),
+                                          ("nhwtc", "float32")])
+def test_rams_on_the_library_convs_takes_the_fused_gate(card, monkeypatch, layout, dtype):
+    """The cuDNN route (conv_kernel off) in both layouts and in float32:
+    under inference_mode every RFAB (2 body, 3 reduce) runs G1 and none the
+    eager chain, within the compute type's class of the same forward on the
+    eager gates (G1's gate may round the other way in a last bit)."""
+    gen = torch.Generator().manual_seed(5)
+    model = RAMS(filters=32, N=2, conv_kernel=False, compute_dtype=dtype, layout=layout,
+                 generator=gen).to(card)
+    x = (torch.rand((2, 16, 16, 9), generator=gen) * 3000 + 6000).to(card)
+    rg.reset_launches()
+    with torch.inference_mode():
+        fused = model(x)
+    assert rg.LAUNCHES == {"rfab_gate": 2 + 3, "rfab_gate_eager": 0}
+    with monkeypatch.context() as m:
+        m.setattr(rg, "fused_applies", lambda x: False)
+        with torch.inference_mode():
+            eager = model(x)
+    scale = float(eager.abs().max())
+    tol = 2e-3 if dtype == "bfloat16" else 1e-5
+    assert float((fused - eager).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_an_exported_rams_keeps_the_eager_gate(card, tmp_path):
+    """``serve.export_rams`` under no_grad on the card traces the eager gate
+    (a graph cannot hold G1's ctypes calls): no fused gate while tracing,
+    and the artifact serves within the bf16 class of the live model, whose
+    gates run G1."""
+    from mri_super_resolution_tpu_torch import serve
+
+    gen = torch.Generator().manual_seed(6)
+    model = RAMS(filters=8, N=1, r=4, compute_dtype="bfloat16", generator=gen).to(card)
+    model.requires_grad_(False)
+    x = (torch.rand((3, 12, 12, 9), generator=gen) * 3000 + 6000).to(card)
+    rg.reset_launches()
+    with torch.no_grad():
+        serve.export_rams(model, str(tmp_path), height=12, width=12, device=card)
+    assert rg.LAUNCHES["rfab_gate"] == 0 and rg.LAUNCHES["rfab_gate_eager"] > 0
+    with torch.inference_mode():
+        live = model(x)
+        served = serve.load(str(tmp_path), device=card)(x)
+    assert rg.LAUNCHES["rfab_gate"] == 1 + 3
+    assert float((served - live).abs().max()) <= 2e-3 * float(live.abs().max())
 
 
 @pytest.mark.cuda
