@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any failure ends the run with a non-zero exit:
 1. build: compile ``csrc/siren.cu``, ``csrc/siren_wg.cu``,
-   ``csrc/siren_resident.cu``, ``csrc/siren_stream.cu``,
+   ``csrc/siren_resident_tc.cu``, ``csrc/siren_stream.cu``,
    ``csrc/wire.cu``, ``csrc/wire_tc.cu``,
    ``csrc/conv3d.cu`` and ``csrc/mma_probe.cu`` with nvcc (sm_90a), one
    process each, started together, and print the times and the compiler's
@@ -28,7 +28,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    PerturbNet Adam trace over 3 acquisitions through the frozen flagship
    INR, K3/K2 on the tensor cores against autograd through the plain
    forward, loss by loss; K1's sample-weighted variant on its
-   weight-resident route (``csrc/siren_resident.cu``) at the 2-D ensemble's
+   streaming route (``csrc/siren_stream.cu``) at the 2-D ensemble's
    3,600 rows (2 -> 64x7 -> 1), twice for the same bits, with the SIMT K1-w
    for the record; the batched K1 (K1 under ``jax.vmap`` in the JAX
    package, one launch over stacked MLPs) on both its kernels, each against
@@ -228,8 +228,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The last three lines are the ``{"kernels": ...}`` record (K1-K5 on their
 tensor-core route, K1 also at the hybrid's shape and at a shard's 35,000
 rows, K6-K7, G1 at the body's RFAB shape, K1's weighted
-variant on its weight-resident
-route and its absmax variant on its streaming route, also at the half-res
+and absmax variants on their streaming route, the latter also at the half-res
 LR slice, P1 in bf16 and int8, the batched K1 on its two kernels, and the
 batched K1-w, K1-a, K3 and K2 at a rank's shard of the fits on two ranks:
 21 rows; each row's launches are its own entry's on the main path, so the
@@ -256,9 +255,8 @@ PEAK_BF16_TC = 989e12  # bf16 dense tensor cores
 PEAK_INT8_TC = 1979e12  # int8 dense tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
-SOURCES = ("siren", "siren_wg", "siren_resident", "siren_resident_tc",
-           "siren_stream", "wire", "wire_tc", "conv3d", "rams_gate",
-           "mma_probe")  # csrc/<name>.cu
+SOURCES = ("siren", "siren_wg", "siren_resident_tc", "siren_stream", "wire", "wire_tc",
+           "conv3d", "rams_gate", "mma_probe")  # csrc/<name>.cu
 K3_TOL = 1e-4  # max |kernel - plain| / max |plain|, forward
 K1_K2_TOL = 1e-3  # the same for the loss, dx and each dW/db (sums over P rows)
 # the batched K1 (csrc/siren_wg.cu) against the plain version with the same
@@ -931,11 +929,11 @@ def phase_k1w_batched_parity() -> dict:
     with sample weights, held as the parameter buffer of a ``StackedAdam``
     holds them: slot 2 a padded acquisition slot (every weight 0: its loss
     and grads exactly 0), all rows and a ragged count, against its plain
-    batched version and three unbatched resident K1-w calls, twice for the
-    same bits; one call captured in a CUDA graph and replayed, the same bits
-    as an eager call; and a K1_TRACE_STEPS-step stacked Adam fit (lr 3e-4,
-    the ensemble's) from one init against the plain batched version, loss
-    by loss. Returns its max abs error."""
+    batched version and three unbatched K1-w calls (the streaming route),
+    twice for the same bits; one call captured in a CUDA graph and
+    replayed, the same bits as an eager call; and a K1_TRACE_STEPS-step
+    stacked Adam fit (lr 3e-4, the ensemble's) from one init against the
+    plain batched version, loss by loss. Returns its max abs error."""
     import torch
 
     from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
@@ -948,7 +946,7 @@ def phase_k1w_batched_parity() -> dict:
     target, sw = torch.stack(targets), torch.stack(sws)
     padded = sw.clone()
     padded[MASTER_DIRS - 1] = 0.0
-    key, one = "siren_loss_grads_weighted_resident_tc_batched", "siren_loss_grads_weighted_resident"
+    key, one = "siren_loss_grads_weighted_resident_tc_batched", "siren_loss_grads_weighted_stream"
     err = 0.0
     for n_rows in (MASTER_P, MASTER_P - 123):
         before = dict(sk.LAUNCHES)
@@ -1095,7 +1093,8 @@ def phase_k1_variant_parity() -> dict:
     model, x, target, sw = _master_inputs(seed=31)
     ws, acts = model.weights(), model.acts
     dims = (2,) + (MASTER_HIDDEN,) * (MASTER_LAYERS + 1) + (1,)
-    _require(sk.resident_route(dims), "the 2-D ensemble's K1 is not of the resident route's class")
+    _require(sk.k1_route(dims, acts, True) == "stream",
+             "the 2-D ensemble's K1 is not of the streaming route's class")
     worst_all = (0.0, 0.0)
     for n_rows in (MASTER_P, MASTER_P - 123):
         before = dict(sk.LAUNCHES)
@@ -1106,12 +1105,12 @@ def phase_k1_variant_parity() -> dict:
                                      _build.stream_ptr(), acts, sw)
         loss_r, grads_r = sk.siren_loss_grads_ref(x, ws, target, 30.0, n_rows, acts, sw)
         torch.cuda.synchronize()
-        _require(sk.LAUNCHES == {**before, "siren_loss_grads_weighted_resident":
-                                 before["siren_loss_grads_weighted_resident"] + 2},
-                 "K1-w did not take the weight-resident route")
+        _require(sk.LAUNCHES == {**before, "siren_loss_grads_weighted_stream":
+                                 before["siren_loss_grads_weighted_stream"] + 2},
+                 "K1-w did not take the streaming route")
         worst = _worst_rel([(loss, loss_r), *zip(grads, grads_r)])
         r_simt = _worst_rel([(simt[0], loss_r), *zip(simt[1], grads_r)])[1]
-        print(f"[parity] K1 weighted P={MASTER_P} n_rows={n_rows}, weight-resident route: loss "
+        print(f"[parity] K1 weighted P={MASTER_P} n_rows={n_rows}, streaming route: loss "
               f"{float(loss):.6e} vs {float(loss_r):.6e}; worst over loss/dW max abs "
               f"{worst[0]:.3e}, rel {worst[1]:.3e} (tol rel {K1_K2_TOL:g}); SIMT (csrc/siren.cu) "
               f"rel {r_simt:.3e}")
@@ -1120,9 +1119,9 @@ def phase_k1_variant_parity() -> dict:
                  "the SIMT K1-w (csrc/siren.cu) disagrees with its plain version")
         _require(torch.equal(loss, again[0])
                  and all(torch.equal(a, b) for a, b in zip(grads, again[1])),
-                 "two resident K1-w calls differ: the slots are not summed in a fixed order")
+                 "two streaming K1-w calls differ: the slots are not summed in a fixed order")
         worst_all = max(worst_all, worst)
-    errs["siren_loss_grads_weighted_resident"] = worst_all[0]
+    errs["siren_loss_grads_weighted_stream"] = worst_all[0]
 
     worst_all = (0.0, 0.0)
     P = ERD_SIDE * ERD_SIDE
@@ -1711,8 +1710,8 @@ def phase_master_main(out_dir: str, steps: int, seg: int) -> tuple[dict, float]:
           f"end ({1e3 * wall / (steps * MASTER_ACQ):.3f} ms a direction's update); launches "
           f"{want}; superres contrast C by direction {superres}")
     # the unbatched K1-w row's count is its own key's: 0, the path is batched
-    return {**want, "siren_loss_grads_weighted_resident":
-            launches["siren_loss_grads_weighted_resident"]}, wall
+    return {**want, "siren_loss_grads_weighted_stream":
+            launches["siren_loss_grads_weighted_stream"]}, wall
 
 
 def phase_erd_main(out_dir: str, threshold: float) -> tuple[dict, tuple]:
@@ -2123,15 +2122,16 @@ def phase_k1a_lowres_time(errs: dict, launches: dict) -> dict:
 
 
 def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
-    """K1-weighted at the 2-D ensemble's shape (the weight-resident route)
-    and K1-absmax at the soft-ERD fit's, beside their plain versions, eager
-    autograd of the same loss and their bounds; K1-weighted's SIMT route in
-    turns with the resident one (CUDA events) and each one's device time
-    under ``torch.profiler``; then the per-update costs of the two paths on
-    the host clock: a K1 call on either route (its launches' host time
-    included), an Adam step over the same params, a whole update, and
-    ``fit_until``'s per-step read-back of the loss and max |out| (200 steps
-    with and without it)."""
+    """K1-weighted at the 2-D ensemble's shape, unbatched (the streaming
+    route), and K1-absmax at the soft-ERD fit's, beside their plain
+    versions, eager autograd of the same loss and their bounds (the
+    streaming route's bf16x3 products at the bf16 peak); K1-absmax's SIMT
+    route in turns with the streaming one (CUDA events) and each one's
+    device time under ``torch.profiler``; then the per-update costs of the
+    two paths on the host clock: a K1 call (its launches' host time
+    included), an Adam step over the same params, a whole update, the
+    soft-ERD step on either K1-a route and ``fit_until``'s per-step
+    read-back of the loss and max |out| (200 steps with and without it)."""
     import torch
 
     from mri_super_resolution_tpu_torch.fit.optim import Adam
@@ -2152,32 +2152,25 @@ def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
         loss = torch.mean(sw * (lib_model(x) - target) ** 2)
         torch.autograd.grad(loss, lib_params)
 
-    resident = lambda: sk.siren_loss_grads(x, ws, target, acts=acts, sample_weights=sw)
+    k1w = lambda: sk.siren_loss_grads(x, ws, target, acts=acts, sample_weights=sw)
     stream = _build.stream_ptr()
-    simt = lambda: sk._launch_loss_grads(sk._lib(), x, ws, target, 30.0, MASTER_P, stream,
-                                         acts, sw)
     flops = 2 * MASTER_P * (2 * sum(macs) + sum(macs[1:]))
     rows.append(_time_row(
-        "siren_loss_grads_weighted_resident", "siren_resident", "siren_kernel.py:518",
-        resident, lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, sw),
-        lib_weighted, flops, 4 * x.numel() + 2 * wbytes + 8 * MASTER_P + 4, f"P={MASTER_P}",
-        errs, launches))
-    res_ms, simt_ms = _best_alternating(resident, simt, 100, 2)
-    print(f"[times] K1-weighted at P={MASTER_P}, routes in turns (CUDA events, 100 calls, best "
-          f"of 2): weight-resident {res_ms:.4f} ms, SIMT (csrc/siren.cu) {simt_ms:.4f} ms; "
-          f"f32 bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
-    _passes("K1-weighted (weight-resident)", resident, calls=20)
-    _passes("K1-weighted (SIMT)", simt, calls=20)
+        "siren_loss_grads_weighted_stream", "siren_stream", "siren_kernel.py:518",
+        k1w, lambda: sk.siren_loss_grads_ref(x, ws, target, 30.0, None, acts, sw),
+        lib_weighted, 3 * flops, 4 * x.numel() + 2 * wbytes + 8 * MASTER_P + 4, f"P={MASTER_P}",
+        errs, launches, peak=PEAK_BF16_TC, reps=100, rounds=2))
+    _passes("K1-weighted (streaming)", k1w, calls=20)
     params = [w.clone() for w in ws]
     opt = Adam(params, 3e-4)
-    grads = resident()[1]
+    grads = k1w()[1]
 
     def update():
         opt.step(sk.siren_loss_grads(x, params, target, acts=acts, sample_weights=sw)[1])
 
     host = {}
-    for what, fn in (("K1 call", resident), ("SIMT K1 call", simt),
-                     ("Adam step", lambda: opt.step(grads)), ("update", update)):
+    for what, fn in (("K1 call", k1w), ("Adam step", lambda: opt.step(grads)),
+                     ("update", update)):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2185,8 +2178,8 @@ def phase_2d_times(errs: dict, launches: dict) -> list[dict]:
             fn()
         torch.cuda.synchronize()
         host[what] = 1e3 * (time.perf_counter() - t0) / 500
-    print(f"[times] 2-D ensemble update on the host clock (500 in a row): K1-weighted call "
-          f"{host['K1 call']:.4f} ms (SIMT route {host['SIMT K1 call']:.4f} ms), Adam step "
+    print(f"[times] unbatched 2-D ensemble update on the host clock (500 in a row): "
+          f"K1-weighted call {host['K1 call']:.4f} ms, Adam step "
           f"({len(ws)} tensors) {host['Adam step']:.4f} ms, K1 + Adam "
           f"{host['update']:.4f} ms; kernel alone {rows[-1]['ms']:.4f} ms (CUDA events)")
 
@@ -4771,7 +4764,7 @@ def phase_k1w_batched_time(errs: dict, launches: dict) -> dict:
     ensemble's shape (D = 3 on P = 3,600 rows) beside its tensor-core bound
     (the bf16x3 products at the bf16 peak), its plain batched version and
     eager autograd over ``torch.bmm``; by kernel under ``torch.profiler``;
-    the batched call and three unbatched resident calls in turns; and on
+    the batched call and three unbatched (streaming) calls in turns; and on
     the host clock the 2-D update's costs per batched update: the call, the
     stacked Adam step over the three directions' (3, 25,217) buffer, and
     both, beside three unbatched updates with three Adams."""

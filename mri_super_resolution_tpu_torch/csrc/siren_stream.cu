@@ -1,11 +1,12 @@
 // Hand-written Hopper (sm_90a) streaming tensor-core route of the SIREN
 // kernel K1 (siren_loss_grads) for MLPs of a narrow input, equal hidden
 // widths H that are multiples of 64, and one output: the soft-ERD fit's
-// SirenERD 2 -> 128x4 -> 128 (ReLU) -> 1 (ReLU) with max |out| (K1-a).
+// SirenERD 2 -> 128x4 -> 128 (ReLU) -> 1 (ReLU) with max |out| (K1-a), and
+// the 2-D ensemble's Siren 2 -> 64x7 -> 1 called unbatched.
 //
-// Replaces, for the calls that neither the tensor-core route nor the
-// weight-resident route takes and whose plan fits (ops/siren_kernel.py's
-// stream_route, from the widths alone), the Pallas TPU kernel of
+// Replaces, for the calls off the tensor-core route whose plan fits
+// (ops/siren_kernel.py's stream_route, from the widths alone), the Pallas
+// TPU kernel of
 // mri_super_resolution_tpu/ops/pallas/siren_kernel.py:
 //   K1 siren_loss_grads (:518, pallas_call at :580): one-pass forward,
 //      masked (sample-weighted) MSE and backward, giving the loss, every dW
@@ -20,8 +21,8 @@
 // split below, 19.4 GFLOP: 0.020 ms at the 989 TFLOP/s bf16 peak.
 // csrc/siren.cu spends it in 36 launches of one GEMM pass a layer, each
 // with 128 row tiles, so its launches set its time. The four 128 x 128
-// float32 layers (268 KB) do not fit one block's shared memory, so the
-// weight-resident design of csrc/siren_resident.cu does not take it. Here:
+// float32 layers (268 KB) do not fit one block's shared memory, so a
+// design that keeps every weight resident in a block cannot take it. Here:
 //   * each block owns one tile of ST_TM = 128 rows and runs all of K1 on it:
 //     the forward, the (weighted, masked) residual, the loss and max |out|
 //     partials and the backward chain; only dW, db, the loss and max |out|

@@ -1,8 +1,8 @@
-// What the one-pass K1 kernels that keep a slot a block share
-// (csrc/siren_resident.cu, csrc/siren_stream.cu): the per-layer activation
-// codes, each activation with its factor for the backward, and the second
-// launch that sums the blocks' slots in block order (no float atomics: a
-// call repeats bit for bit).
+// What a one-pass K1 kernel that keeps a slot a block needs
+// (csrc/siren_stream.cu): the per-layer activation codes, each activation
+// with its factor for the backward, and the second launch that sums the
+// blocks' slots in block order (no float atomics: a call repeats bit for
+// bit).
 
 #pragma once
 

@@ -1,7 +1,6 @@
 """SIREN kernels K1-K3: wrappers over the hand-written CUDA kernels of
-``csrc/siren.cu``, ``csrc/siren_wg.cu``, ``csrc/siren_resident.cu``,
-``csrc/siren_resident_tc.cu`` and ``csrc/siren_stream.cu`` and their plain
-PyTorch versions.
+``csrc/siren.cu``, ``csrc/siren_wg.cu``, ``csrc/siren_resident_tc.cu`` and
+``csrc/siren_stream.cu`` and their plain PyTorch versions.
 
 Counterpart of ``mri_super_resolution_tpu/ops/pallas/siren_kernel.py``:
 
@@ -34,20 +33,20 @@ hidden layer or one per hidden layer (read only on sine layers).
 
 A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises, and adds one to its entry of
-:data:`LAUNCHES` (K1 under one key per variant: plain, weighted, absmax, or
-both, and per variant on the weight-resident route (``*_resident``) and on
-the streaming route (``*_stream``); each kernel's tensor-core route,
-``csrc/siren_wg.cu``, under its own ``*_wg`` key; batched K1 under
-``*_batched`` keys, its tensor-core class, ``csrc/siren_wg.cu`` too, under
-``siren_loss_grads_wg_batched``, and the 2-D ensemble's,
-``csrc/siren_resident_tc.cu``, under
+:data:`LAUNCHES` (K1 under one key per variant and route,
+:func:`loss_grads_key`: plain, weighted, absmax, or both, on the SIMT
+route (no suffix) and on the streaming route (``*_stream``); each kernel's
+tensor-core route, ``csrc/siren_wg.cu``, under its own ``*_wg`` key;
+batched K1 under ``*_batched`` keys, its tensor-core class,
+``csrc/siren_wg.cu`` too, under ``siren_loss_grads_wg_batched``, and the
+2-D ensemble's, ``csrc/siren_resident_tc.cu``, under
 ``siren_loss_grads_[weighted_]resident_tc_batched``). The plain versions
 run on either device and are what the CPU tests and ``chip_smoke.py`` hold
 the kernels against. Each public wrapper is a span of ``utils/profiling.py``
-(``kernel.<name>``) on every device, and the ctypes call of the
-tensor-core, batched tensor-core and batched K1-w routes a
+(``kernel.<name>``) on every device, and the ctypes call of every route a
 ``kernel.launch`` span inside it: the wrapper's self time is its checks,
-route, allocations and pointer arrays.
+route, allocations and pointer arrays. Every route calls its source through
+one cached call plan (:class:`_Plan`).
 
 The route, chosen from the shapes alone (:func:`tc_route`): a K1, K2 or K3
 call with the plain Siren's activations (sine on every hidden layer, none
@@ -57,25 +56,21 @@ hidden width at most :data:`WG_MAX_LAST` and at most :data:`WG_MAX_LAYERS`
 layers runs on the tensor cores (``csrc/siren_wg.cu``: ``wgmma`` passes fed
 by TMA, bf16x3 split products, float32 accumulation, the float32 stash; the
 3-D pipeline's 256 -> 512x4 -> 1, for K2 with or without dW); every other
-call (ReLU codes, the 2-D ensemble's 64-wide Siren, odd
-widths) on the SIMT kernels of ``csrc/siren.cu``, except that a K1 call
-off the tensor-core route whose weights and one 32-row tile's working set
-fit in one block's shared memory (:func:`resident_route`: the 2-D
-ensemble's 2 -> 64x7 -> 1 and other small MLPs, with any of K1's options)
-runs on the weight-resident kernel of ``csrc/siren_resident.cu``: two
-launches a call instead of about one a layer and pass; and a K1 call that
-neither takes whose hidden widths are equal multiples of 64 and whose plan
-fits one block (:func:`stream_route`: the soft-ERD fit's SirenERD 2 ->
-128x4 -> 128 -> 1 with ReLU codes and max |out|, with any of K1's options)
-runs on the streaming tensor-core kernel of ``csrc/siren_stream.cu``: a
-block a 128-row tile, the hidden layers' bf16x3 products on the tensor
-cores, the weights streamed through shared memory, three launches a call.
-:func:`k1_route` gives the order. No route is a fallback: a launch that
-fails raises.
+call (ReLU codes, the 2-D ensemble's 64-wide Siren, odd widths) on the SIMT
+kernels of ``csrc/siren.cu``, except that a K1 call off the tensor-core
+route whose hidden widths are equal multiples of 64 and whose plan fits one
+block (:func:`stream_route`: the soft-ERD fit's SirenERD 2 -> 128x4 -> 128
+-> 1 with ReLU codes and max |out|, the 2-D ensemble's 2 -> 64x7 -> 1, with
+any of K1's options) runs on the streaming tensor-core kernel of
+``csrc/siren_stream.cu``: a block a 128-row tile, the hidden layers' bf16x3
+products on the tensor cores, the weights streamed through shared memory,
+three launches a call. :func:`k1_route` gives the order. No route is a
+fallback: a launch that fails raises.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import torch
@@ -91,10 +86,6 @@ LAUNCHES: dict[str, int] = {"siren_forward": 0, "siren_loss_grads": 0,
                             "siren_loss_grads_weighted_absmax": 0,
                             "siren_loss_grads_wg": 0, "siren_fused_bwd": 0,
                             "siren_forward_wg": 0, "siren_fused_bwd_wg": 0,
-                            "siren_loss_grads_resident": 0,
-                            "siren_loss_grads_weighted_resident": 0,
-                            "siren_loss_grads_absmax_resident": 0,
-                            "siren_loss_grads_weighted_absmax_resident": 0,
                             "siren_loss_grads_stream": 0,
                             "siren_loss_grads_weighted_stream": 0,
                             "siren_loss_grads_absmax_stream": 0,
@@ -107,9 +98,7 @@ ACT_CODES = {"none": 0, "sine": 1, "relu": 2}  # csrc/siren.cu's enum Act
 TC_TILE = 128  # csrc/siren_wg.cu's unit tile: every width but the output's a multiple
 # csrc/siren_wg.cu: the last hidden width (its last-layer kernel's) and layers at most
 WG_MAX_LAST, WG_MAX_LAYERS = 2048, 16
-# csrc/siren_resident.cu: rows a tile, layers at most, and the shared memory
-# a block may use on an H100 (bytes)
-RES_ROWS, RES_MAX_LAYERS, RES_SMEM_MAX = 32, 16, 232_448
+SMEM_MAX = 232_448  # the shared memory a block may use on an H100 (bytes)
 # csrc/siren_stream.cu: rows a tile (a block), W rows a ring stage, ring
 # stages, the hidden width's step and layers at most
 ST_TM, ST_RING, ST_STAGES, ST_H_STEP, ST_MAX_LAYERS = 128, 32, 2, 64, 16
@@ -124,8 +113,9 @@ def reset_launches() -> None:
 
 
 def loss_grads_key(weighted: bool, absmax: bool, route: str = "simt") -> str:
-    """The :data:`LAUNCHES` key of a K1 variant on the ``"simt"``, the
-    ``"resident"`` or the ``"stream"`` route."""
+    """The :data:`LAUNCHES` key of a K1 variant on a route of
+    :func:`k1_route` (``"wg"`` takes neither option) or on the batched
+    ``"resident_tc"`` route, which adds ``_batched``."""
     return ("siren_loss_grads" + ("_weighted" if weighted else "")
             + ("_absmax" if absmax else "") + ("" if route == "simt" else f"_{route}"))
 
@@ -196,34 +186,6 @@ def tc_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
             and all(d % TC_TILE == 0 and d > 0 for d in dims[:-1]))
 
 
-def _pad4(n: int) -> int:
-    return (n + 3) // 4 * 4
-
-
-def resident_smem_bytes(dims: Sequence[int]) -> int:
-    """Bytes of shared memory K1's weight-resident kernel needs for ``dims``
-    (input, hidden widths..., 1): every W and b zero-padded to widths of a
-    multiple of 4, a z stash of 32 rows a hidden layer and three 32-row
-    buffers at a row stride of the widest input or hidden width (padded so
-    that a lane's 16-byte reads fall in distinct banks), and the last
-    layer's 32 deltas; ``csrc/siren_resident.cu``'s ``make_plan``."""
-    L = len(dims) - 1
-    floats = sum(_pad4(dims[l + 1]) * (_pad4(dims[l]) + 1) for l in range(L))
-    stride = _pad4(max(dims[:-1]))
-    stride += 4 if (stride // 4) % 2 == 0 else 0
-    return 4 * (floats + (L + 2) * RES_ROWS * stride + RES_ROWS)
-
-
-def resident_route(dims: Sequence[int]) -> bool:
-    """Whether a K1 call off the tensor-core route runs on the
-    weight-resident kernel: at most :data:`RES_MAX_LAYERS` layers, one
-    output, and :func:`resident_smem_bytes` within one block's
-    :data:`RES_SMEM_MAX`. The options (sample weights, max |out|, the act
-    codes) do not matter."""
-    return (3 <= len(dims) <= RES_MAX_LAYERS + 1 and dims[-1] == 1
-            and resident_smem_bytes(dims) <= RES_SMEM_MAX)
-
-
 def stream_smem_bytes(dims: Sequence[int]) -> int:
     """Bytes of shared memory a block of K1's streaming route takes for
     ``dims`` (input, hidden widths..., 1): two buffers of hi and lo bf16
@@ -236,16 +198,16 @@ def stream_smem_bytes(dims: Sequence[int]) -> int:
 
 
 def stream_route(dims: Sequence[int]) -> bool:
-    """Whether a K1 call that neither the tensor-core nor the
-    weight-resident route takes runs on the streaming route: 3 to
-    :data:`ST_MAX_LAYERS` layers, one output, every hidden width the same
-    multiple of :data:`ST_H_STEP`, and :func:`stream_smem_bytes` within one
-    block's :data:`RES_SMEM_MAX` (hidden widths of 64 and 128). The options
-    (sample weights, max |out|, the act codes) do not matter."""
+    """Whether a K1 call off the tensor-core route runs on the streaming
+    route: 3 to :data:`ST_MAX_LAYERS` layers, one output, every hidden
+    width the same multiple of :data:`ST_H_STEP`, and
+    :func:`stream_smem_bytes` within one block's :data:`SMEM_MAX` (hidden
+    widths of 64 and 128). The options (sample weights, max |out|, the act
+    codes, per-layer omegas) do not matter."""
     hidden = set(dims[1:-1])
     return (4 <= len(dims) <= ST_MAX_LAYERS + 1 and dims[-1] == 1 and dims[0] >= 1
             and len(hidden) == 1 and dims[1] % ST_H_STEP == 0 and dims[1] > 0
-            and stream_smem_bytes(dims) <= RES_SMEM_MAX)
+            and stream_smem_bytes(dims) <= SMEM_MAX)
 
 
 def resident_tc_smem_bytes(dims: Sequence[int]) -> int:
@@ -282,8 +244,8 @@ def batched_route(dims: Sequence[int], acts: Sequence[str], omega: float | Seque
     ``"wg"`` (K1's tensor-core class, :func:`tc_route`: ``csrc/siren_wg.cu``),
     ``"resident_tc"`` (:func:`resident_tc_route`), else ``"slots"``: the D
     slots in turn through :func:`siren_loss_grads` on its own route (the
-    weight-resident widths with ReLU codes or per-layer omegas, the
-    streaming and SIMT widths)."""
+    2-D ensemble's widths with ReLU codes or per-layer omegas on the
+    streaming route, other widths on the streaming or the SIMT route)."""
     if tc_route(dims, acts, weighted):
         return "wg"
     return "resident_tc" if resident_tc_route(dims, acts, omega) else "slots"
@@ -292,13 +254,11 @@ def batched_route(dims: Sequence[int], acts: Sequence[str], omega: float | Seque
 def k1_route(dims: Sequence[int], acts: Sequence[str], weighted: bool = False,
              absmax: bool = False) -> str:
     """The route of a K1 call on the card, from the shapes alone, in this
-    order: ``"tc"`` (:func:`tc_route`), ``"resident"``
-    (:func:`resident_route`), ``"stream"`` (:func:`stream_route`), else
-    ``"simt"`` (``csrc/siren.cu``)."""
+    order: ``"wg"`` (:func:`tc_route`: ``csrc/siren_wg.cu``), ``"stream"``
+    (:func:`stream_route`: ``csrc/siren_stream.cu``), else ``"simt"``
+    (``csrc/siren.cu``, any widths)."""
     if tc_route(dims, acts, weighted, absmax):
-        return "tc"
-    if resident_route(dims):
-        return "resident"
+        return "wg"
     return "stream" if stream_route(dims) else "simt"
 
 
@@ -589,20 +549,6 @@ def _wg_lib() -> ctypes.CDLL:
     return _build.library("siren_wg", _wg_declare)
 
 
-def _res_declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.siren_resident_setup.argtypes = []
-    lib.siren_resident_setup.restype = i
-    lib.siren_resident_work_floats.argtypes = [i, p, i, i]
-    lib.siren_resident_work_floats.restype = ctypes.c_longlong
-    lib.siren_loss_grads_resident.argtypes = [p, i, i, p, i, p, p, p, p, p, f, i, p, p, p]
-    lib.siren_loss_grads_resident.restype = i
-
-
-def _res_lib() -> ctypes.CDLL:
-    return _build.library("siren_resident", _res_declare)
-
-
 def _rtc_declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.siren_rtc_smem_bytes.argtypes = [p, i]
@@ -648,225 +594,27 @@ def _stream_lib() -> ctypes.CDLL:
     return _build.library("siren_stream", _stream_declare)
 
 
-class _Args:
-    """ctypes views of the shared arguments; keeps the arrays alive."""
-
-    def __init__(self, x, weights, omega, acts):
-        self.dims_list = _layer_dims(x, weights)
-        self.n_layers = len(weights) // 2
-        self.dims = (ctypes.c_int * len(self.dims_list))(*self.dims_list)
-        codes = [ACT_CODES[a] for a in _acts(acts, self.n_layers)]
-        self.acts = (ctypes.c_int * len(codes))(*codes)
-        self.W = _build.ptr_array(weights[0::2])
-        self.b = _build.ptr_array(weights[1::2])
-        omegas = _omegas(omega, self.n_layers - 1)
-        self.omegas = (ctypes.c_float * len(omegas))(*omegas)
-        self.P = int(x.shape[0])
-        self.width = max(self.dims_list[1:-1])
-
-    def ptr(self, arr) -> ctypes.c_void_p:
-        return ctypes.cast(arr, ctypes.c_void_p)
+def _n_params(dims: Sequence[int]) -> int:
+    return sum(dims[l + 1] * (dims[l] + 1) for l in range(len(dims) - 1))
 
 
-def _stash_buffers(a: _Args, like: torch.Tensor):
-    P = a.P
-    acts = [torch.empty(P, d, dtype=like.dtype, device=like.device)
-            for d in a.dims_list[1:-1]]
-    facts = [torch.empty_like(t) for t in acts]
-    delta0 = torch.empty(P, a.width, dtype=like.dtype, device=like.device)
-    delta1 = torch.empty_like(delta0)
-    return acts, facts, delta0, delta1
-
-
-def _partial(lib, a: _Args, like: torch.Tensor) -> torch.Tensor:
-    n = lib.siren_partial_floats(a.P, a.ptr(a.dims), a.n_layers)
-    return torch.empty(int(n), dtype=like.dtype, device=like.device)
-
-
-def _launch_forward(lib, x, weights, omega, stream, acts=None) -> torch.Tensor:
-    a = _Args(x, weights, omega, acts)
-    out = torch.empty(a.P, 1, dtype=x.dtype, device=x.device)
-    buf0 = torch.empty(a.P, a.width, dtype=x.dtype, device=x.device)
-    buf1 = torch.empty_like(buf0)
-    rc = lib.siren_forward_f32(
-        x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.ptr(a.acts), a.W, a.b,
-        a.ptr(a.omegas), out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), stream)
-    _build.raise_on(rc, "siren_forward")
-    return out
-
-
-def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream, acts=None,
-                       sample_weights=None, with_out_absmax=False):
-    a = _Args(x, weights, omega, acts)
-    inv_n = 1.0 / (n_rows * target.shape[-1])
-    stash, facts, delta0, delta1 = _stash_buffers(a, x)
-    partial = _partial(lib, a, x)
-    grads = [torch.empty_like(w) for w in weights]
-    loss = torch.empty((), dtype=x.dtype, device=x.device)
-    absmax = torch.empty((), dtype=x.dtype, device=x.device) if with_out_absmax else None
-    rc = lib.siren_loss_grads_f32(
-        x.data_ptr(), a.P, int(n_rows), a.ptr(a.dims), a.n_layers, a.ptr(a.acts), a.W,
-        a.b, a.ptr(a.omegas), target.data_ptr(),
-        None if sample_weights is None else sample_weights.data_ptr(), inv_n,
-        _build.ptr_array(stash), _build.ptr_array(facts), delta0.data_ptr(),
-        delta1.data_ptr(), partial.data_ptr(), _build.ptr_array(grads[0::2]),
-        _build.ptr_array(grads[1::2]), loss.data_ptr(),
-        None if absmax is None else absmax.data_ptr(), stream)
-    _build.raise_on(rc, "siren_loss_grads")
-    return (loss, absmax, grads) if with_out_absmax else (loss, grads)
-
-
-def _grad_views(dims: Sequence[int]) -> tuple[list, int]:
-    """Each grad's (shape, stride, offset) in one output buffer that holds
-    W0, b0, W1, b1, ... one after another, and the number of parameters."""
+def _param_views(dims: Sequence[int], D: int | None = None, row: int | None = None) -> list:
+    """Each of ``[dW0, db0, dW1, db1, ...]``'s (shape, stride, offset) in one
+    buffer that holds them one after another in that order, for
+    ``Tensor.as_strided``: (out, in) and (out,), or, given ``D``, with a
+    leading slot axis of ``D`` slots ``row`` floats apart."""
     views, at = [], 0
     for l in range(len(dims) - 1):
         for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
-            views.append((shape, stride, at))
-            at += int(torch.Size(shape).numel())
-    return views, at
+            views.append((shape, stride, at) if D is None else ((D, *shape), (row, *stride), at))
+            at += math.prod(shape)
+    return views
 
 
-class _WgCall:
-    """One plan of the tensor-core route's unbatched entries
-    (``csrc/siren_wg.cu``, the float32 stash) for a kind (``"k1"``,
-    ``"k3"``, ``"k2"``: dx only, ``"k2_dw"``), a shape and its omegas, built
-    once: the ctypes arrays of the widths, the omegas and the weights' and
-    grads' pointers (filled in each call), the workspace's size, and each
-    grad's place in the call's output buffer."""
-
-    def __init__(self, lib, kind: str, P: int, dims: tuple, omegas: tuple):
-        n = len(dims) - 1
-        self.n = n
-        self._arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_float * (n - 1))(*omegas),
-                        *((ctypes.c_void_p * n)() for _ in range(4)))
-        self.dims, self.omegas, self.W, self.b, self.dW, self.db = (
-            ctypes.cast(a, ctypes.c_void_p) for a in self._arrays)
-        if kind == "k1":
-            nbytes = lib.siren_loss_grads_wg_f32_workspace_bytes(P, self.dims, n)
-        elif kind == "k3":
-            nbytes = lib.siren_forward_wg_workspace_bytes(P, self.dims, n)
-        else:
-            nbytes = lib.siren_fused_bwd_wg_workspace_bytes(P, self.dims, n, int(kind == "k2_dw"))
-        if nbytes < 0:
-            raise ValueError(f"the tensor-core {kind.upper()[:2]} does not take widths {list(dims)}")
-        self.work = int(nbytes)
-        self.views, self.n_params = _grad_views(dims)
-
-    def fill(self, weights, out: torch.Tensor | None = None) -> list[torch.Tensor] | None:
-        """Point the call at ``weights`` and, given the output buffer, at
-        the grads in it, which it returns as views."""
-        self._arrays[2][:] = [w.data_ptr() for w in weights[0::2]]
-        self._arrays[3][:] = [w.data_ptr() for w in weights[1::2]]
-        if out is None:
-            return None
-        base = out.data_ptr()
-        self._arrays[4][:] = [base + 4 * v[2] for v in self.views[0::2]]
-        self._arrays[5][:] = [base + 4 * v[2] for v in self.views[1::2]]
-        return [out.as_strided(*v) for v in self.views]
-
-
-_WG_CALLS: dict[tuple, _WgCall] = {}
-
-
-def _wg_call(lib, kind: str, x: torch.Tensor, weights, omega) -> _WgCall:
-    n = len(weights) // 2
-    dims = (int(x.shape[1]),) + tuple(int(w.shape[0]) for w in weights[0::2])
-    key = (kind, id(lib), x.device, int(x.shape[0]), dims, tuple(_omegas(omega, n - 1)))
-    call = _WG_CALLS.get(key)
-    if call is None:
-        call = _WG_CALLS[key] = _WgCall(lib, kind, *key[3:])
-    return call
-
-
-def _launch_loss_grads_wg_f32(lib, x, weights, target, omega, n_rows, stream):
-    """K1 on the tensor-core route (the shapes :func:`tc_route` takes):
-    ``csrc/siren_wg.cu``'s passes at one slot with the float32 stash. The
-    loss and grads are views of one buffer that the call allocates."""
-    call = _wg_call(lib, "k1", x, weights, omega)
-    work = torch.empty(call.work, dtype=torch.uint8, device=x.device)
-    out = torch.empty(call.n_params + 1, dtype=x.dtype, device=x.device)
-    grads = call.fill(weights, out)
-    with span("kernel.launch"):
-        rc = lib.siren_loss_grads_wg_f32(
-            x.data_ptr(), int(x.shape[0]), int(n_rows), call.dims, call.n, call.W, call.b,
-            call.omegas, target.data_ptr(), 1.0 / (n_rows * target.shape[-1]),
-            work.data_ptr(), call.dW, call.db, out.data_ptr() + 4 * call.n_params, stream)
-    _build.raise_on(rc, "siren_loss_grads_wg_f32")
-    return out[call.n_params], grads
-
-
-class _SlotCall:
-    """The ctypes arguments of K1 calls on a route that sums per-block
-    slots (``route``: ``"resident"`` or ``"stream"``) of one shape and one
-    set of codes and omegas, built once; each call fills in the weights'
-    pointers."""
-
-    def __init__(self, lib, route: str, P: int, dims: tuple, codes: tuple, omegas: tuple,
-                 device: torch.device):
-        L = len(dims) - 1
-        self.L = L
-        self._arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_int * L)(*codes),
-                        (ctypes.c_float * (L - 1))(*omegas), (ctypes.c_void_p * (2 * L))())
-        self.dims, self.codes, self.omegas, self.ptrs_arg = (ctypes.cast(a, ctypes.c_void_p)
-                                                             for a in self._arrays)
-        self.ptrs = self._arrays[3]  # the weights' pointers, filled in each call
-        # the resident route's blocks: one an SM of the device, asked once;
-        # its shared-memory attribute set once a plan, not once a call
-        self.sms = (_sm_count(device),) if route == "resident" else ()
-        self.work = int(getattr(lib, f"siren_{route}_work_floats")(P, self.dims, L, *self.sms))
-        if self.work < 0:
-            raise ValueError(f"K1's {route} route does not take widths {list(dims)}")
-        if route == "resident":
-            _build.raise_on(lib.siren_resident_setup(), "siren_resident_setup")
-        self.launch = getattr(lib, f"siren_loss_grads_{route}")
-        self.views, self.n_params = _grad_views(dims)
-
-
-_SLOT_CALLS: dict[tuple, _SlotCall] = {}
-
-
-def _launch_loss_grads_slots(route, lib, x, weights, target, omega, n_rows, stream, acts=None,
-                             sample_weights=None, with_out_absmax=False):
-    """K1 on the weight-resident or the streaming route (``route``; the
-    widths :func:`resident_route` or :func:`stream_route` takes): one
-    workspace and one output buffer a call, whose views are the returned
-    loss, max |out| and grads."""
-    n = len(weights) // 2
-    dims = tuple(int(s) for s in x.shape[1:]) + tuple(int(w.shape[0]) for w in weights[0::2])
-    key = (int(x.shape[0]), dims, tuple(ACT_CODES[a] for a in _acts(acts, n)),
-           tuple(_omegas(omega, n - 1)))
-    call = _SLOT_CALLS.get((route, id(lib), key, x.device))
-    if call is None:
-        call = _SLOT_CALLS[route, id(lib), key, x.device] = _SlotCall(lib, route, *key, x.device)
-    call.ptrs[:] = [w.data_ptr() for w in weights]
-    work = torch.empty(call.work, dtype=x.dtype, device=x.device)
-    out = torch.empty(call.n_params + 2, dtype=x.dtype, device=x.device)
-    rc = call.launch(
-        x.data_ptr(), key[0], int(n_rows), call.dims, call.L, call.codes,
-        call.ptrs_arg, call.omegas, target.data_ptr(),
-        None if sample_weights is None else sample_weights.data_ptr(),
-        1.0 / (n_rows * target.shape[-1]), *call.sms, work.data_ptr(), out.data_ptr(), stream)
-    _build.raise_on(rc, f"siren_loss_grads_{route}")
-    grads = [out.as_strided(*v) for v in call.views]
-    loss = out[call.n_params]
-    return (loss, out[call.n_params + 1], grads) if with_out_absmax else (loss, grads)
-
-
-def _launch_loss_grads_resident(lib, *args, **kwargs):
-    """K1 on the weight-resident route (``csrc/siren_resident.cu``)."""
-    return _launch_loss_grads_slots("resident", lib, *args, **kwargs)
-
-
-def _launch_loss_grads_stream(lib, *args, **kwargs):
-    """K1 on the streaming tensor-core route (``csrc/siren_stream.cu``)."""
-    return _launch_loss_grads_slots("stream", lib, *args, **kwargs)
-
-
-def _slot_strides(weights: Sequence[torch.Tensor]):
-    """The floats between two slots' copies of each stacked tensor, as a C
-    array (the kernels read slot s of tensor i at its slot 0 + s stride);
-    each slot's copy must be contiguous (from the strides alone: no view)."""
+def _slot_strides(weights: Sequence[torch.Tensor]) -> tuple[int, ...]:
+    """The floats between two slots' copies of each stacked tensor (the
+    kernels read slot s of tensor i at its slot 0 + s stride); each slot's
+    copy must be contiguous (from the strides alone: no view)."""
     strides = []
     for w in weights:
         stride, want = w.stride(), 1
@@ -875,92 +623,227 @@ def _slot_strides(weights: Sequence[torch.Tensor]):
                 raise ValueError("each slot of a stacked weight must be contiguous")
             want *= w.shape[d]
         strides.append(int(stride[0]))
-    return (ctypes.c_longlong * len(strides))(*strides)
+    return tuple(strides)
 
 
-def _stacked_views(buf: torch.Tensor, dims: Sequence[int]) -> list[torch.Tensor]:
-    """The stacked grads ``[dW0, db0, ...]`` as views of one buffer (D, n)
-    holding each slot's grads one after another in that order."""
-    views, at, D, row = [], 0, buf.shape[0], buf.stride(0)
-    for l in range(len(dims) - 1):
-        for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
-            views.append(buf.as_strided((D, *shape), (row, *stride),
-                                        buf.storage_offset() + at))
-            at += int(torch.Size(shape).numel())
-    return views
+# The SIREN sources' entries, each named by its C launch function: its
+# workspace query (bytes, or floats where the query's name ends so; None:
+# no workspace), whether it takes the activation codes, whether it takes the
+# weights' (and the grads', and the slot strides') pointers as a W array and
+# a b array (else one [W0, b0, W1, b1, ...] array), and the floats that
+# follow the grads in a slot of its output buffer (the loss, max |out|).
+_ENTRIES = {
+    "siren_forward_f32": (None, True, True, 0),
+    "siren_loss_grads_f32": ("siren_partial_floats", True, True, 2),
+    "siren_fused_bwd_f32": ("siren_partial_floats", True, True, 0),
+    "siren_loss_grads_stream": ("siren_stream_work_floats", True, False, 2),
+    "siren_loss_grads_wg_f32": ("siren_loss_grads_wg_f32_workspace_bytes", False, True, 1),
+    "siren_forward_wg": ("siren_forward_wg_workspace_bytes", False, True, 0),
+    "siren_fused_bwd_wg": ("siren_fused_bwd_wg_workspace_bytes", False, True, 0),
+    "siren_loss_grads_wg": ("siren_wg_workspace_bytes", False, True, 0),
+    "siren_loss_grads_rtc": ("siren_rtc_work_floats", False, False, 1),
+}
 
 
-def _n_params(dims: Sequence[int]) -> int:
-    return sum(dims[l + 1] * (dims[l] + 1) for l in range(len(dims) - 1))
+class _Plan:
+    """The call plan of one entry of :data:`_ENTRIES` at one key of
+    :func:`_plan`, built once: the ctypes arrays of the widths, the omegas,
+    the activation codes and the slot strides; the arrays of the weights'
+    and the grads' pointers (and of the SIMT route's stash), which each call
+    fills in; the workspace's bytes from the source's own query, which
+    refuses widths the source does not take; the source's one-time setup
+    where it has one; and each grad's place in a slot of the call's output
+    buffer. Called, a plan runs its entry inside the ``kernel.launch`` span
+    and raises on a failed launch."""
+
+    def __init__(self, lib, entry: str, P: int, dims: tuple, D: int, strides: tuple,
+                 omegas: tuple, codes: tuple, extra: tuple, device: torch.device):
+        query, _, self.split, tail = _ENTRIES[entry]
+        L = self.L = len(dims) - 1
+        # the plan holds its library, so that no other library takes its id
+        self._lib, self.entry, self.launch = lib, entry, getattr(lib, entry)
+        self.P, self.D, self.hidden, self.width = P, D, dims[1:-1], max(dims[1:-1])
+        # a split entry's arrays hold every W (dW, W's slot stride) first,
+        # then every b; the others' [W0, b0, W1, b1, ...]
+        self.order = ((*range(0, 2 * L, 2), *range(1, 2 * L, 2)) if self.split
+                      else tuple(range(2 * L)))
+        slot = [strides[i] for i in self.order] if strides else []
+        self._arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_float * (L - 1))(*omegas),
+                        (ctypes.c_int * L)(*codes), (ctypes.c_longlong * (2 * L))(*slot),
+                        *((ctypes.c_void_p * (2 * L))() for _ in range(3)))
+        (self.dims, self.omegas, self.codes, self.slot, self.w, self.dw,
+         self.stash) = map(ctypes.addressof, self._arrays)
+        self.b, self.db, self.b_slot = self.w + 8 * L, self.dw + 8 * L, self.slot + 8 * L
+        self.facts = self.stash + 8 * (L - 1)
+        n = 0 if query is None else int(getattr(lib, query)(
+            P, self.dims, L, *((D,) if D else ()), *extra))
+        if n < 0:
+            raise ValueError(f"{entry} does not take widths {list(dims)}"
+                             + (f" at D = {D}" if D else ""))
+        self.work = 4 * n if query and query.endswith("floats") else n
+        self.n_params = _n_params(dims)
+        self.row = self.n_params + tail
+        self.views = _param_views(dims, D or None, self.row)
+        self.grad_at = [4 * self.views[i][2] for i in self.order]
+        if entry == "siren_loss_grads_rtc":
+            # the grid barrier's counter, zeroed here: every call leaves it
+            # 0, so calls of a plan run in stream order, as launches on
+            # PyTorch's current stream do; the kernel's shared-memory
+            # attribute is set once a plan
+            self.sync = torch.zeros(2, dtype=torch.int32, device=device)
+            _build.raise_on(lib.siren_rtc_setup(), "siren_rtc_setup")
+
+    def fill(self, weights, out: torch.Tensor | None = None) -> list[torch.Tensor] | None:
+        """Point the call at ``weights`` and, given its output buffer, at
+        the grads in it, which it returns as views of ``out``."""
+        self._arrays[4][:] = [weights[i].data_ptr() for i in self.order]
+        if out is None:
+            return None
+        if self.split:
+            base = out.data_ptr()
+            self._arrays[5][:] = [base + at for at in self.grad_at]
+        return [out.as_strided(*v) for v in self.views]
+
+    def simt_buffers(self, like: torch.Tensor) -> list[torch.Tensor]:
+        """The SIMT route's buffers, allocated each call: each hidden
+        layer's stash and factor (P, width), which the plan's stash arrays
+        point at, then two delta buffers (P, the widest hidden width)."""
+        stash = [torch.empty(self.P, d, dtype=like.dtype, device=like.device)
+                 for d in self.hidden]
+        stash += [torch.empty_like(t) for t in stash]
+        self._arrays[6][:len(stash)] = [t.data_ptr() for t in stash]
+        return stash + [torch.empty(self.P, self.width, dtype=like.dtype, device=like.device)
+                        for _ in range(2)]
+
+    def __call__(self, *args) -> None:
+        with span("kernel.launch"):
+            rc = self.launch(*args)
+        _build.raise_on(rc, self.entry)
+
+
+_PLANS: dict[tuple, _Plan] = {}
+
+
+def _plan(lib, entry: str, x: torch.Tensor, weights, omega, acts=None,
+          extra: tuple = ()) -> _Plan:
+    """The plan of ``entry`` on ``lib`` for a call, built at its key's first
+    call. The key: the entry, the library, the device, P, the widths, D and
+    the weights' strides (stacked weights, each W (D, out, in)), the
+    omegas, the activation codes (of the entries that take them) and the
+    ``extra`` arguments of the workspace query."""
+    n = len(weights) // 2
+    dims = (int(x.shape[1]),) + tuple(int(w.shape[-2]) for w in weights[0::2])
+    stacked = weights[0].dim() == 3
+    D = int(weights[0].shape[0]) if stacked else 0
+    strides = tuple(w.stride() for w in weights) if stacked else ()
+    codes = tuple(ACT_CODES[a] for a in _acts(acts, n)) if _ENTRIES[entry][1] else ()
+    omegas = tuple(_omegas(omega, n - 1))
+    key = (entry, id(lib), x.device, int(x.shape[0]), dims, D, strides, omegas, codes, extra)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _Plan(lib, entry, key[3], dims, D,
+                                   _slot_strides(weights) if stacked else (), omegas, codes,
+                                   extra, x.device)
+    return plan
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_forward(lib, x, weights, omega, stream, acts=None) -> torch.Tensor:
+    """K3 on the SIMT route (``csrc/siren.cu``)."""
+    plan = _plan(lib, "siren_forward_f32", x, weights, omega, acts)
+    plan.fill(weights)
+    out = torch.empty(plan.P, 1, dtype=x.dtype, device=x.device)
+    buf = [torch.empty(plan.P, plan.width, dtype=x.dtype, device=x.device) for _ in range(2)]
+    plan(x.data_ptr(), plan.P, plan.dims, plan.L, plan.codes, plan.w, plan.b, plan.omegas,
+         out.data_ptr(), buf[0].data_ptr(), buf[1].data_ptr(), stream)
+    return out
+
+
+def _launch_loss_grads(lib, x, weights, target, omega, n_rows, stream, acts=None,
+                       sample_weights=None, with_out_absmax=False):
+    """K1 on the SIMT route (``csrc/siren.cu``, any widths): the loss, max
+    |out| and grads are views of one buffer that the call allocates."""
+    plan = _plan(lib, "siren_loss_grads_f32", x, weights, omega, acts)
+    bufs = plan.simt_buffers(x)
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    out = torch.empty(plan.row, dtype=x.dtype, device=x.device)
+    grads = plan.fill(weights, out)
+    n = plan.n_params
+    inv_n = 1.0 / (n_rows * target.shape[-1])
+    plan(x.data_ptr(), plan.P, int(n_rows), plan.dims, plan.L, plan.codes, plan.w, plan.b,
+         plan.omegas, target.data_ptr(), _ptr(sample_weights), inv_n, plan.stash, plan.facts,
+         bufs[-2].data_ptr(), bufs[-1].data_ptr(), work.data_ptr(), plan.dw, plan.db,
+         out.data_ptr() + 4 * n, out.data_ptr() + 4 * (n + 1) if with_out_absmax else None,
+         stream)
+    return (out[n], out[n + 1], grads) if with_out_absmax else (out[n], grads)
+
+
+def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream, acts=None):
+    """K2 on the SIMT route (``csrc/siren.cu``); with dW the grads are views
+    of one buffer."""
+    plan = _plan(lib, "siren_fused_bwd_f32", x, weights, omega, acts)
+    bufs = plan.simt_buffers(x)
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    grads = plan.fill(weights, torch.empty(plan.row, dtype=x.dtype, device=x.device)
+                      if need_dw else None)
+    dx = torch.empty_like(x) if need_dx else None
+    plan(x.data_ptr(), plan.P, plan.dims, plan.L, plan.codes, plan.w, plan.b, plan.omegas,
+         g.data_ptr(), plan.stash, plan.facts, bufs[-2].data_ptr(), bufs[-1].data_ptr(),
+         work.data_ptr(), plan.dw if need_dw else None, plan.db if need_dw else None,
+         _ptr(dx), stream)
+    return dx, grads
+
+
+def _launch_loss_grads_wg_f32(lib, x, weights, target, omega, n_rows, stream):
+    """K1 on the tensor-core route (the shapes :func:`tc_route` takes):
+    ``csrc/siren_wg.cu``'s passes at one slot with the float32 stash. The
+    loss and grads are views of one buffer that the call allocates."""
+    plan = _plan(lib, "siren_loss_grads_wg_f32", x, weights, omega)
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    out = torch.empty(plan.row, dtype=x.dtype, device=x.device)
+    grads = plan.fill(weights, out)
+    n = plan.n_params
+    inv_n = 1.0 / (n_rows * target.shape[-1])
+    plan(x.data_ptr(), plan.P, int(n_rows), plan.dims, plan.L, plan.w, plan.b, plan.omegas,
+         target.data_ptr(), inv_n, work.data_ptr(), plan.dw, plan.db, out.data_ptr() + 4 * n,
+         stream)
+    return out[n], grads
+
+
+def _launch_loss_grads_slots(route, lib, x, weights, target, omega, n_rows, stream, acts=None,
+                             sample_weights=None, with_out_absmax=False):
+    """K1 on a route whose blocks sum per-block slots (``route``:
+    ``"stream"``, ``csrc/siren_stream.cu``, the widths :func:`stream_route`
+    takes): one workspace and one output buffer a call, whose views are the
+    returned loss, max |out| and grads."""
+    plan = _plan(lib, f"siren_loss_grads_{route}", x, weights, omega, acts)
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    out = torch.empty(plan.row, dtype=x.dtype, device=x.device)
+    grads = plan.fill(weights, out)
+    n = plan.n_params
+    inv_n = 1.0 / (n_rows * target.shape[-1])
+    plan(x.data_ptr(), plan.P, int(n_rows), plan.dims, plan.L, plan.codes, plan.w, plan.omegas,
+         target.data_ptr(), _ptr(sample_weights), inv_n, work.data_ptr(), out.data_ptr(), stream)
+    return (out[n], out[n + 1], grads) if with_out_absmax else (out[n], grads)
 
 
 def _launch_loss_grads_wg(lib, x, weights, target, omega, n_rows, stream):
     """Batched K1 on the tensor-core route (``csrc/siren_wg.cu``'s
     ``siren_loss_grads_wg``): ``(loss (D,), grads)``, the grads views of one
     (D, n_params) buffer."""
-    dims, D = _batched_dims(x, weights)
-    n = len(dims) - 1
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    cast = lambda a: ctypes.cast(a, ctypes.c_void_p)
-    nbytes = lib.siren_wg_workspace_bytes(int(x.shape[0]), cast(c_dims), n, D)
-    if nbytes < 0:
-        raise ValueError(f"the batched tensor-core K1 does not take widths {dims} at D = {D}")
-    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    strides = _slot_strides(weights)
-    w_slot = (ctypes.c_longlong * n)(*strides[0::2])
-    b_slot = (ctypes.c_longlong * n)(*strides[1::2])
-    omegas = _omegas(omega, n - 1)
-    c_om = (ctypes.c_float * len(omegas))(*omegas)
-    buf = torch.empty(D, _n_params(dims), dtype=x.dtype, device=x.device)
-    grads = _stacked_views(buf, dims)
-    loss = torch.empty(D, dtype=x.dtype, device=x.device)
-    W, b = _build.ptr_array(weights[0::2]), _build.ptr_array(weights[1::2])
-    dW, db = _build.ptr_array(grads[0::2]), _build.ptr_array(grads[1::2])
-    with span("kernel.launch"):
-        rc = lib.siren_loss_grads_wg(
-            x.data_ptr(), int(x.shape[0]), int(n_rows), cast(c_dims), n, D, W, b,
-            cast(w_slot), cast(b_slot), cast(c_om), target.data_ptr(),
-            1.0 / (n_rows * target.shape[-1]), work.data_ptr(), dW, db, buf.stride(0),
-            loss.data_ptr(), stream)
-    _build.raise_on(rc, "siren_loss_grads_wg")
+    plan = _plan(lib, "siren_loss_grads_wg", x, weights, omega)
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    buf = torch.empty(plan.D, plan.row, dtype=x.dtype, device=x.device)
+    grads = plan.fill(weights, buf)
+    loss = torch.empty(plan.D, dtype=x.dtype, device=x.device)
+    inv_n = 1.0 / (n_rows * target.shape[-1])
+    plan(x.data_ptr(), plan.P, int(n_rows), plan.dims, plan.L, plan.D, plan.w, plan.b,
+         plan.slot, plan.b_slot, plan.omegas, target.data_ptr(), inv_n, work.data_ptr(),
+         plan.dw, plan.db, plan.row, loss.data_ptr(), stream)
     return loss, grads
-
-
-class _RtcCall:
-    """One plan of the batched K1-w kernel (``csrc/siren_resident_tc.cu``)
-    for a shape, a device and the weights' slot strides, built once: the
-    ctypes arrays, the SM count, the grid barrier's counter (zeroed here;
-    every call leaves it 0, so calls of a plan run in stream order, as
-    launches on PyTorch's current stream do), the partial workspace's size,
-    the grads' places in the output row, and the kernel's shared-memory
-    attribute, set once a plan."""
-
-    def __init__(self, lib, P: int, dims: tuple, D: int, strides: tuple, omega: float,
-                 sms: int, device: torch.device):
-        n = len(dims) - 1
-        self.dims_arr = (ctypes.c_int * len(dims))(*dims)
-        self.dims = ctypes.cast(self.dims_arr, ctypes.c_void_p)
-        self.slot_arr = (ctypes.c_longlong * len(strides))(*strides)
-        self.w_slot = ctypes.cast(self.slot_arr, ctypes.c_void_p)
-        self.ptrs = (ctypes.c_void_p * (2 * n))()  # the weights' pointers, filled in each call
-        self.ptrs_arg = ctypes.cast(self.ptrs, ctypes.c_void_p)
-        self.n, self.omega, self.sms = n, float(omega), sms
-        self.work = int(lib.siren_rtc_work_floats(P, self.dims, n, D, self.sms))
-        if self.work < 0:
-            raise ValueError(f"the batched K1-w kernel does not take widths {list(dims)}")
-        _build.raise_on(lib.siren_rtc_setup(), "siren_rtc_setup")
-        self.sync = torch.zeros(2, dtype=torch.int32, device=device)
-        self.n_params = _n_params(dims)
-        # each grad's (shape, stride, offset) in the (D, n_params + 1) output
-        self.views, at = [], 0
-        for l in range(n):
-            for shape, stride in (((dims[l + 1], dims[l]), (dims[l], 1)), ((dims[l + 1],), (1,))):
-                self.views.append(((D, *shape), (self.n_params + 1, *stride), at))
-                at += int(torch.Size(shape).numel())
-        self.launch = lib.siren_loss_grads_rtc
-
-
-_RTC_CALLS: dict[tuple, _RtcCall] = {}
 
 
 def _launch_loss_grads_resident_tc(lib, x, weights, target, omega, n_rows, stream,
@@ -968,76 +851,42 @@ def _launch_loss_grads_resident_tc(lib, x, weights, target, omega, n_rows, strea
     """The batched K1-w (``csrc/siren_resident_tc.cu``, the widths
     :func:`resident_tc_route` takes): ``(loss (D,), grads)``, views of one
     (D, n_params + 1) buffer whose row s holds slot s's grads, then its
-    loss. One plan a shape, device and set of slot strides
-    (:class:`_RtcCall`); a call fills in the pointers, allocates the output
-    and the partial workspace, and launches."""
-    P, D = int(x.shape[0]), int(weights[0].shape[0])
+    loss; one plan a shape, device, SM count and set of slot strides."""
     omega = float(omega if isinstance(omega, (int, float)) else omega[0])
     sms = _sm_count(x.device)
-    key = (id(lib), x.device, sms, P, tuple(x.shape[1:]), D, tuple(w.shape for w in weights),
-           tuple(w.stride() for w in weights), omega)
-    call = _RTC_CALLS.get(key)
-    if call is None:
-        dims, _ = _batched_dims(x, weights)
-        call = _RTC_CALLS[key] = _RtcCall(lib, P, dims, D, tuple(_slot_strides(weights)),
-                                          omega, sms, x.device)
-    call.ptrs[:] = [w.data_ptr() for w in weights]
-    work = torch.empty(call.work, dtype=x.dtype, device=x.device)
-    out = torch.empty(D, call.n_params + 1, dtype=x.dtype, device=x.device)
-    sw = None if sample_weights is None else sample_weights.data_ptr()
-    with span("kernel.launch"):
-        rc = call.launch(
-            x.data_ptr(), P, int(n_rows), call.dims, call.n, D, call.ptrs_arg, call.w_slot,
-            call.omega, target.data_ptr(), sw, 1.0 / (n_rows * target.shape[-1]), call.sms,
-            work.data_ptr(), call.sync.data_ptr(), out.data_ptr(), call.n_params + 1, stream)
-    _build.raise_on(rc, "siren_loss_grads_rtc")
-    return out[:, call.n_params], [out.as_strided(*v) for v in call.views]
+    plan = _plan(lib, "siren_loss_grads_rtc", x, weights, omega, extra=(sms,))
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    out = torch.empty(plan.D, plan.row, dtype=x.dtype, device=x.device)
+    grads = plan.fill(weights, out)
+    inv_n = 1.0 / (n_rows * target.shape[-1])
+    plan(x.data_ptr(), plan.P, int(n_rows), plan.dims, plan.L, plan.D, plan.w, plan.slot, omega,
+         target.data_ptr(), _ptr(sample_weights), inv_n, sms, work.data_ptr(),
+         plan.sync.data_ptr(), out.data_ptr(), plan.row, stream)
+    return out[:, plan.n_params], grads
 
 
 def _launch_forward_wg(lib, x, weights, omega, stream) -> torch.Tensor:
     """K3 on the tensor-core route (the shapes :func:`tc_route` takes)."""
-    call = _wg_call(lib, "k3", x, weights, omega)
-    call.fill(weights)
-    work = torch.empty(call.work, dtype=torch.uint8, device=x.device)
-    out = torch.empty(x.shape[0], 1, dtype=x.dtype, device=x.device)
-    with span("kernel.launch"):
-        rc = lib.siren_forward_wg(x.data_ptr(), int(x.shape[0]), call.dims, call.n, call.W,
-                                  call.b, call.omegas, work.data_ptr(), out.data_ptr(), stream)
-    _build.raise_on(rc, "siren_forward_wg")
+    plan = _plan(lib, "siren_forward_wg", x, weights, omega)
+    plan.fill(weights)
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    out = torch.empty(plan.P, 1, dtype=x.dtype, device=x.device)
+    plan(x.data_ptr(), plan.P, plan.dims, plan.L, plan.w, plan.b, plan.omegas, work.data_ptr(),
+         out.data_ptr(), stream)
     return out
 
 
 def _launch_fused_bwd_wg(lib, x, weights, g, omega, need_dw, need_dx, stream):
     """K2 on the tensor-core route (the shapes :func:`tc_route` takes), the
     float32 stash; with dW the grads are views of one buffer."""
-    call = _wg_call(lib, "k2_dw" if need_dw else "k2", x, weights, omega)
-    work = torch.empty(call.work, dtype=torch.uint8, device=x.device)
-    grads = call.fill(weights, torch.empty(call.n_params, dtype=x.dtype, device=x.device)
+    plan = _plan(lib, "siren_fused_bwd_wg", x, weights, omega, extra=(int(need_dw),))
+    work = torch.empty(plan.work, dtype=torch.uint8, device=x.device)
+    grads = plan.fill(weights, torch.empty(plan.row, dtype=x.dtype, device=x.device)
                       if need_dw else None)
     dx = torch.empty_like(x) if need_dx else None
-    with span("kernel.launch"):
-        rc = lib.siren_fused_bwd_wg(
-            x.data_ptr(), int(x.shape[0]), call.dims, call.n, call.W, call.b, call.omegas,
-            g.data_ptr(), work.data_ptr(), call.dW if need_dw else None,
-            call.db if need_dw else None, None if dx is None else dx.data_ptr(), stream)
-    _build.raise_on(rc, "siren_fused_bwd_wg")
-    return dx, grads
-
-
-def _launch_fused_bwd(lib, x, weights, g, omega, need_dw, need_dx, stream, acts=None):
-    a = _Args(x, weights, omega, acts)
-    stash, facts, delta0, delta1 = _stash_buffers(a, x)
-    partial = _partial(lib, a, x)
-    grads = [torch.empty_like(w) for w in weights] if need_dw else None
-    dx = torch.empty_like(x) if need_dx else None
-    dW = _build.ptr_array(grads[0::2]) if need_dw else None
-    db = _build.ptr_array(grads[1::2]) if need_dw else None
-    rc = lib.siren_fused_bwd_f32(
-        x.data_ptr(), a.P, a.ptr(a.dims), a.n_layers, a.ptr(a.acts), a.W, a.b,
-        a.ptr(a.omegas), g.data_ptr(), _build.ptr_array(stash), _build.ptr_array(facts),
-        delta0.data_ptr(), delta1.data_ptr(), partial.data_ptr(), dW, db,
-        None if dx is None else dx.data_ptr(), stream)
-    _build.raise_on(rc, "siren_fused_bwd")
+    plan(x.data_ptr(), plan.P, plan.dims, plan.L, plan.w, plan.b, plan.omegas, g.data_ptr(),
+         work.data_ptr(), plan.dw if need_dw else None, plan.db if need_dw else None, _ptr(dx),
+         stream)
     return dx, grads
 
 
@@ -1077,8 +926,8 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     ``sample_weights`` (P, 1) weighs each squared residual (the mean stays
     over ``n_rows``); ``with_out_absmax`` returns ``(loss, out_absmax,
     grads)`` with ``out_absmax`` = max |MLP(x)| over those rows. On the
-    weight-resident and the streaming routes the loss, max |out| and grads
-    are views of one buffer that the call allocates."""
+    card the loss, max |out| and grads are views of one buffer that the
+    call allocates."""
     weights = list(weights)
     dims = _layer_dims(x, weights)
     acts = _acts(acts, len(weights) // 2)
@@ -1097,19 +946,16 @@ def siren_loss_grads(x: torch.Tensor, weights: Sequence[torch.Tensor],
     weighted = sample_weights is not None
     weights = [w.detach() for w in weights]
     route = k1_route(dims, acts, weighted, with_out_absmax)
-    if route == "tc":
+    if route == "wg":
         out = _launch_loss_grads_wg_f32(_wg_lib(), x, weights, target, omega, n_rows,
                                         _build.stream_ptr())
-        LAUNCHES["siren_loss_grads_wg"] += 1
-        return out
-    if route == "simt":
+    elif route == "stream":
+        out = _launch_loss_grads_slots("stream", _stream_lib(), x, weights, target, omega,
+                                       n_rows, _build.stream_ptr(), acts, sample_weights,
+                                       with_out_absmax)
+    else:
         out = _launch_loss_grads(_lib(), x, weights, target, omega, n_rows,
                                  _build.stream_ptr(), acts, sample_weights, with_out_absmax)
-    else:
-        lib = _res_lib() if route == "resident" else _stream_lib()
-        out = _launch_loss_grads_slots(route, lib, x, weights, target, omega, n_rows,
-                                       _build.stream_ptr(), acts, sample_weights,
-                                       with_out_absmax)
     LAUNCHES[loss_grads_key(weighted, with_out_absmax, route)] += 1
     return out
 
@@ -1138,9 +984,9 @@ def siren_loss_grads_batched(x: torch.Tensor, weights: Sequence[torch.Tensor],
     stash; counted under
     ``siren_loss_grads_[weighted_]resident_tc_batched``). Their grads are
     views of one (D, n_params [+ 1]) buffer, the loss in the last column on
-    the second. Every other call (ReLU codes or per-layer omegas at the
-    weight-resident widths, the streaming and SIMT widths) runs the slots in
-    turn through :func:`siren_loss_grads`, counted under its keys.
+    the second. Every other call (ReLU codes or per-layer omegas at the 2-D
+    ensemble's widths, the streaming and SIMT widths) runs the slots in turn
+    through :func:`siren_loss_grads`, counted under its keys.
 
     The checks are lean, as the 2-D ensemble calls this 27,000 times a
     case: each tensor's type and device once, the slots' contiguity from

@@ -88,7 +88,7 @@ def test_stacked_adam_takes_any_grad_layout():
     init = _draws(rng, 2, SHAPES)
     opts = [StackedAdam(init, 1e-3) for _ in range(3)]
     buf = torch.as_tensor(rng.normal(size=(2, 16 * 3 + 16 * 17 + 17 + 2)).astype(np.float32))
-    views = tk._stacked_views(buf, (2, 16, 16, 1))
+    views = [buf.as_strided(*v) for v in tk._param_views((2, 16, 16, 1), 2, buf.stride(0))]
     assert flat_view(views) is not None and flat_view([v.clone() for v in views[::-1]]) is None
     opts[0].step(views)
     opts[1].step([v.clone() for v in views])

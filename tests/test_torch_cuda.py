@@ -41,8 +41,8 @@ def _problem(card, P=1000, dims=(64, 96, 96, 1), seed=1):
 def test_kernels_launch_and_match_plain(card):
     """On a CUDA device each wrapper launches its kernel once (the counts
     move) and agrees with its plain version, ragged rows and widths too; K1
-    at these widths takes the weight-resident route, and the SIMT K1 is held
-    at the same shapes through its launch code."""
+    at these widths takes the SIMT route, and its launch code is held at the
+    same shapes directly too."""
     x, ws, target, g = _problem(card, P=1000, dims=(64, 96, 130, 1))
     tk.reset_launches()
     torch.testing.assert_close(tk.siren_forward(x, ws), tk.siren_forward_ref(x, ws),
@@ -59,7 +59,7 @@ def test_kernels_launch_and_match_plain(card):
     for a, b in zip(dws, dws_r):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-8)
     assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, "siren_forward": 1,
-                           "siren_loss_grads_resident": 1, "siren_fused_bwd": 1}
+                           "siren_loss_grads": 1, "siren_fused_bwd": 1}
 
 
 @pytest.mark.cuda
@@ -137,8 +137,8 @@ def test_autograd_function_on_the_tc_route(card):
                                                     (True, True, 999)])
 def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
     """K1 with sample weights and/or max |out| on a SirenERD trunk (ReLU
-    codes) launches once under its variant's key (the weight-resident route
-    at these widths) and agrees with its plain version, and so does the SIMT
+    codes) launches once under its variant's key (the streaming route at
+    these widths) and agrees with its plain version, and so does the SIMT
     K1 through its launch code; K3 and K2 with the same codes too."""
     gen = torch.Generator().manual_seed(7)
     model = SirenERD(2, 64, 2, generator=gen).to(card)
@@ -169,17 +169,18 @@ def test_k1_variants_launch_and_match_plain(card, weighted, absmax, n_rows):
     dx_r, dws_r = tk.siren_fused_bwd_ref(x, ws, g, acts=acts)
     for a, b in zip([dx, *dws], [dx_r, *dws_r]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-7)
-    key = tk.loss_grads_key(weighted, absmax, "resident")
+    key = tk.loss_grads_key(weighted, absmax, "stream")
     assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES}, key: 1, "siren_forward": 1,
                            "siren_fused_bwd": 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,n_rows", [(3600, 3600), (3600, 3477), (4300, 4300)])
-def test_k1_resident_route_at_the_ensemble_shape(card, P, n_rows):
-    """K1-w at the 2-D ensemble's Siren 2 -> 64x7 -> 1 (and past 132 row
-    tiles of 32) launches once under its resident key, agrees with its plain
-    version within the SIMT route's bars, and repeats bit for bit."""
+def test_k1_stream_route_at_the_ensemble_shape(card, P, n_rows):
+    """K1-w at the 2-D ensemble's Siren 2 -> 64x7 -> 1, unbatched (and past
+    32 row tiles of 128), launches once under its streaming key, agrees with
+    its plain version within the SIMT route's bars, and repeats bit for
+    bit."""
     gen = torch.Generator().manual_seed(P + n_rows)
     model = Siren(2, 64, 6, generator=gen).to(card)
     ws, acts = [w.detach() for w in model.weights()], model.acts
@@ -195,14 +196,14 @@ def test_k1_resident_route_at_the_ensemble_shape(card, P, n_rows):
     loss2, grads2 = tk.siren_loss_grads(x, ws, t, acts=acts, n_rows=n_rows, sample_weights=sw)
     assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
     assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES},
-                           "siren_loss_grads_weighted_resident": 2}
+                           "siren_loss_grads_weighted_stream": 2}
 
 
 @pytest.mark.cuda
-def test_k1_absmax_off_the_resident_route(card):
-    """K1-a at the soft-ERD trunk's widths (about 270 KB of weights) does
-    not fit one block of the resident route and takes the streaming
-    tensor-core route."""
+def test_k1_absmax_takes_the_stream_route(card):
+    """K1-a at the soft-ERD trunk's widths (about 270 KB of weights, more
+    than one block's shared memory holds) takes the streaming tensor-core
+    route."""
     gen = torch.Generator().manual_seed(3)
     model = SirenERD(2, 128, 3, generator=gen).to(card)
     ws, acts = [w.detach() for w in model.weights()], model.acts
@@ -752,8 +753,8 @@ def test_k1_batched_launches_and_matches_plain_and_unbatched(card, dims, D, P, n
     stashes' plain versions part by plus 1e-3. The 2-D ensemble's class
     (``csrc/siren_resident_tc.cu``, bf16x3 products, the float32 stash)
     weighs its rows, slot D - 1 all zero (a padded acquisition slot: loss
-    and grads exactly 0), and is held to the unbatched weight-resident
-    calls (float32 FMA) as the tensor-core routes are, at 1e-3 of each
+    and grads exactly 0), and is held to the unbatched calls (the streaming
+    route at these widths) as the tensor-core routes are, at 1e-3 of each
     grad's largest value."""
     from mri_super_resolution_tpu_torch.fit.optim import StackedAdam
 

@@ -11,7 +11,10 @@ Shapes are tiny but cover ragged row tiles (P not a multiple of 128),
 widths that are not multiples of the 128-wide tiles, several dW splits, a
 masked row count and a single sine layer; for K1's variants ReLU codes (the
 SirenERD trunk), sample weights with zeros, max |out| over ragged rows, and
-pre-activations exactly 0 (ReLU's step is 0 there).
+pre-activations exactly 0 (ReLU's step is 0 there); and the K1 calls of the
+widths no other route takes (:func:`k1_route`): widths off a multiple of 4
+with an omega per hidden layer, one hidden layer, 4,300 rows, all sample
+weights 0.
 """
 import ctypes
 
@@ -170,3 +173,98 @@ def test_emulated_k2_k3_take_the_codes(emulated_lib, acts):
     torch.testing.assert_close(dx, dx_r, rtol=1e-4, atol=1e-5)
     for a, b in zip(dws, dws_r):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _weighted_problem(dims, P, seed):
+    """Seeded inputs at SIREN-init scale; sample weights in [0, 1] with
+    every fifth 0."""
+    x, ws, target, _ = _problem(dims, P, seed)
+    sw = torch.as_tensor(np.random.default_rng(seed + 1).uniform(0, 1, size=(P, 1)),
+                         dtype=torch.float32)
+    sw[::5] = 0.0
+    return x, ws, target, sw
+
+
+def _assert_k1_simt(lib, x, ws, target, n_rows, sw=None, absmax=False, acts=None, omega=30.0):
+    """The SIMT launch against the plain K1; returns the launch's result."""
+    got = tk._launch_loss_grads(lib, x, ws, target, omega, n_rows, 0, acts, sw, absmax)
+    want = tk.siren_loss_grads_ref(x, ws, target, omega, n_rows, acts, sw, absmax)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    if absmax:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    assert len(got[-1]) == len(ws)
+    for i, (a, b) in enumerate(zip(got[-1], want[-1])):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=f"grad {i}")
+    return got
+
+
+@pytest.mark.parametrize("weighted,n_rows", [(False, 137), (True, 120), (True, 137)])
+def test_emulated_k1_absmax_relu_masked(emulated_lib, weighted, n_rows):
+    """max |out| and ReLU codes at widths off the streaming route's (a
+    SirenERD-like trunk 2 -> 24 -> 24 -> 20 -> 1 whose output ReLU is on for
+    about half the rows), with and without sample weights and masked rows;
+    the row of the largest |out| is last, so a max over masked rows would
+    show."""
+    P = 137
+    x, ws, target, sw = _weighted_problem(ERD_DIMS, P, seed=5)
+    assert tk.k1_route(ERD_DIMS, ERD_ACTS, weighted, True) == "simt"
+    ws[6], ws[7] = ws[6] * 30.0, torch.zeros_like(ws[7])
+    z = tk.siren_forward_ref(x, ws, 30.0, ERD_ACTS[:-1] + ("none",)).flatten()
+    ws[7] = -z.median().reshape(1)
+    out = tk.siren_forward_ref(x, ws, 30.0, ERD_ACTS).flatten()
+    last = int(out.abs().argmax())
+    order = [i for i in range(P) if i != last] + [last]
+    x, target, sw = x[order].contiguous(), target[order].contiguous(), sw[order].contiguous()
+    assert 0.2 < float((out > 0).float().mean()) < 0.8
+    _assert_k1_simt(emulated_lib, x, ws, target, n_rows, sw if weighted else None, True,
+                    ERD_ACTS)
+
+
+def test_emulated_k1_relu_step_is_zero_at_zero_weighted(emulated_lib):
+    """Pre-activations exactly 0 with sample weights and masked rows: one
+    unit of the ReLU layer with zero weights and bias, then the whole ReLU
+    layer off (bias -100) and a last bias of 0, so the output is ReLU(0)
+    everywhere. The step is 0 at z = 0, so that unit's and then every
+    gradient are exactly 0, and so is max |out|."""
+    P = 137
+    x, ws, target, sw = _weighted_problem(ERD_DIMS, P, seed=5)
+    ws[6] = ws[6] * 30.0
+    ws[4][3].zero_()
+    ws[5][3] = 0.0
+    _, _, grads = _assert_k1_simt(emulated_lib, x, ws, target, P, sw, True, ERD_ACTS)
+    assert float(grads[4][3].abs().max()) == 0.0 and float(grads[5][3]) == 0.0
+    ws[5].fill_(-100.0)
+    ws[7].zero_()
+    loss, absmax, grads = _assert_k1_simt(emulated_lib, x, ws, target, P - 7, sw, True, ERD_ACTS)
+    assert float(absmax) == 0.0 and float(loss) > 0
+    assert all(float(g.abs().max()) == 0.0 for g in grads)
+
+
+@pytest.mark.parametrize("dims,acts,P", [
+    ((3, 10, 7, 1), ("sine", "sine", "none"), 45),  # widths off the multiple of 4
+    ((3, 10, 7, 1), ("sine", "none", "none"), 45),
+    ((5, 6, 1), ("relu", "relu"), 33),  # one hidden layer
+])
+def test_emulated_k1_odd_widths(emulated_lib, dims, acts, P):
+    """Widths off the multiple of 4, one omega per hidden layer, sample
+    weights and masked rows: the SIMT route's (:func:`k1_route`)."""
+    assert tk.k1_route(dims, acts, True) == "simt"
+    x, ws, target, sw = _weighted_problem(dims, P, seed=sum(dims))
+    omegas = [7.0 + 4.0 * l for l in range(len(dims) - 2)]
+    _assert_k1_simt(emulated_lib, x, ws, target, P - 2, sw, True, acts, omega=omegas)
+
+
+def test_emulated_k1_many_row_blocks(emulated_lib):
+    """4,300 rows (2 -> 8 -> 1, weighted, masked): the last layer's loss
+    partials span many row blocks and the dW sums several splits."""
+    x, ws, target, sw = _weighted_problem((2, 8, 1), 4300, seed=3)
+    _assert_k1_simt(emulated_lib, x, ws, target, 4290, sw)
+
+
+def test_emulated_k1_zero_sample_weights(emulated_lib):
+    """All sample weights 0: the loss, every dW and db exactly 0."""
+    x, ws, target, sw = _weighted_problem((2, 16, 16, 1), 50, seed=4)
+    loss, grads = tk._launch_loss_grads(emulated_lib, x, ws, target, 30.0, 50, 0, None,
+                                        torch.zeros_like(sw))
+    assert float(loss) == 0.0 and all(float(g.abs().max()) == 0.0 for g in grads)

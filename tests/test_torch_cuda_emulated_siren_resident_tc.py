@@ -15,7 +15,7 @@ kept in registers between them); more slots than SMs (one launch a group);
 the other depths and input widths the kernel takes; weights as a
 ``StackedAdam`` holds them (a parameter buffer's rows apart, so the bulk
 copies start off 16-byte alignment); two calls for the same bits, the grid
-barrier's counter left at 0; each slot against the unbatched resident
+barrier's counter left at 0; each slot against the unbatched streaming
 kernel; the refusals, and the route of each class of call.
 
 Tolerance: each dW/db within 1e-4 of its largest magnitude and the loss
@@ -92,7 +92,7 @@ def _assert_same_bits(a, b):
 
 
 def _sync_counts() -> list[list[int]]:
-    return [c.sync.tolist() for c in tk._RTC_CALLS.values()]
+    return [p.sync.tolist() for p in tk._PLANS.values() if p.entry == "siren_loss_grads_rtc"]
 
 
 @pytest.mark.parametrize("D,P,n_rows,padded,weighted", [
@@ -147,16 +147,19 @@ def test_emulated_rtc_other_depths(emulated_rtc, sms, dims):
 
 
 def test_emulated_rtc_against_unbatched_resident(emulated_rtc, tmp_path_factory):
-    """Each slot against the unbatched weight-resident kernel
-    (``csrc/siren_resident.cu``, float32 FMA) on its own inputs: the two
-    part by their products and orders of sums, within the tolerances."""
-    res = emulated_library(tmp_path_factory, "siren_resident", tk._res_declare)
+    """Each slot against the unbatched K1 that the route takes at these
+    widths, the streaming kernel (``csrc/siren_stream.cu``, bf16x3 products
+    on 128-row tiles), on its own inputs: the two part by their tiles and
+    orders of sums, within the tolerances."""
+    stream = emulated_library(tmp_path_factory, "siren_stream", tk._stream_declare)
     x, ws, target, sw = _stacked(MASTER_DIMS, 3, 70, seed=12)
     got = _launch(emulated_rtc, x, ws, target, 66, sw)
+    assert tk.k1_route(MASTER_DIMS, ("sine",) * 7 + ("none",), True) == "stream"
     for s in range(3):
-        loss, grads = tk._launch_loss_grads_resident(res, x, [w[s].contiguous() for w in ws],
-                                                     target[s].contiguous(), 30.0, 66, 0, None,
-                                                     sw[s].contiguous())
+        loss, grads = tk._launch_loss_grads_slots("stream", stream, x,
+                                                  [w[s].contiguous() for w in ws],
+                                                  target[s].contiguous(), 30.0, 66, 0, None,
+                                                  sw[s].contiguous())
         torch.testing.assert_close(got[0][s], loss, rtol=RTC_LOSS_RTOL, atol=0)
         for a, b in zip(got[1], grads):
             assert float((a[s] - b).abs().max()) <= RTC_GRAD_TOL * float(b.abs().max())
@@ -180,7 +183,7 @@ def test_emulated_rtc_plan_and_refusals(emulated_rtc):
         route = tk.resident_tc_route(dims, plain(len(dims) - 2), 30.0)
         assert (work >= 0) is (smem >= 0) is route, dims
         if route:
-            assert smem == tk.resident_tc_smem_bytes(dims) <= tk.RES_SMEM_MAX
+            assert smem == tk.resident_tc_smem_bytes(dims) <= tk.SMEM_MAX
     assert tk.resident_tc_smem_bytes(MASTER_DIMS) == 216_608
     # 4 tiles of 32 for 44 blocks a slot: 4 blocks a slot, a row of 25,218 floats each
     assert query(MASTER_DIMS)[1] == 3 * 4 * (25_217 + 1)
@@ -193,7 +196,7 @@ def test_batched_routes_by_class():
     """The batched K1's route from the shapes alone: the 2-D ensemble's
     class on this kernel with or without sample weights; at the same widths
     ReLU codes or per-layer omegas run the slots in turn through the
-    unbatched resident kernel; the tensor-core class on its own kernel; the
+    unbatched streaming kernel; the tensor-core class on its own kernel; the
     soft-ERD widths (streaming route) in turn."""
     plain = ("sine",) * 7 + ("none",)
     assert tk.batched_route(MASTER_DIMS, plain, 30.0, weighted=True) == "resident_tc"
@@ -201,7 +204,7 @@ def test_batched_routes_by_class():
     assert tk.batched_route(MASTER_DIMS, plain, [30.0] * 7) == "resident_tc"
     relu = ("sine",) * 5 + ("relu", "relu", "none")
     assert tk.batched_route(MASTER_DIMS, relu, 30.0, weighted=True) == "slots"
-    assert tk.k1_route(MASTER_DIMS, relu, True) == "resident"
+    assert tk.k1_route(MASTER_DIMS, relu, True) == "stream"
     assert tk.batched_route(MASTER_DIMS, plain, [30.0] * 6 + [20.0]) == "slots"
     assert tk.batched_route((256, 512, 512, 1), ("sine", "sine", "none"), 30.0) == "wg"
     erd = (2,) + (128,) * 5 + (1,)

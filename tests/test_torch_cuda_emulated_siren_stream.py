@@ -5,14 +5,16 @@ execution model (``tests/cuda_emulation``: one fiber per CUDA thread, block
 barriers, warp shuffles, ``mma.sync`` and ``ldmatrix`` through per-warp
 buffers, shared memory filled with NaN bits at each block's start), through
 the same ctypes launch code the wrapper uses on the card, against the plain
-float32 version. The shapes are small, so the wrapper would send them to the
-weight-resident route: the tests call the streaming launch directly.
+float32 version.
 
 Cases: a SirenERD-like trunk 2 -> 64x2 -> 64 (ReLU) -> 1 (ReLU) with max
 |out| on 300 rows (three row tiles of 128, the last ragged, whose slots the
 third launch sums), masked rows, sample weights with zeros, a collapsed
 output (max |out| exactly 0); the plain Siren's codes with several sine
-omegas; bits that repeat; the shared-memory plan against the host's formula.
+omegas; the 2-D ensemble's Siren 2 -> 64x7 -> 1 with sample weights (every
+fifth 0), masked rows and a ragged last tile; bits that repeat; the
+shared-memory plan against the host's formula, and the kernel's query
+against :func:`k1_route`.
 
 Tolerance: the tensor-core route's products are bf16x3 (each operand split
 into two bf16 planes, ``|x - hi - lo| <= 2^-16 |x|``), float32 sums: the
@@ -31,6 +33,7 @@ from mri_super_resolution_tpu_torch.ops import siren_kernel as tk
 torch.set_num_threads(2)
 
 ERD_DIMS = (2, 64, 64, 64, 1)
+MASTER_DIMS = (2,) + (64,) * 7 + (1,)
 ERD_ACTS = ("sine", "sine", "relu", "relu")
 
 
@@ -72,7 +75,8 @@ def _erd_problem(P, seed):
 
 def _assert_k1(lib, x, ws, target, n_rows, sw=None, absmax=False, acts=None, omega=30.0):
     """The streaming launch against the plain K1; returns the launch's result."""
-    got = tk._launch_loss_grads_stream(lib, x, ws, target, omega, n_rows, 0, acts, sw, absmax)
+    got = tk._launch_loss_grads_slots("stream", lib, x, ws, target, omega, n_rows, 0, acts, sw,
+                                      absmax)
     want = tk.siren_loss_grads_ref(x, ws, target, omega, n_rows, acts, sw, absmax)
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
     if absmax:
@@ -94,8 +98,8 @@ def test_emulated_stream_absmax_relu(emulated_stream, n_rows, weighted):
     x, ws, target, sw = _erd_problem(300, seed=5)
     sw = sw if weighted else None
     got = _assert_k1(emulated_stream, x, ws, target, n_rows, sw, True, ERD_ACTS)
-    again = tk._launch_loss_grads_stream(emulated_stream, x, ws, target, 30.0, n_rows, 0,
-                                         ERD_ACTS, sw, True)
+    again = tk._launch_loss_grads_slots("stream", emulated_stream, x, ws, target, 30.0, n_rows,
+                                        0, ERD_ACTS, sw, True)
     assert all(torch.equal(a, b) for a, b in zip(got[:2], again[:2]))
     assert all(torch.equal(a, b) for a, b in zip(got[2], again[2]))
 
@@ -112,6 +116,25 @@ def test_emulated_stream_collapsed_output(emulated_stream):
     assert all(float(g.abs().max()) == 0.0 for g in grads)
 
 
+@pytest.mark.parametrize("P,n_rows,weighted", [
+    (100, 100, True),  # weighted rows with zeros, one ragged tile (100 of 128 rows)
+    (100, 77, True),  # masked rows
+    (64, 64, False),  # unweighted
+])
+def test_emulated_stream_master_shape(emulated_stream, P, n_rows, weighted):
+    """The 2-D ensemble's widths, which K1 sends here with any of its
+    options; the slots are summed in block order: a second call gives the
+    same bits."""
+    assert tk.k1_route(MASTER_DIMS, ("sine",) * 7 + ("none",), weighted) == "stream"
+    x, ws, target, sw = _problem(MASTER_DIMS, P, seed=P + n_rows)
+    sw = sw if weighted else None
+    got = _assert_k1(emulated_stream, x, ws, target, n_rows, sw)
+    again = tk._launch_loss_grads_slots("stream", emulated_stream, x, ws, target, 30.0, n_rows,
+                                        0, None, sw)
+    assert torch.equal(got[0], again[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+
+
 @pytest.mark.parametrize("dims,acts,omega", [
     ((3, 64, 64, 64, 1), None, [30.0, 7.0, 12.0]),  # the plain Siren's codes, an omega each
     ((2, 128, 128, 1), ("sine", "none", "none"), 30.0),  # K1-a's width, a linear layer
@@ -126,7 +149,7 @@ def test_emulated_stream_plan_and_refusals(emulated_stream):
     query takes exactly the widths the route takes: hidden widths of 64 and
     128 (192 is over one block's shared memory), equal hidden widths, one
     output; the route order keeps K1's flagship on the tensor-core route and
-    the 2-D ensemble's Siren on the weight-resident one."""
+    sends the 2-D ensemble's Siren here."""
 
     def query(dims):
         arr = (ctypes.c_int * len(dims))(*dims)
@@ -140,14 +163,39 @@ def test_emulated_stream_plan_and_refusals(emulated_stream):
         smem, work = query(dims)
         assert (smem >= 0) is (work >= 0) is tk.stream_route(dims), dims
         if smem >= 0:
-            assert smem == tk.stream_smem_bytes(dims) <= tk.RES_SMEM_MAX
+            assert smem == tk.stream_smem_bytes(dims) <= tk.SMEM_MAX
     assert tk.stream_smem_bytes((2, 128, 128, 1)) == 175_616
-    assert tk.stream_smem_bytes((2, 192, 192, 1)) > tk.RES_SMEM_MAX
+    assert tk.stream_smem_bytes((2, 192, 192, 1)) > tk.SMEM_MAX
     assert tk.k1_route((2, 128, 128, 128, 128, 128, 1), ERD_ACTS[:2] * 2 + ("relu", "relu"),
                        absmax=True) == "stream"
-    assert tk.k1_route((256, 512, 512, 512, 512, 1), ("sine",) * 4 + ("none",)) == "tc"
+    assert tk.k1_route((256, 512, 512, 512, 512, 1), ("sine",) * 4 + ("none",)) == "wg"
     assert tk.k1_route((2,) + (64,) * 7 + (1,), ("sine",) * 7 + ("none",),
-                       weighted=True) == "resident"
+                       weighted=True) == "stream"
     x, ws, target, _ = _problem((2, 96, 96, 1), 4, seed=0)
     with pytest.raises(ValueError):
-        tk._launch_loss_grads_stream(emulated_stream, x, ws, target, 30.0, 4, 0)
+        tk._launch_loss_grads_slots("stream", emulated_stream, x, ws, target, 30.0, 4, 0)
+
+
+def test_emulated_stream_query_is_k1_route(emulated_stream):
+    """For a K1 call off the tensor-core route (here with sample weights)
+    the streaming kernel's workspace query takes exactly the widths that
+    :func:`k1_route` sends to it, the 2-D ensemble's among them; the rest
+    go to the SIMT route, which takes any widths: one hidden layer, widths
+    off a multiple of 64 or over one block's plan, too many layers, more
+    than one output. Unweighted, the flagship takes the tensor-core route."""
+
+    def work(dims):
+        arr = (ctypes.c_int * len(dims))(*dims)
+        return emulated_stream.siren_stream_work_floats(100, ctypes.cast(arr, ctypes.c_void_p),
+                                                        len(dims) - 1)
+
+    routes = {}
+    for dims in (MASTER_DIMS, (2, 24, 24, 20, 1), (3, 10, 7, 1), (2, 8, 1), (64, 96, 130, 1),
+                 (256, 512, 512, 512, 512, 1), (2, 1), (2, 8, 2), (2,) + (4,) * 17 + (1,),
+                 *((2,) + (h,) * 7 + (1,) for h in range(70, 82)),
+                 *((h, h, 1) for h in range(176, 186))):
+        acts = ("sine",) * (len(dims) - 2) + ("none",)
+        route = routes[dims] = tk.k1_route(dims, acts, weighted=True)
+        assert (work(dims) >= 0) is (route == "stream") and route in ("stream", "simt"), dims
+    assert routes[MASTER_DIMS] == "stream" and routes[(3, 10, 7, 1)] == "simt"
+    assert tk.k1_route((256, 512, 512, 512, 512, 1), ("sine",) * 4 + ("none",)) == "wg"

@@ -5,9 +5,8 @@ for the fixed-order sum where the soft-ERD fit has 128), the 63 x 63 slice
 of an odd full-res side (3,969 = 31 x 128 + 1 rows: a last tile of one
 row) and 129 rows (one full tile and one row). The trunk has the soft-ERD
 SirenERD's depth (four sine layers, a ReLU head, a ReLU output) at hidden
-64, the route's narrower width, to keep the emulation short (the wrapper
-would send it to the weight-resident route, so the test calls the
-streaming launch, the wrapper's own ctypes code, directly). Bars: those of
+64, the route's narrower width, to keep the emulation short; the test calls
+the streaming launch, the wrapper's own ctypes code, directly. Bars: those of
 ``tests/test_torch_cuda_emulated_siren_stream.py`` (the loss within 1e-4
 relative, max |out| within 1e-5 relative, each dW/db within 1e-3 of its
 largest magnitude), and a second call gives the same bits. The inputs keep
@@ -76,8 +75,8 @@ def _problem(P, seed):
 def test_emulated_stream_at_the_lr_slice(emulated_stream, P):
     assert tk.stream_route(DIMS)
     x, ws, target = _problem(P, seed=P)
-    got = tk._launch_loss_grads_stream(emulated_stream, x, ws, target, 30.0, P, 0, ACTS, None,
-                                       True)
+    got = tk._launch_loss_grads_slots("stream", emulated_stream, x, ws, target, 30.0, P, 0, ACTS,
+                                      None, True)
     loss, absmax, grads = tk.siren_loss_grads_ref(x, ws, target, 30.0, P, ACTS, None, True)
     assert 0 < float(absmax)
     torch.testing.assert_close(got[0], loss, rtol=1e-4, atol=0)
@@ -85,7 +84,7 @@ def test_emulated_stream_at_the_lr_slice(emulated_stream, P):
     for i, (a, b) in enumerate(zip(got[2], grads)):
         err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         assert err <= 1e-3, f"grad {i}: {err:.2e} of its largest magnitude"
-    again = tk._launch_loss_grads_stream(emulated_stream, x, ws, target, 30.0, P, 0, ACTS,
-                                         None, True)
+    again = tk._launch_loss_grads_slots("stream", emulated_stream, x, ws, target, 30.0, P, 0,
+                                        ACTS, None, True)
     assert all(torch.equal(a, b) for a, b in zip([got[0], got[1], *got[2]],
                                                  [again[0], again[1], *again[2]]))

@@ -123,10 +123,6 @@ def test_cpu_runs_plain_versions_without_launching(setup):
                                 "siren_loss_grads_weighted", "siren_loss_grads_absmax",
                                 "siren_loss_grads_weighted_absmax", "siren_loss_grads_wg",
                                 "siren_fused_bwd", "siren_forward_wg", "siren_fused_bwd_wg",
-                                "siren_loss_grads_resident",
-                                "siren_loss_grads_weighted_resident",
-                                "siren_loss_grads_absmax_resident",
-                                "siren_loss_grads_weighted_absmax_resident",
                                 "siren_loss_grads_stream", "siren_loss_grads_weighted_stream",
                                 "siren_loss_grads_absmax_stream",
                                 "siren_loss_grads_weighted_absmax_stream",

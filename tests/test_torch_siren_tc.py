@@ -81,8 +81,8 @@ def test_route_rule_k2_k3(dims, acts, route):
 def test_route_of_the_models():
     """The port's models: the 3-D pipeline's Siren at its reference widths
     takes the tensor-core route; the 2-D ensemble's Siren 64x6 and the
-    soft-ERD SirenERD trunk stay off it (K1 of the first takes the
-    weight-resident route, the second the SIMT kernels)."""
+    soft-ERD SirenERD trunk stay off it (K1 of both takes the streaming
+    route, K2 and K3 the SIMT kernels)."""
     def dims_of(model, d_in):
         ws = model.weights()
         return (d_in,) + tuple(int(w.shape[0]) for w in ws[0::2])
@@ -96,21 +96,23 @@ def test_route_of_the_models():
 
 
 @pytest.mark.parametrize("dims,route", [
-    ((2,) + (64,) * 7 + (1,), True),  # K1-w: the 2-D ensemble's Siren 2 -> 64x7 -> 1
-    ((32, 32, 1), True),  # the small patient's
-    ((3, 10, 7, 1), True), ((2,) + (72,) * 7 + (1,), True),
-    ((2, 128, 128, 128, 128, 128, 1), False),  # K1-a: the soft-ERD trunk, ~270 KB of weights
-    ((256, 512, 512, 512, 512, 1), False),  # the flagship
-    ((2,) + (80,) * 7 + (1,), False),  # just over one block's shared memory
-    ((2,) + (4,) * 17 + (1,), False),  # more layers than the kernel's plan holds
+    ((2,) + (64,) * 7 + (1,), "stream"),  # K1-w: the 2-D ensemble's Siren 2 -> 64x7 -> 1
+    ((32, 32, 1), "simt"),  # the small patient's
+    ((3, 10, 7, 1), "simt"), ((2,) + (72,) * 7 + (1,), "simt"),
+    ((2, 128, 128, 128, 128, 128, 1), "stream"),  # K1-a: the soft-ERD trunk
+    ((256, 512, 512, 512, 512, 1), "wg"),  # the flagship
+    ((2,) + (80,) * 7 + (1,), "simt"),
+    ((2,) + (4,) * 17 + (1,), "simt"),  # more layers than any hand route's plan holds
 ])
-def test_resident_route_rule(dims, route):
-    """K1 off the tensor-core route takes the weight-resident route when its
-    plan fits one block's shared memory, from the widths alone; the plan of
-    the 2-D ensemble's Siren is 189,328 bytes of the H100's 232,448."""
-    assert tk.resident_route(dims) is route
-    assert (tk.resident_smem_bytes(dims) <= tk.RES_SMEM_MAX) is (route or len(dims) > 17)
-    assert tk.resident_smem_bytes((2,) + (64,) * 7 + (1,)) == 189_328
+def test_k1_route_rule(dims, route):
+    """K1's route from the widths alone, plain Siren codes, no options:
+    the tensor-core route at its widths, the streaming route at equal
+    hidden widths of a multiple of 64, the SIMT route, which takes any
+    widths, for the rest; with sample weights (K1-w) the tensor-core
+    route's widths go to the SIMT route too."""
+    acts = SIREN_ACTS(len(dims) - 2)
+    assert tk.k1_route(dims, acts) == route
+    assert tk.k1_route(dims, acts, weighted=True) == ("simt" if route == "wg" else route)
 
 
 @pytest.mark.parametrize("dims,route", [
@@ -133,16 +135,15 @@ def test_stream_route_rule(dims, route):
 
 def test_k1_route_order_of_the_models():
     """The routes in order: the 3-D pipeline's Siren takes the tensor-core
-    route, the 2-D ensemble's Siren the weight-resident one, the soft-ERD
+    route, the 2-D ensemble's Siren the streaming one, and so does the soft-ERD
     SirenERD trunk with max |out| (K1-a) the streaming one, with or without
     sample weights; widths no hand route takes keep the SIMT kernels."""
     def dims_of(model, d_in):
         return (d_in,) + tuple(int(w.shape[0]) for w in model.weights()[0::2])
 
     ref, master, erd = Siren(256, 512, 3), Siren(2, 64, 6), SirenERD(2, 128, 3)
-    assert tk.k1_route(dims_of(ref, 256), ref.acts) == "tc"
-    assert tk.k1_route(dims_of(master, 2), master.acts, weighted=True) == "resident"
-    assert tk.stream_route(dims_of(master, 2))  # resident_route comes first
+    assert tk.k1_route(dims_of(ref, 256), ref.acts) == "wg"
+    assert tk.k1_route(dims_of(master, 2), master.acts, weighted=True) == "stream"
     for weighted in (False, True):
         assert tk.k1_route(dims_of(erd, 2), erd.acts, weighted, absmax=True) == "stream"
     assert tk.k1_route((2, 192, 192, 1), ("sine", "sine", "none")) == "simt"
@@ -170,16 +171,128 @@ def test_k1a_wrapper_sends_a_card_call_to_the_streaming_route(monkeypatch):
     tk.reset_launches()
 
 
-def test_resident_route_of_the_models():
-    """The 2-D ensemble's Siren(2, 64, 6) takes the weight-resident route;
-    the soft-ERD SirenERD(2, 128, 3) trunk and the 3-D pipeline's Siren do
-    not (the latter takes the tensor-core route first)."""
+@pytest.fixture
+def card_stubs(monkeypatch):
+    """The wrappers' card path on this machine: every tensor taken for a
+    CUDA one, a fresh plan cache, and every library a stub whose workspace
+    queries take any widths and whose launches record the spans open
+    around them; yields that record, (entry, open spans) a launch."""
+    opened, calls = [], []
+
+    class Span:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            opened.append(self.name)
+
+        def __exit__(self, *exc):
+            opened.pop()
+
+    class Lib:
+        def __getattr__(self, name):
+            if name.endswith(("_bytes", "_floats")):
+                return lambda *a: 256
+            if name.endswith("_setup"):
+                return lambda: 0
+            return lambda *a: calls.append((name, tuple(opened))) or 0
+
+    lib = Lib()
+    monkeypatch.setattr(tk._build, "check_tensors", lambda *a: "cuda")
+    monkeypatch.setattr(tk._build, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(tk, "span", Span)
+    monkeypatch.setattr(tk, "_PLANS", {})
+    for name in ("_lib", "_wg_lib", "_stream_lib", "_rtc_lib"):
+        monkeypatch.setattr(tk, name, lambda: lib)
+    tk.reset_launches()
+    yield calls
+    tk.reset_launches()
+
+
+def _stub_problem(dims, P=10, D=0):
+    """Zero inputs of these widths, the weights stacked D deep when D."""
+    lead = (D,) if D else ()
+    ws = []
+    for l in range(len(dims) - 1):
+        ws += [torch.zeros(*lead, dims[l + 1], dims[l]), torch.zeros(*lead, dims[l + 1])]
+    return torch.zeros(P, dims[0]), ws, torch.zeros(*lead, P, 1)
+
+
+@pytest.mark.parametrize("dims,weighted,absmax,route,entry", [
+    ((128, 128, 1), False, False, "wg", "siren_loss_grads_wg_f32"),
+    ((2, 64, 64, 1), True, False, "stream", "siren_loss_grads_stream"),
+    ((2, 128, 128, 128, 1), False, True, "stream", "siren_loss_grads_stream"),
+    ((3, 10, 7, 1), True, True, "simt", "siren_loss_grads_f32"),
+    ((128, 128, 1), True, False, "simt", "siren_loss_grads_f32"),
+])
+def test_k1_every_route_launches_inside_the_launch_span(card_stubs, dims, weighted, absmax,
+                                                        route, entry):
+    """The K1 wrapper's dispatch for a CUDA tensor (the libraries stubbed,
+    this machine has no card): each route's ctypes call, the streaming and
+    the SIMT one too, runs inside ``kernel.launch``; one count under its
+    route's key, no other."""
+    x, ws, t = _stub_problem(dims)
+    acts = SIREN_ACTS(len(dims) - 2)
+    assert tk.k1_route(dims, acts, weighted, absmax) == route
+    out = tk.siren_loss_grads(x, ws, t, acts=acts, sample_weights=t if weighted else None,
+                              with_out_absmax=absmax)
+    assert [g.shape for g in out[-1]] == [w.shape for w in ws]
+    assert card_stubs == [(entry, ("kernel.launch",))]
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES},
+                           tk.loss_grads_key(weighted, absmax, route): 1}
+
+
+_ENTRY_CALLS = {
+    "siren_loss_grads_wg_f32": lambda x, ws, t: tk.siren_loss_grads(x, ws, t),
+    "siren_forward_wg": lambda x, ws, t: tk.siren_forward(x, ws),
+    "siren_fused_bwd_wg": lambda x, ws, t: tk.siren_fused_bwd(x, ws, t, need_dw=False),
+    "siren_fused_bwd_wg+dw": lambda x, ws, t: tk.siren_fused_bwd(x, ws, t),
+    "siren_loss_grads_stream": lambda x, ws, t: tk.siren_loss_grads(x, ws, t, sample_weights=t),
+    "siren_loss_grads_f32": lambda x, ws, t: tk.siren_loss_grads(x, ws, t),
+    "siren_forward_f32": lambda x, ws, t: tk.siren_forward(x, ws),
+    "siren_fused_bwd_f32": lambda x, ws, t: tk.siren_fused_bwd(x, ws, t),
+    "siren_loss_grads_wg": lambda x, ws, t: tk.siren_loss_grads_batched(x, ws, t),
+    "siren_loss_grads_rtc": lambda x, ws, t: tk.siren_loss_grads_batched(x, ws, t,
+                                                                         sample_weights=t),
+}
+
+
+@pytest.mark.parametrize("entry,dims,D", [
+    ("siren_loss_grads_wg_f32", (128, 128, 1), 0), ("siren_forward_wg", (128, 128, 1), 0),
+    ("siren_fused_bwd_wg", (128, 128, 1), 0), ("siren_fused_bwd_wg+dw", (128, 128, 1), 0),
+    ("siren_loss_grads_stream", (2, 64, 64, 1), 0), ("siren_loss_grads_f32", (3, 10, 7, 1), 0),
+    ("siren_forward_f32", (3, 10, 7, 1), 0), ("siren_fused_bwd_f32", (3, 10, 7, 1), 0),
+    ("siren_loss_grads_wg", (128, 128, 1), 2), ("siren_loss_grads_rtc", (2, 64, 64, 1), 3),
+])
+def test_two_calls_of_a_route_build_one_plan(card_stubs, entry, dims, D):
+    """Every SIREN route builds its call plan on a shape's first call and
+    reuses it: two calls, one ``_PLANS`` entry, two launches of the
+    route's entry, each inside ``kernel.launch``."""
+    x, ws, t = _stub_problem(dims, D=D)
+    for _ in range(2):
+        _ENTRY_CALLS[entry](x, ws, t)
+    name = entry.split("+")[0]
+    assert [p.entry for p in tk._PLANS.values()] == [name]
+    assert card_stubs == [(name, ("kernel.launch",))] * 2
+
+
+def test_k1_route_of_the_models():
+    """Unbatched, the 2-D ensemble's Siren(2, 64, 6) with sample weights and
+    the soft-ERD SirenERD(2, 128, 3) trunk with max |out| (and, at the same
+    widths, either with ReLU codes or without options) take the streaming
+    route; the 3-D pipeline's Siren the tensor-core route, and with sample
+    weights the SIMT route."""
     def dims_of(model, d_in):
         return (d_in,) + tuple(int(w.shape[0]) for w in model.weights()[0::2])
 
-    assert tk.resident_route(dims_of(Siren(2, 64, 6), 2))
-    assert not tk.resident_route(dims_of(SirenERD(2, 128, 3), 2))
-    assert not tk.resident_route(dims_of(Siren(256, 512, 3), 256))
+    master, erd, ref = Siren(2, 64, 6), SirenERD(2, 128, 3), Siren(256, 512, 3)
+    for model in (master, erd):
+        for weighted, absmax in ((False, False), (True, False), (False, True), (True, True)):
+            assert tk.k1_route(dims_of(model, 2), model.acts, weighted, absmax) == "stream"
+    relu = ("sine",) * 5 + ("relu", "relu", "none")
+    assert tk.k1_route(dims_of(master, 2), relu, weighted=True) == "stream"
+    assert tk.k1_route(dims_of(ref, 256), ref.acts) == "wg"
+    assert tk.k1_route(dims_of(ref, 256), ref.acts, weighted=True) == "simt"
 
 
 def test_k2_k3_route_of_the_models():
