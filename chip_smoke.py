@@ -60,8 +60,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tensor-core route ``csrc/wire_tc.cu``, twice for the same bits, the SIMT
    ones for the record, and a 20-step Adam fit (lr 1e-3) of the WIRE path's
    network from one init, K4's route against the plain K4, loss by loss; K6
-   ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32
-   and on ragged shapes; K7 ``conv3d_rfab_bwd`` (dx, dW, db) at the seven
+   ``conv3d_rfab`` at the seven shapes of the MISR path in bf16 and float32,
+   at the seven forward shapes of the training path in bf16 and on ragged
+   shapes, every bf16 call of the two paths on the wgmma kernel, held also
+   to the mma.sync kernel ``conv3d_tc_kernel`` (the share of bit-equal
+   outputs) and twice for the same bits; K7 ``conv3d_rfab_bwd`` (dx, dW, db) at the seven
    shapes of the training path in bf16 and float32 and on ragged shapes;
    G1 ``rfab_gate`` (``csrc/rams_gate.cu``) at the four RFAB shapes of the
    MISR path in bf16 against the eager chain (``RFAB.gate_eager``): the
@@ -110,8 +113,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    two seeded synthetic cases (b0 (128, 128, 24), 27 acquisitions, 25
    draws) with the committed RAMS checkpoint at full width in bf16 with
    ``conv_kernel=True``: DICOMs, timings.json, finite (384, 384) outputs in
-   [0, 65536], exactly 34 K6 launches and 15 G1 gates per case (no eager
-   RFAB gate) and no other kernel;
+   [0, 65536], exactly 34 K6 launches, all 34 on the wgmma kernel, and 15
+   G1 gates per case (no eager RFAB gate) and no other kernel;
    the same cases on the library route and in float32 bound the route gap;
    then the MISR trainer, ``cli/train_misr.main`` at full width (filters 32,
    N 12, bf16, ``--conv_kernel``, batch 32, hr 96) on three seeded
@@ -208,8 +211,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (profiled in a fresh process) beside their product bound and bytes);
    K6 and K7 with their library calls in three alternating rounds, best of
    each, the ratios to the library and to the bound printed at every path
-   shape; G1 and the eager chain it replaces in three alternating rounds at
-   the four RFAB shapes, beside its plain version and its bound (x, res and
+   shape, K6's wgmma and mma.sync kernels in three alternating rounds at
+   each serving shape and summed over a case's 34 launches; G1 and the
+   eager chain it replaces in three alternating rounds at the four RFAB
+   shapes, beside its plain version and its bound (x, res and
    the output moved once at 3.35 TB/s), and its three passes by time; P1 also at GRID 256, whose time must be about half; the
    per-update costs of the two 2-D paths (a K1 call on either route, an
    Adam step, a whole update, ``fit_until``'s per-step read-back, the
@@ -1346,24 +1351,65 @@ def _k6_check(out, ref, what: str, kernel: str = "K6 conv3d_rfab") -> float:
     return err
 
 
+def _k6_routes(x, w, b, pad: str, what: str) -> float:
+    """bf16 K6 at C = Cout = 32 (the wgmma kernel, through the wrapper)
+    against the mma.sync kernel ``conv3d_tc_kernel`` on the same call: the
+    share of outputs bit-equal, and two wrapper calls the same bits.
+    Returns the share."""
+    import torch
+
+    from mri_super_resolution_tpu_torch.ops import _build
+    from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
+
+    lib = ck._lib()
+    before = dict(ck.LAUNCHES)
+    got = ck.conv3d_rfab(x, w, b, pad)
+    again = ck.conv3d_rfab(x, w, b, pad)
+    _require(ck.LAUNCHES["conv3d_rfab_wg"] - before["conv3d_rfab_wg"] == 2,
+             f"K6 {what}: the calls did not take the wgmma kernel")
+    sync = ck._launch(lib, x, w.to(x.dtype), b, pad, _build.stream_ptr(),
+                      fn=lib.conv3d_rfab_bf16)
+    share = float((got == sync).float().mean())
+    print(f"[parity] K6 {what}: wgmma vs mma.sync kernel bit-equal in {share:.6f} of the "
+          f"outputs, max abs gap {float((got.float() - sync.float()).abs().max()):.3e}; two "
+          f"calls the same bits: {torch.equal(got, again)}")
+    _require(torch.equal(got, again), f"K6 gave other bits on a second call ({what})")
+    return share
+
+
 def phase_k6_parity() -> float:
     """K6 against its plain version at the seven MISR path shapes in bf16
-    and float32, and on ragged shapes (B 1, H != W, odd sizes, C 8 and 16,
-    SAME and VALID); returns the max abs error over the path's bf16 calls."""
+    and float32, at the seven training path shapes in bf16, and on ragged
+    shapes (B 1, H != W, odd sizes, C 8 and 16, SAME and VALID); every bf16
+    call of the two paths (C = Cout = 32) on the wgmma kernel, also held to
+    the mma.sync kernel ``conv3d_tc_kernel`` (the share of bit-equal
+    outputs) and repeated for the same bits. Returns the max abs error over the serving path's bf16
+    calls."""
     import torch
 
     from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
 
     err = 0.0
+    shares = []
     with torch.no_grad():
         for i, (shape, pad, _) in enumerate(K6_SHAPES):
             for dtype in (torch.bfloat16, torch.float32):
                 x, w, b = _k6_inputs(shape, dtype, seed=i)
+                what = f"{shape} {pad} {str(dtype)[6:]}"
                 e = _k6_check(ck.conv3d_rfab(x, w, b, pad), ck.conv3d_rfab_ref(x, w, b, pad),
-                              f"{shape} {pad} {str(dtype)[6:]}")
+                              what)
                 if dtype == torch.bfloat16:
                     err = max(err, e)
+                    shares.append(_k6_routes(x, w, b, pad, what))
                 del x
+        for i, (shape, pad, _) in enumerate(TRAIN_SHAPES):
+            x, w, b = _k6_inputs(shape, torch.bfloat16, seed=50 + i)
+            what = f"{shape} {pad} bfloat16 (training)"
+            _k6_check(ck.conv3d_rfab(x, w, b, pad), ck.conv3d_rfab_ref(x, w, b, pad), what)
+            shares.append(_k6_routes(x, w, b, pad, what))
+            del x
+        print(f"[parity] K6 wgmma vs mma.sync kernel over the 14 path shapes: bit-equal in "
+              f"{min(shares):.6f}-{max(shares):.6f} of the outputs")
         for shape, pad in (((1, 37, 21, 5, 8), "SAME"), ((1, 19, 45, 7, 16), "VALID"),
                            ((1, 3, 5, 3, 16), "VALID")):
             for dtype in (torch.bfloat16, torch.float32):
@@ -1541,11 +1587,12 @@ def _run_misr(cases, cfg, state_dict, out_dir: str):
     predict_case = misr.predict_case
 
     def recording(*args, **kwargs):
-        before = ck.LAUNCHES["conv3d_rfab"]
+        before = dict(ck.LAUNCHES)
         gates = dict(rg.LAUNCHES)
         out = predict_case(*args, **kwargs)
-        per_case.append((out, ck.LAUNCHES["conv3d_rfab"] - before,
-                         {k: rg.LAUNCHES[k] - gates[k] for k in gates}))
+        per_case.append((out, ck.LAUNCHES["conv3d_rfab"] - before["conv3d_rfab"],
+                         {k: rg.LAUNCHES[k] - gates[k] for k in gates},
+                         ck.LAUNCHES["conv3d_rfab_wg"] - before["conv3d_rfab_wg"]))
         return out
 
     misr.predict_case = recording
@@ -1586,7 +1633,7 @@ def phase_misr_main(out_dir: str) -> dict:
     sd = convert.rams_state_dict(convert.load_params_npz(convert.RAMS_PARAMS_NPZ))
     cfg = RAMSConfig(conv_kernel=True)
     per_case, launches, wall = _run_misr(cases, cfg, sd, out_dir)
-    for case, ((mean_pred, adc), n, gates) in zip(cases, per_case):
+    for case, ((mean_pred, adc), n, gates, wg) in zip(cases, per_case):
         base = os.path.join(out_dir, "smoke", case.pt_no)
         _require(all(os.path.isfile(os.path.join(base, k, "mean.dcm")) for k in ("DWI", "ADC")),
                  f"no DICOMs for case {case.pt_no}")
@@ -1596,10 +1643,11 @@ def phase_misr_main(out_dir: str) -> dict:
         _require(bool(np.isfinite(adc).all()), "ADC finite")
         _require(n == K6_PER_FORWARD, f"K6 launched {n} times for case {case.pt_no}, "
                  f"expected {K6_PER_FORWARD}")
+        _require(wg == n, f"{wg} of case {case.pt_no}'s {n} K6 launches on the wgmma kernel")
         _require(gates == {"rfab_gate": G1_PER_FORWARD, "rfab_gate_eager": 0},
                  f"RFAB gates {gates} for case {case.pt_no}, expected {G1_PER_FORWARD} on G1")
     for name, n in launches.items():
-        want = K6_PER_FORWARD * len(cases) if name == "conv3d_rfab" else 0
+        want = K6_PER_FORWARD * len(cases) if name in ("conv3d_rfab", "conv3d_rfab_wg") else 0
         _require(n == want, f"{name} launched {n} times on the MISR path, expected {want}")
     timings = json.load(open(os.path.join(out_dir, "smoke", "timings.json")))
     _require(timings["platform"] == "cuda", "timings.json platform")
@@ -1613,19 +1661,20 @@ def phase_misr_main(out_dir: str) -> dict:
                     ("float32", dataclasses.replace(cfg, conv_kernel=False,
                                                     compute_dtype="float32"))):
         pc, _, _ = _run_misr(cases, c, sd, os.path.join(out_dir, name))
-        for case, (_, n, gates) in zip(cases, pc):
+        for case, (_, n, gates, _) in zip(cases, pc):
             _require(n == 0 and gates == {"rfab_gate": G1_PER_FORWARD, "rfab_gate_eager": 0},
                      f"{name} route, case {case.pt_no}: K6 {n}, RFAB gates {gates}, expected "
                      f"no K6 and {G1_PER_FORWARD} on G1")
-        route[name] = [out[0] for out, _, _ in pc]
-    k6 = [out[0] for out, _, _ in per_case]
+        route[name] = [out[0] for out, _, _, _ in pc]
+    k6 = [out[0] for out, _, _, _ in per_case]
     gap = max(float(np.abs(a - b).max()) for a, b in zip(k6, route["library"]))
     own = max(float(np.abs(a - b).max()) for a, b in zip(route["library"], route["float32"]))
     print(f"[main misr] mean_pred, K6 route vs library route: max abs {gap:.2f}; library "
           f"bf16 vs float32: {own:.2f} (tol: route gap <= 2x that)")
     _require(gap <= 2 * own, "the K6 and library routes differ beyond the bf16 bound")
     return {"conv3d_rfab": launches["conv3d_rfab"],
-            "rfab_gate": sum(g["rfab_gate"] for _, _, g in per_case)}
+            "conv3d_rfab_wg": launches["conv3d_rfab_wg"],
+            "rfab_gate": sum(g["rfab_gate"] for _, _, g, _ in per_case)}
 
 
 def _all_counts() -> dict:
@@ -2291,8 +2340,12 @@ def phase_k6_times(err: float, launches: dict) -> dict:
 
     from mri_super_resolution_tpu_torch.ops import conv3d_kernel as ck
 
+    from mri_super_resolution_tpu_torch.ops import _build
+
     row = None
-    per_forward = {"kernel": 0.0, "library": 0.0}
+    per_forward = {"kernel": 0.0, "library": 0.0, "wgmma": 0.0, "mma.sync": 0.0, "bound": 0.0}
+    lib = ck._lib()
+    stream = _build.stream_ptr()
     with torch.no_grad():
         for i, (shape, pad, n) in enumerate(K6_SHAPES):
             x, w, b = _k6_inputs(shape, torch.bfloat16, seed=i)
@@ -2309,14 +2362,26 @@ def phase_k6_times(err: float, launches: dict) -> dict:
                           lambda: F.conv3d(xt, wt, bb, padding=pad.lower()),
                           flops, nbytes, f"{shape} {pad}", {"conv3d_rfab": err}, launches,
                           peak=PEAK_BF16_TC, reps=5, rounds=3)
+            wg_ms, sync_ms = _best_alternating(
+                lambda: ck._launch(lib, x, wb, b, pad, stream, fn=lib.conv3d_rfab_bf16_wg),
+                lambda: ck._launch(lib, x, wb, b, pad, stream, fn=lib.conv3d_rfab_bf16), 5, 3)
+            print(f"[times] K6 {shape} {pad}, the two kernels in turns (best of 3): wgmma "
+                  f"{wg_ms:.3f} ms, mma.sync {sync_ms:.3f} ms, bound {r['bound_ms']:.3f} ms; "
+                  f"wgmma/mma.sync {wg_ms / sync_ms:.3f}, wgmma/bound "
+                  f"{wg_ms / r['bound_ms']:.2f}")
             per_forward["kernel"] += n * r["ms"]
             per_forward["library"] += n * r["library_ms"]
+            per_forward["wgmma"] += n * wg_ms
+            per_forward["mma.sync"] += n * sync_ms
+            per_forward["bound"] += n * r["bound_ms"]
             if row is None:
                 row = r
             del x, xt
         torch.cuda.empty_cache()
     print(f"[times] K6 per RAMS forward (34 launches): kernel {per_forward['kernel']:.2f} ms, "
-          f"F.conv3d {per_forward['library']:.2f} ms")
+          f"F.conv3d {per_forward['library']:.2f} ms; in turns: wgmma "
+          f"{per_forward['wgmma']:.2f} ms, mma.sync {per_forward['mma.sync']:.2f} ms, bound "
+          f"{per_forward['bound']:.2f} ms")
     return row
 
 
@@ -2509,7 +2574,7 @@ def phase_small_train(out_dir: str) -> None:
           f"(tol {6 * lr:g}); launches {launches}")
     _require(bool(np.allclose(lg, lc, rtol=1e-4, atol=0)), "small RAMS loss trace disagrees")
     _require(perr <= 2 * lr * 3, "small RAMS params disagree after 3 steps")
-    _require(launches == {"conv3d_rfab": 3 * 12, "conv3d_rfab_bwd": 3 * 12},
+    _require(launches == {"conv3d_rfab": 3 * 12, "conv3d_rfab_bwd": 3 * 12, "conv3d_rfab_wg": 0},
              f"small RAMS training launches {launches}")
 
 
@@ -2593,16 +2658,18 @@ def phase_train_main(out_dir: str):
              f"{len(steps)} optimizer steps, expected {TRAIN_STEPS}")
     for i, d in enumerate(steps):
         for name, n in d.items():
-            want = K6_PER_FORWARD if name in ("conv3d_rfab", "conv3d_rfab_bwd") else 0
+            want = K6_PER_FORWARD if name in ("conv3d_rfab", "conv3d_rfab_bwd",
+                                              "conv3d_rfab_wg") else 0
             _require(n == want, f"step {i + 1}: {name} launched {n} times, expected {want}")
     _require(len(vals) == TRAIN_VAL_PASSES, f"{len(vals)} validation passes")
     val_batches = sum(nb for _, nb in vals)
     for d, nb in vals:
         for name, n in d.items():
-            want = K6_PER_FORWARD * nb if name == "conv3d_rfab" else 0
+            want = K6_PER_FORWARD * nb if name in ("conv3d_rfab", "conv3d_rfab_wg") else 0
             _require(n == want, f"validation: {name} launched {n} times, expected {want}")
     for name, n in launches.items():
         want = {"conv3d_rfab": K6_PER_FORWARD * (TRAIN_STEPS + val_batches),
+                "conv3d_rfab_wg": K6_PER_FORWARD * (TRAIN_STEPS + val_batches),
                 "conv3d_rfab_bwd": K6_PER_FORWARD * TRAIN_STEPS}.get(name, 0)
         _require(n == want, f"{name} launched {n} times on the training path, expected {want}")
     rows = np.loadtxt(os.path.join(logs, "RAMS_scalars.csv"), delimiter=",", skiprows=1,
@@ -4226,10 +4293,12 @@ def phase_sharded(P: int, dims, out_dir: str, erd_target) -> dict:
                  f"rank {r['rank']}: {r['train_step']} trainer steps")
         for i, (_, d, rows, _) in enumerate(r["train_steps"]):
             _require(rows <= TRAIN_BATCH // 2, f"rank {r['rank']} step {i + 1}: {rows} rows")
-            _check_only(d, {"conv3d_rfab": K6_PER_FORWARD, "conv3d_rfab_bwd": K6_PER_FORWARD},
+            _check_only(d, {"conv3d_rfab": K6_PER_FORWARD, "conv3d_rfab_wg": K6_PER_FORWARD,
+                            "conv3d_rfab_bwd": K6_PER_FORWARD},
                         f"trainer step {i + 1} (rank {r['rank']})")
         _check_only(r["train_launches"], {
             "conv3d_rfab": K6_PER_FORWARD * (2 + 2 * r["train_val_batches"]),
+            "conv3d_rfab_wg": K6_PER_FORWARD * (2 + 2 * r["train_val_batches"]),
             "conv3d_rfab_bwd": K6_PER_FORWARD * 2}, f"trainer (rank {r['rank']})")
         for key in ("k1_losses", "ragged_losses", "tp_losses"):
             _require(np.array_equal(r[key], r0[key]), f"{key}: the ranks disagree")

@@ -32,9 +32,37 @@
 // forward's 18.4 GFLOP, 0.037 ms for the two at 989 TFLOP/s.
 //
 // bfloat16 (every main path: RAMSConfig.compute_dtype is "bfloat16") runs on
-// the tensor cores, mma.sync m16n8k16 with float32 accumulators
-// (csrc/tensor_core.cuh), as an implicit GEMM: M = output pixels, N = Cout,
-// K = 27 C.
+// the tensor cores as an implicit GEMM, M = output pixels. The forward at C
+// = Cout = 32 (every RAMS call, serving and training: ops/conv3d_kernel.py's
+// wg_route) runs conv3d_wg_kernel on wgmma; other widths and K7's dx run
+// conv3d_tc_kernel on mma.sync m16n8k16 (N = Cout, K = 27 C), float32
+// accumulators in both (csrc/tensor_core.cuh).
+//   * K6 on wgmma (conv3d_wg_kernel): the three temporal taps side by side,
+//     N = 3 Cout = 96: for each input t-plane and spatial tap (dy, dx), B is
+//     [W(dy, dx, 0) | W(dy, dx, 1) | W(dy, dx, 2)] and A the plane's
+//     flat-plane rows (below) shifted by dy wq + dx, so each input plane is
+//     read from shared memory once, not three times. Per m64 x k16 step A is
+//     2 KB and B 3 KB of shared-memory reads (40 clocks at 128 B/clock)
+//     against 48 clocks of tensor work: the tensor cores bound the products.
+//     The accumulator's three 32-column blocks hold t_out, t_out - 1 and
+//     t_out - 2; after each plane the finished one is stored and the other
+//     two move up a block (32 register moves a thread a plane). A persistent
+//     block an SM walks units of (b, strip of at most 44 columns, tile of 256
+//     rows) with all To outputs of a unit; a producer thread keeps a ring of
+//     plane halos in flight with TMA (per 8-channel chunk, the whole padded
+//     image rows the halo spans, each chunk a run of rows 16 bytes apart, so
+//     that the unswizzled wgmma descriptor can start at any row; zero fill
+//     at the SAME border), four consumer warpgroups each run one m64 tile as
+//     one commit group of 18 m64n96k16 a plane and store the block the plane
+//     before finished (float32 bias, one round-to-nearest bf16, 4-byte
+//     stores) while it runs. The kernel (55,296 B, 64-byte swizzled K-major)
+//     is staged once a block. The sums run in conv3d_tc_kernel's order (for
+//     each output dz 0, 1, 2; in a plane tap by tap, then k16 by k16), and on
+//     an H100 the
+//     two kernels' outputs are equal bit for bit. What bounds it there: the
+//     halo loads (the products alone, loads cut, ran at 1.38x the bound, the
+//     kernel at about 1.8x): narrower strips cut the halo rows a unit loads
+//     (522 for 256 outputs at 130 columns, 350 at 44), TMA cut them further.
 //   * Flat-plane tiles (the TPU kernel's idea, :10-22): the output plane is
 //     cut into strips of sw columns (all of Wo when the strip's halo fits in
 //     shared memory, as at every path shape) and each strip flattened with
@@ -45,7 +73,8 @@
 //     Computed rows per output pixel: 130 x 132 rows in 68 tiles for 130 x
 //     130 (1.03x) at serving, 34 x 36 in 5 tiles for 34 x 34 (1.11x) at
 //     training.
-//   * K6 forward: a block owns one (b, strip, tile, 32 output channels) and
+//   * K6 on mma.sync (conv3d_tc_kernel): a block owns one (b, strip, tile,
+//     32 output channels) and
 //     walks a run of t_out (all of To at serving; runs of 3 at training,
 //     toward three waves of blocks). The whole kernel, transposed to rows of
 //     27 Cp values per output channel (Cp = C rounded up to 16,
@@ -730,6 +759,274 @@ int launch_tc(const uint16_t* x, int B, int H, int W, int Tin, int C, const uint
   return -1;
 }
 
+// ---- bfloat16: K6 at C = Cout = 32 on wgmma ---------------------------------
+
+constexpr int WK_C = 32;                       // input and output channels of the route
+constexpr int WK_CONSUMERS = 4 * 128;          // four warpgroups, an m64 tile of the unit each
+constexpr int WK_THREADS = WK_CONSUMERS + 128;  // and the producer warpgroup
+// registers a thread after setmaxnreg, within the block's 640 x 96 (launch
+// bounds): 512 x 104 + 128 x 40
+constexpr int WK_CONSUMER_REGS = 104;
+constexpr int WK_PRODUCER_REGS = 40;
+static_assert(64 * WK_CONSUMERS / 128 == TM, "a unit is one flat-plane tile");
+constexpr int WK_TAP_BYTES = 3 * WK_C * WK_C * 2;  // B of one (dy, dx): 96 rows of 64 bytes
+constexpr int WK_W_BYTES = 9 * WK_TAP_BYTES;       // 55,296: the whole kernel
+// Strips of up to WK_SW columns. A stage holds, for each 8-channel chunk,
+// the rows (16 bytes each) of the whole padded image rows that a unit's
+// halo spans: at most WK_ROWS at WK_SW (420 at wq 46), so that every operand
+// offset but dy wq and the unit's first row is a constant.
+constexpr int WK_SW = 44;
+constexpr int WK_ROWS = 424;
+constexpr int WK_CHUNK = WK_ROWS * 16;  // bytes of one 8-channel chunk of a stage
+constexpr int WK_STAGES = 6;            // the ring's stages
+constexpr int WK_SMEM = 1024 + WK_W_BYTES + WK_STAGES * 4 * WK_CHUNK + 16 * WK_STAGES;
+static_assert(WK_SMEM <= SMEM_LIMIT, "the kernel and the ring in one block's shared memory");
+
+// Units (b, strip, tile) of TM flat-plane rows; a stage holds one input
+// t-plane's halo of a unit: ny whole image rows of the strip's padded width
+// (one TMA box a chunk), each of its four 8-channel chunks a run of rows 16
+// bytes apart.
+struct WkPlan {
+  int Ho, Wo, To;
+  Strips st;
+  int ny, units;
+};
+
+void wk_plan(WkPlan* p, int B, int H, int W, int T, int pad) {
+  p->Ho = H + 2 * pad - 2;
+  p->Wo = W + 2 * pad - 2;
+  p->To = T + 2 * pad - 2;
+  p->st = strips_of(p->Ho, p->Wo, WK_SW);
+  p->ny = (p->st.wq - 1 + p->st.halo - 1) / p->st.wq + 1;  // image rows a halo may span
+  p->units = B * p->st.strips * p->st.tiles;
+}
+
+// Input plane pt (padded index) adds to outputs pt, pt - 1 and pt - 2
+// (temporal taps dz 0, 1, 2): its products put column block dz of N = 96
+// in accumulator block dz, which holds output pt - dz. After a plane's
+// group is done, block 2 (output pt - 2) is complete: at the next plane it
+// is copied out (and stored while that plane's group runs), blocks 0 and 1
+// move up one and block 0 starts at zero. (An operand list permuted by pt %
+// 3 instead would have the compiler copy the accumulators into one
+// contiguous register range for every wgmma, and serialize them.)
+
+// A finished accumulator block, v[OFF .. OFF + 15] (columns 8 i + 2 q (+
+// 1), rows l / 4 (+ 8) of the warp's 16), as output t: the float32 bias,
+// one rounding to bf16, a 4-byte store a pair of channels; rows off the
+// plane are skipped. (OFF is a template argument so that the accumulators
+// stay registers.)
+template <int OFF, int N>
+__device__ __forceinline__ void wk_store(uint16_t* const (&orow)[2], int t, const float (&v)[N],
+                                         const float (&bv)[4][2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (orow[h] == nullptr) continue;
+    uint16_t* o = orow[h] + t * WK_C;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<unsigned*>(o + 8 * i) =
+          bf16x2_rn(v[OFF + 4 * i + 2 * h] + bv[i][0], v[OFF + 4 * i + 2 * h + 1] + bv[i][1]);
+  }
+}
+
+// Grid: min(units, SMs) persistent blocks; block i walks units i, i +
+// gridDim.x, ... (unit u: tile u % tiles, strip u / tiles % strips, b the
+// rest). Warpgroup 4 is the producer: one of its threads loads each present
+// input plane's halo of the unit into the next ring stage with four TMA
+// boxes (x as a 5-D tensor (C, T, W, H, B): 8 channels x 1 plane x wq columns
+// x ny rows, zero outside the input), their bytes completing on the stage's
+// full barrier. Consumer warpgroup g owns tile rows 64 g .. 64 g + 63; for
+// each plane it commits one group of 18 wgmma m64n96k16 (the 9 taps (dy,
+// dx), each two k16 steps: A the plane's rows shifted by dy wq + dx, B the
+// taps (dy, dx, 0..2) side by side), stores the block the plane before
+// finished while the group runs, waits for it and frees the stage. Each
+// group starts and ends inside its plane's iteration, with no branch around
+// a wgmma: otherwise the compiler serializes them.
+__global__ void __launch_bounds__(WK_THREADS, 1) conv3d_wg_kernel(
+    const __grid_constant__ CUtensorMap xmap, const uint16_t* __restrict__ w,
+    const float* __restrict__ bias, uint16_t* __restrict__ out, int Tin, int pad, WkPlan p) {
+#ifdef __CUDACC__
+  extern __shared__ __align__(1024) unsigned char smem_wk_raw[];
+#else
+  alignas(1024) __shared__ unsigned char smem_wk_raw[SMEM_LIMIT];
+  emu_poison_shared(smem_wk_raw, sizeof smem_wk_raw);
+#endif
+  unsigned char* smem = smem_wk_raw + ((1024 - (shared_addr(smem_wk_raw) & 1023)) & 1023);
+  unsigned char* s_w = smem;                  // [9 (dy, dx)][96 (dz, co)][32 c], 64-byte swizzled
+  unsigned char* ring = smem + WK_W_BYTES;    // [stages][4 chunks][chunk bytes]
+  constexpr int stage_bytes = 4 * WK_CHUNK;
+  constexpr int S = WK_STAGES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * stage_bytes);
+  uint64_t* empty = full + S;
+  const Strips st = p.st;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);                       // the producer's, with the boxes' bytes
+      mbar_init(&empty[s], WK_CONSUMERS / 32);      // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  // The kernel, once a block: row n = 32 dz + co of tap (dy, dx) holds
+  // w[dy][dx][dz][0 .. 31][co], 16-byte chunk c of the row at chunk c ^
+  // ((n / 2) % 4) (the 64-byte swizzle). Two 16-byte loads of w (channels
+  // c and c + 1 of 8 output channels) give 8 words of 8 rows.
+  for (int i = tid; i < 27 * (WK_C / 2) * (WK_C / 8); i += WK_THREADS) {
+    const int co8 = i & 3;
+    const int c = ((i >> 2) & 15) * 2;
+    const int tap = i >> 6;  // (dy, dx, dz)
+    const Bits128* src = reinterpret_cast<const Bits128*>(w + (tap * WK_C + c) * WK_C + co8 * 8);
+    const Bits128 lo = src[0], hi = src[WK_C / 8];
+    const unsigned a[4] = {lo.a, lo.b, lo.c, lo.d};
+    const unsigned h[4] = {hi.a, hi.b, hi.c, hi.d};
+    unsigned char* row0 = s_w + tap / 3 * WK_TAP_BYTES;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int n = tap % 3 * WK_C + co8 * 8 + e;
+      const unsigned v = e & 1 ? (a[e >> 1] >> 16) | (h[e >> 1] & 0xffff0000u)
+                               : (a[e >> 1] & 0xffffu) | (h[e >> 1] << 16);
+      *reinterpret_cast<unsigned*>(row0 + n * 64 + ((((c >> 3) ^ (n >> 1)) & 3) << 4) +
+                                   (c & 7) * 2) = v;
+    }
+  }
+  fence_proxy_async();  // the kernel's writes, visible to wgmma
+  __syncthreads();
+
+  if (tid >= WK_CONSUMERS) {  // the producer warpgroup: one thread loads
+    setmaxnreg_dec<WK_PRODUCER_REGS>();
+    if (tid != WK_CONSUMERS) return;
+    const unsigned box_bytes = 16 * st.wq * p.ny;
+    int stage = 0;
+    unsigned phase = 0;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      const int r0 = u % st.tiles * TM;
+      const int xs0 = u / st.tiles % st.strips * st.sw;
+      const int b = u / (st.tiles * st.strips);
+      for (int pt = pad; pt < pad + Tin; ++pt) {
+        mbar_wait(&empty[stage], phase ^ 1u);
+        mbar_arrive_expect_tx(&full[stage], 4 * box_bytes);
+        unsigned char* dst = ring + stage * stage_bytes;
+        for (int c = 0; c < 4; ++c)
+          tma_load_5d(dst + c * WK_CHUNK, &xmap, 8 * c, pt - pad, xs0 - pad, r0 / st.wq - pad, b,
+                      &full[stage]);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<WK_CONSUMER_REGS>();
+  const int g = tid >> 7;  // rows 64 g .. 64 g + 63 of the tile
+  const int wq4 = (tid >> 5) & 3;
+  const int l = tid & 31;
+  const int q = l & 3;
+  float bv[4][2];  // this thread's output channels 8 i + 2 q (+ 1) and their bias
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bv[i][e] = bias ? bias[8 * i + 2 * q + e] : 0.f;
+  float acc[48];  // the fragment: blocks dz 0, 1, 2 of 16
+  const uint64_t b_desc = wgmma_desc_sw64(s_w);
+  int stage = 0;
+  unsigned phase = 0;
+
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int r0 = u % st.tiles * TM;
+    const int xs0 = u / st.tiles % st.strips * st.sw;
+    const long long b = u / (st.tiles * st.strips);
+    const int a0 = r0 % st.wq;  // the tile's first row in its stage (whole image rows)
+    // this thread's output rows 64 g + 16 wq4 + l / 4 + 8 h of the tile:
+    // their channels 2 q of t_out 0, or null off the plane
+    uint16_t* orow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int fr = r0 + 64 * g + 16 * wq4 + (l >> 2) + 8 * h;
+      const int y = fr / st.wq;
+      const int xl = fr - y * st.wq;
+      const int xo = xs0 + xl;
+      orow[h] = y < p.Ho && xl < st.sw && xo < p.Wo
+                    ? out + ((b * p.Ho + y) * p.Wo + xo) * p.To * WK_C + 2 * q
+                    : nullptr;
+    }
+#pragma unroll
+    for (int i = 0; i < 48; ++i) acc[i] = 0.f;
+    // the present planes pad .. pad + Tin - 1 in turn (planes past the SAME
+    // border add nothing); at plane pt, block 2 holds output pt - 3, done
+    for (int pt = pad; pt < pad + Tin; ++pt) {
+      float done[16];
+      wgmma_fence_operands(acc);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {  // output pt - 3 out; pt - 2, pt - 1 move up; pt starts
+        done[i] = acc[32 + i];
+        acc[32 + i] = acc[16 + i];
+        acc[16 + i] = acc[i];
+        acc[i] = 0.f;
+      }
+      wgmma_fence_operands(acc);
+      const unsigned char* a_plane = ring + stage * stage_bytes;
+      mbar_wait(&full[stage], phase);
+      wgmma_fence();
+#pragma unroll 1
+      for (int dy = 0; dy < 3; ++dy) {
+        // A: the rows of tap (dy, dx) start dy wq + dx rows on; k16 step ks
+        // is chunks 2 ks and 2 ks + 1
+        const uint64_t a_dy =
+            wgmma_desc_plain(a_plane + (a0 + 64 * g + dy * st.wq) * 16, WK_CHUNK, 128);
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+            wgmma_bf16_m64n96k16(acc, a_dy + ((dx * 16 + ks * 2 * WK_CHUNK) >> 4),
+                                 b_desc + (((dy * 3 + dx) * WK_TAP_BYTES + ks * 32) >> 4));
+      }
+      wgmma_commit();
+      if (pt >= 3) wk_store<0>(orow, pt - 3, done, bv);  // while the group runs
+      wgmma_wait<0>();  // the plane's group is done: its stage is free
+      wgmma_fence_operands(acc);
+      if (l == 0) mbar_arrive(&empty[stage]);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    // the outputs still in the blocks: block k holds output pad + Tin - 1 - k
+    const int last = pad + Tin - 1;
+    if (last - 2 >= 0) wk_store<32>(orow, last - 2, acc, bv);
+    if (last - 1 < p.To) wk_store<16>(orow, last - 1, acc, bv);
+    if (last < p.To) wk_store<0>(orow, last, acc, bv);
+  }
+}
+
+int launch_wg(const uint16_t* x, int B, int H, int W, int Tin, int C, const uint16_t* w,
+              const float* bias, int Cout, int pad, uint16_t* out, cudaStream_t stream) {
+  if (C != WK_C || Cout != WK_C) return -1;
+  WkPlan p;
+  wk_plan(&p, B, H, W, Tin, pad);
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return (int)cudaGetLastError();
+  // x (B, H, W, T, C) as TMA sees it: (C, T, W, H, B), innermost first
+  CUtensorMap xmap;
+  const uint64_t dims[5] = {(uint64_t)C, (uint64_t)Tin, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint64_t row = 2ull * C;
+  const uint64_t strides[4] = {row, row * Tin, row * Tin * W, row * Tin * W * H};
+  const unsigned box[5] = {8, 1, (unsigned)p.st.wq, (unsigned)p.ny, 1};
+  const int m = encode_tensor_map(&xmap, 5, x, dims, strides, box, 0);
+  if (m != 0) return m;
+#ifdef __CUDACC__
+  const cudaError_t e =
+      cudaFuncSetAttribute(conv3d_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WK_SMEM);
+  if (e != cudaSuccess) return (int)e;
+#endif
+  LAUNCH_SMEM(conv3d_wg_kernel, std::min(p.units, sms), WK_THREADS, WK_SMEM, stream)(
+      xmap, w, bias, out, Tin, pad, p);
+  return (int)cudaGetLastError();
+}
+
 // ---- bfloat16: K7 dW and db on the tensor cores ------------------------------
 
 constexpr int WG_NT = 288;   // threads: 9 warps, one per (dy, dx) tap
@@ -961,11 +1258,19 @@ int conv3d_rfab_f32(const float* x, int B, int H, int W, int T, int C, const flo
   return launch_f32(x, B, H, W, T, C, w, bias, Cout, pad, 0, out, stream);
 }
 
-// The same on bfloat16 x, w and out (16-bit patterns); float32 sums.
+// The same on bfloat16 x, w and out (16-bit patterns); float32 sums; the
+// mma.sync kernel, any C and Cout of the contract.
 int conv3d_rfab_bf16(const uint16_t* x, int B, int H, int W, int T, int C,
                      const uint16_t* w, const float* bias, int Cout, int pad,
                      uint16_t* out, cudaStream_t stream) {
   return launch_tc(x, B, H, W, T, C, w, bias, Cout, pad, 0, out, stream);
+}
+
+// The same on the wgmma kernel; -1 unless C = Cout = 32.
+int conv3d_rfab_bf16_wg(const uint16_t* x, int B, int H, int W, int T, int C,
+                        const uint16_t* w, const float* bias, int Cout, int pad,
+                        uint16_t* out, cudaStream_t stream) {
+  return launch_wg(x, B, H, W, T, C, w, bias, Cout, pad, out, stream);
 }
 
 // Workspace slots of conv3d_rfab_bwd_f32 for x (B, H, W, T, .) and pad; the

@@ -11,14 +11,17 @@
 //   cp_async16, cp_async_commit, cp_async_wait
 //             cp.async.cg.shared.global of 16 bytes, zero-filled when the
 //             source is out of range, and its commit/wait groups
-//   wgmma_desc_sw128, wgmma_desc_sw64
+//   wgmma_desc_sw128, wgmma_desc_sw64, wgmma_desc_plain
 //             the shared-memory matrix descriptor of an operand in the
-//             128- or 64-byte swizzled layout (below)
+//             128- or 64-byte swizzled layout, or unswizzled (below)
 //   wgmma_bf16_m64n128k16, wgmma_s8_m64n128k32
 //             wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 and
 //             .m64n128k32.s32.s8.s8, both operands from shared memory, both
 //             K-major; wgmma_bf16_m64n128k16_t<TRANS_A, TRANS_B> the bf16 one
 //             with either operand MN-major (the instruction's transpose bits)
+//   wgmma_bf16_m64n96k16
+//             .m64n96k16.f32.bf16.bf16, both operands K-major from shared
+//             memory, always accumulating
 //   wgmma_fence, wgmma_commit, wgmma_wait, wgmma_fence_operands
 //             wgmma.fence / commit_group / wait_group, and a compiler-only
 //             fence that keeps the accumulators' reads after a wait
@@ -27,15 +30,18 @@
 //             threads (cp.async included) made visible to wgmma's reads
 //   named_barrier_sync
 //             bar.sync id, n: a barrier of n threads (a warpgroup) of the block
+//   setmaxnreg_inc, setmaxnreg_dec
+//             setmaxnreg.inc / .dec.sync.aligned.u32: a warpgroup's registers
+//             a thread raised or lowered to N (a multiple of 8, 24-256)
 //   mbar_init, mbar_init_fence, mbar_arrive, mbar_arrive_expect_tx, mbar_wait
 //             mbarrier.init / fence.mbarrier_init / mbarrier.arrive[.expect_tx]
 //             / a loop of mbarrier.try_wait.parity on a 64-bit shared barrier
-//   tma_load_3d, tma_store_3d, bulk_commit, bulk_wait_read, bulk_wait
-//             cp.async.bulk.tensor.3d (TMA): one box of a tensor map from
-//             global to shared memory, completing its bytes on a barrier, or
-//             from shared to global memory in a bulk group, and that group's
-//             commit and waits; the host builds the map with
-//             encode_tensor_map_3d.
+//   tma_load_3d, tma_load_5d, tma_store_3d, bulk_commit, bulk_wait_read, bulk_wait
+//             cp.async.bulk.tensor.3d / .5d (TMA): one box of a tensor map
+//             from global to shared memory, completing its bytes on a
+//             barrier, or from shared to global memory in a bulk group, and
+//             that group's commit and waits; the host builds the map with
+//             encode_tensor_map (any rank 3-5) or encode_tensor_map_3d.
 //   bulk_load cp.async.bulk.shared.global (a plain bulk copy, no tensor map):
 //             16-byte aligned bytes from global to shared memory, completing
 //             on a barrier
@@ -64,6 +70,13 @@
 // 32 bf16 of M or N x d rows of depth, one box after another at lbo bytes;
 // stride byte offset 512 (8 rows of depth), leading byte offset lbo (the
 // next 32 of M or N), a k step of 16 rows = 1024 bytes.
+//
+// The unswizzled K-major layout: core matrices of 8 rows x 16 bytes (8
+// bf16 of depth), each 128 contiguous bytes (row r of the core matrix at
+// byte 16 r); the leading byte offset is the distance to the core matrix
+// of the next 8 of depth, the stride byte offset to that of the next 8
+// rows. Any 16-byte aligned start is a legal operand, so a run of rows 16
+// bytes apart can be read from any row on.
 
 #pragma once
 
@@ -239,6 +252,14 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p, unsigned lbo 
          | ((uint64_t)2 << 62);                        // layout: 64-byte swizzle
 }
 
+// descriptor of an unswizzled K-major operand at p (16-byte aligned; see
+// above): lbo bytes to the next 8 of depth, sbo bytes to the next 8 rows
+__device__ __forceinline__ uint64_t wgmma_desc_plain(const void* p, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((shared_addr(p) & 0x3ffff) >> 4)  // start address, 16-byte units
+         | ((uint64_t)((lbo >> 4) & 0x3fff) << 16)     // leading byte offset
+         | ((uint64_t)((sbo >> 4) & 0x3fff) << 32);    // stride byte offset; layout 0
+}
+
 // shared-memory writes of this thread made visible to wgmma (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
 #ifdef __CUDACC__
@@ -253,6 +274,21 @@ __device__ __forceinline__ void named_barrier_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 #else
   emu_named_barrier(id, n);
+#endif
+}
+
+// every thread of the warpgroup: this warpgroup's registers a thread become
+// N (inc: wait until the block's pool has them; dec: give them back)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+#ifdef __CUDACC__
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+#endif
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+#ifdef __CUDACC__
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 #endif
 }
 
@@ -361,9 +397,33 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_t(float (&d)[64], uint64_t
 #endif
 }
 
+#define WG_OP16(c, d, i) WG_OP8(c, d, i), WG_OP8(c, d, i + 8)
+#define WG_D48                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+
+// d (64 x 96, f32; this thread's 48 of it) += a (64 x 16, bf16) b (16 x 96,
+// bf16); a and b K-major descriptors. d[4 i + 2 h + e] is row 16 (t / 32) +
+// (t % 32) / 4 + 8 h, column 8 i + 2 (t % 4) + e, as wgmma_bf16_m64n128k16's.
+__device__ __forceinline__ void wgmma_bf16_m64n96k16(float (&d)[48], uint64_t da, uint64_t db) {
+#ifdef __CUDACC__
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " WG_D48
+      ", %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : WG_OP16("f", d, 0), WG_OP16("f", d, 16), WG_OP16("f", d, 32)
+      : "l"(da), "l"(db), "r"(1));
+#else
+  emu_wgmma(EMU_WGMMA_BF16, d, da, db, 1, 96);
+#endif
+}
+
 #undef WG_OP
 #undef WG_OP8
+#undef WG_OP16
 #undef WG_OP64
+#undef WG_D48
 #undef WG_D64
 
 // ---- mbarrier and TMA (sm_90) ---------------------------------------------------
@@ -471,6 +531,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
 #endif
 }
 
+// the same for a tensor map of rank 5
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, int c4, uint64_t* bar) {
+#ifdef __CUDACC__
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(shared_addr(bar))
+      : "memory");
+#else
+  const int c[5] = {c0, c1, c2, c3, c4};
+  emu_tma_load(dst, map, c, bar);
+#endif
+}
+
 // a short pause in a loop that polls memory another block writes
 __device__ __forceinline__ void spin_pause() {
 #ifdef __CUDACC__
@@ -500,13 +576,14 @@ __device__ __forceinline__ void bulk_wait() {
 #endif
 }
 
-// Host: a 3-D tensor map of bf16 (elem_bytes 2) or float32 (4) (dims[0]
-// innermost, each dims[i + 1] strides[i] bytes apart) whose boxes (box[0] x
-// box[1] x 1) land in shared memory with the given swizzle (32, 64 or 128
-// bytes); out-of-range elements read as zeros. 0 on success.
-inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t dims[3],
-                                const uint64_t strides[2], const unsigned box[2],
-                                int swizzle_bytes, int elem_bytes = 2) {
+// Host: a tensor map of rank 3-5 of bf16 (elem_bytes 2) or float32 (4)
+// (dims[0] innermost, each dims[i + 1] strides[i] bytes apart) whose boxes
+// (box[0] x ... x box[rank - 1]) land in shared memory densely, with the
+// given swizzle (0: none, 32, 64 or 128 bytes); out-of-range elements read
+// as zeros. 0 on success.
+inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
+                             const uint64_t* strides, const unsigned* box, int swizzle_bytes,
+                             int elem_bytes = 2) {
 #ifdef __CUDACC__
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -522,23 +599,37 @@ inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, const uint64
       return -2;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t g_dims[3] = {dims[0], dims[1], dims[2]};
-  const cuuint64_t g_strides[2] = {strides[0], strides[1]};
-  const cuuint32_t b[3] = {box[0], box[1], 1};
-  const cuuint32_t e[3] = {1, 1, 1};
+  if (rank < 3 || rank > 5) return -3;
+  cuuint64_t g_dims[5], g_strides[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) {
+    g_dims[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i + 1 < rank) g_strides[i] = strides[i];
+  }
   const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+                                : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUtensorMapDataType type =
       elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUresult r = encode(map, type, 3, const_cast<void*>(base),
-                            g_dims, g_strides, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), g_dims, g_strides, b, e,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
 #else
-  return emu_tensor_map_encode_3d(map, base, dims, strides, box, swizzle_bytes, elem_bytes);
+  return emu_tensor_map_encode(map, rank, base, dims, strides, box, swizzle_bytes, elem_bytes);
 #endif
+}
+
+// the same of rank 3 with boxes of box[0] x box[1] x 1 and a swizzle of 32,
+// 64 or 128 bytes
+inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t dims[3],
+                                const uint64_t strides[2], const unsigned box[2],
+                                int swizzle_bytes, int elem_bytes = 2) {
+  const unsigned box3[3] = {box[0], box[1], 1};
+  return encode_tensor_map(map, 3, base, dims, strides, box3, swizzle_bytes, elem_bytes);
 }
 
 }  // namespace

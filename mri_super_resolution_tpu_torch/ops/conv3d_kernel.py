@@ -16,7 +16,10 @@ rounds dx once to ``x.dtype`` and returns dW and db in float32.
 
 A wrapper given CPU tensors runs the plain version (:func:`conv3d_rfab_ref`,
 :func:`conv3d_rfab_bwd_ref`); given CUDA tensors it launches the kernel or
-raises, and adds one to its count in :data:`LAUNCHES`. On the card,
+raises, and adds one to its count in :data:`LAUNCHES`. The bfloat16
+forward at C = Cout = 32 (every RAMS call) runs the ``wgmma`` kernel and
+also counts under ``conv3d_rfab_wg`` (:func:`wg_route`); other widths and
+K7's dx keep the ``mma.sync`` kernel. On the card,
 :func:`conv3d_rfab` hands inputs that need a gradient to
 :func:`conv3d_rfab_trainable`, so their backward runs K7. Each wrapper is a
 span of ``utils/profiling.py`` (``kernel.conv3d_rfab``,
@@ -32,18 +35,27 @@ import torch
 from mri_super_resolution_tpu_torch.ops import _build
 from mri_super_resolution_tpu_torch.utils.profiling import span
 
-# one count per wrapper, bumped once per kernel launch on a CUDA tensor
-LAUNCHES: dict[str, int] = {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
+# one count per wrapper, bumped once per kernel launch on a CUDA tensor;
+# conv3d_rfab_wg: the conv3d_rfab launches that took the wgmma kernel
+LAUNCHES: dict[str, int] = {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0, "conv3d_rfab_wg": 0}
 
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_GRID_YZ = 65535  # the kernel puts t_out on gridDim.y and the batch on gridDim.z
 MAX_BF16_CHANNELS = 64  # csrc/conv3d.cu's shared-memory budget for the resident kernel
+WG_CHANNELS = 32  # the channels in and out of csrc/conv3d.cu's wgmma forward
 TAPS = [(dy, dx, dz) for dy in range(3) for dx in range(3) for dz in range(3)]
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def wg_route(flip: bool, C: int, Cout: int) -> bool:
+    """Whether a bfloat16 convolution runs on the ``wgmma`` kernel: the
+    forward (not K7's dx, whose kernel is flipped) at C = Cout =
+    :data:`WG_CHANNELS`."""
+    return not flip and C == WG_CHANNELS and Cout == WG_CHANNELS
 
 
 def out_shape(x_shape, padding: str) -> tuple[int, int, int, int]:
@@ -131,7 +143,7 @@ def conv3d_rfab_bwd_ref(x: torch.Tensor, kernel: torch.Tensor, g: torch.Tensor,
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.conv3d_rfab_f32, lib.conv3d_rfab_bf16):
+    for fn in (lib.conv3d_rfab_f32, lib.conv3d_rfab_bf16, lib.conv3d_rfab_bf16_wg):
         fn.argtypes = [p, i, i, i, i, i, p, p, i, i, p, p]
         fn.restype = i
     for fn in (lib.conv3d_rfab_bwd_f32, lib.conv3d_rfab_bwd_bf16):
@@ -168,14 +180,22 @@ def _summed_channels_fit(x: torch.Tensor, channels: int) -> None:
                          f"{MAX_BF16_CHANNELS} channels; got {channels}")
 
 
-def _launch(lib, x, kernel, bias, padding, stream) -> torch.Tensor:
+def _entry(lib, x: torch.Tensor, Cout: int):
+    """The forward's entry point for ``x``'s type and widths."""
+    if x.dtype != torch.bfloat16:
+        return lib.conv3d_rfab_f32
+    return lib.conv3d_rfab_bf16_wg if wg_route(False, x.shape[4], Cout) else lib.conv3d_rfab_bf16
+
+
+def _launch(lib, x, kernel, bias, padding, stream, fn=None) -> torch.Tensor:
+    """One forward launch on ``fn`` (by default :func:`_entry`'s)."""
     B, H, W, T, C = x.shape
     Cout = kernel.shape[4]
     _summed_channels_fit(x, C)
     out = torch.empty(*out_shape(x.shape, padding), Cout, dtype=x.dtype, device=x.device)
     _aligned(x, out)
     kernel = _aligned_kernel(kernel)
-    fn = lib.conv3d_rfab_bf16 if x.dtype == torch.bfloat16 else lib.conv3d_rfab_f32
+    fn = fn or _entry(lib, x, Cout)
     with span("kernel.launch"):
         rc = fn(x.data_ptr(), B, H, W, T, C, kernel.data_ptr(), bias.data_ptr(), Cout,
                 1 if padding == "SAME" else 0, out.data_ptr(), stream)
@@ -222,6 +242,8 @@ def conv3d_rfab(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         return conv3d_rfab_trainable(x, kernel, bias, padding)
     out = _launch(_lib(), x, kernel_c.detach(), bias_f.detach(), padding, _build.stream_ptr())
     LAUNCHES["conv3d_rfab"] += 1
+    if x.dtype == torch.bfloat16 and wg_route(False, x.shape[4], kernel_c.shape[4]):
+        LAUNCHES["conv3d_rfab_wg"] += 1
     return out
 
 

@@ -26,18 +26,21 @@
 // stands then (a slot refilled before the wait is read refilled, as on the
 // card). The operands' descriptors are decoded as the hardware does: the
 // 128- and 64-byte swizzled layouts, K-major or (bf16, the instruction's
-// transpose bits) MN-major; anything else aborts.
+// transpose bits) MN-major, and the unswizzled K-major layout (8-row core
+// matrices of 16-byte rows, 128 contiguous bytes each); anything else
+// aborts.
 // mbarriers live in a side table keyed by their shared address: init,
 // arrive (with expect-tx) and try_wait.parity as PTX defines them, a phase
 // completing when its arrivals and its transaction bytes are all in; a
 // fiber whose try_wait fails yields to the others (many yields with no
 // barrier progress abort as a deadlock). A TMA tile load
-// (cp.async.bulk.tensor) is a synchronous copy of its box, zero outside the
-// tensor, laid out and swizzled as the tensor map says, whose bytes then
-// complete on its barrier; a TMA tile store copies a box back at once,
-// dropping what lies outside the tensor; a tensor map is the emulation's own
-// struct. A plain bulk copy (cp.async.bulk) is a synchronous copy whose
-// bytes then complete on its barrier.
+// (cp.async.bulk.tensor, of rank 3 to 5) is a synchronous copy of its box,
+// zero outside the tensor, laid out and swizzled (or not) as the tensor map
+// says, whose bytes then complete on its barrier; a TMA tile store (rank 3)
+// copies a box back at once, dropping what lies outside the tensor; a
+// tensor map is the emulation's own struct. A plain bulk copy
+// (cp.async.bulk) is a synchronous copy whose bytes then complete on its
+// barrier.
 // A cooperative launch (LAUNCH_COOP) runs every block at once: each block's
 // fibers have their own stacks and their own shared window
 // (emu_block_shared), and the scheduler takes the blocks in turn, the last
@@ -379,12 +382,15 @@ inline unsigned emu_shared_offset(const void* p) {
 // ---- wgmma ------------------------------------------------------------------
 // The shared-memory matrix descriptor: start address >> 4 in bits 0-13,
 // leading byte offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, base
-// offset in 49-51, layout in 62-63 (1: 128-byte swizzle, 2: 64-byte). With
-// a swizzle of S bytes, element (r, k) of an operand (r of m for A, of n
-// for B; k of the instruction's depth) lies, K-major, at start + (r / 8)
-// SBO + (r % 8) S + k size and, MN-major (bf16), at start + (r / (S / 2))
-// LBO + (k / 8) SBO + (k % 8) S + 2 (r % (S / 2)); then the address's bits
-// 4 .. 4 + log2(S / 16) are XORed with the bits 3 above them.
+// offset in 49-51, layout in 62-63 (0: no swizzle, 1: 128-byte swizzle, 2:
+// 64-byte). With a swizzle of S bytes, element (r, k) of an operand (r of m
+// for A, of n for B; k of the instruction's depth) lies, K-major, at start
+// + (r / 8) SBO + (r % 8) S + k size and, MN-major (bf16), at start + (r /
+// (S / 2)) LBO + (k / 8) SBO + (k % 8) S + 2 (r % (S / 2)); then the
+// address's bits 4 .. 4 + log2(S / 16) are XORed with the bits 3 above
+// them. Without a swizzle (K-major only), the operand is 8 x 16-byte core
+// matrices: element (r, k) at start + (r / 8) SBO + (r % 8) 16 + (k size /
+// 16) LBO + (k size) % 16, the leading offset running along the depth.
 enum { EMU_WGMMA_BF16 = 0, EMU_WGMMA_S8 = 1 };
 
 struct EmuDesc {
@@ -401,6 +407,14 @@ inline EmuDesc emu_desc(uint64_t desc, bool mn) {
   const unsigned base_offset = (unsigned)(desc >> 49) & 7;
   const unsigned layout = (unsigned)(desc >> 62);
   d.swz = layout == 1 ? 128 : layout == 2 ? 64 : 0;
+  if (layout == 0) {
+    if (mn || base_offset != 0) {
+      std::fprintf(stderr, "emulated wgmma: descriptor %016llx: an unswizzled operand must be "
+                   "K-major\n", (unsigned long long)desc);
+      std::abort();
+    }
+    return d;
+  }
   // K-major: the instruction's 32 bytes of depth lie in the first row of a
   // swizzle atom (8 rows); MN-major: the start is an atom's
   const unsigned in_atom = d.start % (d.swz ? 8 * d.swz : 1);
@@ -417,6 +431,11 @@ inline EmuDesc emu_desc(uint64_t desc, bool mn) {
 // element (r, k) of an operand of `size` bytes an element
 inline const unsigned char* emu_desc_at(const EmuDesc& d, int r, int k, int size) {
   unsigned addr;
+  if (d.swz == 0) {
+    const unsigned kb = (unsigned)(k * size);
+    return reinterpret_cast<const unsigned char*>(emu::block->shared_base) + d.start +
+           (unsigned)(r / 8) * d.sbo + (unsigned)(r % 8) * 16 + kb / 16 * d.lbo + kb % 16;
+  }
   if (d.mn) {
     const int w = (int)d.swz / 2;  // bf16 along a row
     addr = d.start + (unsigned)(r / w) * d.lbo + (unsigned)(k / 8) * d.sbo +
@@ -537,57 +556,74 @@ inline bool emu_mbar_try_wait(void* bar, unsigned parity) {
   return false;
 }
 
-// the emulation's tensor map: a 3-D array of bf16 or float32 (elem bytes
-// each), dims[0] innermost, and the box a load copies
+// the emulation's tensor map: an array of rank 3 to 5 of bf16 or float32
+// (elem bytes each), dims[0] innermost, strides[i] the bytes between
+// consecutive dims[i + 1], and the box a load copies
 struct CUtensorMap {
   const char* base;
-  uint64_t dims[3], strides[2];  // strides: bytes between consecutive dims[1], dims[2]
-  unsigned box[2];
-  int swizzle, elem;
+  int rank;
+  uint64_t dims[5], strides[4];
+  unsigned box[5];
+  int swizzle, elem;  // swizzle: 0 (none), 32, 64 or 128 bytes
 };
 
-inline int emu_tensor_map_encode_3d(CUtensorMap* map, const void* base, const uint64_t dims[3],
-                                    const uint64_t strides[2], const unsigned box[2],
-                                    int swizzle, int elem = 2) {
-  // the card's rules: 16-byte aligned base and strides, a box row within the swizzle
-  if (reinterpret_cast<uintptr_t>(base) % 16 || strides[0] % 16 || strides[1] % 16 ||
-      box[0] * elem > (unsigned)swizzle || box[1] > 256 || box[0] == 0 || box[1] == 0 ||
-      (elem != 2 && elem != 4))
+inline int emu_tensor_map_encode(CUtensorMap* map, int rank, const void* base,
+                                 const uint64_t* dims, const uint64_t* strides,
+                                 const unsigned* box, int swizzle, int elem) {
+  // the card's rules: 16-byte aligned base and strides, a box row of a
+  // multiple of 16 bytes and within the swizzle, at most 256 a box side
+  if (rank < 3 || rank > 5 || reinterpret_cast<uintptr_t>(base) % 16 || (elem != 2 && elem != 4) ||
+      box[0] * elem % 16 || (swizzle && box[0] * elem > (unsigned)swizzle))
     return -3;
+  for (int i = 0; i < rank; ++i)
+    if (box[i] == 0 || box[i] > 256 || (i + 1 < rank && strides[i] % 16)) return -3;
   map->base = static_cast<const char*>(base);
-  for (int i = 0; i < 3; ++i) map->dims[i] = dims[i];
-  map->strides[0] = strides[0];
-  map->strides[1] = strides[1];
-  map->box[0] = box[0];
-  map->box[1] = box[1];
+  map->rank = rank;
+  for (int i = 0; i < rank; ++i) {
+    map->dims[i] = dims[i];
+    map->box[i] = box[i];
+    if (i + 1 < rank) map->strides[i] = strides[i];
+  }
   map->swizzle = swizzle;
   map->elem = elem;
   return 0;
 }
 
-// the box at (c0, c1, c2): box[1] rows of box[0] elements written densely
-// from dst (rows of box[0] * elem bytes), each 16-byte chunk at its swizzled
-// shared address; then its bytes complete on bar
-inline void emu_tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
-                            void* bar) {
+// the box at coordinates c (c[0] innermost) into dst, its elements written
+// densely in order (dims[0] fastest), each 16-byte chunk at its swizzled
+// shared address, zero outside the tensor; then its bytes complete on bar
+inline void emu_tma_load(void* dst, const CUtensorMap* map, const int* c, void* bar) {
   const unsigned d0 = emu_shared_offset(dst);
   if (d0 % 128) std::abort();  // the card wants 128-byte aligned boxes (and the swizzle atom's)
-  const unsigned e = map->elem, row_bytes = map->box[0] * e;
+  const unsigned e = map->elem;
+  const int rank = map->rank;
+  long long n = 1;
+  for (int i = 0; i < rank; ++i) n *= map->box[i];
   char* sbase = emu::block->shared_base;
-  for (unsigned r = 0; r < map->box[1]; ++r)
-    for (unsigned c = 0; c < map->box[0]; ++c) {
-      const long long i0 = (long long)c0 + c, i1 = (long long)c1 + r, i2 = c2;
-      uint32_t v = 0;
-      if (i0 >= 0 && i1 >= 0 && i2 >= 0 && (uint64_t)i0 < map->dims[0] &&
-          (uint64_t)i1 < map->dims[1] && (uint64_t)i2 < map->dims[2])
-        std::memcpy(&v, map->base + i2 * map->strides[1] + i1 * map->strides[0] + e * i0, e);
-      unsigned addr = d0 + r * row_bytes + e * c;
-      addr ^= ((addr >> 7) & (unsigned)(map->swizzle / 16 - 1)) << 4;
-      std::memcpy(sbase + addr, &v, e);
+  for (long long k = 0; k < n; ++k) {
+    long long rest = k, off = 0;
+    bool in = true;
+    for (int i = 0; i < rank; ++i) {
+      const long long idx = (long long)c[i] + rest % map->box[i];
+      rest /= map->box[i];
+      if (idx < 0 || (uint64_t)idx >= map->dims[i]) in = false;
+      off += i == 0 ? idx * e : idx * (long long)map->strides[i - 1];
     }
+    uint32_t v = 0;
+    if (in) std::memcpy(&v, map->base + off, e);
+    unsigned addr = d0 + (unsigned)(k * e);
+    if (map->swizzle) addr ^= ((addr >> 7) & (unsigned)(map->swizzle / 16 - 1)) << 4;
+    std::memcpy(sbase + addr, &v, e);
+  }
   emu::Mbar& b = emu_mbar(bar);
-  b.tx -= (long long)row_bytes * map->box[1];
+  b.tx -= n * e;
   emu_mbar_progress(b);
+}
+
+inline void emu_tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                            void* bar) {
+  const int c[3] = {c0, c1, c2};
+  emu_tma_load(dst, map, c, bar);
 }
 
 // the box at (c0, c1, c2) from src (laid out and swizzled as for a load) to
@@ -596,6 +632,7 @@ inline void emu_tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, i
 inline void emu_tma_store_3d(const CUtensorMap* map, int c0, int c1, int c2, const void* src) {
   const unsigned s0 = emu_shared_offset(src);
   if (s0 % 128) std::abort();
+  if (map->rank != 3 || map->box[2] != 1) std::abort();
   const unsigned e = map->elem, row_bytes = map->box[0] * e;
   const char* sbase = emu::block->shared_base;
   char* base = const_cast<char*>(map->base);

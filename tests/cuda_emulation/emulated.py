@@ -19,6 +19,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def emulated_library(tmp_path_factory, name: str, declare) -> ctypes.CDLL:
     """``csrc/<name>.cu`` built with g++ against the emulation header, its
     entry points declared by ``declare``."""
+    return emulated_source(tmp_path_factory, name, f'#include "{_build.CSRC / f"{name}.cu"}"\n',
+                           declare)
+
+
+def emulated_source(tmp_path_factory, name: str, source: str, declare) -> ctypes.CDLL:
+    """A CUDA ``source`` (text; ``csrc/`` on its include path) built with g++
+    against the emulation header, its entry points declared by ``declare``."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ (C++20) to build the CPU emulation")
@@ -26,11 +33,11 @@ def emulated_library(tmp_path_factory, name: str, declare) -> ctypes.CDLL:
         pytest.skip("the emulation switches its fibers with x86-64 assembly")
     d = tmp_path_factory.mktemp(f"{name}_emu")
     src = d / "emu.cpp"
-    src.write_text(f'#include "{os.path.join(HERE, "cuda_runtime.h")}"\n'
-                   f'#include "{_build.CSRC / f"{name}.cu"}"\n')
+    src.write_text(f'#include "{os.path.join(HERE, "cuda_runtime.h")}"\n{source}')
     out = d / f"lib{name}_emu.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w", "-I", HERE,
-                    "-o", str(out), str(src)], check=True, capture_output=True, timeout=300)
+                    "-I", str(_build.CSRC), "-o", str(out), str(src)], check=True,
+                   capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out))
     declare(lib)
     return lib

@@ -200,3 +200,69 @@ def test_emulated_conv3d_bf16_refuses_wide_sums(emulated_conv3d):
     out = torch.empty(1, 3, 3, 3, 8, dtype=torch.bfloat16)
     assert emulated_conv3d.conv3d_rfab_bf16(x.data_ptr(), 1, 3, 3, 3, 72, k.data_ptr(),
                                             b.data_ptr(), 8, 1, out.data_ptr(), 0) == -1
+
+
+WG_CASES = [
+    ((2, 9, 11, 9, 32), "SAME"),  # T 9: planes 0 and 10 absent; 9 x 13 rows, a ragged tile a b
+    ((1, 18, 20, 5, 32), "VALID"),  # T 5 -> 3 outputs; 16 x 20 rows in two tiles, one ragged
+    ((2, 6, 7, 3, 32), "SAME"),  # T 3: one plane of three absent at each end
+    ((1, 3, 300, 3, 32), "SAME"),  # seven strips of 44 columns, the last of 36
+]
+
+
+@pytest.mark.parametrize("shape,padding", WG_CASES)
+def test_emulated_conv3d_wg_matches_plain(emulated_conv3d, shape, padding):
+    """bfloat16 K6 at C = Cout = 32 takes the wgmma kernel (the three
+    temporal taps side by side, an accumulator block a t_out in turn): each
+    output within half a bf16 ulp of the float32 sum of the same operands,
+    like the mma.sync kernel on the same call."""
+    rng = np.random.default_rng(sum(shape) + 7)
+    x = torch.as_tensor(rng.normal(size=shape).astype(np.float32)).bfloat16()
+    k = torch.as_tensor((rng.normal(size=(3, 3, 3, 32, 32)) * 0.1)
+                        .astype(np.float32)).bfloat16()
+    b = torch.as_tensor(rng.normal(size=(32,)).astype(np.float32))
+    lib = emulated_conv3d
+    assert ck._entry(lib, x, 32) == lib.conv3d_rfab_bf16_wg
+    out = ck._launch(lib, x, k, b, padding, 0)
+    sync = ck._launch(lib, x, k, b, padding, 0, fn=lib.conv3d_rfab_bf16)
+    assert out.shape == ck.out_shape(shape, padding) + (32,)
+    sums = ck.conv3d_rfab_ref(x.float(), k.float(), b, padding)
+    assert _half_ulp_close(out, sums) and _half_ulp_close(sync, sums)
+
+
+def test_emulated_conv3d_wg_persistent_walk_repeats(emulated_conv3d, monkeypatch):
+    """One persistent block (a one-SM device) walks every unit of two batch
+    items, four tiles each, and its ring wraps many times: the same bits as
+    a block a unit, and as a second call; the entry refuses other widths."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(2, 30, 31, 5, 32)).astype(np.float32)).bfloat16()
+    k = torch.as_tensor((rng.normal(size=(3, 3, 3, 32, 32)) * 0.1)
+                        .astype(np.float32)).bfloat16()
+    b = torch.as_tensor(rng.normal(size=(32,)).astype(np.float32))
+    wide = ck._launch(emulated_conv3d, x, k, b, "SAME", 0)
+    monkeypatch.setenv("EMU_SM_COUNT", "1")
+    one = ck._launch(emulated_conv3d, x, k, b, "SAME", 0)
+    again = ck._launch(emulated_conv3d, x, k, b, "SAME", 0)
+    assert torch.equal(one, wide) and torch.equal(one, again)
+    assert _half_ulp_close(one, ck.conv3d_rfab_ref(x.float(), k.float(), b, "SAME"))
+    x16, k16 = x[..., :16].contiguous(), k[:, :, :, :16, :].contiguous()
+    out = torch.empty(2, 30, 31, 5, 32, dtype=torch.bfloat16)
+    assert emulated_conv3d.conv3d_rfab_bf16_wg(x16.data_ptr(), 2, 30, 31, 5, 16, k16.data_ptr(),
+                                               b.data_ptr(), 32, 1, out.data_ptr(), 0) == -1
+
+
+def test_emulated_conv3d_bwd_at_32_channels_keeps_its_kernel(emulated_conv3d):
+    """K7 at C = Cout = 32 (its dx the flipped kernel, off the wgmma route)
+    against its plain version."""
+    rng = np.random.default_rng(5)
+    shape = (1, 9, 10, 4, 32)
+    x = torch.as_tensor(rng.normal(size=shape).astype(np.float32)).bfloat16()
+    k = torch.as_tensor((rng.normal(size=(3, 3, 3, 32, 32)) * 0.1)
+                        .astype(np.float32)).bfloat16()
+    g = torch.as_tensor(rng.normal(size=shape).astype(np.float32)).bfloat16()
+    assert not ck.wg_route(True, 32, 32)
+    dx, dw, db = ck._launch_bwd(emulated_conv3d, x, k, g, "SAME", 0)
+    sums, dw_r, db_r = ck.conv3d_rfab_bwd_ref(x.float(), k.float(), g.float(), "SAME")
+    for a, r in ((dw, dw_r), (db, db_r)):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-5 * float(r.abs().max()))
+    assert _half_ulp_close(dx, sums)

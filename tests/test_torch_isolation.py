@@ -92,7 +92,7 @@ with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringI
     tr.init()
     assert tr.fit(x, (y, np.ones_like(y))).step == 2
     assert tr.manager.latest_step() == 2
-assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
+assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0, "conv3d_rfab_wg": 0}
 from mri_super_resolution_tpu_torch.fit.engine import (fit_ensemble_batched, fit_until,
                                                       plain_apply_init)
 from mri_super_resolution_tpu_torch.fit.optim import StackedAdam

@@ -139,7 +139,7 @@ def test_one_step_matches_jax(tmp_path, jax_params, conv_kernel):
     tr.init()
     ck.reset_launches()
     loss, psnr = tr.train_step([tr._batch(np.arange(4), x, y, m)])
-    assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0}
+    assert ck.LAUNCHES == {"conv3d_rfab": 0, "conv3d_rfab_bwd": 0, "conv3d_rfab_wg": 0}
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-5)
     np.testing.assert_allclose(float(psnr), float(psnr_j), rtol=1e-5)
     grads_j = convert.rams_state_dict(_np(grads_j))
